@@ -1,0 +1,78 @@
+"""State carried across from the reference package, as plain data.
+
+The port never sees a JAX object: parameters and arena rows arrive as numpy
+arrays, a chain as plain records (``dataclasses.asdict`` of each reference
+block).  A bank saved by the reference (``ModelBank.save``, one ``.npz``)
+needs nothing here: it loads through ``repro_torch.serve.load_bank``.
+"""
+from __future__ import annotations
+
+import re
+from collections.abc import Iterable, Mapping
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.blockchain.chain import Block, Blockchain
+from repro_torch.blockchain.txpool import Transaction
+from repro_torch.device import resolve_device
+from repro_torch.runtime.arena import ArenaLayout, ParamArena
+
+_KEY = re.compile(r"\['((?:[^'\\]|\\.)*)'\]")
+
+
+def params_from_numpy(params: Mapping[str, Any], device=None) -> dict:
+    """A (nested) dict of numpy arrays -> the same dict of tensors on
+    ``device``, bit for bit."""
+    device = resolve_device(device)
+    return {k: params_from_numpy(v, device) if isinstance(v, Mapping)
+            else torch.from_numpy(np.array(v, copy=True)).to(device)
+            for k, v in params.items()}
+
+
+def _keys_of(path: str) -> tuple[str, ...]:
+    keys = tuple(_KEY.findall(path))
+    if "".join(f"[{k!r}]" for k in keys) != path:
+        raise ValueError(f"arena path {path!r} is not a string-keyed dict path")
+    return keys
+
+
+def arena_from_numpy(rows: np.ndarray,
+                     layout_paths_shapes: Iterable[tuple[str, tuple[int, ...]]],
+                     device=None) -> ParamArena:
+    """Reference arena rows ``(n, N)`` plus its layout's ``(path, shape)``
+    pairs (``zip(layout.paths, layout.shapes)``) -> a port arena holding the
+    same bits.  Raises if the pairs are not in canonical column order."""
+    device = resolve_device(device)
+    template: dict = {}
+    pairs = list(layout_paths_shapes)
+    for path, shape in pairs:
+        *outer, last = _keys_of(path)
+        node = template
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[last] = torch.empty((1,) + tuple(shape), device="meta")
+    layout = ArenaLayout.from_stacked(template)
+    if list(layout.paths) != [p for p, _ in pairs]:
+        raise ValueError("layout paths are not in canonical column order")
+    rows = np.asarray(rows, dtype=np.float32)
+    if rows.ndim != 2 or rows.shape[1] != layout.n_params:
+        raise ValueError(f"rows {rows.shape} do not match the layout's "
+                         f"{layout.n_params} params")
+    return ParamArena(layout, torch.from_numpy(rows.copy()).to(device))
+
+
+def chain_from_records(records: Iterable[Mapping[str, Any]]) -> Blockchain:
+    """Rebuild a chain from plain block records (``index``, ``round_idx``,
+    ``producer``, ``prev_hash``, ``merkle_root`` and ``transactions`` of
+    ``kind``/``sender``/``payload``/``round_idx``), genesis included."""
+    blocks = [Block(index=int(r["index"]), round_idx=int(r["round_idx"]),
+                    producer=int(r["producer"]), prev_hash=str(r["prev_hash"]),
+                    merkle_root=str(r["merkle_root"]),
+                    transactions=tuple(
+                        Transaction(str(t["kind"]), int(t["sender"]),
+                                    str(t["payload"]), int(t["round_idx"]))
+                        for t in r["transactions"]))
+              for r in records]
+    return Blockchain(blocks=blocks)
