@@ -5,28 +5,49 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
-1. kernels — builds every CUDA source of the port (`nvcc`, sm_90a) and holds
-   the fingerprint kernel bit for bit against its plain PyTorch version on
-   the card, at the serving bank (5, 6570), a commit cohort (100, 6570), a
-   population (1000, 6570), ragged (17, 131) and (1, 1) shapes, rows split
-   over several blocks (3, 70001), an all-zero row, rows off the 16-byte
-   grid, and fp32 arena rows read in place; then times kernel and plain
-   version with CUDA events (median device time, cold L2).
-2. serve — the port's serving path at the default model width
+1. kernels — builds every CUDA source of the port (`nvcc`, sm_90a, one
+   process per source, all at once) and holds each kernel against its plain
+   PyTorch version on the card:
+   * fingerprint, bit for bit, at the serving bank (5, 6570), a commit
+     cohort (100, 6570), a population (1000, 6570), ragged (17, 131) and
+     (1, 1) shapes, rows split over several blocks (3, 70001), an all-zero
+     row, rows off the 16-byte grid, and fp32 arena rows read in place;
+   * cluster aggregation, bit for bit, at the train path's (100, 6570) with
+     C = 5, m = 1, m = 3, ragged (37, 131), an empty cluster, all-zero
+     weights, zero-weight rows holding NaN and a row of -0.0;
+   * Pearson, at atol 1e-5, at the train path's (100, 32), (7, 5), (1, 3),
+     a constant row and (300, 600);
+   then times kernel, plain version and (where one PyTorch call computes
+   the same function) the library call with CUDA events (median device
+   time, cold L2) beside the least time the card could take.
+2. train — the paper's main path, `repro_torch.api.run(ExperimentSpec())`
+   at its defaults (BFLN sync, n = 1000, cohort 100, 20 rounds, MLP
+   64-64-32-10 so N = 6570, 5 clusters) on the card, with every kernel's
+   launch count reset just before and read just after: each kernel must
+   have launched, about once per non-empty round.  The chain must
+   validate, the ledger conserve, and the same spec on the CPU must log the
+   same events (event-log digest) and reach a final accuracy within
+   ACC_TOL.  Since neither of those depends tightly on the trained
+   weights, one `sync_step` then runs on the card and on the CPU from
+   identical rows and cohort data: equal labels, the Pearson matrix within
+   1e-5, the new rows within STEP_ROWS_TOL.  `serve(result.sim)` must then
+   pass `verify_bank` and answer mixed-cluster requests.
+3. serve — the port's serving path at the default model width
    (MLP 64-64-32-10, N = 6570 params) for n = 1000 clients in K = 5
    clusters: three commit blocks whose cohort digests come through the
    kernel (one freerider copying a peer's digest in each, refused by
    `verify_round`), `serve()` (snapshot -> release block -> verify ->
    engine), an explicit `verify_bank`, 64 mixed-cluster requests on a
    virtual clock with full-bucket, deadline and drain flushes, a tampered
-   bank refused by `verify_bank` and `ServingEngine`.  The kernel's launch
-   count is reset just before this phase and must be > 0 after it.
+   bank refused by `verify_bank` and `ServingEngine`.  The fingerprint
+   kernel's launch count is reset just before this phase and must be > 0
+   after it.
 
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
-`{"kernels": [...]}` with each kernel's launches on the serve path, error,
-times and bound, one JSON line `{"serve": {...}}`, and last
-`{"ok": true, "device": {...}}`.  Without CUDA it exits non-zero and prints
-no result.  Imports nothing of JAX.
+`{"kernels": [...]}` with each kernel's launches on the train path (and
+per path), error, times and bound, one JSON line `{"train": {...}}`, one
+`{"serve": {...}}`, and last `{"ok": true, "device": {...}}`.  Without CUDA
+it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -51,7 +72,13 @@ from repro_torch.blockchain import (  # noqa: E402
     Transaction,
     TxPool,
 )
-from repro_torch.kernels import _build, fingerprint as fp  # noqa: E402
+from repro_torch.api import ExperimentSpec, run  # noqa: E402
+from repro_torch.api.registry import build_strategy  # noqa: E402
+from repro_torch.core.engine import RoundEngine  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import cluster_agg as ca  # noqa: E402
+from repro_torch.kernels import fingerprint as fp  # noqa: E402
+from repro_torch.kernels import pearson as pe  # noqa: E402
 from repro_torch.models import classifier as clf  # noqa: E402
 from repro_torch.runtime.arena import ParamArena  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -73,6 +100,18 @@ ALU32_OPS_PER_S = 67e12
 FP_OPS_PER_ELEMENT = 6        # mix: xor + shift; two multiply-adds
 FORWARD_TOL = 1e-5            # fused vs per-request, if not bitwise
 SLEEP_CYCLES = 2_000_000      # ~1 ms at the H100's clocks
+PEARSON_TOL = 1e-5            # the reference's own Pearson tolerance
+# Card vs CPU final accuracy of the default run: the two Pearson matrices
+# differ in the last bits, so a near-tie in spectral clustering can flip a
+# label (round 0 starts from identical models) and move a few clients'
+# models; the event log must still match exactly.
+ACC_TOL = 0.02
+# One sync step on the card vs the same step on the CPU from identical rows
+# and data: the Pearson matrix at the reference's tolerance; the new rows at
+# STEP_ROWS_TOL (the two trainings sum their float32 products in different
+# orders, and Adam's first step lr*g/(|g|+eps) turns a gradient's last-bit
+# difference into up to lr where |g| is near eps).
+STEP_ROWS_TOL = 1e-5
 
 
 def fingerprint_bound_us(m: int, n: int) -> tuple[float, str]:
@@ -103,6 +142,14 @@ def median_us(fn, arg, reps: int, flush: torch.Tensor) -> float:
         times.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) * 1e3 for s, e in times]))
+
+
+def bound_us(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """Least time for work that must move ``n_bytes`` and do ``n_ops``
+    32-bit operations: the larger of the two at the card's peak rates."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e6
+    t_ops = n_ops / ALU32_OPS_PER_S * 1e6
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def random_bits(rng: np.random.Generator, m: int, n: int, dev) -> torch.Tensor:
@@ -153,6 +200,287 @@ def kernel_phase(dev) -> tuple[list[dict], int]:
             "plain_us": median_us(fp.fingerprint_plain, bits, 30, flush),
             "bound_us": bound, "bound_by": bound_by})
     return shapes, max(errs)
+
+
+def agg_case(rng, m: int, n: int, c: int, dev, kind: str = "random"):
+    """(rows, labels, weights) on the card for one cluster-aggregation check."""
+    rows = rng.standard_normal((m, n)).astype(np.float32)
+    labels = rng.integers(0, c, size=m)
+    w = (rng.random(m) < 0.8).astype(np.float32)
+    if kind == "empty cluster":
+        labels[labels == c - 1] = 0
+    elif kind == "all-zero weights":
+        w[:] = 0.0
+    elif kind == "NaN at zero weight":
+        w[::3] = 0.0
+        rows[::3] = np.nan
+    elif kind == "a row of -0.0":
+        labels[:] = np.arange(m) % c
+        w[:] = 1.0
+        w[c::c] = 0.0                  # row 0 is alone at weight 1 in cluster 0
+        rows[0] = -0.0
+    return tuple(torch.from_numpy(a).to(dev) for a in (rows, labels, w))
+
+
+def check_agg(rows, labels, w, c: int, what: str) -> float:
+    """Kernel vs plain version, bit for bit; returns the largest difference
+    (0.0)."""
+    wo, denom = ca.cluster_weights(labels, c, w)
+    got = ca.cluster_agg_cuda(rows, labels, wo, denom)
+    want = ca.cluster_agg_plain(rows, labels, wo, denom)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        raise AssertionError(f"cluster_agg kernel != plain version on {what}: "
+                             f"{bad} elements differ")
+    return float((got - want).nan_to_num().abs().max())
+
+
+def cluster_agg_phase(dev) -> tuple[dict, float]:
+    rng = np.random.default_rng(SEED + 2)
+    m, n, c = 100, 6570, 5                   # the train path's cohort rows
+    errs = [check_agg(*agg_case(rng, mm, nn, cc, dev), cc, f"({mm}, {nn}) C={cc}")
+            for mm, nn, cc in [(m, n, c), (1, 64, 3), (3, 7, 2), (37, 131, 4)]]
+    for kind in ("empty cluster", "all-zero weights", "NaN at zero weight",
+                 "a row of -0.0"):
+        rows, labels, w = agg_case(rng, 40, 131, 4, dev, kind)
+        errs.append(check_agg(rows, labels, w, 4, kind))
+        if kind == "a row of -0.0":
+            mean = ca.cluster_mean_rows(rows, labels, 4, w)[0]
+            if torch.signbit(mean).any():
+                raise AssertionError("a cluster of -0.0 rows must mean +0.0 "
+                                     "(the padded adds are done)")
+
+    rows, labels, w = agg_case(rng, m, n, c, dev)
+    wo, denom = ca.cluster_weights(labels, c, w)
+    # the library yardstick: the same function as one mixing-matrix product
+    # (the Pallas kernel's form), mix precomputed; timed here only
+    onehot = (labels[:, None] == torch.arange(c, device=dev)[None, :]).float()
+    mix = (onehot / denom[None, :]) @ wo.T
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    # only positive-weight rows are read; every row is written
+    n_live = int(w.gt(0).sum())
+    n_bytes = (n_live * n + m * n + m + m * c + c) * 4
+    n_ops = 2 * n_live * n + c * n                # weighted adds + divides
+    bound, bound_by = bound_us(n_bytes, n_ops)
+    row = {"m": m, "n": n, "clusters": c, "bit_exact": True,
+           "kernel_us": median_us(lambda _: ca.cluster_agg_cuda(rows, labels, wo, denom),
+                                  None, 200, flush),
+           "plain_us": median_us(lambda _: ca.cluster_agg_plain(rows, labels, wo, denom),
+                                 None, 30, flush),
+           "library_us": median_us(lambda _: torch.matmul(mix, rows), None, 200, flush),
+           "bound_us": bound, "bound_by": bound_by}
+    return row, max(errs)
+
+
+def check_pearson(x: torch.Tensor, what: str) -> float:
+    err = float((pe.pearson_cuda(x) - pe.pearson_plain(x)).abs().max())
+    if not err <= PEARSON_TOL:
+        raise AssertionError(f"pearson kernel vs plain version on {what}: "
+                             f"max abs error {err} > {PEARSON_TOL}")
+    return err
+
+
+def pearson_phase(dev) -> tuple[dict, float]:
+    rng = np.random.default_rng(SEED + 3)
+
+    def protos(m, d):
+        return torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(dev)
+    m, d = 100, 32                           # the train path's prototypes
+    errs = [check_pearson(protos(mm, dd), f"({mm}, {dd})")
+            for mm, dd in [(m, d), (7, 5), (1, 3), (300, 600)]]
+    x = protos(m, d)
+    x[3] = 0.5
+    errs.append(check_pearson(x, "a constant row"))
+    if pe.pearson_cuda(x)[3].any():
+        raise AssertionError("a constant row must correlate 0 with every row")
+
+    x = protos(m, d)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    bound, bound_by = bound_us((m * d + m * m) * 4, 2 * m * m * d + 3 * m * d)
+    row = {"m": m, "d": d,
+           "kernel_us": median_us(pe.pearson_cuda, x, 200, flush),
+           "plain_us": median_us(pe.pearson_plain, x, 100, flush),
+           "library_us": median_us(torch.corrcoef, x, 200, flush),
+           "bound_us": bound, "bound_by": bound_by}
+    return row, max(errs)
+
+
+class RoundTimer:
+    """A recorder for the training path's ``obs`` hook: the wall time of
+    every span by name, the device drained at both ends of each span so a
+    span's time is its own work."""
+
+    enabled = False
+
+    def __init__(self):
+        self.spans: dict[str, list[float]] = {}
+
+    def span(self, name: str, **attrs):
+        return _DrainedSpan(self.spans.setdefault(name, []))
+
+    def inc(self, *args, **kwargs) -> None:
+        pass
+
+    event = observe = set_gauge = inc
+
+
+class _DrainedSpan:
+    def __init__(self, sink):
+        self.sink = sink
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        torch.cuda.synchronize()
+        self.sink.append((time.perf_counter() - self.t0) * 1e3)
+        return False
+
+
+def step_parity(sim, dev) -> dict:
+    """One ``RoundEngine.sync_step`` on the card and the same step on the
+    CPU, from identical arena rows (five distinct models plus small noise,
+    so the clusters are well separated) and the population's own cohort
+    data: equal labels, the Pearson matrix within PEARSON_TOL and the new
+    rows within STEP_ROWS_TOL.  Raises on any difference beyond those."""
+    c, cfg = sim.cfg.n_clusters, sim.cfg
+    layout, n = sim.arena.layout, sim.pop.n_clients
+    gen = torch.Generator().manual_seed(SEED + 5)
+    centers = layout.flatten(clf.init_stacked(sim.mcfg, gen, c, same_init=False,
+                                              device="cpu"))
+    rng = np.random.default_rng(SEED + 5)
+    noise = torch.from_numpy(rng.standard_normal((n, layout.n_params))
+                             .astype(np.float32))
+    rows = centers[torch.arange(n) % c] + 0.002 * noise
+    k = max(1, int(round(cfg.sample_frac * n)))
+    cohort = np.sort(rng.choice(n, size=k, replace=False))
+    arrived = (rng.random(k) < 0.8).astype(np.float32)
+    cx, cy = sim.pop.cohort_data(cohort)
+
+    outs, datas = [], []
+    for d in (dev, torch.device("cpu")):
+        strategy = build_strategy(cfg.strategy, sim.bundle,
+                                  probe=sim.pop.probe.to(d),
+                                  n_clusters=c, **cfg.strategy_params)
+        eng = RoundEngine(layout, strategy=strategy, opt=sim.opt, n_clusters=c,
+                          local_epochs=cfg.local_epochs,
+                          stacked_apply_fn=sim.bundle.apply_fn)
+        arena = ParamArena(layout, rows.to(d, copy=True))
+        outs.append(eng.sync_step(arena, torch.as_tensor(cohort, device=d),
+                                  cx.to(d), cy.to(d), torch.from_numpy(arrived).to(d)))
+        datas.append(arena.data.cpu())
+    card, cpu = outs
+    labels = card.labels.cpu()
+    # equal on both, and the five models' clusters found exactly
+    found = set(zip((cohort % c).tolist(), labels.tolist()))
+    if not torch.equal(labels, cpu.labels) or len(found) != c \
+            or len(set(labels.tolist())) != c:
+        raise AssertionError(f"sync_step labels differ on the card and the CPU: "
+                             f"{labels.tolist()} vs {cpu.labels.tolist()}")
+    corr_err = float((card.corr.cpu() - cpu.corr).abs().max())
+    rows_diff = (card.new_rows.cpu() - cpu.new_rows).abs()
+    arena_err = float((datas[0] - datas[1]).abs().max())
+    loss_err = abs(float(card.mean_loss) - float(cpu.mean_loss))
+    if not corr_err <= PEARSON_TOL:
+        raise AssertionError(f"sync_step Pearson card vs CPU {corr_err} > {PEARSON_TOL}")
+    if not (float(rows_diff.max()) <= STEP_ROWS_TOL and arena_err <= STEP_ROWS_TOL):
+        raise AssertionError(f"sync_step new rows card vs CPU {float(rows_diff.max())} "
+                             f"(arena {arena_err}) > {STEP_ROWS_TOL}")
+    if not loss_err <= 1e-5 * abs(float(cpu.mean_loss)):
+        raise AssertionError(f"sync_step loss card {float(card.mean_loss)} vs CPU "
+                             f"{float(cpu.mean_loss)}")
+    return {"cohort": k, "arrived": int(arrived.sum()), "labels_equal": True,
+            "corr_max_abs": corr_err, "corr_tol": PEARSON_TOL,
+            "new_rows_max_abs": float(rows_diff.max()),
+            "new_rows_frac_above_1e-7": float((rows_diff > 1e-7).float().mean()),
+            "arena_max_abs": arena_err, "rows_tol": STEP_ROWS_TOL,
+            "loss_abs_diff": loss_err,
+            "residues_equal": int((card.residues.cpu() == cpu.residues).all(dim=1).sum())}
+
+
+def train_phase(dev) -> dict:
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: training must run in fp32")
+    spec = ExperimentSpec()
+    timer = RoundTimer()
+    fp.launches = ca.launches = pe.launches = 0
+    t0 = time.perf_counter()
+    result = run(spec, device=dev, obs=timer)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"fingerprint": fp.launches, "cluster_agg": ca.launches,
+                "pearson": pe.launches}
+
+    m, sim = result.manifest, result.sim
+    nonempty = sum(bool(r.arrived.any()) for r in result.report.history)
+    if sim.arena.data.shape != (1000, 6570) or sim.arena.data.device.type != "cuda":
+        raise AssertionError(f"arena {tuple(sim.arena.data.shape)} on "
+                             f"{sim.arena.data.device}, expected (1000, 6570) on the card")
+    if not (m["chain_valid"] and m["ledger_conserved"]):
+        raise AssertionError(f"chain_valid={m['chain_valid']} "
+                             f"ledger_conserved={m['ledger_conserved']}")
+    if m["rounds_run"] != spec.train.rounds or m["n_blocks"] != 1 + nonempty:
+        raise AssertionError(f"{m['rounds_run']} rounds, {m['n_blocks']} blocks "
+                             f"for {nonempty} non-empty rounds")
+    # one launch per non-empty round each; the fingerprint also digests the
+    # freeriders' all-zero claim once at start-up
+    want = {"fingerprint": nonempty + 1, "cluster_agg": nonempty,
+            "pearson": nonempty}
+    if launches != want:
+        raise AssertionError(f"train-path launches {launches}, expected {want}")
+    acc = m["final_accuracy"]
+    if not 0.0 < acc <= 1.0:
+        raise AssertionError(f"final accuracy {acc}")
+    # the tight check of training on the card: one step against the CPU's
+    parity = step_parity(sim, dev)
+
+    t1 = time.perf_counter()
+    cpu = run(spec, device="cpu").manifest
+    cpu_wall_s = time.perf_counter() - t1
+    if cpu["event_log_digest"] != m["event_log_digest"]:
+        raise AssertionError("card and CPU runs logged different events")
+    if not (cpu["chain_valid"] and cpu["ledger_conserved"]):
+        raise AssertionError("the CPU run's chain or ledger does not hold")
+    if abs(cpu["final_accuracy"] - acc) > ACC_TOL:
+        raise AssertionError(f"final accuracy card {acc} vs CPU "
+                             f"{cpu['final_accuracy']} > {ACC_TOL} apart")
+
+    # the trained run plugs into the serving tier unchanged
+    fe = serve(result)
+    verify_bank(fe.engine.bank, sim.trainer.chain)
+    rng = np.random.default_rng(SEED + 4)
+    for i in range(12):
+        fe.submit(i % spec.train.n_clusters,
+                  rng.standard_normal(sim.mcfg.in_dim).astype(np.float32))
+    fe.drain()
+    done = fe.take_completed()
+    if len(done) != 12 or any(d.status != "ok" or not np.isfinite(d.logits).all()
+                              for d in done):
+        raise AssertionError("serve(result) did not answer every request")
+
+    rounds_ms = timer.spans["round.total"]
+    return {"launches": launches, "rounds": m["rounds_run"],
+            "nonempty_rounds": nonempty, "n_clients": m["n_clients"],
+            "cohort": max(1, round(spec.train.sample_frac * m["n_clients"])),
+            "n_params": sim.arena.n_params, "n_blocks": m["n_blocks"],
+            "chain_valid": m["chain_valid"],
+            "ledger_conserved": m["ledger_conserved"],
+            "round_ms_p50": float(np.median(rounds_ms)),
+            "round_ms_max": float(np.max(rounds_ms)),
+            "phase_ms_p50": {k: float(np.median(v)) for k, v in timer.spans.items()},
+            "phase_ms_total": {k: float(np.sum(v)) for k, v in timer.spans.items()},
+            "final_accuracy_card": acc, "final_accuracy_cpu": cpu["final_accuracy"],
+            "acc_tol": ACC_TOL,
+            "event_log_digest_match": True,
+            "event_log_digest": m["event_log_digest"],
+            "block_hashes_equal_cpu": cpu["block_hashes_digest"] == m["block_hashes_digest"],
+            "run_wall_s": wall_s, "cpu_run_wall_s": cpu_wall_s,
+            "step_parity": parity, "served_requests": len(done)}
 
 
 class FlushLog:
@@ -344,21 +672,48 @@ def main() -> int:
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
         print(log.read_text().strip(), flush=True)
 
-    shapes, max_err = kernel_phase(dev)
+    t0 = time.perf_counter()
+    shapes, fp_err = kernel_phase(dev)
+    agg_row, agg_err = cluster_agg_phase(dev)
+    pe_row, pe_err = pearson_phase(dev)
+    print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    trained = train_phase(dev)
+    print(f"train phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     served = serve_phase(dev)
-    top = shapes[0]                     # the serving bank, (5, 6570)
-    print(json.dumps({"kernels": [{
-        "name": "fingerprint", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fingerprint.cu",
-        "replaces": "src/repro/kernels/fingerprint.py:102",
-        "launches": served["launches"], "max_abs_err": max_err,
-        "tolerance": 0,
-        "ms": top["kernel_us"] / 1e3, "plain_ms": top["plain_us"] / 1e3,
-        "bound_ms": top["bound_us"] / 1e3, "bound_by": top["bound_by"],
-        "library_ms": None,
-        "bit_exact": True, "shapes": shapes,
-        "kernel_us": top["kernel_us"], "plain_us": top["plain_us"],
-        "bound_us": top["bound_us"]}]}), flush=True)
+    print(f"serve phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def us_to_ms(row, key):
+        return None if row.get(key) is None else row[key] / 1e3
+
+    def entry(name, source, replaces, row, err, tolerance, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": replaces,
+                "launches": trained["launches"][name],
+                "launches_by_path": {"train": trained["launches"][name],
+                                     "serve": served["launches"] if name == "fingerprint" else 0},
+                "max_abs_err": err, "tolerance": tolerance,
+                "ms": us_to_ms(row, "kernel_us"), "plain_ms": us_to_ms(row, "plain_us"),
+                "bound_ms": us_to_ms(row, "bound_us"), "bound_by": row["bound_by"],
+                "library_ms": us_to_ms(row, "library_us"),
+                "kernel_us": row["kernel_us"], "plain_us": row["plain_us"],
+                "bound_us": row["bound_us"], "library_us": row.get("library_us"),
+                **extra}
+
+    cohort = shapes[1]                  # (100, 6570): the train path's rows
+    print(json.dumps({"kernels": [
+        entry("fingerprint", "fingerprint.cu", "src/repro/kernels/fingerprint.py:102",
+              cohort, fp_err, 0, bit_exact=True, shape=[100, 6570], shapes=shapes),
+        entry("cluster_agg", "cluster_agg.cu", "src/repro/kernels/cluster_agg.py:43",
+              agg_row, agg_err, 0, bit_exact=True, shape=[100, 6570],
+              library_call="torch.matmul(mix, rows)"),
+        entry("pearson", "pearson.cu", "src/repro/kernels/pearson.py:59",
+              pe_row, pe_err, PEARSON_TOL, shape=[100, 32],
+              library_call="torch.corrcoef(protos)"),
+    ]}), flush=True)
+    print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"serve": served}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,29 @@
+"""`repro_torch.api` — the declarative experiment surface.
+
+    from repro_torch.api import ExperimentSpec, run
+    from repro_torch.serve import serve
+
+    result = run(ExperimentSpec())          # BFLN sync rounds on the card
+    frontend = serve(result)                # chain-verified serving tier
+
+Port of ``repro.api`` for the paper's main path (BFLN, sync, one device).
+"""
+from repro_torch.api.registry import (  # noqa: F401
+    build_strategy,
+    register_strategy,
+    strategy_names,
+)
+from repro_torch.api.runner import (  # noqa: F401
+    ExperimentResult,
+    build_manifest,
+    event_log_digest,
+    run,
+)
+from repro_torch.api.spec import (  # noqa: F401
+    ChainSpec,
+    DataSpec,
+    EvalSpec,
+    ExperimentSpec,
+    MeshSpec,
+    TrainSpec,
+)

@@ -9,4 +9,5 @@ from repro_torch.blockchain.commit import (  # noqa: F401
     commitment_leaf,
     verify_membership,
 )
+from repro_torch.blockchain.ledger import TokenLedger  # noqa: F401
 from repro_torch.blockchain.txpool import Transaction, TxPool  # noqa: F401

@@ -13,4 +13,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available: repro_torch runs on the GPU by default; "
             "pass device='cpu' to run on the CPU explicitly")
+    if dev.type == "cuda" and dev.index is None:
+        # the device tensors report: "cuda" and "cuda:0" must compare equal
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

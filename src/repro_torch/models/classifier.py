@@ -4,15 +4,22 @@ Port of ``repro.models.classifier``: plain functions over a dict of tensors.
 ``embed`` returns the penultimate representation (the vector PAA prototypes
 are built from); ``apply`` adds the decision head.
 
-Every product goes through :func:`matmul_fixed_order`: elementwise products
-summed over the contraction axis in one fixed pairwise tree.  A row's
-output bits then depend on that row and its model alone — not on the batch
-size, the number of stacked models, or which kernel a GEMM library would
-pick for the shape.  So the fused multi-model serving forward equals
-routing each request alone through :func:`apply`, bit for bit, on the CPU
-and on the card (``torch.matmul`` on the CPU sums a single row in another
-order than a batch, and cuBLAS picks kernels by shape).  The reference
-leaves its products to XLA; both agree to float32 rounding.
+Serving (``embed`` / ``apply`` / ``*_stacked``): every product goes through
+:func:`matmul_fixed_order`: elementwise products summed over the
+contraction axis in one fixed pairwise tree.  A row's output bits then
+depend on that row and its model alone — not on the batch size, the number
+of stacked models, or which kernel a GEMM library would pick for the shape.
+So the fused multi-model serving forward equals routing each request alone
+through :func:`apply`, bit for bit, on the CPU and on the card
+(``torch.matmul`` on the CPU sums a single row in another order than a
+batch, and cuBLAS picks kernels by shape).  The reference leaves its
+products to XLA; both agree to float32 rounding.
+
+Training, prototypes and evaluation (``*_batched``) take batched
+``torch.matmul`` instead: they need no batch invariance, the reference
+leaves those products to XLA outside any Pallas kernel, and the fixed tree
+would materialise an (m, B, i, j) product — 1.6 GB for a 100-client
+cohort's eval batch.
 """
 from __future__ import annotations
 
@@ -111,6 +118,35 @@ def apply_stacked(cfg: MLPConfig, stacked_params: Pytree, x: torch.Tensor
     """All models' logits on one shared batch: (m, B, num_classes)."""
     reps = embed_stacked(cfg, stacked_params, x)
     logits = matmul_fixed_order(reps, stacked_params["w_head"])
+    return logits + stacked_params["b_head"][:, None, :]
+
+
+def embed_batched(cfg: MLPConfig, stacked_params: Pytree, x: torch.Tensor
+                  ) -> torch.Tensor:
+    """Training-side representations of m stacked models by batched
+    ``torch.matmul``: ``x`` is each model's own batch ``(m, B, in_dim)`` or
+    one batch shared by all ``(B, in_dim)``; returns ``(m, B, rep_dim)``.
+
+    Not batch-invariant (cuBLAS and MKL pick kernels by shape), which
+    training does not need: the reference leaves the same products to XLA.
+    Differentiable, so autograd gives every stacked model its own gradient.
+    """
+    h = x
+    n_hidden = len(cfg.hidden) + 1
+    for i in range(n_hidden):
+        h = torch.matmul(h, stacked_params[f"w{i}"])
+        h = h + stacked_params[f"b{i}"][:, None, :]
+        if i < n_hidden - 1:
+            h = torch.relu(h)
+    return torch.tanh(h)
+
+
+def apply_batched(cfg: MLPConfig, stacked_params: Pytree, x: torch.Tensor
+                  ) -> torch.Tensor:
+    """Training-side logits of m stacked models: ``(m, B, num_classes)``
+    (``x`` as in :func:`embed_batched`)."""
+    reps = embed_batched(cfg, stacked_params, x)
+    logits = torch.matmul(reps, stacked_params["w_head"])
     return logits + stacked_params["b_head"][:, None, :]
 
 

@@ -21,6 +21,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.utils.tree import tree_index
+
 Pytree = Any
 
 
@@ -136,3 +138,43 @@ class ParamArena:
     @property
     def n_params(self) -> int:
         return self.layout.n_params
+
+    # ------------------------------------------------------------------ #
+
+    def _index(self, cohort) -> torch.Tensor:
+        """Client ids (a tensor on any device, or a host sequence) as a long
+        index on the arena's device."""
+        if isinstance(cohort, torch.Tensor):
+            return cohort.to(self.data.device, torch.long)
+        return torch.as_tensor(np.asarray(cohort), dtype=torch.long,
+                               device=self.data.device)
+
+    def gather(self, cohort) -> torch.Tensor:
+        """Rows for a cohort of client ids -> ``(k, N)`` (a copy)."""
+        return self.data.index_select(0, self._index(cohort))
+
+    def masked_scatter(self, cohort, mask, rows: torch.Tensor) -> torch.Tensor:
+        """Write ``rows`` back into the cohort's slots where ``mask`` is set;
+        masked-out slots (stragglers, dropouts) keep their existing params.
+
+        The update is IN PLACE (``index_copy_`` into ``data``), where the
+        reference donates the arena buffer to a jitted scatter.  Fixed-shape:
+        a ``where`` over the full cohort, never a dynamically sized row
+        subset.  Returns the cohort's rows as written."""
+        idx = self._index(cohort)
+        keep = torch.as_tensor(mask, device=self.data.device).bool()[:, None]
+        upd = torch.where(keep, rows, self.data.index_select(0, idx))
+        self.data.index_copy_(0, idx, upd)
+        return upd
+
+    def rebind(self, flat: torch.Tensor) -> None:
+        """Install a freshly computed (n, N) population matrix."""
+        self.data = flat
+
+    def as_pytree(self, rows: torch.Tensor | None = None) -> Pytree:
+        """Dict view of ``rows`` (default: the whole population)."""
+        return self.layout.unflatten(self.data if rows is None else rows)
+
+    def row_pytree(self, i: int) -> Pytree:
+        """One client's (unstacked) param dict."""
+        return tree_index(self.as_pytree(self.data[i][None]), 0)

@@ -1,6 +1,6 @@
 """The port stands alone: `repro_torch` imports neither `jax` nor anything
 of `repro` (checked in a fresh interpreter and by an AST scan, with
-`chip_smoke.py`), and its entry points run on the card unless the caller
+`chip_smoke.py` and `profile_round.py`), and its entry points run on the card unless the caller
 asks for the CPU — without CUDA they raise instead of falling back."""
 import ast
 import os
@@ -14,11 +14,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.api import ExperimentSpec, run  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.interop import arena_from_numpy, params_from_numpy  # noqa: E402
+from repro_torch.kernels import cluster_agg as tagg  # noqa: E402
 from repro_torch.kernels import fingerprint as tfp  # noqa: E402
+from repro_torch.kernels import pearson as tpearson  # noqa: E402
 from repro_torch.models import classifier as tclf  # noqa: E402
 from repro_torch.serve import load_bank  # noqa: E402
+from repro_torch.sim.population import ClientPopulation, PopulationSpec  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -43,7 +47,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 15 and bad.strip() == "[]"
+    assert int(n) >= 40 and bad.strip() == "[]"
 
 
 def _imports(path):
@@ -55,7 +59,8 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py", ROOT / "profile_round.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     for name in _imports(path):
@@ -80,6 +85,8 @@ def test_default_device_raises_without_cuda(tmp_path):
         lambda: params_from_numpy({"w": np.zeros(3, np.float32)}),
         lambda: arena_from_numpy(np.zeros((1, 3), np.float32), [("['w']", (3,))]),
         lambda: load_bank(str(tmp_path / "never-read.npz")),
+        lambda: run(ExperimentSpec()),
+        lambda: ClientPopulation.from_spec(PopulationSpec(n_clients=4)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -89,6 +96,12 @@ def test_default_device_raises_without_cuda(tmp_path):
 def test_cuda_kernel_wrapper_never_runs_on_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfp.fingerprint_cuda(torch.zeros((2, 8), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tpearson.pearson_cuda(torch.zeros((2, 8)))
+    labels = torch.zeros((2,), dtype=torch.long)
+    wo, denom = tagg.cluster_weights(labels, 3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tagg.cluster_agg_cuda(torch.zeros((2, 8)), labels, wo, denom)
 
 
 def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
@@ -102,3 +115,10 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
     out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_profile_round_fails_without_cuda():
+    _needs_no_cuda()
+    out = subprocess.run([sys.executable, str(ROOT / "profile_round.py")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"profile"' not in out.stdout
