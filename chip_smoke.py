@@ -17,6 +17,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      weights, zero-weight rows holding NaN and a row of -0.0;
    * Pearson, at atol 1e-5, at the train path's (100, 32), (7, 5), (1, 3),
      a constant row and (300, 600);
+   * flash attention, at the LM path's (2, 4096, 8 / 4, 256) bf16 with
+     window 1024 and 0, element by element against the float32 result of
+     the same inputs (|got - want| <= 2^-8 |want| + 2e-5: one rounding to
+     bf16), the same shape in fp32, ragged (1, 1000, 4, 2, 64), non-causal,
+     G = 8, head_dim 32 and 128 in fp32 (atol 2e-5);
+   * the RWKV6 wkv recurrence, at the LM path's (2, 40, 4096, 64), T = 1,
+     two halves against the whole, and w = 0 (atol 1e-4);
    then times kernel, plain version and (where one PyTorch call computes
    the same function) the library call with CUDA events (median device
    time, cold L2) beside the least time the card could take.
@@ -42,11 +49,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bank refused by `verify_bank` and `ServingEngine`.  The fingerprint
    kernel's launch count is reset just before this phase and must be > 0
    after it.
+4. lm — the LM zoo's inference path at full width, depth cut: gemma3-4b
+   (6 layers: five SWA-1024 and one global) and rwkv6-3b (4 layers), bf16
+   weights from `init_params(seed)`.  Per configuration: `make_eval_step`
+   at B = 2, S = 4096 (loss, wall) and `greedy_generate` at B = 2, a
+   16-token prompt, 16 new tokens (wall per token), each with every
+   kernel's launch count reset just before and read just after (flash: 6
+   per gemma3 forward, 0 in decode; wkv: 4 per rwkv6 forward and per
+   decode step); `decode_step` over 32 tokens against `forward` on them
+   (relative max error <= DECODE_RTOL, the reference's contract); and the
+   same configuration in float32, one period, B = 1, S = 128, on the card
+   (kernels) against the host CPU (plain versions) within CARD_CPU_RTOL.
 
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
-`{"kernels": [...]}` with each kernel's launches on the train path (and
-per path), error, times and bound, one JSON line `{"train": {...}}`, one
-`{"serve": {...}}`, and last `{"ok": true, "device": {...}}`.  Without CUDA
+`{"kernels": [...]}` with each kernel's launches on its main path (and per
+path: train, serve, lm_forward, lm_decode), error, times and bound, one
+JSON line each `{"train": {...}}`, `{"serve": {...}}`, `{"lm": {...}}`, and
+last `{"ok": true, "device": {...}}`.  Without CUDA
 it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -61,6 +80,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -74,12 +94,19 @@ from repro_torch.blockchain import (  # noqa: E402
 )
 from repro_torch.api import ExperimentSpec, run  # noqa: E402
 from repro_torch.api.registry import build_strategy  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core.engine import RoundEngine  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.data.lm import batch_stream, make_token_stream  # noqa: E402
 from repro_torch.kernels import cluster_agg as ca  # noqa: E402
 from repro_torch.kernels import fingerprint as fp  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import pearson as pe  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as wk  # noqa: E402
 from repro_torch.models import classifier as clf  # noqa: E402
+from repro_torch.models import decode as lmdec  # noqa: E402
+from repro_torch.models import lm as lmsteps  # noqa: E402
+from repro_torch.models import transformer as lmt  # noqa: E402
 from repro_torch.runtime.arena import ParamArena  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ProvenanceError,
@@ -91,6 +118,7 @@ from repro_torch.serve import (  # noqa: E402
 )
 from repro_torch.serve.snapshot import mlp_layout  # noqa: E402
 from repro_torch.sim import VirtualClock  # noqa: E402
+from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and 32-bit arithmetic
@@ -112,6 +140,38 @@ ACC_TOL = 0.02
 # orders, and Adam's first step lr*g/(|g|+eps) turns a gradient's last-bit
 # difference into up to lr where |g| is near eps).
 STEP_ROWS_TOL = 1e-5
+# bf16 dense tensor-core peak (NVIDIA data sheet): the rate bf16 inputs allow
+BF16_OPS_PER_S = 989e12
+# the reference's kernel tolerances (tests/test_kernels_{flash_attention,rwkv6}.py)
+FLASH_TOL_F32 = 2e-5
+WKV_TOL = 1e-4
+# bf16 flash against the float32 result of its bf16 inputs, element by
+# element: the kernel computes in float32 (within FLASH_TOL_F32 of the plain
+# version) and rounds once to bf16, at most half an ulp, 2^-8 |x|
+FLASH_RTOL_BF16 = 2.0 ** -8
+# the wkv function's flops per step and (b, h): r.S into y (2 hd^2), w*S + k v^T
+# (3 hd^2); the bonus r.((u*k) v^T) = (sum_i r_i u_i k_i) v is 5 hd
+WKV_FLOPS_PER_STATE, WKV_FLOPS_PER_CHANNEL = 5, 5
+# decode_step vs forward, max |diff| / max |logit| (tests/test_decode_parity.py)
+DECODE_RTOL = 2e-2
+# card (kernels, cuBLAS) vs host CPU (plain versions, MKL) in float32, one
+# period, max |diff| / max |logit|: summation order moves ~1e-6; a masking
+# or indexing fault in a kernel moves logits by O(1)
+CARD_CPU_RTOL = 1e-3
+LM_CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
+LM_BATCH, LM_SEQ = 2, 4096              # train_4k's sequence length
+PROMPT, NEW_TOKENS, PARITY_TOKENS = 16, 16, 32
+KERNELS = {"fingerprint": fp, "cluster_agg": ca, "pearson": pe,
+           "flash_attention": fa, "rwkv6": wk}
+
+
+def reset_launches() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {name: mod.launches for name, mod in KERNELS.items()}
 
 
 def fingerprint_bound_us(m: int, n: int) -> tuple[float, str]:
@@ -408,13 +468,12 @@ def train_phase(dev) -> dict:
         raise AssertionError("TF32 matmuls are on: training must run in fp32")
     spec = ExperimentSpec()
     timer = RoundTimer()
-    fp.launches = ca.launches = pe.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     result = run(spec, device=dev, obs=timer)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"fingerprint": fp.launches, "cluster_agg": ca.launches,
-                "pearson": pe.launches}
+    launches = read_launches()
 
     m, sim = result.manifest, result.sim
     nonempty = sum(bool(r.arrived.any()) for r in result.report.history)
@@ -430,7 +489,7 @@ def train_phase(dev) -> dict:
     # one launch per non-empty round each; the fingerprint also digests the
     # freeriders' all-zero claim once at start-up
     want = {"fingerprint": nonempty + 1, "cluster_agg": nonempty,
-            "pearson": nonempty}
+            "pearson": nonempty, "flash_attention": 0, "rwkv6": 0}
     if launches != want:
         raise AssertionError(f"train-path launches {launches}, expected {want}")
     acc = m["final_accuracy"]
@@ -588,7 +647,7 @@ def serve_phase(dev) -> dict:
     cids = rng.integers(0, n_clusters, size=64)
     log = FlushLog()
 
-    fp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for r in range(rounds):
         commit_round(chain, pool, arena, rng, r, n, cohort_k)
@@ -606,9 +665,10 @@ def serve_phase(dev) -> dict:
         raise AssertionError(f"{gate.__name__} did not refuse a tampered bank")
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = fp.launches
-    if launches == 0:
-        raise AssertionError("the serve path never launched the kernel")
+    by_kernel = read_launches()
+    launches = by_kernel["fingerprint"]
+    if launches == 0 or any(by_kernel[k] for k in ("flash_attention", "rwkv6")):
+        raise AssertionError(f"serve-path launches {by_kernel}")
 
     # -- checks against plain references ------------------------------- #
     if not chain.validate():
@@ -641,7 +701,8 @@ def serve_phase(dev) -> dict:
     cpu_diff = float(np.abs(served - cpu_ref).max())
     np.testing.assert_allclose(served, cpu_ref, rtol=0, atol=FORWARD_TOL)
     flush_ms = [f["ms"] for f in log.flushes]
-    return {"launches": launches, "n_clients": n, "n_clusters": n_clusters,
+    return {"launches": launches, "launches_by_kernel": by_kernel,
+            "n_clients": n, "n_clusters": n_clusters,
             "n_params": layout.n_params, "blocks": len(chain.blocks),
             "requests": len(done), "flushes": len(flush_ms),
             "flush_reasons": sorted(set(reasons)),
@@ -650,6 +711,266 @@ def serve_phase(dev) -> dict:
             "card_vs_cpu_max_abs": cpu_diff,
             "flush_ms_p50": float(np.median(flush_ms)),
             "serve_path_wall_s": wall_s}
+
+
+def qkv(rng, B: int, S: int, Hq: int, Hkv: int, hd: int, dtype, dev):
+    """q (B, S, Hq, hd), k and v (B, S, Hkv, hd), standard normal."""
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 .to(dev, dtype)
+                 for shape in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+
+
+def check_flash(q, k, v, causal: bool, window: int, what: str) -> dict:
+    """The kernel against the plain version on the float32 values of the
+    same inputs, element by element: |got - want| <= rtol |want| + atol,
+    rtol 0 in float32 and FLASH_RTOL_BF16 in bf16."""
+    rtol = FLASH_RTOL_BF16 if q.dtype == torch.bfloat16 else 0.0
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window).float()
+    want = fa.attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                              window=window)
+    diff = (got - want).abs()
+    share = float((diff / (rtol * want.abs() + FLASH_TOL_F32)).max())
+    err = float(diff.max())
+    if not share <= 1.0:
+        raise AssertionError(f"flash kernel vs plain version on {what}: an element "
+                             f"is {share} of its limit {rtol} |want| + "
+                             f"{FLASH_TOL_F32} (max abs error {err})")
+    return {"max_abs_err": err, "max_share_of_limit": share,
+            "rtol": rtol, "atol": FLASH_TOL_F32}
+
+
+def live_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps for one (batch, head)."""
+    q = np.arange(S)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(S, dtype=np.int64)
+    hi = q if causal else np.full(S, S - 1)
+    return int((hi - lo + 1).sum())
+
+
+def flash_phase(dev) -> tuple[list[dict], dict]:
+    """The flash kernel against its plain version at the LM path's shape
+    and at the edge cases; times at the main-path shape."""
+    rng = np.random.default_rng(SEED + 6)
+    B, S, Hq, Hkv, hd = LM_BATCH, LM_SEQ, 8, 4, 256      # gemma3-4b's attention
+    q, k, v = qkv(rng, B, S, Hq, Hkv, hd, torch.bfloat16, dev)
+    checks = {}
+    for window in (1024, 0):
+        what = f"main (2, 4096, 8, 4, 256) bf16 window {window}"
+        checks[what] = check_flash(q, k, v, True, window, what)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    for window in (1024, 0):
+        what = f"main shape (2, 4096, 8, 4, 256) fp32 window {window}"
+        checks[what] = check_flash(q32, k32, v32, True, window, what)
+    del q32, k32, v32
+    cases = {"ragged (1, 1000, 4, 2, 64)": ((1, 1000, 4, 2, 64), True, 0),
+             "non-causal (1, 512, 4, 4, 128)": ((1, 512, 4, 4, 128), False, 0),
+             "G = 8 (1, 300, 8, 1, 64) window 100": ((1, 300, 8, 1, 64), True, 100),
+             "hd 32 (2, 256, 4, 2, 32) window 64": ((2, 256, 4, 2, 32), True, 64),
+             "hd 128 (1, 384, 4, 2, 128)": ((1, 384, 4, 2, 128), True, 0)}
+    for what, (shape, causal, window) in cases.items():
+        args = qkv(rng, *shape, torch.float32, dev)
+        checks[what + " fp32"] = check_flash(*args, causal, window, what)
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))    # SDPA's (B, H, S, hd)
+    pos = torch.arange(S, device=dev)
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rows = []
+    for window in (1024, 0):
+        band = pos[None, :] <= pos[:, None]
+        if window:
+            band &= pos[:, None] - pos[None, :] < window
+        n_ops = 4 * hd * B * Hq * live_pairs(S, True, window)   # q.k and p.v
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / BF16_OPS_PER_S * 1e6
+        rows.append({
+            "shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16", "window": window,
+            "kernel_us": median_us(lambda _: fa.flash_attention_cuda(
+                q, k, v, causal=True, window=window), None, 10, flush),
+            "plain_us": median_us(lambda _: fa.attention_plain(
+                q, k, v, causal=True, window=window), None, 5, flush),
+            "library_us": median_us(lambda _: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True), None, 10, flush),
+            "bound_us": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flop": n_ops})
+    return rows, checks
+
+
+def wkv_inputs(rng, B: int, H: int, T: int, hd: int, dev):
+    """r, k, v standard normal; decays in (0.55, 0.95); u, s0 small."""
+    def randn(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    w = (1 / (1 + np.exp(-randn(B, H, T, hd))) * 0.4 + 0.55).astype(np.float32)
+    arrays = (randn(B, H, T, hd), randn(B, H, T, hd), randn(B, H, T, hd), w,
+              randn(H, hd, scale=0.1), randn(B, H, hd, hd, scale=0.1))
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def wkv_err(got, want, what: str) -> float:
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not err <= WKV_TOL:
+        raise AssertionError(f"wkv kernel on {what}: max abs error {err} > {WKV_TOL}")
+    return err
+
+
+def wkv_phase(dev) -> tuple[dict, dict]:
+    """The wkv kernel against its plain version at the LM path's shape, at
+    T = 1, in two halves against the whole, and at w = 0; times at the
+    main-path shape."""
+    rng = np.random.default_rng(SEED + 7)
+    B, H, T, hd = LM_BATCH, 40, LM_SEQ, 64                 # rwkv6-3b's heads
+    main = wkv_inputs(rng, B, H, T, hd, dev)
+    full = wk.rwkv6_cuda(*main)
+    checks = {"main (2, 40, 4096, 64)": wkv_err(full, wk.rwkv6_plain(*main), "main")}
+    one = wkv_inputs(rng, B, H, 1, hd, dev)
+    checks["T = 1 (2, 40, 1, 64)"] = wkv_err(wk.rwkv6_cuda(*one), wk.rwkv6_plain(*one),
+                                             "T = 1")
+    r, k, v, w, u, s0 = main
+    h = T // 2
+    y1, s1 = wk.rwkv6_cuda(r[:, :, :h], k[:, :, :h], v[:, :, :h], w[:, :, :h], u, s0)
+    y2, s2 = wk.rwkv6_cuda(r[:, :, h:], k[:, :, h:], v[:, :, h:], w[:, :, h:], u, s1)
+    checks["two halves vs the whole"] = wkv_err((torch.cat([y1, y2], 2), s2), full,
+                                                "two halves")
+    zero = wkv_inputs(rng, 1, 4, 64, hd, dev)
+    zero[3].zero_()
+    got = wk.rwkv6_cuda(*zero)
+    checks["w = 0 (1, 4, 64, 64)"] = wkv_err(got, wk.rwkv6_plain(*zero), "w = 0")
+    last = zero[1][:, :, -1, :, None] * zero[2][:, :, -1, None, :]
+    if float((got[1] - last).abs().max()) > 1e-6:
+        raise AssertionError("w = 0 must leave only the last k v^T in the state")
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    n_bytes = sum(t.numel() for t in main) * 4 + (B * H * T * hd + B * H * hd * hd) * 4
+    n_ops = B * H * T * (WKV_FLOPS_PER_STATE * hd * hd + WKV_FLOPS_PER_CHANNEL * hd)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / ALU32_OPS_PER_S * 1e6
+    row = {"shape": [B, H, T, hd], "dtype": "float32",
+           "kernel_us": median_us(lambda _: wk.rwkv6_cuda(*main), None, 20, flush),
+           "plain_us": median_us(lambda _: wk.rwkv6_plain(*main), None, 3, flush),
+           "library_us": None,
+           "bound_us": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "flop": n_ops}
+    return row, checks
+
+
+def lm_batch(cfg, dev) -> dict:
+    """One (B, S) batch of the synthetic Markov token stream."""
+    stream = make_token_stream(cfg.vocab_size, 4 * LM_BATCH * (LM_SEQ + 1), seed=SEED)
+    x, y = next(batch_stream(stream, LM_BATCH, LM_SEQ, 1, seed=SEED))
+    return {"tokens": torch.from_numpy(x).long().to(dev),
+            "labels": torch.from_numpy(y).long().to(dev)}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def decode_vs_forward(cfg, params, tokens) -> float:
+    """The logits of decode_step over the tokens against forward's."""
+    B, T = tokens.shape
+    with torch.inference_mode():
+        ref, _, _ = lmt.forward(cfg, params, tokens=tokens)
+        cache = lmdec.init_cache(cfg, B, T, device=tokens.device)
+        outs = []
+        for i in range(T):
+            logits, cache = lmdec.decode_step(cfg, params, cache, tokens[:, i:i + 1])
+            outs.append(logits)
+    return rel_err(torch.cat(outs, dim=1), ref)
+
+
+def card_vs_cpu(cfg, dev) -> dict:
+    """The configuration in float32, one period, B = 1, S = 128: logits on
+    the card (kernels) against the host CPU (plain versions), same weights."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", n_layers=len(cfg.pattern))
+    p_dev = lmt.init_params(cfg32, seed=SEED + 1, device=dev)
+    p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+    gen = torch.Generator().manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        card = lmt.forward(cfg32, p_dev, tokens=toks.to(dev))[0]
+        cpu = lmt.forward(cfg32, p_cpu, tokens=toks)[0]
+    err = rel_err(card, cpu)
+    if not err <= CARD_CPU_RTOL:
+        raise AssertionError(f"{cfg.name}: card vs CPU logits rel err {err} > {CARD_CPU_RTOL}")
+    return {"n_layers": cfg32.n_layers, "shape": [1, 128], "rel_err": err,
+            "tolerance": CARD_CPU_RTOL, "wall_s": time.perf_counter() - t0}
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lm_config_run(cfg, dev) -> dict:
+    params = lmt.init_params(cfg, seed=SEED, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = lm_batch(cfg, dev)
+    n_attn = sum(s.mixer == "attn" for s in cfg.pattern) * cfg.n_periods \
+        + sum(s.mixer == "attn" for s in cfg.remainder)
+    n_rwkv = cfg.n_layers - n_attn
+
+    eval_step = lmsteps.make_eval_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    loss, eval_cold_s = timed(lambda: eval_step(params, batch))
+    forward_launches = read_launches()
+    loss2, eval_warm_s = timed(lambda: eval_step(params, batch))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    loss, loss2 = float(loss), float(loss2)
+    # random tied weights at full width put most of a position's mass on its
+    # own input token (the scaled embedding dominates the final norm), so
+    # the loss may sit far above ln V; it must be finite and positive
+    if not (np.isfinite(loss) and loss > 0.0):
+        raise AssertionError(f"{cfg.name}: eval loss {loss}")
+
+    prompt = batch["tokens"][:, :PROMPT]
+    reset_launches()
+    toks, gen_cold_s = timed(lambda: lmsteps.greedy_generate(
+        cfg, params, prompt, NEW_TOKENS, PROMPT + NEW_TOKENS))
+    decode_launches = read_launches()
+    toks2, gen_warm_s = timed(lambda: lmsteps.greedy_generate(
+        cfg, params, prompt, NEW_TOKENS, PROMPT + NEW_TOKENS))
+    steps = PROMPT + NEW_TOKENS - 1
+    if toks.shape != (LM_BATCH, PROMPT + NEW_TOKENS) or not torch.equal(toks[:, :PROMPT], prompt) \
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: greedy_generate gave {tuple(toks.shape)}")
+
+    want_fwd = {name: 0 for name in KERNELS}
+    want_fwd.update(flash_attention=n_attn, rwkv6=n_rwkv)
+    want_dec = dict(want_fwd, flash_attention=0, rwkv6=n_rwkv * steps)
+    if forward_launches != want_fwd or decode_launches != want_dec:
+        raise AssertionError(f"{cfg.name}: launches forward {forward_launches} (want "
+                             f"{want_fwd}), decode {decode_launches} (want {want_dec})")
+
+    parity = decode_vs_forward(cfg, params, batch["tokens"][:, :PARITY_TOKENS])
+    if not parity <= DECODE_RTOL:
+        raise AssertionError(f"{cfg.name}: decode vs forward rel err {parity} > {DECODE_RTOL}")
+    del params
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "param_dtype": cfg.param_dtype, "n_params": n_params,
+            "eval": {"batch": LM_BATCH, "seq": LM_SEQ, "loss": loss,
+                     "loss_second_call": loss2, "wall_s_first": eval_cold_s,
+                     "wall_s": eval_warm_s, "peak_gb": peak_gb,
+                     "tokens_per_s": LM_BATCH * LM_SEQ / eval_warm_s},
+            "generate": {"batch": LM_BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
+                         "decode_steps": steps, "tokens": toks.cpu().tolist(),
+                         "same_tokens_second_call": bool(torch.equal(toks, toks2)),
+                         "wall_s_first": gen_cold_s, "wall_s": gen_warm_s,
+                         "ms_per_step": gen_warm_s / steps * 1e3},
+            "launches": {"lm_forward": forward_launches, "lm_decode": decode_launches},
+            "decode_vs_forward": {"tokens": PARITY_TOKENS, "rel_err": parity,
+                                  "tolerance": DECODE_RTOL},
+            "card_vs_cpu": card_vs_cpu(cfg, dev)}
+
+
+def lm_phase(dev) -> dict:
+    return {name: lm_config_run(dataclasses.replace(ARCHS[name], n_layers=n), dev)
+            for name, n in LM_CONFIGS}
 
 
 def main() -> int:
@@ -672,28 +993,49 @@ def main() -> int:
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
         print(log.read_text().strip(), flush=True)
 
+    res: dict = {}
     t0 = time.perf_counter()
-    shapes, fp_err = kernel_phase(dev)
-    agg_row, agg_err = cluster_agg_phase(dev)
-    pe_row, pe_err = pearson_phase(dev)
+    res["fp"] = kernel_phase(dev)
+    res["agg"] = cluster_agg_phase(dev)
+    res["pe"] = pearson_phase(dev)
+    res["flash"] = flash_phase(dev)
+    res["wkv"] = wkv_phase(dev)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    trained = train_phase(dev)
-    print(f"train phase {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    served = serve_phase(dev)
-    print(f"serve phase {time.perf_counter() - t0:.1f} s", flush=True)
+    for phase, run_phase in (("train", train_phase), ("serve", serve_phase),
+                             ("lm", lm_phase)):
+        t0 = time.perf_counter()
+        res[phase] = run_phase(dev)
+        print(f"{phase} phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print(json.dumps({"kernels": kernel_entries(res)}), flush=True)
+    for phase in ("train", "serve", "lm"):
+        print(json.dumps({phase: res[phase]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def kernel_entries(res: dict) -> list[dict]:
+    """The `kernels` line: each kernel's launches on its main path and on
+    every path, error and tolerance, and its times beside its bound."""
+    by_path = {"train": res["train"]["launches"],
+               "serve": res["serve"]["launches_by_kernel"]}
+    for path in ("lm_forward", "lm_decode"):
+        by_path[path] = {name: sum(run["launches"][path][name]
+                                   for run in res["lm"].values())
+                         for name in KERNELS}
 
     def us_to_ms(row, key):
         return None if row.get(key) is None else row[key] / 1e3
 
-    def entry(name, source, replaces, row, err, tolerance, **extra):
+    def entry(name, source, replaces, main_path, row, err, tolerance, **extra):
+        paths = {path: counts[name] for path, counts in by_path.items()}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source}",
                 "replaces": replaces,
-                "launches": trained["launches"][name],
-                "launches_by_path": {"train": trained["launches"][name],
-                                     "serve": served["launches"] if name == "fingerprint" else 0},
+                "launches": paths[main_path], "main_path": main_path,
+                "launches_by_path": paths,
                 "max_abs_err": err, "tolerance": tolerance,
                 "ms": us_to_ms(row, "kernel_us"), "plain_ms": us_to_ms(row, "plain_us"),
                 "bound_ms": us_to_ms(row, "bound_us"), "bound_by": row["bound_by"],
@@ -702,23 +1044,36 @@ def main() -> int:
                 "bound_us": row["bound_us"], "library_us": row.get("library_us"),
                 **extra}
 
+    shapes, fp_err = res["fp"]
+    agg_row, agg_err = res["agg"]
+    pe_row, pe_err = res["pe"]
+    flash_rows, flash_checks = res["flash"]
+    wkv_row, wkv_checks = res["wkv"]
+    main_flash = [c["max_abs_err"] for w, c in flash_checks.items()
+                  if w.startswith("main (")]
     cohort = shapes[1]                  # (100, 6570): the train path's rows
-    print(json.dumps({"kernels": [
+    return [
         entry("fingerprint", "fingerprint.cu", "src/repro/kernels/fingerprint.py:102",
-              cohort, fp_err, 0, bit_exact=True, shape=[100, 6570], shapes=shapes),
+              "train", cohort, fp_err, 0, bit_exact=True, shape=[100, 6570],
+              shapes=shapes),
         entry("cluster_agg", "cluster_agg.cu", "src/repro/kernels/cluster_agg.py:43",
-              agg_row, agg_err, 0, bit_exact=True, shape=[100, 6570],
+              "train", agg_row, agg_err, 0, bit_exact=True, shape=[100, 6570],
               library_call="torch.matmul(mix, rows)"),
         entry("pearson", "pearson.cu", "src/repro/kernels/pearson.py:59",
-              pe_row, pe_err, PEARSON_TOL, shape=[100, 32],
+              "train", pe_row, pe_err, PEARSON_TOL, shape=[100, 32],
               library_call="torch.corrcoef(protos)"),
-    ]}), flush=True)
-    print(json.dumps({"train": trained}), flush=True)
-    print(json.dumps({"serve": served}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+        # the main-path row is window 1024: five of gemma3's six layers
+        entry("flash_attention", "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:80", "lm_forward", flash_rows[0],
+              max(main_flash), {"rtol": FLASH_RTOL_BF16, "atol": FLASH_TOL_F32,
+                                "against": "float32 plain version, per element"},
+              shape=[2, 4096, 8, 4, 256],
+              dtype="bfloat16", window=1024, shapes=flash_rows, checks=flash_checks,
+              library_call="F.scaled_dot_product_attention(band mask, enable_gqa=True)"),
+        entry("rwkv6", "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:45",
+              "lm_forward", wkv_row, wkv_checks["main (2, 40, 4096, 64)"], WKV_TOL,
+              shape=[2, 40, 4096, 64], dtype="float32", checks=wkv_checks),
+    ]
 
 
 if __name__ == "__main__":

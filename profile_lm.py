@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Profile the port's LM inference path on one NVIDIA GPU with torch.profiler.
+
+    python3 profile_lm.py
+
+For each configuration of `chip_smoke.py`'s lm phase — gemma3-4b cut to 6
+layers and rwkv6-3b cut to 4, full width, bf16 weights from
+`init_params(seed)` — runs one unprofiled eval step and one unprofiled
+`greedy_generate` (start-up: cuBLAS handles, kernel loads), then profiles,
+with CPU and CUDA activities:
+
+* ``eval``: one `make_eval_step` call at B = 2, S = 4096 (the forward and
+  the float32 log-softmax loss);
+* ``decode``: DECODE_STEPS `decode_step` calls at B = 2 against a cache
+  already holding PROMPT tokens (one token each, as `greedy_generate` runs
+  them).
+
+Prints the card's name and power limit, per configuration and path the top
+device activities by device time, and one JSON line ``{"profile_lm":
+{...}}``: per configuration and path the wall time (per step for decode),
+the summed device time, the device busy share (device time over wall; one
+stream, so nothing overlaps), the number of device activities, and the
+device time by group — the port's two kernels, matrix products (cuBLAS),
+and the rest.  The profiler's own cost is in the wall time.  Exits non-zero
+without CUDA.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.models import decode as lmdec  # noqa: E402
+from repro_torch.models import lm as lmsteps  # noqa: E402
+from repro_torch.models import transformer as lmt  # noqa: E402
+
+SEED = 0
+CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
+BATCH, SEQ = 2, 4096
+PROMPT, DECODE_STEPS = 16, 8
+GROUPS = (("flash_attention kernel", ("flash_kernel",)),
+          ("rwkv6 wkv kernel", ("wkv_kernel",)),
+          ("matmul (cuBLAS)", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "splitk")))
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def profiled(fn, steps: int) -> dict:
+    """Run ``fn`` ``steps`` times under the profiler; wall and device time
+    per step, busy share, top activities and device time by group."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3
+    groups: dict[str, float] = {}
+    for e in device:
+        g = group_of(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / steps
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps,
+            "device_busy_share": device_ms / wall_ms,
+            "device_activities_per_step": sum(e.count for e in device) / steps,
+            "device_ms_by_group": groups,
+            "top_device": [{"name": e.key[:120], "calls": e.count / steps,
+                            "device_ms_per_step": e.self_device_time_total / 1e3 / steps}
+                           for e in device[:12]]}
+
+
+def profile_config(name: str, n_layers: int, dev) -> dict:
+    cfg = dataclasses.replace(ARCHS[name], n_layers=n_layers)
+    params = lmt.init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), generator=gen, device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    eval_step = lmsteps.make_eval_step(cfg)
+    eval_step(params, batch)                                   # start-up
+    lmsteps.greedy_generate(cfg, params, tokens[:, :PROMPT], DECODE_STEPS,
+                            PROMPT + DECODE_STEPS)
+    out = {"eval": profiled(lambda: eval_step(params, batch), 1)}
+
+    serve = lmsteps.make_serve_step(cfg)
+    cache = lmdec.init_cache(cfg, BATCH, PROMPT + DECODE_STEPS, device=dev)
+    for i in range(PROMPT):
+        _, cache = serve(params, cache, tokens[:, i:i + 1])
+    state = {"cache": cache, "pos": PROMPT}
+
+    def one_token():
+        i = state["pos"]
+        _, state["cache"] = serve(params, state["cache"], tokens[:, i:i + 1])
+        state["pos"] = i + 1
+    out["decode"] = profiled(one_token, DECODE_STEPS)
+    del params, cache, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_lm: CUDA is not available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    result = {}
+    for name, n_layers in CONFIGS:
+        result[name] = profile_config(name, n_layers, dev)
+        for path, r in result[name].items():
+            print(f"\n{name} {path}: wall {r['wall_ms_per_step']:.3f} ms/step, device "
+                  f"{r['device_ms_per_step']:.3f} ms/step ({r['device_busy_share']:.1%} busy)")
+            for e in r["top_device"]:
+                print(f"  {e['name'][:90]:<90} {e['calls']:>6.1f} {e['device_ms_per_step']:>9.3f}")
+    print(json.dumps({"profile_lm": {"device": torch.cuda.get_device_name(0),
+                                     "batch": BATCH, "seq": SEQ, "prompt": PROMPT,
+                                     "configs": result}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,5 +13,9 @@ card and raises when there is none (``repro_torch.device``); the CPU runs
 only when the caller asks for it, as the tests do.
 
 Ported so far: the serving path (``repro_torch.serve``) with everything it
-reaches — arena, fingerprint kernel, classifier, chain, virtual clock.
+reaches — arena, fingerprint kernel, classifier, chain, virtual clock; the
+BFLN training round (``repro_torch.api.run``) with the Pearson and
+cluster-aggregation kernels; and the LM zoo's inference path
+(``repro_torch.models.{transformer,decode,lm}``, ``repro_torch.configs``)
+with the flash-attention and RWKV6 wkv kernels.
 """

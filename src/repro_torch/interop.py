@@ -2,8 +2,10 @@
 
 The port never sees a JAX object: parameters and arena rows arrive as numpy
 arrays, a chain as plain records (``dataclasses.asdict`` of each reference
-block).  A bank saved by the reference (``ModelBank.save``, one ``.npz``)
-needs nothing here: it loads through ``repro_torch.serve.load_bank``.
+block).  An LM's parameters (lists of stacked layers, bfloat16 leaves) take
+:func:`lm_params_from_numpy`.  A bank saved by the reference
+(``ModelBank.save``, one ``.npz``) needs nothing here: it loads through
+``repro_torch.serve.load_bank``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,32 @@ def params_from_numpy(params: Mapping[str, Any], device=None) -> dict:
     return {k: params_from_numpy(v, device) if isinstance(v, Mapping)
             else torch.from_numpy(np.array(v, copy=True)).to(device)
             for k, v in params.items()}
+
+
+def _tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
+    """One array -> a tensor on ``device``, bit for bit.  bfloat16 arrives
+    as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses: it goes
+    through its uint16 bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a.view(np.uint16), copy=True))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def lm_params_from_numpy(tree: Any, device=None) -> Any:
+    """An LM parameter tree of numpy arrays — nested dicts and lists (the
+    reference's ``layers`` / ``rem_layers``), float32 or bfloat16 leaves —
+    -> the same tree of tensors on ``device``, bit for bit."""
+    device = resolve_device(device)
+
+    def walk(x):
+        if isinstance(x, Mapping):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [walk(v) for v in x]
+        return _tensor_from_numpy(x, device)
+    return walk(tree)
 
 
 def _keys_of(path: str) -> tuple[str, ...]:

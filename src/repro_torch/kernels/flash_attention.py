@@ -1,0 +1,129 @@
+"""Causal / sliding-window GQA attention: plain PyTorch version + Hopper
+kernel.
+
+Port of ``repro.kernels.flash_attention`` (``flash_attention``, the Pallas
+online-softmax kernel) with the semantics of its oracle
+``repro.kernels.ref.attention_ref``.  For q (B, S, Hq, hd) and k, v
+(B, S, Hkv, hd), query head h reads kv head ``h // (Hq // Hkv)``:
+
+    s[q, k]  = q_q . k_k / sqrt(hd), set to NEG_INF = -1e30 unless
+               k <= q (causal) and q - k < window (window > 0)
+    out[q]   = softmax_k(s[q, :]) @ v          (fp32 inside, q's dtype out)
+
+:func:`attention_plain` follows ``attention_ref`` (materialises the scores);
+:func:`flash_attention_cuda` launches the hand-written kernel
+(``csrc/flash_attention.cu``) on the tensors' strides, with no transposes
+and any S.  ``repro_torch.kernels.ops.attention`` picks by where the tensors
+lie: the plain version for CPU tensors, the kernel for CUDA tensors, which
+launches or raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 256
+MAX_GROUP = 16            # query heads per kv head: the kernel's rows a block
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Launches of flash_attention_cuda since the last reset (set it to 0).
+launches = 0
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"attention takes q (B, S, Hq, hd) and k, v (B, S, Hkv, hd), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, Hq, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or Hq % k.shape[2]:
+        raise ValueError(f"attention: k, v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (Hq must be a multiple of Hkv)")
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Naive softmax attention with GQA, in plain PyTorch on the tensors'
+    own device (``ref.attention_ref``: the reference for the kernel, and the
+    CPU path).  Sq and Sk may differ; positions are 0..S-1 on both."""
+    _check(q, k, v)
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, hd).float() / (hd ** 0.5)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= qpos - kpos < window
+    s = torch.where(ok, s, s.new_full((), NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def _kernel() -> ctypes.CDLL:
+    lib = _build.load("flash_attention.cu")
+    fn = lib.flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: int = 0) -> torch.Tensor:
+    """(B, S, Hq, hd) attention on a CUDA device by the hand-written kernel,
+    on the current stream; the result is (B, S, Hq, hd) contiguous in q's
+    dtype.  q, k and v are read through their strides (unit stride over hd
+    and rows on 16 bytes required: the kernel copies 16 bytes at a time).  Raises on anything the kernel does not take, on an input
+    that requires grad (the kernel has no backward yet), and if the launch
+    is refused."""
+    global launches
+    _check(q, k, v)
+    tensors = (q, k, v)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("flash_attention_cuda needs CUDA tensors on one device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError("flash_attention_cuda has no backward kernel yet: "
+                           "call it under torch.no_grad() or inference_mode()")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"flash_attention_cuda takes float32 or bfloat16 q, k, v "
+                        f"of one dtype, got {[t.dtype for t in tensors]}")
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    if k.shape[1] != S:
+        raise ValueError(f"flash_attention_cuda needs Sq == Sk, got {S} and {k.shape[1]}")
+    if hd > MAX_HEAD_DIM or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"flash_attention_cuda takes hd <= {MAX_HEAD_DIM} and at "
+                         f"most {MAX_GROUP} query heads per kv head, got hd={hd}, "
+                         f"G={Hq // Hkv}")
+    item = q.element_size()
+    if any(t.stride(3) != 1 or t.data_ptr() % 16
+           or any(st * item % 16 for st in (*t.stride()[:3], hd)) for t in tensors):
+        raise ValueError("flash_attention_cuda needs unit stride over head_dim and "
+                         "every row on 16 bytes (hd * itemsize, the other strides "
+                         "times itemsize and the pointers multiples of 16)")
+    out = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], B, S, Hq, Hkv, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), int(window), 1.0 / (hd ** 0.5), stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out

@@ -1,0 +1,157 @@
+"""KV-cache / recurrent-state decode path (serve_step).
+
+Port of ``repro.models.decode``.  The cache mirrors the pattern-period
+layout of the parameters: one entry per pattern position with leaves
+stacked over ``n_periods``, plus ``rem`` for the remainder layers.  Cache
+kinds per mixer:
+
+  attn  : k/v ring buffers — full layers allocate ``seq_len`` slots, sliding-
+          window layers only ``window`` slots;
+  rwkv  : (tm_x, cm_x, wkv) — O(1) in sequence length; the wkv state is
+          carried through ``repro_torch.kernels.ops.rwkv6_wkv`` at T = 1.
+
+``pos`` is a Python int.  Unlike the reference, whose arrays are immutable,
+:func:`decode_step` writes the new k/v rows into the ring buffers and the
+new RWKV states into their slots in place (a new buffer per token would copy
+the whole cache every step): the returned cache holds the same tensors as
+the one passed in, which is advanced with it.  Mamba and cross-attention
+caches raise ``NotImplementedError`` (ROADMAP queue 1 items 7c and 7d).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rk
+from repro_torch.models.layers import apply_rope, ffn_apply, norm, rms_norm
+from repro_torch.models.transformer import (
+    NOT_PORTED_ENCODER,
+    NOT_PORTED_MAMBA_MOE,
+    ArchConfig,
+    LayerSpec,
+    check_runnable,
+    embed_tokens,
+    unembed,
+)
+from repro_torch.utils.tree import tree_index
+
+Pytree = Any
+
+
+def _layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, seq_len: int,
+                 lead: tuple[int, ...], device) -> dict:
+    dt = cfg.dtype
+    if spec.mixer == "attn":
+        s_c = min(spec.window, seq_len) if spec.window > 0 else seq_len
+        shape = lead + (batch, s_c, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+    if spec.mixer == "rwkv":
+        st = rk.rwkv_init_state(batch, cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_dim,
+                                dt, device=device)
+        return {k: v.expand(lead + tuple(v.shape)).clone() for k, v in st.items()}
+    raise ValueError(spec.mixer)
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None) -> Pytree:
+    """A zero cache for ``batch`` sequences of up to ``seq_len`` tokens on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    check_runnable(cfg)
+    device = resolve_device(device)
+    cache: dict = {"pos": 0}
+    if cfg.n_periods > 0:
+        cache["layers"] = [_layer_cache(cfg, spec, batch, seq_len, (cfg.n_periods,), device)
+                           for spec in cfg.pattern]
+    cache["rem"] = [_layer_cache(cfg, spec, batch, seq_len, (), device)
+                    for spec in cfg.remainder]
+    return cache
+
+
+def warm_cache(cfg: ArchConfig, params: Pytree, cache: Pytree,
+               enc_embeds: torch.Tensor | None = None, pos: int = 0) -> Pytree:
+    """Set the decode position (e.g. after an external prefill).  Filling
+    cross-attention K/V from an encoder raises: not ported yet."""
+    if enc_embeds is not None or cfg.encoder is not None:
+        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_ENCODER}")
+    return dict(cache, pos=int(pos))
+
+
+# --------------------------------------------------------------------------- #
+# Single-token layer application
+# --------------------------------------------------------------------------- #
+
+def _attn_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, c: dict,
+                 h: torch.Tensor, pos: int) -> torch.Tensor:
+    B = h.shape[0]
+    x = norm(cfg.norm, h, p["norm1"])
+    q = (x @ p["q"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    k = (x @ p["k"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p["v"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"]["scale"])
+        k = rms_norm(k, p["k_norm"]["scale"])
+    if spec.rope:
+        pid = torch.full((B, 1), pos, device=h.device)
+        q = apply_rope(q, pid, cfg.rope_theta)
+        k = apply_rope(k, pid, cfg.rope_theta)
+
+    s_c = c["k"].shape[1]
+    slot = pos % s_c if spec.window > 0 else pos
+    c["k"][:, slot] = k[:, 0]                 # in place: see the module note
+    c["v"][:, slot] = v[:, 0]
+    out = attn.attend_decode(q, c["k"], c["v"], pos, window=spec.window)
+    return h + out.reshape(B, 1, -1) @ p["o"]
+
+
+def _ffn_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor) -> torch.Tensor:
+    if spec.moe:
+        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MAMBA_MOE}")
+    x = norm(cfg.norm, h, p["norm2"])
+    return h + ffn_apply(cfg.activation, p["ffn"], x)
+
+
+def _apply_layer_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, c: dict,
+                        h: torch.Tensor, pos: int) -> torch.Tensor:
+    """One layer at one token; updates its cache entry ``c`` in place."""
+    if spec.mixer == "attn":
+        h = _attn_decode(cfg, spec, p, c, h, pos)
+        return _ffn_decode(cfg, spec, p, h)
+    if spec.mixer == "rwkv":
+        x = norm(cfg.norm, h, p["norm1"])
+        y, tm_x, wkv = rk.time_mix_apply(
+            p["time_mix"], x, c["tm_x"], c["wkv"],
+            n_heads=cfg.rwkv_heads, head_dim=cfg.rwkv_head_dim)
+        h = h + y
+        x = norm(cfg.norm, h, p["norm2"])
+        y, cm_x = rk.channel_mix_apply(p["channel_mix"], x, c["cm_x"])
+        for name, new in (("tm_x", tm_x), ("cm_x", cm_x), ("wkv", wkv)):
+            c[name].copy_(new)               # in place: see the module note
+        return h + y
+    raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MAMBA_MOE}")
+
+
+def decode_step(cfg: ArchConfig, params: Pytree, cache: Pytree,
+                token: torch.Tensor) -> tuple[torch.Tensor, Pytree]:
+    """One decode step. token (B, 1) integer -> (logits (B, 1, V), new cache)."""
+    check_runnable(cfg)
+    pos = int(cache["pos"])
+    h = embed_tokens(cfg, params, token)
+    if cfg.abs_pos:
+        from repro_torch.models.layers import sinusoidal_at
+        h = h + sinusoidal_at(torch.tensor([[pos]], device=h.device),
+                              cfg.d_model).to(h.dtype)
+
+    for j in range(cfg.n_periods):
+        for i, spec in enumerate(cfg.pattern):
+            h = _apply_layer_decode(cfg, spec, tree_index(params["layers"][i], j),
+                                    tree_index(cache["layers"][i], j), h, pos)
+    for i, spec in enumerate(cfg.remainder):
+        h = _apply_layer_decode(cfg, spec, params["rem_layers"][i],
+                                cache["rem"][i], h, pos)
+
+    h = norm(cfg.norm, h, params["final_norm"])
+    return unembed(cfg, params, h), dict(cache, pos=pos + 1)
+

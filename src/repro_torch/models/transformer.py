@@ -1,0 +1,446 @@
+"""Unified architecture machinery for the LM zoo.
+
+Port of ``repro.models.transformer``.  Layers are described by a repeating
+**pattern** of :class:`LayerSpec` (e.g. gemma3 = 5 x local-SWA + 1 x
+global).  Parameters keep the reference's layout key for key, so weights
+carry across one to one (``repro_torch.interop.lm_params_from_numpy``):
+``params["layers"]`` is a list over pattern positions whose leaves are
+stacked over ``n_periods``, and ``params["rem_layers"]`` holds the layers
+left over when ``n_layers % len(pattern) != 0``.  The reference's
+``lax.scan`` over periods is a Python loop that indexes the stack.
+
+Ported: attention (full, sliding-window, GQA, QK-norm, RoPE) and RWKV6
+mixers with dense FFNs — gemma3-4b, gemma-7b, h2o-danube-3-4b, minitron-8b,
+internvl2-2b's language backbone, rwkv6-3b.  Parameters of every family
+are built (shapes included), but the Mamba mixer and MoE FFNs (ROADMAP
+queue 1 item 7c) and cross-attention with its encoder (item 7d) raise
+``NotImplementedError`` when run.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rk
+from repro_torch.models.layers import (
+    Init,
+    apply_rope,
+    dense_init,
+    ffn_apply,
+    ffn_init,
+    init_norm,
+    is_gated,
+    norm,
+    rms_norm,
+    sinusoidal_positions,
+)
+from repro_torch.utils.tree import tree_index
+
+Pytree = Any
+
+NOT_PORTED_MAMBA_MOE = ("the Mamba mixer and MoE FFNs are not ported yet "
+                        "(ROADMAP queue 1 item 7c)")
+NOT_PORTED_ENCODER = ("cross-attention, the encoder and the audio/vision "
+                      "frontends are not ported yet (ROADMAP queue 1 item 7d)")
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    mixer: str = "attn"          # attn | mamba | rwkv
+    window: int = 0              # 0 = full attention, >0 = sliding window
+    rope: bool = True
+    moe: bool = False
+    causal: bool = True
+    cross_attn: bool = False     # decoder cross-attention (whisper)
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    n_layers: int
+    n_heads: int
+    d_ff: int
+    n_frames: int = 1500         # whisper conv-frontend output length (stub)
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    pattern: tuple[LayerSpec, ...] = (LayerSpec(),)
+    activation: str = "swiglu"
+    norm: str = "rmsnorm"
+    qk_norm: bool = False
+    # MoE
+    n_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    moe_shared_expert: bool = False
+    capacity_factor: float = 1.25
+    # Mamba
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    # RWKV
+    rwkv_head_dim: int = 64
+    rwkv_lora_rank: int = 64
+    # encoder-decoder / frontends
+    encoder: EncoderConfig | None = None
+    frontend: str = "tokens"     # tokens | audio_stub | vision_stub
+    abs_pos: bool = False        # add sinusoidal absolute positions (whisper)
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = True
+    param_dtype: str = "bfloat16"
+    remat: bool = True
+    sharding_mode: str = "tp"    # tp | fsdp_tp | ep_tp (expert-parallel MoE)
+    swa_skip: bool = False       # the reference's GSPMD chunk skipping; unused here
+    attn_batch_axes: tuple | None = None   # a mesh hint of the reference; unused here
+    vocab_pad_multiple: int = 2048  # Megatron-style padding so vocab shards evenly
+    # provenance
+    source: str = ""
+
+    # ------------------------------------------------------------------ #
+    @property
+    def n_periods(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def remainder(self) -> tuple[LayerSpec, ...]:
+        return self.pattern[: self.n_layers % len(self.pattern)]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return -(-self.vocab_size // m) * m
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def mamba_dt_rank(self) -> int:
+        return max(self.d_model // 16, 8)
+
+    @property
+    def rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
+
+    def reduced(self, **overrides) -> "ArchConfig":
+        """A small same-family variant for CPU smoke tests (<=2 pattern
+        periods, d_model <= 512, <=4 experts)."""
+        d_model = min(self.d_model, 256)
+        head_dim = 32
+        n_heads = max(self.n_heads // 8, 2)
+        n_kv = max(min(self.n_kv_heads, n_heads), 1)
+        changes = dict(
+            n_layers=len(self.pattern) * min(self.n_periods, 1) or len(self.pattern),
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=head_dim,
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            moe_top_k=min(self.moe_top_k, 2) if self.moe_top_k else 0,
+            moe_d_ff=min(self.moe_d_ff, 256) if self.moe_d_ff else 0,
+            rwkv_head_dim=32,
+            rwkv_lora_rank=16,
+            param_dtype="float32",
+            remat=False,
+            vocab_pad_multiple=1,
+        )
+        if self.encoder is not None:
+            changes["encoder"] = EncoderConfig(
+                n_layers=2, n_heads=n_heads, d_ff=min(self.encoder.d_ff, 512),
+                n_frames=16)
+        # shrink sliding windows so short smoke sequences exercise the ring buffer
+        changes["pattern"] = tuple(
+            dataclasses.replace(s, window=min(s.window, 8)) if s.window else s
+            for s in self.pattern)
+        changes.update(overrides)
+        return dataclasses.replace(self, **changes)
+
+
+def check_runnable(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` (naming the ROADMAP item) if ``cfg``
+    needs a part of the reference the port does not run yet."""
+    specs = cfg.pattern + cfg.remainder
+    if any(s.mixer == "mamba" or s.moe for s in specs):
+        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MAMBA_MOE}")
+    if cfg.encoder is not None or any(s.cross_attn for s in specs):
+        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_ENCODER}")
+
+
+# --------------------------------------------------------------------------- #
+# Parameter construction
+# --------------------------------------------------------------------------- #
+
+def _mamba_init(init: Init, d_model: int, d_inner: int, d_state: int, d_conv: int,
+                dt_rank: int, dtype: torch.dtype) -> dict:
+    """Shapes and initial values of ``repro.models.mamba.mamba_init``."""
+    f32 = torch.float32
+    a_log = torch.log(torch.arange(1, d_state + 1, dtype=f32)).expand(d_inner, d_state)
+    return {
+        "in_proj": dense_init(init, d_model, 2 * d_inner, dtype),
+        "conv_w": init.normal((d_conv, d_inner), (1.0 / d_conv) ** 0.5, dtype),
+        "conv_b": init.full((d_inner,), 0.0, dtype),
+        "x_proj": dense_init(init, d_inner, dt_rank + 2 * d_state, dtype),
+        "dt_proj": dense_init(init, dt_rank, d_inner, dtype),
+        "dt_bias": init.full((d_inner,), -4.6, f32),
+        "A_log": a_log.to("meta" if init.generator is None else init.device).clone(),
+        "D": init.full((d_inner,), 1.0, f32),
+        "out_proj": dense_init(init, d_inner, d_model, dtype),
+    }
+
+
+def _moe_init(init: Init, act: str, d_model: int, d_ff: int, n_experts: int,
+              dtype: torch.dtype, shared_expert: bool) -> dict:
+    """Shapes and initial values of ``repro.models.moe.moe_init``."""
+    def experts(a, b):
+        return init.normal((n_experts, a, b), (1.0 / a) ** 0.5, dtype)
+    p = {"router": dense_init(init, d_model, n_experts, torch.float32),
+         "w_gate": experts(d_model, d_ff),
+         "w_down": experts(d_ff, d_model)}
+    if is_gated(act):
+        p["w_up"] = experts(d_model, d_ff)
+    if shared_expert:
+        p["shared"] = ffn_init(init, act, d_model, d_ff, dtype)
+    return p
+
+
+def _init_layer(cfg: ArchConfig, spec: LayerSpec, init: Init) -> dict:
+    dt = cfg.dtype
+    D = cfg.d_model
+    p: dict = {}
+    if spec.mixer == "attn":
+        p["norm1"] = init_norm(init, cfg.norm, D, dt)
+        p["q"] = dense_init(init, D, cfg.n_heads * cfg.head_dim, dt)
+        p["k"] = dense_init(init, D, cfg.n_kv_heads * cfg.head_dim, dt)
+        p["v"] = dense_init(init, D, cfg.n_kv_heads * cfg.head_dim, dt)
+        p["o"] = dense_init(init, cfg.n_heads * cfg.head_dim, D, dt)
+        if cfg.qk_norm:
+            p["q_norm"] = {"scale": init.full((cfg.head_dim,), 0.0, dt)}
+            p["k_norm"] = {"scale": init.full((cfg.head_dim,), 0.0, dt)}
+        if spec.cross_attn:
+            p["norm_c"] = init_norm(init, cfg.norm, D, dt)
+            p["qc"] = dense_init(init, D, cfg.n_heads * cfg.head_dim, dt)
+            p["kc"] = dense_init(init, D, cfg.n_kv_heads * cfg.head_dim, dt)
+            p["vc"] = dense_init(init, D, cfg.n_kv_heads * cfg.head_dim, dt)
+            p["oc"] = dense_init(init, cfg.n_heads * cfg.head_dim, D, dt)
+    elif spec.mixer == "mamba":
+        p["norm1"] = init_norm(init, cfg.norm, D, dt)
+        p["mamba"] = _mamba_init(init, D, cfg.mamba_d_inner, cfg.mamba_d_state,
+                                 cfg.mamba_d_conv, cfg.mamba_dt_rank, dt)
+    elif spec.mixer == "rwkv":
+        p["norm1"] = init_norm(init, cfg.norm, D, dt)
+        p["time_mix"] = rk.rwkv_time_mix_init(
+            init, D, cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.rwkv_lora_rank, dt)
+        p["norm2"] = init_norm(init, cfg.norm, D, dt)
+        p["channel_mix"] = rk.rwkv_channel_mix_init(init, D, cfg.d_ff, dt)
+        return p
+    else:
+        raise ValueError(spec.mixer)
+
+    p["norm2"] = init_norm(init, cfg.norm, D, dt)
+    if spec.moe:
+        p["moe"] = _moe_init(init, cfg.activation, D, cfg.moe_d_ff or cfg.d_ff,
+                             cfg.n_experts, dt, cfg.moe_shared_expert)
+    else:
+        p["ffn"] = ffn_init(init, cfg.activation, D, cfg.d_ff, dt)
+    return p
+
+
+def _stack(trees: list) -> Pytree:
+    """Stack a list of same-structure trees leaf by leaf (leading axis)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+    return torch.stack(trees)
+
+
+def _init_tree(cfg: ArchConfig, init: Init) -> Pytree:
+    dt = cfg.dtype
+    params: dict = {
+        "embed": init.normal((cfg.padded_vocab, cfg.d_model), 0.02, dt),
+        "final_norm": init_norm(init, cfg.norm, cfg.d_model, dt),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(init, cfg.d_model, cfg.padded_vocab, dt)
+    if cfg.n_periods > 0:
+        params["layers"] = _stack([[_init_layer(cfg, spec, init) for spec in cfg.pattern]
+                                   for _ in range(cfg.n_periods)])
+    params["rem_layers"] = [_init_layer(cfg, spec, init) for spec in cfg.remainder]
+    if cfg.encoder is not None:
+        enc = cfg.encoder
+        enc_spec = LayerSpec(mixer="attn", rope=False, causal=False)
+        ecfg = _encoder_cfg(cfg)
+        params["encoder"] = {
+            "layers": [_init_layer(ecfg, enc_spec, init) for _ in range(enc.n_layers)],
+            "final_norm": init_norm(init, "layernorm", cfg.d_model, dt),
+        }
+    return params
+
+
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    enc = cfg.encoder
+    return dataclasses.replace(
+        cfg, n_heads=enc.n_heads, n_kv_heads=enc.n_heads, d_ff=enc.d_ff,
+        head_dim=cfg.d_model // enc.n_heads, qk_norm=False, activation="gelu",
+        norm="layernorm")
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Pytree:
+    """Random parameters in the reference's layout, drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (the card unless
+    the caller asks for the CPU).  Not the reference's numbers: carry its
+    weights across with ``interop.lm_params_from_numpy`` to compare."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return _init_tree(cfg, Init(gen, device))
+
+
+def param_shapes(cfg: ArchConfig) -> Pytree:
+    """The parameter tree as ``(shape, dtype)`` leaves, built on the
+    ``meta`` device (no allocation) — the counterpart of the reference's
+    ``param_specs`` (``eval_shape``)."""
+    def leaf(t):
+        return tuple(t.shape), t.dtype
+
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v) for v in x]
+        return leaf(x)
+    return walk(_init_tree(cfg, Init(None, torch.device("meta"))))
+
+
+# --------------------------------------------------------------------------- #
+# Forward (eval / prefill)
+# --------------------------------------------------------------------------- #
+
+def _attn_sublayer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
+                   pos_ids: torch.Tensor) -> torch.Tensor:
+    B, S, D = h.shape
+    x = norm(cfg.norm, h, p["norm1"])
+    q = (x @ p["q"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (x @ p["k"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p["v"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"]["scale"])
+        k = rms_norm(k, p["k_norm"]["scale"])
+    if spec.rope:
+        q = apply_rope(q, pos_ids, cfg.rope_theta)
+        k = apply_rope(k, pos_ids, cfg.rope_theta)
+    # positions are 0..S-1 (forward builds them so), as both forms take them;
+    # the reference's choice of form, which on CUDA reaches the kernel either way
+    if S >= 2048:
+        out = attn.attend_chunked(q, k, v, causal=spec.causal, window=spec.window)
+    else:
+        out = attn.attend_full(q, k, v, causal=spec.causal, window=spec.window)
+    return h + out.reshape(B, S, -1) @ p["o"]
+
+
+def _ffn_sublayer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    if spec.moe:
+        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MAMBA_MOE}")
+    x = norm(cfg.norm, h, p["norm2"])
+    return (h + ffn_apply(cfg.activation, p["ffn"], x),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
+                 pos_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if spec.cross_attn:
+        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_ENCODER}")
+    if spec.mixer == "attn":
+        h = _attn_sublayer(cfg, spec, p, h, pos_ids)
+        return _ffn_sublayer(cfg, spec, p, h)
+    if spec.mixer == "mamba":
+        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MAMBA_MOE}")
+    if spec.mixer == "rwkv":
+        B = h.shape[0]
+        st = rk.rwkv_init_state(B, cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_dim,
+                                h.dtype, device=h.device)
+        x = norm(cfg.norm, h, p["norm1"])
+        y, _, _ = rk.time_mix_apply(p["time_mix"], x, st["tm_x"], st["wkv"],
+                                    n_heads=cfg.rwkv_heads, head_dim=cfg.rwkv_head_dim)
+        h = h + y
+        x = norm(cfg.norm, h, p["norm2"])
+        y, _ = rk.channel_mix_apply(p["channel_mix"], x, st["cm_x"])
+        return h + y, torch.zeros((), dtype=torch.float32, device=h.device)
+    raise ValueError(spec.mixer)
+
+
+def backbone(cfg: ArchConfig, params: Pytree, h: torch.Tensor,
+             pos_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply all layers to hidden states h (B, S, D). Returns (h, moe_aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(cfg.n_periods):
+        for i, spec in enumerate(cfg.pattern):
+            h, a = _apply_layer(cfg, spec, tree_index(params["layers"][i], j), h, pos_ids)
+            aux = aux + a
+    for i, spec in enumerate(cfg.remainder):
+        h, a = _apply_layer(cfg, spec, params["rem_layers"][i], h, pos_ids)
+        aux = aux + a
+    return h, aux
+
+
+def embed_tokens(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows scaled by sqrt(d_model) — the scalar rounded to the
+    embedding's dtype first, as ``jnp.asarray(d_model ** 0.5, h.dtype)``
+    rounds it (in bf16, sqrt(2560) = 50.596 becomes 50.5; a Python float
+    would multiply by the unrounded value)."""
+    h = params["embed"].to(cfg.dtype)[tokens]
+    return h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
+
+
+def forward(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None, enc_embeds: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full forward: returns (logits (B,S,V), final hidden (B,S,D), moe_aux)."""
+    check_runnable(cfg)
+    if enc_embeds is not None:
+        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_ENCODER}")
+    if embeds is None:
+        if tokens is None:
+            raise ValueError("forward needs tokens or embeds")
+        h = embed_tokens(cfg, params, tokens)
+    else:
+        h = embeds.to(cfg.dtype)
+    B, S = h.shape[:2]
+    pos_ids = torch.arange(S, device=h.device)[None].expand(B, S)
+    if cfg.abs_pos:
+        h = h + sinusoidal_positions(S, cfg.d_model, device=h.device).to(h.dtype)[None]
+    h, aux = backbone(cfg, params, h, pos_ids)
+    h = norm(cfg.norm, h, params["final_norm"])
+    return unembed(cfg, params, h), h, aux
+
+
+def unembed(cfg: ArchConfig, params: Pytree, h: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"].to(h.dtype).T
+    else:
+        logits = h @ params["lm_head"]
+    if cfg.padded_vocab != cfg.vocab_size:
+        # mask Megatron-style vocab padding so it never receives probability
+        mask = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab_size
+        logits = torch.where(mask, logits, logits.new_full((), -1e30))
+    return logits

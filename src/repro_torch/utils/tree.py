@@ -14,9 +14,19 @@ def tree_index(tree: Pytree, i) -> Pytree:
 
 
 def tree_map(fn: Callable, tree: Pytree, *rest: Pytree) -> Pytree:
-    """Apply ``fn`` leaf by leaf over (nested) dicts of the same structure."""
+    """Apply ``fn`` leaf by leaf over (nested) dicts and lists of the same
+    structure (a tuple counts as a list)."""
     if isinstance(tree, Mapping):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_leaves(tree: Pytree) -> list:
+    """Every leaf of (nested) dicts and lists, in key / index order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
 

@@ -1,7 +1,8 @@
 """The port stands alone: `repro_torch` imports neither `jax` nor anything
 of `repro` (checked in a fresh interpreter and by an AST scan, with
-`chip_smoke.py` and `profile_round.py`), and its entry points run on the card unless the caller
-asks for the CPU — without CUDA they raise instead of falling back."""
+`chip_smoke.py`, `profile_round.py` and `profile_lm.py`), and its entry
+points run on the card unless the caller asks for the CPU — without CUDA
+they raise instead of falling back."""
 import ast
 import os
 import shutil
@@ -15,12 +16,21 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.api import ExperimentSpec, run  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
-from repro_torch.interop import arena_from_numpy, params_from_numpy  # noqa: E402
+from repro_torch.interop import (  # noqa: E402
+    arena_from_numpy,
+    lm_params_from_numpy,
+    params_from_numpy,
+)
 from repro_torch.kernels import cluster_agg as tagg  # noqa: E402
 from repro_torch.kernels import fingerprint as tfp  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import pearson as tpearson  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as twkv  # noqa: E402
 from repro_torch.models import classifier as tclf  # noqa: E402
+from repro_torch.models import decode as tdecode  # noqa: E402
+from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.serve import load_bank  # noqa: E402
 from repro_torch.sim.population import ClientPopulation, PopulationSpec  # noqa: E402
 
@@ -47,7 +57,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 40 and bad.strip() == "[]"
+    assert int(n) >= 70 and bad.strip() == "[]"
 
 
 def _imports(path):
@@ -60,7 +70,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py", ROOT / "profile_round.py"],
+                         + [ROOT / "chip_smoke.py", ROOT / "profile_round.py",
+                            ROOT / "profile_lm.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     for name in _imports(path):
@@ -87,6 +98,9 @@ def test_default_device_raises_without_cuda(tmp_path):
         lambda: load_bank(str(tmp_path / "never-read.npz")),
         lambda: run(ExperimentSpec()),
         lambda: ClientPopulation.from_spec(PopulationSpec(n_clients=4)),
+        lambda: tt.init_params(ARCHS["gemma3-4b"].reduced()),
+        lambda: tdecode.init_cache(ARCHS["rwkv6-3b"].reduced(), 1, 4),
+        lambda: lm_params_from_numpy({"layers": [{"w": np.zeros(3, np.float32)}]}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -102,6 +116,12 @@ def test_cuda_kernel_wrapper_never_runs_on_the_cpu():
     wo, denom = tagg.cluster_weights(labels, 3)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tagg.cluster_agg_cuda(torch.zeros((2, 8)), labels, wo, denom)
+    q = torch.zeros((1, 4, 2, 32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_attention_cuda(q, q, q)
+    r = torch.zeros((1, 1, 4, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        twkv.rwkv6_cuda(r, r, r, r, torch.zeros((1, 8)), torch.zeros((1, 1, 8, 8)))
 
 
 def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
@@ -122,3 +142,10 @@ def test_profile_round_fails_without_cuda():
     out = subprocess.run([sys.executable, str(ROOT / "profile_round.py")],
                          cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"profile"' not in out.stdout
+
+
+def test_profile_lm_fails_without_cuda():
+    _needs_no_cuda()
+    out = subprocess.run([sys.executable, str(ROOT / "profile_lm.py")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"profile_lm"' not in out.stdout

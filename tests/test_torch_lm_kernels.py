@@ -1,0 +1,255 @@
+"""The port's attention and RWKV6 wkv kernels (`repro_torch.kernels.
+flash_attention`, `.rwkv6_scan`, through `ops.attention` / `ops.rwkv6_wkv`)
+against the reference, on the same numpy inputs.
+
+On the CPU the wrappers take the plain versions; they are held against the
+Pallas kernels in interpret mode (`repro.kernels.ops`) and against the
+oracles `repro.kernels.ref.attention_ref` / `rwkv6_scan_ref`, at the
+reference's own tolerances: attention 2e-5 in float32 and 3e-2 in bfloat16,
+wkv 1e-4.  Covered: causal, sliding-window and non-causal attention, GQA
+groups of 1, 2, 4 and 8, head_dim 32, 64, 128 and 256, S off every block
+size; the model's two attention forms (`attend_full`, `attend_chunked`);
+wkv at T = 1, chunked composition (two halves == the whole), w = 0.
+
+The CUDA kernels are held against the plain versions on the card (`cuda`
+marker; skipped without one): in float32 at 2e-5, and in bfloat16 element
+by element against the float32 result of the same inputs, within one
+rounding to bfloat16 (2^-8 |want| + 2e-5)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as twkv  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+ATOL_F32 = 2e-5
+ATOL_BF16 = 3e-2
+WKV_ATOL = 1e-4
+# the bf16 kernel against the float32 result of its inputs, per element: it
+# computes in float32 and rounds once to bf16 (half an ulp, 2^-8 |x|)
+RTOL_BF16_ROUNDING = 2.0 ** -8
+
+
+def _qkv(B, S, Hq, Hkv, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+
+
+def _torch(*arrays, dtype=torch.float32, device="cpu"):
+    return tuple(torch.from_numpy(a).to(device, dtype) for a in arrays)
+
+
+def _np(t):
+    return t.float().cpu().numpy()
+
+
+def _jax_bf16(a):
+    return jnp.asarray(a).astype(jnp.bfloat16)
+
+
+ATTN_CASES = {
+    # name: (B, S, Hq, Hkv, hd, causal, window)
+    "causal-gqa2-hd32": (2, 128, 4, 2, 32, True, 0),
+    "causal-mha-hd64": (1, 128, 2, 2, 64, True, 0),
+    "causal-gqa8-hd32": (1, 128, 8, 1, 32, True, 0),
+    "window48-hd32": (2, 256, 4, 2, 32, True, 48),
+    "window200-hd128": (1, 256, 2, 1, 128, True, 200),
+    "noncausal-hd64": (1, 128, 2, 2, 64, False, 0),
+    "causal-gqa4-hd256": (1, 128, 4, 1, 256, True, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_plain_attention_matches_pallas_and_oracle(case):
+    B, S, Hq, Hkv, hd, causal, window = ATTN_CASES[case]
+    q, k, v = _qkv(B, S, Hq, Hkv, hd, seed=S + Hq + hd)
+    got = _np(tops.attention(*_torch(q, k, v), causal=causal, window=window))
+    pal = np.asarray(jops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    causal=causal, window=window))
+    ora = np.asarray(jref.attention_ref(q, k, v, causal=causal, window=window))
+    np.testing.assert_allclose(got, pal, rtol=0, atol=ATOL_F32)
+    np.testing.assert_allclose(got, ora, rtol=0, atol=ATOL_F32)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_plain_attention_bf16(window):
+    q, k, v = _qkv(2, 128, 4, 2, 64, seed=3 + window)
+    got = _np(tops.attention(*_torch(q, k, v, dtype=torch.bfloat16), causal=True,
+                             window=window))
+    qb, kb, vb = (_jax_bf16(a) for a in (q, k, v))
+    pal = np.asarray(jops.attention(qb, kb, vb, causal=True, window=window), np.float32)
+    ora = np.asarray(jref.attention_ref(qb, kb, vb, causal=True, window=window),
+                     np.float32)
+    np.testing.assert_allclose(got, pal, rtol=0, atol=ATOL_BF16)
+    np.testing.assert_allclose(got, ora, rtol=0, atol=ATOL_BF16)
+
+
+@pytest.mark.parametrize("S,window", [(100, 0), (100, 30), (200, 0), (37, 5)])
+def test_plain_attention_ragged_length(S, window):
+    """S off every block size: against the Pallas kernel where it takes the
+    shape (S < 128 is one block), always against the oracle."""
+    q, k, v = _qkv(1, S, 4, 2, 32, seed=S)
+    got = _np(tops.attention(*_torch(q, k, v), causal=True, window=window))
+    ora = np.asarray(jref.attention_ref(q, k, v, causal=True, window=window))
+    np.testing.assert_allclose(got, ora, rtol=0, atol=ATOL_F32)
+    if S < 128:
+        pal = np.asarray(jops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                        causal=True, window=window))
+        np.testing.assert_allclose(got, pal, rtol=0, atol=ATOL_F32)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+def test_model_attention_forms_match_reference(window):
+    """`attend_full` and `attend_chunked` of the port (their CPU forms)
+    against the reference's, and against the kernel's plain version."""
+    q, k, v = _qkv(2, 256, 4, 2, 32, seed=9 + window)
+    tq, tk, tv = _torch(q, k, v)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    full = _np(tattn.attend_full(tq, tk, tv, causal=True, window=window))
+    chunked = _np(tattn.attend_chunked(tq, tk, tv, causal=True, window=window,
+                                       q_chunk=64, k_chunk=64))
+    np.testing.assert_allclose(full, np.asarray(jattn.attend_full(
+        jq, jk, jv, causal=True, window=window)), rtol=0, atol=ATOL_F32)
+    np.testing.assert_allclose(chunked, np.asarray(jattn.attend_chunked(
+        jq, jk, jv, causal=True, window=window, q_chunk=64, k_chunk=64)),
+        rtol=0, atol=ATOL_F32)
+    plain = _np(tfa.attention_plain(tq, tk, tv, causal=True, window=window))
+    np.testing.assert_allclose(full, plain, rtol=0, atol=ATOL_F32)
+    np.testing.assert_allclose(chunked, plain, rtol=0, atol=ATOL_F32)
+
+
+def test_attend_decode_matches_reference():
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, 1, 4, 32)).astype(np.float32)
+    kc, vc = (rng.standard_normal((2, 8, 2, 32)).astype(np.float32) for _ in range(2))
+    for pos, window in [(3, 0), (5, 8), (11, 8)]:
+        got = _np(tattn.attend_decode(*_torch(q, kc, vc), pos, window=window))
+        want = np.asarray(jattn.attend_decode(jnp.asarray(q), jnp.asarray(kc),
+                                              jnp.asarray(vc), jnp.asarray(pos),
+                                              window=window))
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_F32)
+
+
+def _wkv_inputs(B, H, T, hd, seed=0):
+    """The reference test's distribution: decays in (0.55, 0.95)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, H, T, hd)).astype(np.float32) for _ in range(3))
+    w = (1 / (1 + np.exp(-rng.standard_normal((B, H, T, hd)))) * 0.4 + 0.55).astype(np.float32)
+    u = (rng.standard_normal((H, hd)) * 0.1).astype(np.float32)
+    s0 = (rng.standard_normal((B, H, hd, hd)) * 0.1).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+def _wkv_check(got, want):
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a) if isinstance(a, torch.Tensor) else a,
+                                   np.asarray(b), rtol=0, atol=WKV_ATOL)
+
+
+@pytest.mark.parametrize("B,H,T,hd", [(1, 1, 8, 8), (2, 3, 33, 16), (1, 4, 128, 32),
+                                      (2, 2, 1, 64), (1, 2, 16, 64)])
+def test_plain_wkv_matches_pallas_and_oracle(B, H, T, hd):
+    args = _wkv_inputs(B, H, T, hd, seed=T + hd)
+    before = twkv.launches
+    got = tops.rwkv6_wkv(*_torch(*args))
+    assert twkv.launches == before           # no kernel on CPU tensors
+    _wkv_check(got, jops.rwkv6_wkv(*(jnp.asarray(a) for a in args)))
+    _wkv_check(got, jref.rwkv6_scan_ref(*(jnp.asarray(a) for a in args)))
+
+
+def test_plain_wkv_chunked_composition():
+    """Two halves with the state carried == the whole sequence."""
+    r, k, v, w, u, s0 = _torch(*_wkv_inputs(1, 2, 64, 16, seed=5))
+    y_full, s_full = tops.rwkv6_wkv(r, k, v, w, u, s0)
+    y1, s_mid = tops.rwkv6_wkv(r[:, :, :32], k[:, :, :32], v[:, :, :32], w[:, :, :32],
+                               u, s0)
+    y2, s_end = tops.rwkv6_wkv(r[:, :, 32:], k[:, :, 32:], v[:, :, 32:], w[:, :, 32:],
+                               u, s_mid)
+    np.testing.assert_allclose(_np(torch.cat([y1, y2], dim=2)), _np(y_full), atol=WKV_ATOL)
+    np.testing.assert_allclose(_np(s_end), _np(s_full), atol=WKV_ATOL)
+
+
+def test_plain_wkv_zero_decay_forgets_state():
+    r, k, v, w, u, s0 = _wkv_inputs(1, 1, 4, 8, seed=9)
+    w[:] = 0.0
+    y, sT = tops.rwkv6_wkv(*_torch(r, k, v, w, u, s0))
+    np.testing.assert_allclose(_np(sT)[0, 0], k[0, 0, -1][:, None] * v[0, 0, -1][None, :],
+                               atol=1e-5)
+    _wkv_check((y, sT), jops.rwkv6_wkv(*(jnp.asarray(a) for a in (r, k, v, w, u, s0))))
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    q, k, v = _torch(*_qkv(1, 8, 2, 1, 32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        twkv.rwkv6_cuda(*_torch(*_wkv_inputs(1, 1, 4, 8)))
+
+
+# --------------------------------------------------------------------------- #
+# On the card: each kernel against its plain version
+# --------------------------------------------------------------------------- #
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+CUDA_ATTN = {
+    "main-window1024-bf16": (1, 2048, 8, 4, 256, True, 1024, torch.bfloat16),
+    "main-global-bf16": (1, 1024, 8, 4, 256, True, 0, torch.bfloat16),
+    "ragged-fp32": (1, 1000, 4, 2, 64, True, 0, torch.float32),
+    "noncausal-fp32": (2, 300, 4, 4, 128, False, 0, torch.float32),
+    "gqa8-hd32-fp32": (1, 257, 8, 1, 32, True, 100, torch.float32),
+    "hd120-fp32": (1, 130, 4, 1, 120, True, 0, torch.float32),
+    "hd256-window1024-fp32": (1, 2048, 8, 4, 256, True, 1024, torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_ATTN))
+def test_cuda_flash_matches_plain(case):
+    _need_cuda()
+    B, S, Hq, Hkv, hd, causal, window, dtype = CUDA_ATTN[case]
+    q, k, v = _torch(*_qkv(B, S, Hq, Hkv, hd, seed=S), dtype=dtype, device="cuda")
+    before = tfa.launches
+    got = tops.attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    want = tfa.attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                               window=window)
+    rtol = RTOL_BF16_ROUNDING if dtype == torch.bfloat16 else 0.0
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=ATOL_F32)
+    with pytest.raises(RuntimeError, match="backward"):
+        tfa.flash_attention_cuda(q.requires_grad_(), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,hd", [(2, 40, 1024, 64), (2, 40, 1, 64), (1, 3, 77, 32),
+                                      (1, 2, 50, 128), (1, 1, 9, 8)])
+def test_cuda_wkv_matches_plain(B, H, T, hd):
+    _need_cuda()
+    args = _torch(*_wkv_inputs(B, H, T, hd, seed=T), device="cuda")
+    before = twkv.launches
+    got = tops.rwkv6_wkv(*args)
+    torch.cuda.synchronize()
+    assert twkv.launches == before + 1
+    want = twkv.rwkv6_plain(*args)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= WKV_ATOL
+    # two halves == the whole, on the card
+    h = T // 2
+    if h:
+        r, k, v, w, u, s0 = args
+        y1, s1 = twkv.rwkv6_cuda(r[:, :, :h], k[:, :, :h], v[:, :, :h], w[:, :, :h], u, s0)
+        y2, s2 = twkv.rwkv6_cuda(r[:, :, h:], k[:, :, h:], v[:, :, h:], w[:, :, h:], u, s1)
+        assert float((torch.cat([y1, y2], 2) - got[0]).abs().max()) <= WKV_ATOL
+        assert float((s2 - got[1]).abs().max()) <= WKV_ATOL
