@@ -6,27 +6,35 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. kernels — builds every CUDA source of the port (`nvcc`, sm_90a, one
-   process per source, all at once) and holds each kernel against its plain
+   process per source, all at once; the tensor-core flash kernel must
+   compile without register spills) and holds each kernel against its plain
    PyTorch version on the card:
    * fingerprint, bit for bit, at the serving bank (5, 6570), a commit
      cohort (100, 6570), a population (1000, 6570), ragged (17, 131) and
      (1, 1) shapes, rows split over several blocks (3, 70001), an all-zero
      row, rows off the 16-byte grid, and fp32 arena rows read in place;
-   * cluster aggregation, bit for bit, at the train path's (100, 6570) with
-     C = 5, m = 1, m = 3, ragged (37, 131), an empty cluster, all-zero
-     weights, zero-weight rows holding NaN and a row of -0.0;
+   * cluster aggregation, bit for bit, in float32 and bf16 rows, at the
+     train path's (100, 6570) with C = 5, m = 1, m = 3, ragged (37, 131), a
+     whole population (1000, 6570), m = 3000 (more than one 256-row chunk),
+     odd N (100, 6571), the most rows the kernel takes (65536, 40), an empty
+     cluster, all-zero weights, zero-weight rows holding NaN, a row of -0.0
+     and a bad label;
    * Pearson, at atol 1e-5, at the train path's (100, 32), (7, 5), (1, 3),
      a constant row and (300, 600);
-   * flash attention, at the LM path's (2, 4096, 8 / 4, 256) bf16 with
-     window 1024 and 0, element by element against the float32 result of
-     the same inputs (|got - want| <= 2^-8 |want| + 2e-5: one rounding to
-     bf16), the same shape in fp32, ragged (1, 1000, 4, 2, 64), non-causal,
-     G = 8, head_dim 32 and 128 in fp32 (atol 2e-5);
+   * flash attention: the bf16 tensor-core kernel at the LM path's
+     (2, 4096, 8 / 4, 256) with window 1024 and 0, element by element
+     against the float32 result of the same inputs (|got - want| <=
+     2^-8 |want| + 2e-5: one rounding to bf16), and the float32 kernel at
+     the same shape (atol 2e-5); then both at ragged (1, 1000, 4, 2, 64),
+     non-causal, G = 8 with window 100, head_dim 32 with window 64, 128 and
+     120, and G = 5, each at its own limit;
    * the RWKV6 wkv recurrence, at the LM path's (2, 40, 4096, 64), T = 1,
      two halves against the whole, and w = 0 (atol 1e-4);
    then times kernel, plain version and (where one PyTorch call computes
    the same function) the library call with CUDA events (median device
-   time, cold L2) beside the least time the card could take.
+   time, cold L2) beside the least time the card could take; flash beside
+   SDPA with the band mask and, causal, with `is_causal=True` and no mask,
+   naming the backend PyTorch chose for each.
 2. train — the paper's main path, `repro_torch.api.run(ExperimentSpec())`
    at its defaults (BFLN sync, n = 1000, cohort 100, 20 rounds, MLP
    64-64-32-10 so N = 6570, 5 clusters) on the card, with every kernel's
@@ -54,16 +62,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    weights from `init_params(seed)`.  Per configuration: `make_eval_step`
    at B = 2, S = 4096 (loss, wall) and `greedy_generate` at B = 2, a
    16-token prompt, 16 new tokens (wall per token), each with every
-   kernel's launch count reset just before and read just after (flash: 6
-   per gemma3 forward, 0 in decode; wkv: 4 per rwkv6 forward and per
-   decode step); `decode_step` over 32 tokens against `forward` on them
+   kernel's launch count reset just before and read just after (bf16
+   flash: 6 per gemma3 forward, 0 in decode; wkv: 4 per rwkv6 forward and
+   per decode step); `decode_step` over 32 tokens against `forward` on them
    (relative max error <= DECODE_RTOL, the reference's contract); and the
    same configuration in float32, one period, B = 1, S = 128, on the card
-   (kernels) against the host CPU (plain versions) within CARD_CPU_RTOL.
+   (kernels; the path `lm_fp32`, where the float32 flash kernel runs, its
+   counts read around the card's forward) against the host CPU (plain
+   versions) within CARD_CPU_RTOL.
 
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
 `{"kernels": [...]}` with each kernel's launches on its main path (and per
-path: train, serve, lm_forward, lm_decode), error, times and bound, one
+path: train, serve, lm_forward, lm_decode, lm_fp32), error, times and
+bound, one
 JSON line each `{"train": {...}}`, `{"serve": {...}}`, `{"lm": {...}}`, and
 last `{"ok": true, "device": {...}}`.  Without CUDA
 it exits non-zero and prints no result.  Imports nothing of JAX.
@@ -72,6 +83,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -159,19 +171,22 @@ DECODE_RTOL = 2e-2
 # or indexing fault in a kernel moves logits by O(1)
 CARD_CPU_RTOL = 1e-3
 LM_CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
+NO_SPILL_SOURCE = "flash_attention_sm90.cu"
 LM_BATCH, LM_SEQ = 2, 4096              # train_4k's sequence length
 PROMPT, NEW_TOKENS, PARITY_TOKENS = 16, 16, 32
-KERNELS = {"fingerprint": fp, "cluster_agg": ca, "pearson": pe,
-           "flash_attention": fa, "rwkv6": wk}
+# each kernel: its module and the module's launch counter
+KERNELS = {"fingerprint": (fp, "launches"), "cluster_agg": (ca, "launches"),
+           "pearson": (pe, "launches"), "flash_attention_bf16": (fa, "launches_bf16"),
+           "flash_attention_fp32": (fa, "launches"), "rwkv6": (wk, "launches")}
 
 
 def reset_launches() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, counter in KERNELS.values():
+        setattr(mod, counter, 0)
 
 
 def read_launches() -> dict[str, int]:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, counter) for name, (mod, counter) in KERNELS.items()}
 
 
 def fingerprint_bound_us(m: int, n: int) -> tuple[float, str]:
@@ -180,6 +195,17 @@ def fingerprint_bound_us(m: int, n: int) -> tuple[float, str]:
     t_bytes = (m * n * 4 + m * 2 * 4) / HBM_BYTES_PER_S * 1e6
     t_ops = FP_OPS_PER_ELEMENT * m * n / ALU32_OPS_PER_S * 1e6
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_no_spills() -> None:
+    """The tensor-core flash kernel keeps O, S and P in registers (241 of
+    them at head_dim 256): ptxas must compile every instance without
+    spilling, or its wgmmas serialise on local memory."""
+    log = _build.library_path(NO_SPILL_SOURCE).with_suffix(".log").read_text()
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+    if not spills or any(spills):
+        raise AssertionError(f"{NO_SPILL_SOURCE}: ptxas spill stores {spills}")
+    print(f"{NO_SPILL_SOURCE}: {len(spills)} instances, no spills", flush=True)
 
 
 def median_us(fn, arg, reps: int, flush: torch.Tensor) -> float:
@@ -279,36 +305,49 @@ def agg_case(rng, m: int, n: int, c: int, dev, kind: str = "random"):
         w[:] = 1.0
         w[c::c] = 0.0                  # row 0 is alone at weight 1 in cluster 0
         rows[0] = -0.0
+    elif kind == "a bad label":
+        labels[3] = -1                 # weighs in no cluster; its row is NaN
     return tuple(torch.from_numpy(a).to(dev) for a in (rows, labels, w))
 
 
 def check_agg(rows, labels, w, c: int, what: str) -> float:
-    """Kernel vs plain version, bit for bit; returns the largest difference
-    (0.0)."""
+    """Kernel vs plain version, bit for bit, in the rows' dtype; returns the
+    largest difference (0.0)."""
     wo, denom = ca.cluster_weights(labels, c, w)
     got = ca.cluster_agg_cuda(rows, labels, wo, denom)
     want = ca.cluster_agg_plain(rows, labels, wo, denom)
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        raise AssertionError(f"cluster_agg kernel != plain version on {what}: "
-                             f"{bad} elements differ")
-    return float((got - want).nan_to_num().abs().max())
+    bits = torch.int32 if rows.dtype == torch.float32 else torch.int16
+    if got.dtype != rows.dtype or not torch.equal(got.view(bits), want.view(bits)):
+        bad = int((got.view(bits) != want.view(bits)).sum())
+        raise AssertionError(f"cluster_agg kernel != plain version on {what} "
+                             f"{rows.dtype}: {bad} elements differ")
+    return float((got.float() - want.float()).nan_to_num().abs().max())
 
 
-def cluster_agg_phase(dev) -> tuple[dict, float]:
+def cluster_agg_phase(dev) -> tuple[dict, dict]:
     rng = np.random.default_rng(SEED + 2)
     m, n, c = 100, 6570, 5                   # the train path's cohort rows
-    errs = [check_agg(*agg_case(rng, mm, nn, cc, dev), cc, f"({mm}, {nn}) C={cc}")
-            for mm, nn, cc in [(m, n, c), (1, 64, 3), (3, 7, 2), (37, 131, 4)]]
+    dtypes = (torch.float32, torch.bfloat16)
+    errs = {dtype: [] for dtype in dtypes}
+    # a whole population as the cohort, more than one 256-row chunk, odd N,
+    # the most rows the kernel takes
+    for mm, nn, cc in [(m, n, c), (1, 64, 3), (3, 7, 2), (37, 131, 4),
+                       (1000, n, c), (3000, 131, c), (m, n + 1, c),
+                       (ca.MAX_ROWS, 40, c)]:
+        rows, labels, w = agg_case(rng, mm, nn, cc, dev)
+        for dtype in dtypes:
+            errs[dtype].append(check_agg(rows.to(dtype), labels, w, cc,
+                                         f"({mm}, {nn}) C={cc}"))
     for kind in ("empty cluster", "all-zero weights", "NaN at zero weight",
-                 "a row of -0.0"):
+                 "a row of -0.0", "a bad label"):
         rows, labels, w = agg_case(rng, 40, 131, 4, dev, kind)
-        errs.append(check_agg(rows, labels, w, 4, kind))
-        if kind == "a row of -0.0":
-            mean = ca.cluster_mean_rows(rows, labels, 4, w)[0]
-            if torch.signbit(mean).any():
-                raise AssertionError("a cluster of -0.0 rows must mean +0.0 "
-                                     "(the padded adds are done)")
+        for dtype in dtypes:
+            errs[dtype].append(check_agg(rows.to(dtype), labels, w, 4, kind))
+            if kind == "a row of -0.0":
+                mean = ca.cluster_mean_rows(rows.to(dtype), labels, 4, w)[0]
+                if torch.signbit(mean).any():
+                    raise AssertionError("a cluster of -0.0 rows must mean +0.0 "
+                                         "(the padded adds are done)")
 
     rows, labels, w = agg_case(rng, m, n, c, dev)
     wo, denom = ca.cluster_weights(labels, c, w)
@@ -319,17 +358,30 @@ def cluster_agg_phase(dev) -> tuple[dict, float]:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     # only positive-weight rows are read; every row is written
     n_live = int(w.gt(0).sum())
-    n_bytes = (n_live * n + m * n + m + m * c + c) * 4
+    n_bytes = (n_live * n + m * n + m * c + c) * 4 + m * 8     # int64 labels
     n_ops = 2 * n_live * n + c * n                # weighted adds + divides
     bound, bound_by = bound_us(n_bytes, n_ops)
-    row = {"m": m, "n": n, "clusters": c, "bit_exact": True,
+    row = {"m": m, "n": n, "clusters": c, "dtype": "float32", "bit_exact": True,
+           "max_abs_err": max(errs[torch.float32]),
            "kernel_us": median_us(lambda _: ca.cluster_agg_cuda(rows, labels, wo, denom),
                                   None, 200, flush),
            "plain_us": median_us(lambda _: ca.cluster_agg_plain(rows, labels, wo, denom),
                                  None, 30, flush),
            "library_us": median_us(lambda _: torch.matmul(mix, rows), None, 200, flush),
            "bound_us": bound, "bound_by": bound_by}
-    return row, max(errs)
+    # bf16 rows: half the row bytes; no one PyTorch call sums them in float32
+    # and rounds once
+    rows16 = rows.to(torch.bfloat16)
+    bound16, bound16_by = bound_us(n_bytes - (n_live * n + m * n) * 2, n_ops)
+    row16 = {
+        "m": m, "n": n, "clusters": c, "dtype": "bfloat16", "bit_exact": True,
+        "max_abs_err": max(errs[torch.bfloat16]),
+        "kernel_us": median_us(lambda _: ca.cluster_agg_cuda(rows16, labels, wo, denom),
+                               None, 200, flush),
+        "plain_us": median_us(lambda _: ca.cluster_agg_plain(rows16, labels, wo, denom),
+                              None, 30, flush),
+        "library_us": None, "bound_us": bound16, "bound_by": bound16_by}
+    return row, row16
 
 
 def check_pearson(x: torch.Tensor, what: str) -> float:
@@ -489,7 +541,8 @@ def train_phase(dev) -> dict:
     # one launch per non-empty round each; the fingerprint also digests the
     # freeriders' all-zero claim once at start-up
     want = {"fingerprint": nonempty + 1, "cluster_agg": nonempty,
-            "pearson": nonempty, "flash_attention": 0, "rwkv6": 0}
+            "pearson": nonempty, "flash_attention_bf16": 0,
+            "flash_attention_fp32": 0, "rwkv6": 0}
     if launches != want:
         raise AssertionError(f"train-path launches {launches}, expected {want}")
     acc = m["final_accuracy"]
@@ -667,7 +720,8 @@ def serve_phase(dev) -> dict:
     wall_s = time.perf_counter() - t0
     by_kernel = read_launches()
     launches = by_kernel["fingerprint"]
-    if launches == 0 or any(by_kernel[k] for k in ("flash_attention", "rwkv6")):
+    if launches == 0 or any(by_kernel[k] for k in ("flash_attention_bf16",
+                                                     "flash_attention_fp32", "rwkv6")):
         raise AssertionError(f"serve-path launches {by_kernel}")
 
     # -- checks against plain references ------------------------------- #
@@ -721,8 +775,8 @@ def qkv(rng, B: int, S: int, Hq: int, Hkv: int, hd: int, dtype, dev):
 
 
 def check_flash(q, k, v, causal: bool, window: int, what: str) -> dict:
-    """The kernel against the plain version on the float32 values of the
-    same inputs, element by element: |got - want| <= rtol |want| + atol,
+    """The kernel of the inputs' dtype against the plain version on their
+    float32 values, element by element: |got - want| <= rtol |want| + atol,
     rtol 0 in float32 and FLASH_RTOL_BF16 in bf16."""
     rtol = FLASH_RTOL_BF16 if q.dtype == torch.bfloat16 else 0.0
     got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window).float()
@@ -747,52 +801,95 @@ def live_pairs(S: int, causal: bool, window: int) -> int:
     return int((hi - lo + 1).sum())
 
 
-def flash_phase(dev) -> tuple[list[dict], dict]:
-    """The flash kernel against its plain version at the LM path's shape
-    and at the edge cases; times at the main-path shape."""
+def sdpa_backend(fn) -> dict:
+    """The device kernels of one call of ``fn`` (torch.profiler), and the
+    SDPA backend their names show."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(None)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA})
+    low = " ".join(names).lower()
+    # cuDNN's, PyTorch's flash (flash_fwd), memory-efficient (fmha_cutlass)
+    # or, failing those, the math path (matmuls and a softmax)
+    backend = ("cudnn" if "cudnn" in low else "flash" if "flash_fwd" in low
+               else "efficient" if "fmha" in low else "math")
+    return {"backend": backend, "kernels": [nm[:100] for nm in names]}
+
+
+# the edge cases, each in float32 and in bf16: (B, S, Hq, Hkv, hd), causal, window
+FLASH_CASES = {"ragged (1, 1000, 4, 2, 64)": ((1, 1000, 4, 2, 64), True, 0),
+               "non-causal (1, 512, 4, 4, 128)": ((1, 512, 4, 4, 128), False, 0),
+               "G = 8 (1, 300, 8, 1, 64) window 100": ((1, 300, 8, 1, 64), True, 100),
+               "hd 32 (2, 256, 4, 2, 32) window 64": ((2, 256, 4, 2, 32), True, 64),
+               "hd 128 (1, 384, 4, 2, 128)": ((1, 384, 4, 2, 128), True, 0),
+               "hd 120 (1, 130, 4, 1, 120)": ((1, 130, 4, 1, 120), True, 0),
+               "G = 5 (1, 257, 10, 2, 64)": ((1, 257, 10, 2, 64), True, 0)}
+
+
+def flash_phase(dev) -> tuple[dict, dict]:
+    """Both flash kernels against the plain version at the LM path's shape
+    and at the edge cases; times at the main-path shape, per dtype."""
     rng = np.random.default_rng(SEED + 6)
     B, S, Hq, Hkv, hd = LM_BATCH, LM_SEQ, 8, 4, 256      # gemma3-4b's attention
     q, k, v = qkv(rng, B, S, Hq, Hkv, hd, torch.bfloat16, dev)
+    inputs = {"bf16": (q, k, v), "fp32": tuple(t.float() for t in (q, k, v))}
     checks = {}
-    for window in (1024, 0):
-        what = f"main (2, 4096, 8, 4, 256) bf16 window {window}"
-        checks[what] = check_flash(q, k, v, True, window, what)
-    q32, k32, v32 = (t.float() for t in (q, k, v))
-    for window in (1024, 0):
-        what = f"main shape (2, 4096, 8, 4, 256) fp32 window {window}"
-        checks[what] = check_flash(q32, k32, v32, True, window, what)
-    del q32, k32, v32
-    cases = {"ragged (1, 1000, 4, 2, 64)": ((1, 1000, 4, 2, 64), True, 0),
-             "non-causal (1, 512, 4, 4, 128)": ((1, 512, 4, 4, 128), False, 0),
-             "G = 8 (1, 300, 8, 1, 64) window 100": ((1, 300, 8, 1, 64), True, 100),
-             "hd 32 (2, 256, 4, 2, 32) window 64": ((2, 256, 4, 2, 32), True, 64),
-             "hd 128 (1, 384, 4, 2, 128)": ((1, 384, 4, 2, 128), True, 0)}
-    for what, (shape, causal, window) in cases.items():
+    for dt, args in inputs.items():
+        for window in (1024, 0):
+            what = f"main (2, 4096, 8, 4, 256) window {window} {dt}"
+            checks[what] = check_flash(*args, True, window, what)
+    for what, (shape, causal, window) in FLASH_CASES.items():
         args = qkv(rng, *shape, torch.float32, dev)
         checks[what + " fp32"] = check_flash(*args, causal, window, what)
+        args = tuple(t.to(torch.bfloat16) for t in args)
+        checks[what + " bf16"] = check_flash(*args, causal, window, what)
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))    # SDPA's (B, H, S, hd)
     pos = torch.arange(S, device=dev)
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    rows = []
-    for window in (1024, 0):
-        band = pos[None, :] <= pos[:, None]
-        if window:
-            band &= pos[:, None] - pos[None, :] < window
-        n_ops = 4 * hd * B * Hq * live_pairs(S, True, window)   # q.k and p.v
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / BF16_OPS_PER_S * 1e6
-        rows.append({
-            "shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16", "window": window,
-            "kernel_us": median_us(lambda _: fa.flash_attention_cuda(
-                q, k, v, causal=True, window=window), None, 10, flush),
-            "plain_us": median_us(lambda _: fa.attention_plain(
-                q, k, v, causal=True, window=window), None, 5, flush),
-            "library_us": median_us(lambda _: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=band, enable_gqa=True), None, 10, flush),
-            "bound_us": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "flop": n_ops})
+    rows = {}
+    for dt, (qd, kd, vd) in inputs.items():
+        qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))   # SDPA's (B, H, S, hd)
+        n_bytes = (2 * qd.numel() + kd.numel() + vd.numel()) * qd.element_size()
+        # bf16 runs on the tensor cores; the float32 kernel on the CUDA cores
+        ops_per_s = BF16_OPS_PER_S if dt == "bf16" else ALU32_OPS_PER_S
+        rows[dt] = []
+        for window in (1024, 0):
+            band = pos[None, :] <= pos[:, None]
+            if window:
+                band &= pos[:, None] - pos[None, :] < window
+            n_ops = 4 * hd * B * Hq * live_pairs(S, True, window)   # q.k and p.v
+
+            def band_sdpa(_):
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                      enable_gqa=True)
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / ops_per_s * 1e6
+            row = {
+                "shape": [B, S, Hq, Hkv, hd], "dtype": str(qd.dtype).removeprefix("torch."),
+                "window": window,
+                "kernel_us": median_us(lambda _: fa.flash_attention_cuda(
+                    qd, kd, vd, causal=True, window=window), None, 10, flush),
+                "plain_us": median_us(lambda _: fa.attention_plain(
+                    qd, kd, vd, causal=True, window=window), None, 5, flush),
+                "library_us": median_us(band_sdpa, None, 10, flush),
+                "library_call": "F.scaled_dot_product_attention(band mask, enable_gqa=True)",
+                "library_backend": sdpa_backend(band_sdpa),
+                "bound_us": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "flop": n_ops}
+            if window == 0:
+                # the causal row also beside SDPA with no mask tensor, where
+                # PyTorch may pick its own flash backend
+                def causal_sdpa(_):
+                    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True)
+                row["library_causal_us"] = median_us(causal_sdpa, None, 10, flush)
+                row["library_causal_call"] = \
+                    "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+                row["library_causal_backend"] = sdpa_backend(causal_sdpa)
+            rows[dt].append(row)
     return rows, checks
 
 
@@ -880,7 +977,9 @@ def decode_vs_forward(cfg, params, tokens) -> float:
 
 def card_vs_cpu(cfg, dev) -> dict:
     """The configuration in float32, one period, B = 1, S = 128: logits on
-    the card (kernels) against the host CPU (plain versions), same weights."""
+    the card (kernels) against the host CPU (plain versions), same weights.
+    The card's forward is the path ``lm_fp32``: every kernel's launch count
+    is reset just before it and read just after."""
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", n_layers=len(cfg.pattern))
     p_dev = lmt.init_params(cfg32, seed=SEED + 1, device=dev)
     p_cpu = tree_map(lambda t: t.cpu(), p_dev)
@@ -888,13 +987,23 @@ def card_vs_cpu(cfg, dev) -> dict:
     toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
     t0 = time.perf_counter()
     with torch.inference_mode():
+        reset_launches()
         card = lmt.forward(cfg32, p_dev, tokens=toks.to(dev))[0]
+        torch.cuda.synchronize()
+        launches = read_launches()
         cpu = lmt.forward(cfg32, p_cpu, tokens=toks)[0]
     err = rel_err(card, cpu)
     if not err <= CARD_CPU_RTOL:
         raise AssertionError(f"{cfg.name}: card vs CPU logits rel err {err} > {CARD_CPU_RTOL}")
+    n_attn = sum(s.mixer == "attn" for s in cfg32.pattern)
+    want = {name: 0 for name in KERNELS}
+    want.update(flash_attention_fp32=n_attn, rwkv6=cfg32.n_layers - n_attn)
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: float32 forward launches {launches}, "
+                             f"expected {want}")
     return {"n_layers": cfg32.n_layers, "shape": [1, 128], "rel_err": err,
-            "tolerance": CARD_CPU_RTOL, "wall_s": time.perf_counter() - t0}
+            "tolerance": CARD_CPU_RTOL, "launches": launches,
+            "wall_s": time.perf_counter() - t0}
 
 
 def timed(fn):
@@ -940,8 +1049,8 @@ def lm_config_run(cfg, dev) -> dict:
         raise AssertionError(f"{cfg.name}: greedy_generate gave {tuple(toks.shape)}")
 
     want_fwd = {name: 0 for name in KERNELS}
-    want_fwd.update(flash_attention=n_attn, rwkv6=n_rwkv)
-    want_dec = dict(want_fwd, flash_attention=0, rwkv6=n_rwkv * steps)
+    want_fwd.update(flash_attention_bf16=n_attn, rwkv6=n_rwkv)
+    want_dec = dict(want_fwd, flash_attention_bf16=0, rwkv6=n_rwkv * steps)
     if forward_launches != want_fwd or decode_launches != want_dec:
         raise AssertionError(f"{cfg.name}: launches forward {forward_launches} (want "
                              f"{want_fwd}), decode {decode_launches} (want {want_dec})")
@@ -992,6 +1101,7 @@ def main() -> int:
     print(f"built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
         print(log.read_text().strip(), flush=True)
+    check_no_spills()
 
     res: dict = {}
     t0 = time.perf_counter()
@@ -1025,6 +1135,9 @@ def kernel_entries(res: dict) -> list[dict]:
         by_path[path] = {name: sum(run["launches"][path][name]
                                    for run in res["lm"].values())
                          for name in KERNELS}
+    by_path["lm_fp32"] = {name: sum(run["card_vs_cpu"]["launches"][name]
+                                    for run in res["lm"].values())
+                          for name in KERNELS}
 
     def us_to_ms(row, key):
         return None if row.get(key) is None else row[key] / 1e3
@@ -1045,31 +1158,51 @@ def kernel_entries(res: dict) -> list[dict]:
                 **extra}
 
     shapes, fp_err = res["fp"]
-    agg_row, agg_err = res["agg"]
+    agg_row, agg_row16 = res["agg"]
     pe_row, pe_err = res["pe"]
     flash_rows, flash_checks = res["flash"]
     wkv_row, wkv_checks = res["wkv"]
-    main_flash = [c["max_abs_err"] for w, c in flash_checks.items()
-                  if w.startswith("main (")]
     cohort = shapes[1]                  # (100, 6570): the train path's rows
+
+    def flash(dt, source, main_path, tolerance):
+        checks = {w: c for w, c in flash_checks.items() if w.endswith(dt)}
+        main = max(c["max_abs_err"] for w, c in checks.items() if w.startswith("main ("))
+        causal = flash_rows[dt][1]
+        # the main-path row is window 1024: five of gemma3's six layers
+        return entry(f"flash_attention_{dt}", source,
+                     "src/repro/kernels/flash_attention.py:80", main_path,
+                     flash_rows[dt][0], main, tolerance, shape=[2, 4096, 8, 4, 256],
+                     dtype=flash_rows[dt][0]["dtype"], window=1024,
+                     library_call=flash_rows[dt][0]["library_call"],
+                     library_causal_ms=us_to_ms(causal, "library_causal_us"),
+                     library_causal_backend=causal.get("library_causal_backend"),
+                     shapes=flash_rows[dt], checks=checks)
+
     return [
         entry("fingerprint", "fingerprint.cu", "src/repro/kernels/fingerprint.py:102",
               "train", cohort, fp_err, 0, bit_exact=True, shape=[100, 6570],
               shapes=shapes),
         entry("cluster_agg", "cluster_agg.cu", "src/repro/kernels/cluster_agg.py:43",
-              "train", agg_row, agg_err, 0, bit_exact=True, shape=[100, 6570],
-              library_call="torch.matmul(mix, rows)"),
+              "train", agg_row, agg_row["max_abs_err"], 0, bit_exact=True,
+              shape=[100, 6570], dtype="float32", library_call="torch.matmul(mix, rows)",
+              # the same kernel on bf16 rows, which no path gives it yet (the
+              # launch counter counts both dtypes; every path's rows are fp32)
+              bf16={"launches": "none on a path", "max_abs_err": agg_row16["max_abs_err"],
+                    "ms": us_to_ms(agg_row16, "kernel_us"),
+                    "plain_ms": us_to_ms(agg_row16, "plain_us"),
+                    "bound_ms": us_to_ms(agg_row16, "bound_us"),
+                    "bound_by": agg_row16["bound_by"], "library_ms": None,
+                    "library_none_because": "no one PyTorch call sums bf16 rows in "
+                                            "float32 and rounds the mean once",
+                    "row": agg_row16}),
         entry("pearson", "pearson.cu", "src/repro/kernels/pearson.py:59",
               "train", pe_row, pe_err, PEARSON_TOL, shape=[100, 32],
               library_call="torch.corrcoef(protos)"),
-        # the main-path row is window 1024: five of gemma3's six layers
-        entry("flash_attention", "flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:80", "lm_forward", flash_rows[0],
-              max(main_flash), {"rtol": FLASH_RTOL_BF16, "atol": FLASH_TOL_F32,
-                                "against": "float32 plain version, per element"},
-              shape=[2, 4096, 8, 4, 256],
-              dtype="bfloat16", window=1024, shapes=flash_rows, checks=flash_checks,
-              library_call="F.scaled_dot_product_attention(band mask, enable_gqa=True)"),
+        flash("bf16", "flash_attention_sm90.cu", "lm_forward",
+              {"rtol": FLASH_RTOL_BF16, "atol": FLASH_TOL_F32,
+               "against": "float32 plain version, per element"}),
+        flash("fp32", "flash_attention.cu", "lm_fp32",
+              {"rtol": 0.0, "atol": FLASH_TOL_F32, "against": "plain version"}),
         entry("rwkv6", "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:45",
               "lm_forward", wkv_row, wkv_checks["main (2, 40, 4096, 64)"], WKV_TOL,
               shape=[2, 40, 4096, 64], dtype="float32", checks=wkv_checks),

@@ -20,9 +20,9 @@ device activities by device time, and one JSON line ``{"profile_lm":
 {...}}``: per configuration and path the wall time (per step for decode),
 the summed device time, the device busy share (device time over wall; one
 stream, so nothing overlaps), the number of device activities, and the
-device time by group — the port's two kernels, matrix products (cuBLAS),
-and the rest.  The profiler's own cost is in the wall time.  Exits non-zero
-without CUDA.
+device time by group — the port's flash-attention kernels (bf16 tensor
+cores and float32) and wkv kernel, matrix products (cuBLAS), and the rest.
+The profiler's own cost is in the wall time.  Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ SEED = 0
 CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
 BATCH, SEQ = 2, 4096
 PROMPT, DECODE_STEPS = 16, 8
-GROUPS = (("flash_attention kernel", ("flash_kernel",)),
+GROUPS = (("flash_attention kernels", ("flash_kernel", "flash_sm90_kernel")),
           ("rwkv6 wkv kernel", ("wkv_kernel",)),
           ("matmul (cuBLAS)", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "splitk")))
 

@@ -1,10 +1,11 @@
-// Causal / sliding-window GQA flash attention on Hopper (sm_90a), online
-// softmax with fp32 accumulation.
+// Causal / sliding-window GQA flash attention in float32 on Hopper (sm_90a),
+// online softmax on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel `flash_attention` / `_flash_kernel` in
-// src/repro/kernels/flash_attention.py.  For q (B, S, Hq, hd), k and v
-// (B, S, Hkv, hd), float32 or bfloat16, query head h reading kv head
-// h / (Hq / Hkv):
+// src/repro/kernels/flash_attention.py for float32 inputs (bf16 inputs go
+// to csrc/flash_attention_sm90.cu, on the tensor cores, which would take
+// float32 as TF32).  For q (B, S, Hq, hd), k and v (B, S, Hkv, hd), query
+// head h reading kv head h / (Hq / Hkv):
 //
 //     s[q, k]  = (q_q * 1/sqrt(hd)) . k_k          masked to -1e30 unless
 //                                                  k <= q (causal) and
@@ -24,8 +25,8 @@
 // range (the window's lower edge, the causal upper edge) and loops over
 // only those: dead tiles cost nothing, as with pl.when.
 //
-// A kv tile is 32 keys, copied from device memory into shared memory in
-// its input dtype by 16-byte cp.async copies, two tiles in flight: the
+// A kv tile is 32 keys, copied from device memory into shared memory by
+// 16-byte cp.async copies, two tiles in flight: the
 // next tile's copy runs while the block computes on this one, so the
 // copy's latency is hidden (a first version loaded the tiles with
 // synchronous 2-byte loads and spent most of its time waiting on them).
@@ -39,20 +40,18 @@
 // lane owns the head dimensions d = lane + 32 c of its rows' accumulators
 // (ceil(hd / 32) <= 8 registers a row).  q, k and v are read in the
 // model's (B, S, H, hd) layout through their strides: no transposes; every
-// row must start on 16 bytes (the wrapper checks).  At hd = 256 in bf16
-// the two stages and the query rows take 83 KB of shared memory, above the
-// 48 KB static limit: it is dynamic shared memory, raised with
+// row must start on 16 bytes (the wrapper checks).  At hd = 256 the two
+// stages and the query rows take 148 KB of shared memory, above the 48 KB
+// static limit: it is dynamic shared memory, raised with
 // cudaFuncSetAttribute before each launch.
 //
-// Bound on the H100: operations.  At the main path's (2, 4096, 8 / 4, 256)
-// bf16 the kernel must move about 100 MB (30 us at 3.35 TB/s) but do
-// 4 * hd flops for each of the 2 * 8 * 8.4 M live (q, k) pairs of a causal
-// layer, 137 GFLOP: 139 us at the bf16 tensor-core rate (989 TFLOP/s),
-// 61 us for a window of 1024.  This version runs plain fp32 FMAs on the
-// CUDA cores (67 TFLOP/s at most) with operands from shared memory, so it
-// sits well above that bound; wgmma and TMA are later work.
+// Bound on the H100: operations.  At the LM path's (2, 4096, 8 / 4, 256)
+// the kernel must move about 200 MB (60 us at 3.35 TB/s) but do 4 * hd
+// flops for each of the 2 * 8 * 8.4 M live (q, k) pairs of a causal layer,
+// 137 GFLOP: 2.05 ms at the fp32 rate outside the tensor cores (67
+// TFLOP/s), 0.90 ms for a window of 1024.  It runs those FMAs with
+// operands from shared memory, well above that bound.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -75,29 +74,11 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// the 16 / sizeof(T) values of one 16-byte chunk, as floats
-__device__ __forceinline__ void unpack(const uint4& raw, float* f, float) {
+// the four values of one 16-byte chunk
+__device__ __forceinline__ void unpack(const uint4& raw, float* f) {
   const float* p = reinterpret_cast<const float*>(&raw);
 #pragma unroll
   for (int e = 0; e < 4; ++e) f[e] = p[e];
-}
-__device__ __forceinline__ void unpack(const uint4& raw, float* f, __nv_bfloat16) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 x = __bfloat1622float2(p[e]);
-    f[2 * e] = x.x;
-    f[2 * e + 1] = x.y;
-  }
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -122,33 +103,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// elements between key rows in shared memory: hd plus 16 bytes of padding
-template <typename T>
-__host__ __device__ __forceinline__ int key_stride(int hd) { return hd + 16 / (int)sizeof(T); }
+constexpr int kVec = 4;                        // floats per 16-byte chunk
 
-template <typename T>
+// floats between key rows in shared memory: hd plus 16 bytes of padding
+__host__ __device__ __forceinline__ int key_stride(int hd) { return hd + kVec; }
+
 size_t smem_bytes(int hd) {
-  return sizeof(T) * 2 * (size_t)kKeys * (key_stride<T>(hd) + hd) +
-         sizeof(float) * (size_t)kRows * hd;
+  return sizeof(float) * (2 * (size_t)kKeys * (key_stride(hd) + hd) + (size_t)kRows * hd);
 }
 
 // NC = ceil(hd / 32): accumulator registers per row and lane.
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const Args a) {
-  constexpr int kVec = 16 / sizeof(T);      // elements per 16-byte chunk
   extern __shared__ __align__(16) unsigned char smem[];
   const int hd = a.hd;
-  const int ks = key_stride<T>(hd);
+  const int ks = key_stride(hd);
   const int chunks = hd / kVec;             // 16-byte chunks per row
-  T* Ks = reinterpret_cast<T*>(smem);                       // 2 stages x kKeys x ks
-  T* Vs = Ks + 2 * kKeys * ks;                              // 2 stages x kKeys x hd
-  float* Qs = reinterpret_cast<float*>(Vs + 2 * kKeys * hd);  // kRows x hd, pre-scaled
+  float* Ks = reinterpret_cast<float*>(smem);               // 2 stages x kKeys x ks
+  float* Vs = Ks + 2 * kKeys * ks;                          // 2 stages x kKeys x hd
+  float* Qs = Vs + 2 * kKeys * hd;                          // kRows x hd, pre-scaled
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  T* out = static_cast<T*>(a.out);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  float* out = static_cast<float*>(a.out);
 
   const int G = a.Hq / a.Hkv;
   const int b = blockIdx.z, hk = blockIdx.y;
@@ -164,8 +143,8 @@ flash_kernel(const Args a) {
 
   // tile t (keys t * kKeys ..) into stage st, zero-filled past S
   auto copy_tile = [&](int t, int st) {
-    T* kd = Ks + st * kKeys * ks;
-    T* vd = Vs + st * kKeys * hd;
+    float* kd = Ks + st * kKeys * ks;
+    float* vd = Vs + st * kKeys * hd;
     for (int c = tid; c < kKeys * chunks; c += kThreads) {
       const int j = c / chunks, d = (c - j * chunks) * kVec;
       const int kp = t * kKeys + j;
@@ -186,7 +165,7 @@ flash_kernel(const Args a) {
     if (r < nrows && qp < a.S) {
       const uint4 raw = *reinterpret_cast<const uint4*>(
           q + b * a.q_sb + qp * a.q_ss + (long long)(hk * G + r % G) * a.q_sh + d);
-      unpack(raw, x, T());
+      unpack(raw, x);
     } else {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) x[e] = 0.f;
@@ -220,12 +199,12 @@ flash_kernel(const Args a) {
     float s[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
-    const T* krow = Ks + st * kKeys * ks + lane * ks;
+    const float* krow = Ks + st * kKeys * ks + lane * ks;
     const float4* qrow = reinterpret_cast<const float4*>(Qs + warp * kRowsPerWarp * hd);
     const int hd4 = hd / 4;
     for (int c = 0; c < chunks; ++c) {
       float kf[kVec];
-      unpack(*reinterpret_cast<const uint4*>(krow + c * kVec), kf, T());
+      unpack(*reinterpret_cast<const uint4*>(krow + c * kVec), kf);
 #pragma unroll
       for (int e = 0; e < kVec; e += 4) {
         const int d4 = (c * kVec + e) / 4;
@@ -258,13 +237,13 @@ flash_kernel(const Args a) {
     }
 
     // acc += p V: lane owns dims lane + 32 c
-    const T* vt = Vs + st * kKeys * hd;
+    const float* vt = Vs + st * kKeys * hd;
     for (int j = 0; j < kKeys; ++j) {
       float vj[NC];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int d = lane + 32 * c;
-        vj[c] = d < hd ? to_float(vt[j * hd + d]) : 0.f;
+        vj[c] = d < hd ? vt[j * hd + d] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
@@ -281,59 +260,55 @@ flash_kernel(const Args a) {
     const int r = warp * kRowsPerWarp + i;
     if (r >= nrows || qpos[i] >= a.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* o = out + (((long long)b * a.S + qpos[i]) * a.Hq + hk * G + r % G) * hd;
+    float* o = out + (((long long)b * a.S + qpos[i]) * a.Hq + hk * G + r % G) * hd;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
-      if (d < hd) o[d] = from_float<T>(acc[i][c] / den);
+      if (d < hd) o[d] = acc[i][c] / den;
     }
   }
 }
 
-template <typename T, int NC>
+template <int NC>
 int launch(const Args& a, int B, cudaStream_t stream) {
   // above 48 KB a block gets dynamic shared memory only when asked for
-  const size_t bytes = smem_bytes<T>(a.hd);
+  const size_t bytes = smem_bytes(a.hd);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flash_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.S + a.qt - 1) / a.qt, a.Hkv, B);
-  flash_kernel<T, NC><<<grid, kThreads, bytes, stream>>>(a);
+  flash_kernel<NC><<<grid, kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const Args& a, int B, cudaStream_t stream) {
   switch ((a.hd + 31) / 32) {
-    case 1: return launch<T, 1>(a, B, stream);
-    case 2: return launch<T, 2>(a, B, stream);
-    case 3: return launch<T, 3>(a, B, stream);
-    case 4: return launch<T, 4>(a, B, stream);
-    case 5: return launch<T, 5>(a, B, stream);
-    case 6: return launch<T, 6>(a, B, stream);
-    case 7: return launch<T, 7>(a, B, stream);
-    case 8: return launch<T, 8>(a, B, stream);
+    case 1: return launch<1>(a, B, stream);
+    case 2: return launch<2>(a, B, stream);
+    case 3: return launch<3>(a, B, stream);
+    case 4: return launch<4>(a, B, stream);
+    case 5: return launch<5>(a, B, stream);
+    case 6: return launch<6>(a, B, stream);
+    case 7: return launch<7>(a, B, stream);
+    case 8: return launch<8>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q (B, S, Hq, hd), k and v (B, S, Hkv, hd) of one dtype (0 float32,
-// 1 bfloat16), each with unit stride over hd, the given element strides
-// over (b, s, h), and every row starting on 16 bytes (hd * itemsize, the
-// strides times itemsize and the pointers multiples of 16); out
-// (B, S, Hq, hd) contiguous of the same dtype.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// q (B, S, Hq, hd), k and v (B, S, Hkv, hd) float32, each with unit stride
+// over hd, the given element strides over (b, s, h), and every row starting
+// on 16 bytes (hd, the strides times 4 and the pointers multiples of 16);
+// out (B, S, Hq, hd) contiguous float32.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int dtype, int B, int S,
-    int Hq, int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, int causal, int window, float scale, void* stream) {
-  const int itemsize = dtype == 0 ? 4 : 2;
-  if (dtype < 0 || dtype > 1 || B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      Hq / Hkv > kRows || hd <= 0 || (hd * itemsize) % 16 != 0 || hd > 32 * kMaxChunks ||
-      B > 65535 || Hkv > 65535)
+    const void* q, const void* k, const void* v, void* out, int B, int S, int Hq, int Hkv,
+    int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal, int window,
+    float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kRows || hd <= 0 ||
+      hd % 4 != 0 || hd > 32 * kMaxChunks || B > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -357,7 +332,5 @@ extern "C" int flash_attention_launch(
   a.v_ss = v_ss;
   a.v_sh = v_sh;
   a.scale = scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, B, s);
-  return dispatch<__nv_bfloat16>(a, B, s);
+  return dispatch(a, B, static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,537 @@
+// Causal / sliding-window GQA flash attention in bfloat16 on Hopper's tensor
+// cores (sm_90a): TMA copies, mbarriers, wgmma, warp specialisation.
+//
+// Replaces the Pallas TPU kernel `flash_attention` / `_flash_kernel` in
+// src/repro/kernels/flash_attention.py for bf16 inputs (float32 inputs keep
+// csrc/flash_attention.cu: the tensor cores would take them as TF32).  For
+// q (B, S, Hq, hd), k and v (B, S, Hkv, hd), query head h reading kv head
+// h / (Hq / Hkv), the same function as the Pallas kernel:
+//
+//     s[q, k]  = (q_q . k_k) / sqrt(hd), in float32   masked to -1e30 unless
+//                                                    k <= q (causal) and
+//                                                    q - k < window (window > 0)
+//     out[q]   = sum_k softmax_k(s[q, :]) v_k         divided by max(l, 1e-30)
+//
+// with the Pallas kernel's running (max, sum, accumulator): m' = max(m,
+// max_k s), p = exp(s - m'), l = l e^(m - m') + sum p, acc = acc e^(m - m')
+// + p V.  bf16 products are exact in float32 and the tensor cores sum them
+// in float32, so both products are the reference's float32 products up to
+// the order of the sums.
+//
+// Design.  A CTA of two warpgroups owns kRows = 128 query rows: row r is
+// (position q_lo + r / G, query head hk * G + r % G), so every kv tile it
+// stages serves all G heads of kv head hk.  Each warpgroup owns 64 rows and
+// runs the products; there is no producer warp (see the registers below):
+// thread 0 copies Q and the first two kv tiles, and afterwards the
+// warpgroup that is second to finish with a stage refills it, so neither
+// waits for the other.
+//   * Q: one TMA box per 64 head dims over (hd, Hq, S, B), box (64, G,
+//     128 / G, 1): it lands the rows in exactly the order above.  Where G
+//     does not divide 128 (G = 5, 6, ...), the last rows are zeroed once and
+//     never stored.
+//   * K and V: tiles of 64 keys, one TMA box per 64 head dims over
+//     (hd, Hkv, S, B), in a ring of two stages with a full barrier each for
+//     K and for V.
+//     The copies use 128-byte swizzle (each box row is 64 bf16 = 128 bytes),
+//     the layout wgmma reads without bank conflicts.  TMA's zero fill covers
+//     keys past S and head dims past hd (hd = 120, or below 64).
+//   * S = Q K^T: wgmma m64n64k16 with both operands K-major in shared memory
+//     (descriptors advanced 32 bytes a k-step inside the swizzled rows), then
+//     scaled in float32 (by 1/sqrt(hd) log2(e), below).
+//   * Online softmax on the accumulator fragments: each thread holds 2 rows
+//     x 16 columns of S; row max by two shuffles.  Scores are kept in units
+//     of log2 (one multiply by scale * log2(e)), so p = ex2(s - m) is one
+//     MUFU op; the masked value and the running max's start are both -1e30
+//     in those units, so a row with no live key yet gives p = 1 as in the
+//     reference (wiped by the first live key's correction, ex2(-1e30) = 0).  A warp whose 16 rows
+//     all kept their max skips rescaling O (a multiply by 1.0, exact).
+//     Tiles wholly inside the live band are not masked per element; only
+//     those crossing the diagonal, the window edge or S are.  Dead tiles
+//     are never loaded: the CTA loops over its live kv range only.
+//   * O += P V: wgmma m64n64k16 with P from registers (the S fragment of 16
+//     keys is exactly the A fragment of a k-step) and V MN-major from shared
+//     memory (the transpose bit of 16-bit wgmma), one instruction per 64
+//     head dims.  Precision: P goes in as two bf16 terms, P_hi = bf16(p) and
+//     P_lo = bf16(p - P_hi), two wgmmas into one accumulator, so P carries
+//     about 2^-17 relative error instead of bf16's 2^-9 (at window 1024 one
+//     rounding of P would put about 3e-5 on outputs near zero, over the
+//     2e-5 the check allows beside one rounding of the output).  That is
+//     1.5x the operations the bound counts.
+//   * The two warpgroups take turns to start their products (two named
+//     barriers passed back and forth, FA3's ping-pong), so one's softmax
+//     runs while the other's products hold the tensor cores.
+//   * O stays in registers: at hd 256 128 fp32 a thread, 241 in all.
+//     An SM's registers sit in four 16K banks, one per warp scheduler, so a
+//     CTA of 9 or 12 warps (a producer warp or warpgroup beside them) puts 3
+//     warps on one bank and gets 168 registers a thread: a first version
+//     with a producer warpgroup handing its registers over by setmaxnreg
+//     (24 / 240), and a second with one producer warp, both compiled at
+//     168, spilled and serialised their wgmmas.  8 warps get up to 255.
+//   * The CTAs with the most kv tiles (the last query blocks, causal) start
+//     first.
+// q, k and v are read through their strides (multiples of 16 bytes, as TMA
+// requires; the wrapper checks); out (B, S, Hq, hd) is contiguous.
+//
+// Bound on the H100: operations.  At the main path's (2, 4096, 8 / 4, 256)
+// the kernel must move about 100 MB (30 us at 3.35 TB/s) but do 4 hd flops
+// for each of the 2 * 8 * 8.4 M live (q, k) pairs of a causal layer, 137
+// GFLOP: 139 us at the bf16 tensor-core rate (989 TFLOP/s), 61 us for a
+// window of 1024.  This kernel does 1.5x that (P in two terms); its
+// times on an H100 beside SDPA's are in PERF.md (chip_smoke.py).
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRows = 128;                 // query rows per CTA
+constexpr int kKeys = 64;                  // keys per kv tile
+constexpr int kChunk = 64;                 // head dims per TMA box: one 128-byte row
+constexpr int kStages = 2;
+constexpr int kThreads = 256;              // two warpgroups
+constexpr int kMaxGroup = 16;
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMasked = kNegInf * kLog2e;  // a masked score, in log2 units
+constexpr uint32_t kRowBytes = 128;
+constexpr uint32_t kQBox = kRows * kRowBytes;   // 64 head dims of the 128 query rows
+constexpr uint32_t kKvBox = kKeys * kRowBytes;  // 64 head dims of a kv tile
+
+struct Params {
+  __nv_bfloat16* out;
+  int S, Hq, Hkv, hd, G, P, nq, causal, window;
+  float scale;
+  float scale_log2;   // scale * log2(e)
+};
+
+// byte offsets into the 1024-byte aligned dynamic shared memory; NCH =
+// ceil(hd / 64) boxes per row
+template <int NCH>
+struct Smem {
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t k = NCH * kQBox;
+  static constexpr uint32_t v = k + kStages * NCH * kKvBox;
+  static constexpr uint32_t bars = v + kStages * NCH * kKvBox;
+  static constexpr uint32_t done = bars + 8 * (1 + 2 * kStages);   // per-stage counters
+  static constexpr uint32_t bytes = done + 4 * kStages + 1024;     // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarriers ------------------------------------------------------------ //
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// until the phase of the given parity has completed.  A wait that outlasts
+// about 10 s of clock cycles (no real one takes microseconds) traps: the
+// launch then fails with an error instead of holding the card forever.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// -- TMA ------------------------------------------------------------------ //
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// -- wgmma ---------------------------------------------------------------- //
+// shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// byte offset (the stride between 64-element atoms along M/N for an MN-major
+// operand; unused for K-major), stride byte offset 1024 (8 rows of 128 bytes)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pin register values at this point of the program, so the compiler moves
+// no write of a wgmma operand past wgmma.fence and no read of an accumulator
+// before wgmma.wait_group
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define WGMMA_D32(d)                                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),         \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),      \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define WGMMA_D32_LIST                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "   \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d += A B, m64n64k16, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A B, m64n64k16, A from registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WGMMA_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+template <int NCH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const Params a) {
+  using L = Smem<NCH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sq = smem_u32(smem + L::q), sk = smem_u32(smem + L::k),
+                 sv = smem_u32(smem + L::v), sbar = smem_u32(smem + L::bars);
+  // barriers: Q full, then K full and V full per stage
+  auto k_full = [&](int st) { return sbar + 8 * (1 + st); };
+  auto v_full = [&](int st) { return sbar + 8 * (1 + kStages + st); };
+  // warpgroups done with each stage, counted across its uses
+  unsigned* done = reinterpret_cast<unsigned*>(smem + L::done);
+
+  const int G = a.G, nrows = a.G * a.P;
+  const int qb = a.nq - 1 - (int)blockIdx.x;      // most kv tiles first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int q_lo = qb * a.P;
+  const int q_hi = min(q_lo + a.P, a.S) - 1;
+  const int kv_lo = a.window > 0 ? max(0, q_lo - a.window + 1) : 0;
+  const int kv_hi = a.causal ? q_hi : a.S - 1;
+  const int t_lo = kv_lo / kKeys, t_hi = kv_hi / kKeys;
+  const int tid = threadIdx.x;
+
+  // kv tile t into stage st
+  auto load_tile = [&](int t, int st) {
+    mbar_expect_tx(k_full(st), NCH * kKvBox);
+    for (int c = 0; c < NCH; ++c)
+      tma_load_4d(sk + (st * NCH + c) * kKvBox, &tk, k_full(st), c * kChunk, hk, t * kKeys, b);
+    mbar_expect_tx(v_full(st), NCH * kKvBox);
+    for (int c = 0; c < NCH; ++c)
+      tma_load_4d(sv + (st * NCH + c) * kKvBox, &tv, v_full(st), c * kChunk, hk, t * kKeys, b);
+  };
+
+  // query rows past G * P are never copied: zero them for the products
+  for (int i = nrows * (kRowBytes / 4) + tid; i < kRows * (kRowBytes / 4); i += kThreads)
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) reinterpret_cast<uint32_t*>(smem + L::q + c * kQBox)[i] = 0u;
+  if (tid == 0) {
+    mbar_init(sbar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      done[st] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // zeros seen by wgmma
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(sbar, NCH * nrows * kRowBytes);
+    for (int c = 0; c < NCH; ++c)
+      tma_load_4d(sq + c * kQBox, &tq, sbar, c * kChunk, hk * G, q_lo, b);
+    for (int t = t_lo; t <= min(t_hi, t_lo + kStages - 1); ++t) load_tile(t, t - t_lo);
+  }
+
+  const int cw = tid / 128, ctid = tid % 128;      // warpgroup, thread in it
+  const int warp = ctid / 32, lane = ctid % 32;
+  // this thread's rows of the accumulators (r0 and r0 + 8) and its first
+  // column in each 8-column block (kc and kc + 1)
+  const int r0 = cw * 64 + warp * 16 + lane / 4, r1 = r0 + 8;
+  const int pos0 = q_lo + r0 / G, pos1 = q_lo + r1 / G;
+  const int kc = 2 * (lane % 4);
+  const uint32_t q_rows = sq + cw * 64 * kRowBytes;   // this warpgroup's 64 rows
+
+  float o[NCH][32];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f;
+  // the warpgroups take turns to start their products: bar.sync on this
+  // warpgroup's barrier waits for the other's bar.arrive
+  auto my_turn = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(3 + cw) : "memory"); };
+  auto your_turn = [&]() { asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - cw) : "memory"); };
+  if (cw == 1) your_turn();                         // warpgroup 0 goes first
+
+  mbar_wait(sbar, 0);
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int it = t - t_lo, st = it % kStages;
+    const uint32_t phase = (it / kStages) & 1;
+    const int k0 = t * kKeys;
+    // S = Q K^T over the head dims, k-steps of 16 (those past hd read zeros)
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    mbar_wait(k_full(st), phase);
+    my_turn();
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(s, desc_sw128(q_rows + c * kQBox + kk * 32, 16),
+                 desc_sw128(sk + (st * NCH + c) * kKvBox + kk * 32, 16));
+    wgmma_commit();
+    your_turn();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale, mask where the tile crosses an edge of the live band, row max
+    const bool edge = k0 + kKeys > a.S || (a.causal && k0 + kKeys - 1 > q_lo) ||
+                      (a.window > 0 && q_hi - k0 >= a.window);
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * a.scale_log2;
+      if (edge) {
+        const int kp = k0 + 8 * (i / 4) + kc + (i & 1);
+        const int pos = (i & 2) ? pos1 : pos0;
+        bool ok = kp < a.S;
+        if (a.causal) ok = ok && kp <= pos;
+        if (a.window > 0) ok = ok && pos - kp < a.window;
+        x = ok ? x : kMasked;
+      }
+      s[i] = x;
+      if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float corr0 = ex2(m0 - mx0), corr1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = ex2(s[i] - ((i & 2) ? m1 : m0));
+      s[i] = p;
+      if (i & 2) sum1 += p; else sum0 += p;
+    }
+    l0 = l0 * corr0 + sum0;                  // this thread's share of the row sums
+    l1 = l1 * corr1 + sum1;
+    if (__any_sync(0xffffffffu, corr0 != 1.f || corr1 != 1.f)) {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= (i & 2) ? corr1 : corr0;
+    }
+
+    // P as bf16 A fragments, high and low terms: the accumulator layout of
+    // S is wgmma's A layout, so registers 4 kk .. 4 kk + 3 (two values of s
+    // each) are the fragment of k-step kk, keys 16 kk .. 16 kk + 15
+    uint32_t p_hi[16], p_lo[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(s[2 * q], s[2 * q + 1]);
+      const float2 hf = __bfloat1622float2(h);
+      p_hi[q] = bf16x2_bits(h);
+      p_lo[q] = bf16x2_bits(__floats2bfloat162_rn(s[2 * q] - hf.x, s[2 * q + 1] - hf.y));
+    }
+
+    // O += P V: 16 keys a k-step, 64 head dims an instruction
+    mbar_wait(v_full(st), phase);
+    my_turn();
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) fence_regs(o[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const uint64_t dv =
+            desc_sw128(sv + (st * NCH + c) * kKvBox + kk * 16 * kRowBytes, kKvBox);
+        wgmma_rs(o[c], p_hi + 4 * kk, dv);
+        wgmma_rs(o[c], p_lo + 4 * kk, dv);
+      }
+    wgmma_commit();
+    if (cw == 0 || t < t_hi) your_turn();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) fence_regs(o[c]);
+    // this warpgroup is done with stage st; the second one to be refills it
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+    if (ctid == 0 && (atomicAdd(done + st, 1u) & 1u) && t + kStages <= t_hi)
+      load_tile(t + kStages, st);
+  }
+
+  // the row sums over the 4 lanes of a row; out = O / max(l, 1e-30)
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r1 : r0, pos = half ? pos1 : pos0;
+    if (r >= nrows || pos >= a.S) continue;
+    const float den = half ? den1 : den0;
+    __nv_bfloat16* orow =
+        a.out + (((long long)b * a.S + pos) * a.Hq + hk * G + r % G) * a.hd;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = c * kChunk + 8 * j + kc;
+        if (d < a.hd)
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+              o[c][4 * j + 2 * half] / den, o[c][4 * j + 2 * half + 1] / den);
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-d map over (hd, H, S, B) of bf16 with element strides (sh, ss, sb),
+// boxes of (64, box_h, box_s, 1), 128-byte swizzle, zero fill out of bounds
+bool encode(EncodeTiled enc, CUtensorMap* map, const void* base, int hd, int H, int S, int B,
+            long long sh, long long ss, long long sb, int box_h, int box_s) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kChunk, (cuuint32_t)box_h, (cuuint32_t)box_s, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int NCH>
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+           const Params& a, int B, cudaStream_t stream) {
+  const int bytes = (int)Smem<NCH>::bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_sm90_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.nq, a.Hkv, B);
+  flash_sm90_kernel<NCH><<<grid, kThreads, bytes, stream>>>(tq, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q (B, S, Hq, hd), k and v (B, S, Hkv, hd) bfloat16, each with unit stride
+// over hd and the given element strides over (b, s, h), every stride times 2
+// and every pointer a multiple of 16 bytes; hd a multiple of 8 up to 256,
+// Hq / Hkv <= 16; out (B, S, Hq, hd) contiguous bfloat16.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success), cudaErrorInvalidValue
+// for a shape it does not take, or cudaErrorNotSupported if libcuda's
+// tensor-map encoder is missing or refuses a map.
+extern "C" int flash_attention_sm90_launch(
+    const void* q, const void* k, const void* v, void* out, int B, int S, int Hq, int Hkv,
+    int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal, int window,
+    float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup || hd <= 0 ||
+      hd % 8 != 0 || hd > 4 * kChunk || B > 65535 || Hkv > 65535)
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  Params a;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.S = S;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.hd = hd;
+  a.G = Hq / Hkv;
+  a.P = kRows / a.G;
+  a.nq = (S + a.P - 1) / a.P;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  a.scale_log2 = scale * kLog2e;
+  alignas(64) CUtensorMap tq, tk, tv;
+  if (!encode(enc, &tq, q, hd, Hq, S, B, q_sh, q_ss, q_sb, a.G, a.P) ||
+      !encode(enc, &tk, k, hd, Hkv, S, B, k_sh, k_ss, k_sb, 1, kKeys) ||
+      !encode(enc, &tv, v, hd, Hkv, S, B, v_sh, v_ss, v_sb, 1, kKeys))
+    return (int)cudaErrorNotSupported;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((hd + kChunk - 1) / kChunk) {
+    case 1: return launch<1>(tq, tk, tv, a, B, s);
+    case 2: return launch<2>(tq, tk, tv, a, B, s);
+    case 3: return launch<3>(tq, tk, tv, a, B, s);
+    case 4: return launch<4>(tq, tk, tv, a, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -11,11 +11,13 @@ online-softmax kernel) with the semantics of its oracle
     out[q]   = softmax_k(s[q, :]) @ v          (fp32 inside, q's dtype out)
 
 :func:`attention_plain` follows ``attention_ref`` (materialises the scores);
-:func:`flash_attention_cuda` launches the hand-written kernel
-(``csrc/flash_attention.cu``) on the tensors' strides, with no transposes
-and any S.  ``repro_torch.kernels.ops.attention`` picks by where the tensors
-lie: the plain version for CPU tensors, the kernel for CUDA tensors, which
-launches or raises; there is no fallback.
+:func:`flash_attention_cuda` launches a hand-written kernel on the tensors'
+strides, with no transposes and any S, chosen by the tensors' dtype: bf16
+goes to the tensor-core kernel (``csrc/flash_attention_sm90.cu``: TMA,
+wgmma), float32 to ``csrc/flash_attention.cu`` (CUDA-core FMAs: the tensor
+cores would take float32 as TF32).  ``repro_torch.kernels.ops.attention``
+picks by where the tensors lie: the plain version for CPU tensors, a kernel
+for CUDA tensors, which launches or raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -27,11 +29,20 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-MAX_GROUP = 16            # query heads per kv head: the kernel's rows a block
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GROUP = 16            # query heads per kv head: the kernels' rows a block
+# each input dtype's kernel: its source and launch function (the same
+# arguments: q, k, v, out; B, S, Hq, Hkv, hd; the nine strides; causal,
+# window, scale, stream)
+_KERNELS = {torch.float32: ("flash_attention.cu", "flash_attention_launch"),
+            torch.bfloat16: ("flash_attention_sm90.cu", "flash_attention_sm90_launch")}
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
-# Launches of flash_attention_cuda since the last reset (set it to 0).
+# Launches since the last reset (set them to 0): of the float32 kernel
+# (csrc/flash_attention.cu) and of the bf16 tensor-core kernel
+# (csrc/flash_attention_sm90.cu).
 launches = 0
+launches_bf16 = 0
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -68,34 +79,32 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
-def _kernel() -> ctypes.CDLL:
-    lib = _build.load("flash_attention.cu")
-    fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_int,
-                                                ctypes.c_float, ctypes.c_void_p])
+def _launcher(dtype: torch.dtype):
+    """The launch function of ``dtype``'s kernel, built at first use."""
+    source, symbol = _KERNELS[dtype]
+    fn = getattr(_build.load(source), symbol)
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0) -> torch.Tensor:
-    """(B, S, Hq, hd) attention on a CUDA device by the hand-written kernel,
-    on the current stream; the result is (B, S, Hq, hd) contiguous in q's
-    dtype.  q, k and v are read through their strides (unit stride over hd
-    and rows on 16 bytes required: the kernel copies 16 bytes at a time).  Raises on anything the kernel does not take, on an input
-    that requires grad (the kernel has no backward yet), and if the launch
-    is refused."""
-    global launches
+    """(B, S, Hq, hd) attention on a CUDA device by the hand-written kernel
+    of the tensors' dtype (bf16: tensor cores; float32: CUDA cores), on the
+    current stream; the result is (B, S, Hq, hd) contiguous in q's dtype.
+    q, k and v are read through their strides (unit stride over hd and rows
+    on 16 bytes required: the kernels copy 16 bytes or TMA boxes).  Raises
+    on anything the kernels do not take (whatever the device), on an input
+    that requires grad (they have no backward yet), on tensors not on one
+    CUDA device, and if the launch is refused."""
+    global launches, launches_bf16
     _check(q, k, v)
     tensors = (q, k, v)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError("flash_attention_cuda needs CUDA tensors on one device, "
-                         f"got {[str(t.device) for t in tensors]}")
     if any(t.requires_grad for t in tensors):
         raise RuntimeError("flash_attention_cuda has no backward kernel yet: "
                            "call it under torch.no_grad() or inference_mode()")
-    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+    if q.dtype not in _KERNELS or any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"flash_attention_cuda takes float32 or bfloat16 q, k, v "
                         f"of one dtype, got {[t.dtype for t in tensors]}")
     B, S, Hq, hd = q.shape
@@ -112,18 +121,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention_cuda needs unit stride over head_dim and "
                          "every row on 16 bytes (hd * itemsize, the other strides "
                          "times itemsize and the pointers multiples of 16)")
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("flash_attention_cuda needs CUDA tensors on one device, "
+                         f"got {[str(t.device) for t in tensors]}")
     out = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    lib = _kernel()
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    launch = _launcher(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, S, Hq, Hkv, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(window), 1.0 / (hd ** 0.5), stream)
+        err = launch(*pointers, B, S, Hq, Hkv, hd, *strides, int(causal), int(window),
+                     1.0 / (hd ** 0.5), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    launches += 1
+    if q.dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out

@@ -31,8 +31,8 @@ def pearson(protos: torch.Tensor) -> torch.Tensor:
 def cluster_aggregate(rows: torch.Tensor, labels: torch.Tensor,
                       n_clusters: int, weights: torch.Tensor | None = None
                       ) -> torch.Tensor:
-    """Cluster-masked FedAvg over (m, N) float32 client rows, in the
-    round engine's fixed tree order."""
+    """Cluster-masked FedAvg over (m, N) float32 or bf16 client rows, in
+    the round engine's fixed tree order."""
     return cluster_mean_rows(rows, labels, n_clusters, weights)
 
 

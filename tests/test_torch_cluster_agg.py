@@ -11,8 +11,15 @@ Allclose: against the Pallas kernel `cluster_agg_pallas(rows,
 mixing_matrix(labels, C, w), interpret=True)` at atol 1e-5 — the same
 function as a mixing-matrix product, summed in another order.
 
+bfloat16 rows: the plain version is the oracle on the rows' float32
+values, rounded once to bf16, bit for bit; and within the reference's own
+bf16 tolerance (3e-2, `tests/test_kernels_cluster_agg.py`) of the Pallas
+kernel on the same bf16 rows.
+
 The CUDA kernel is held bit for bit against the plain version on the card
-(`cuda` marker)."""
+(`cuda` marker), in float32 and bf16 rows, up to m = MAX_ROWS = 65536 and at
+the edge cases.  What it does not take, its wrapper refuses before it looks
+at the device, so those refusals are tested here on the CPU."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,6 +57,16 @@ def _bits(a):
 def _plain(rows, labels, c, w):
     t = [torch.from_numpy(np.asarray(a)) for a in (rows, labels, w)]
     return ka.cluster_mean_rows(t[0], t[1], c, t[2]).numpy()
+
+
+def _bf16(rows):
+    """(bf16 tensor, its float32 values as numpy) of float32 rows."""
+    b = torch.from_numpy(rows).to(torch.bfloat16)
+    return b, b.float().numpy()
+
+
+def _bf16_bits(t):
+    return t.view(torch.int16).numpy()
 
 
 CASES = {
@@ -111,6 +128,88 @@ def test_plain_matches_pallas_mixing_product(m, n, c):
     np.testing.assert_allclose(_plain(rows, labels, c, w), pal, rtol=0, atol=ATOL)
 
 
+BF16_CASES = {
+    "main-path": (100, 6570, 5),
+    "odd-n": (100, 6571, 5),
+    "one-row": (1, 10, 3),
+    "ragged": (37, 131, 4),
+    "whole-population": (1000, 65, 5),
+    "past-a-chunk": (300, 33, 3),
+}
+EDGE_KINDS = ["nan-at-zero-weight", "negative-zero-row", "empty-cluster",
+              "all-zero-weights"]
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_plain_bf16_bit_exact_to_tree_oracle_rounded_once(case):
+    m, n, c = BF16_CASES[case]
+    rows, labels, w = _case(m, n, c, seed=m + n + 1)
+    b, values = _bf16(rows)
+    got = ka.cluster_mean_rows(b, torch.from_numpy(labels), c, torch.from_numpy(w))
+    assert got.dtype == torch.bfloat16
+    want = torch.from_numpy(tree_cluster_mean_ref(values, labels, c, weights=w)) \
+        .to(torch.bfloat16)
+    np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(want))
+
+
+@pytest.mark.parametrize("kind", EDGE_KINDS + ["bad-label"])
+def test_plain_bf16_edge_cases_bit_exact(kind):
+    """The edge cases in bf16, bit for bit the oracle rounded once.  A bad
+    label (-1) weighs in no cluster and its row is NaN (0x7fc0, PyTorch's
+    bits); the oracle, which has no bad labels, sees that row at weight 0."""
+    rows, labels, w = _edge("nan-at-zero-weight" if kind == "bad-label" else kind)
+    b, values = _bf16(rows)
+    got_labels, want_w = labels.copy(), w.copy()
+    if kind == "bad-label":
+        got_labels[3], want_w[3] = -1, 0.0
+    got = ka.cluster_mean_rows(b, torch.from_numpy(got_labels), 4, torch.from_numpy(w))
+    with np.errstate(invalid="ignore"):          # the oracle's 0 * inf, discarded
+        want = torch.from_numpy(tree_cluster_mean_ref(values, labels, 4, want_w)) \
+            .to(torch.bfloat16)
+    if kind == "bad-label":
+        assert (_bf16_bits(got)[3] == 0x7fc0).all()
+        want[3] = got[3]
+    np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(want))
+    assert torch.isfinite(got[torch.from_numpy(got_labels) >= 0].float()).all()
+
+
+PALLAS_BF16_CASES = {
+    "main-path": (100, 6570, 5),
+    "odd-n": (100, 6571, 5),
+    "one-row": (1, 10, 3),
+    "n-past-a-tile": (64, 5001, 4),
+    "empty-cluster": "empty-cluster",
+    "all-zero-weights": "all-zero-weights",
+    "bad-label": "bad-label",
+}
+
+
+@pytest.mark.parametrize("case", sorted(PALLAS_BF16_CASES))
+def test_plain_bf16_matches_pallas_mixing_product(case):
+    """Within the reference's bf16 tolerance of the Pallas kernel on the
+    same bf16 rows.  A bad label: the Pallas product gives its row 0 (its
+    one-hot row is empty), the port NaN; every other row is compared."""
+    spec = PALLAS_BF16_CASES[case]
+    if isinstance(spec, str):
+        rows, labels, w = _edge("empty-cluster" if spec == "bad-label" else spec)
+        c = 4
+        if spec == "bad-label":
+            labels[3] = -1
+    else:
+        m, n, c = spec
+        rows, labels, w = _case(m, n, c, seed=2)
+    b, values = _bf16(rows)
+    mix = mixing_matrix(jnp.asarray(labels), c, jnp.asarray(w))
+    pal = cluster_agg_pallas(jnp.asarray(values).astype(jnp.bfloat16), mix, interpret=True)
+    assert pal.dtype == jnp.bfloat16
+    got = ka.cluster_mean_rows(b, torch.from_numpy(labels), c,
+                               torch.from_numpy(w)).float().numpy()
+    good = labels >= 0
+    assert np.isnan(got[~good]).all()
+    np.testing.assert_allclose(got[good], np.asarray(pal, np.float32)[good],
+                               rtol=0, atol=3e-2)
+
+
 @pytest.mark.parametrize("m", [1, 2, 5, 8, 13])
 def test_tree_primitives_bit_exact(m):
     rng = np.random.default_rng(m)
@@ -167,6 +266,8 @@ def test_wrappers_refuse_what_they_do_not_take():
     wo, denom = ka.cluster_weights(labels, 2)
     with pytest.raises(TypeError):
         ka.cluster_agg_plain(rows.double(), labels, wo, denom)
+    with pytest.raises(TypeError):
+        ka.cluster_agg_plain(rows.half(), labels, wo, denom)
     with pytest.raises(ValueError):
         ka.cluster_agg_plain(rows, labels[:3], wo, denom)
     with pytest.raises(ValueError, match="no path"):
@@ -175,17 +276,72 @@ def test_wrappers_refuse_what_they_do_not_take():
         ka.cluster_agg_cuda(rows, labels, wo, denom)
 
 
+def _refused(kind):
+    """Inputs that cluster_agg_cuda refuses whatever their device."""
+    m = ka.MAX_ROWS + 1 if kind == "too-many-rows" else 4
+    rows = torch.zeros((m, 3))
+    labels = torch.zeros((m,), dtype=torch.long)
+    wo, denom = ka.cluster_weights(labels, 2)
+    if kind == "float16-rows":
+        rows = rows.half()
+    elif kind == "non-contiguous-rows":
+        rows = torch.zeros((3, m)).t()
+    elif kind == "float64-weights":
+        wo = wo.double()
+    return rows, labels, wo, denom
+
+
+@pytest.mark.parametrize("kind,error", [
+    ("float16-rows", TypeError), ("non-contiguous-rows", ValueError),
+    ("float64-weights", TypeError), ("too-many-rows", ValueError)])
+def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(kind, error):
+    """Refused before any device is looked at, so on the CPU as on the card:
+    nothing falls back to the plain version."""
+    before = ka.launches
+    with pytest.raises(error) as info:
+        ka.cluster_agg_cuda(*_refused(kind))
+    assert "CUDA tensors" not in str(info.value) and ka.launches == before
+
+
+CUDA_CASES = dict(CASES, **{"whole-population": (1000, 6570, 5),
+                            "past-a-chunk": (3000, 131, 5),
+                            "odd-n": (100, 6571, 5),
+                            "most-rows": (ka.MAX_ROWS, 40, 5),
+                            "most-rows-ragged": (ka.MAX_ROWS - 77, 33, 3)})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_cuda_kernel_bit_exact_to_plain(case):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+def test_cuda_kernel_bit_exact_to_plain(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    m, n, c = CASES[case]
+    m, n, c = CUDA_CASES[case]
     rows, labels, w = (torch.from_numpy(np.asarray(a)).cuda()
                        for a in _case(m, n, c, seed=m + n))
+    rows = rows.to(dtype)
     wo, denom = ka.cluster_weights(labels, c, w)
     before = ka.launches
     got = ka.cluster_mean_rows(rows, labels, c, w)
-    assert ka.launches == before + 1
+    assert ka.launches == before + 1 and got.dtype == dtype
     want = ka.cluster_agg_plain(rows, labels, wo, denom)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", EDGE_KINDS + ["bad-label"])
+def test_cuda_kernel_edge_cases_bit_exact_to_plain(kind, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rows, labels, w = _edge("nan-at-zero-weight" if kind == "bad-label" else kind)
+    if kind == "bad-label":
+        labels[3] = -1
+    rows, labels, w = (torch.from_numpy(a).cuda() for a in (rows, labels, w))
+    rows = rows.to(dtype)
+    wo, denom = ka.cluster_weights(labels, 4, w)
+    got = ka.cluster_agg_cuda(rows, labels, wo, denom)
+    want = ka.cluster_agg_plain(rows, labels, wo, denom)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))

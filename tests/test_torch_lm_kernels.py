@@ -12,9 +12,13 @@ size; the model's two attention forms (`attend_full`, `attend_chunked`);
 wkv at T = 1, chunked composition (two halves == the whole), w = 0.
 
 The CUDA kernels are held against the plain versions on the card (`cuda`
-marker; skipped without one): in float32 at 2e-5, and in bfloat16 element
-by element against the float32 result of the same inputs, within one
-rounding to bfloat16 (2^-8 |want| + 2e-5)."""
+marker; skipped without one): the float32 kernel at 2e-5, and the bf16
+tensor-core kernel element by element against the float32 result of the
+same inputs, within one rounding to bfloat16 (2^-8 |want| + 2e-5), at the
+LM path's (2, 4096, 8 / 4, 256) with windows 1024 and 0 and at the edge
+cases (ragged S, non-causal, G = 8 and 5, head_dim 32, 120 and 128,
+windows).  What the kernels do not take, the flash wrapper refuses before it
+looks at the device, so those refusals are tested here on the CPU."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -186,6 +190,31 @@ def test_plain_wkv_zero_decay_forgets_state():
     _wkv_check((y, sT), jops.rwkv6_wkv(*(jnp.asarray(a) for a in (r, k, v, w, u, s0))))
 
 
+FLASH_REFUSED = {
+    # name: ((B, S, Hq, Hkv, hd), q dtype, error)
+    "float16": ((1, 8, 2, 1, 32), torch.float16, TypeError),
+    "float64": ((1, 8, 2, 1, 32), torch.float64, TypeError),
+    "head-dim-past-256": ((1, 8, 2, 1, 264), torch.bfloat16, ValueError),
+    "group-of-17": ((1, 8, 17, 1, 32), torch.bfloat16, ValueError),
+    "bf16-rows-off-16-bytes": ((1, 8, 2, 1, 12), torch.bfloat16, ValueError),
+    "fp32-rows-off-16-bytes": ((1, 8, 2, 1, 6), torch.float32, ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_REFUSED))
+def test_flash_wrapper_refuses_what_the_kernels_do_not_take(case):
+    """Refused before any device is looked at, so on the CPU as on the card:
+    a bf16 input the tensor-core kernel cannot take raises, and goes to no
+    other kernel or plain version."""
+    shape, dtype, error = FLASH_REFUSED[case]
+    q, k, v = _torch(*_qkv(*shape), dtype=dtype)
+    before = (tfa.launches, tfa.launches_bf16)
+    with pytest.raises(error) as info:
+        tfa.flash_attention_cuda(q, k, v)
+    assert "CUDA tensors" not in str(info.value)
+    assert (tfa.launches, tfa.launches_bf16) == before
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     q, k, v = _torch(*_qkv(1, 8, 2, 1, 32))
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -204,6 +233,8 @@ def _need_cuda():
 
 
 CUDA_ATTN = {
+    "main-shape-window1024-bf16": (2, 4096, 8, 4, 256, True, 1024, torch.bfloat16),
+    "main-shape-global-bf16": (2, 4096, 8, 4, 256, True, 0, torch.bfloat16),
     "main-window1024-bf16": (1, 2048, 8, 4, 256, True, 1024, torch.bfloat16),
     "main-global-bf16": (1, 1024, 8, 4, 256, True, 0, torch.bfloat16),
     "ragged-fp32": (1, 1000, 4, 2, 64, True, 0, torch.float32),
@@ -211,6 +242,13 @@ CUDA_ATTN = {
     "gqa8-hd32-fp32": (1, 257, 8, 1, 32, True, 100, torch.float32),
     "hd120-fp32": (1, 130, 4, 1, 120, True, 0, torch.float32),
     "hd256-window1024-fp32": (1, 2048, 8, 4, 256, True, 1024, torch.float32),
+    "ragged-bf16": (1, 1000, 4, 2, 64, True, 0, torch.bfloat16),
+    "noncausal-bf16": (1, 512, 4, 4, 128, False, 0, torch.bfloat16),
+    "gqa8-window100-bf16": (1, 300, 8, 1, 64, True, 100, torch.bfloat16),
+    "hd32-window64-bf16": (2, 256, 4, 2, 32, True, 64, torch.bfloat16),
+    "hd128-bf16": (1, 384, 4, 2, 128, True, 0, torch.bfloat16),
+    "hd120-bf16": (1, 130, 4, 1, 120, True, 0, torch.bfloat16),
+    "gqa5-bf16": (1, 257, 10, 2, 64, True, 0, torch.bfloat16),
 }
 
 
@@ -220,10 +258,12 @@ def test_cuda_flash_matches_plain(case):
     _need_cuda()
     B, S, Hq, Hkv, hd, causal, window, dtype = CUDA_ATTN[case]
     q, k, v = _torch(*_qkv(B, S, Hq, Hkv, hd, seed=S), dtype=dtype, device="cuda")
-    before = tfa.launches
+    before = (tfa.launches, tfa.launches_bf16)
     got = tops.attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert tfa.launches == before + 1
+    # one launch, of the kernel of the inputs' dtype
+    bf16 = dtype == torch.bfloat16
+    assert (tfa.launches, tfa.launches_bf16) == (before[0] + (not bf16), before[1] + bf16)
     want = tfa.attention_plain(q.float(), k.float(), v.float(), causal=causal,
                                window=window)
     rtol = RTOL_BF16_ROUNDING if dtype == torch.bfloat16 else 0.0
