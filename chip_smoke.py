@@ -6,8 +6,8 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. kernels — builds every CUDA source of the port (`nvcc`, sm_90a, one
-   process per source, all at once; the tensor-core flash kernel must
-   compile without register spills) and holds each kernel against its plain
+   process per source, all at once; both flash kernels must compile
+   without register spills) and holds each kernel against its plain
    PyTorch version on the card:
    * fingerprint, bit for bit, at the serving bank (5, 6570), a commit
      cohort (100, 6570), a population (1000, 6570), ragged (17, 131) and
@@ -25,11 +25,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (2, 4096, 8 / 4, 256) with window 1024 and 0, element by element
      against the float32 result of the same inputs (|got - want| <=
      2^-8 |want| + 2e-5: one rounding to bf16), and the float32 kernel at
-     the same shape (atol 2e-5); then both at ragged (1, 1000, 4, 2, 64),
-     non-causal, G = 8 with window 100, head_dim 32 with window 64, 128 and
-     120, and G = 5, each at its own limit;
-   * the RWKV6 wkv recurrence, at the LM path's (2, 40, 4096, 64), T = 1,
-     two halves against the whole, and w = 0 (atol 1e-4);
+     the same shape (atol 2e-5), on those values and on full-mantissa
+     float32 inputs (which one TF32 product would not hold); then both at
+     ragged (1, 1000, 4, 2, 64), non-causal, G = 8 with window 100,
+     head_dim 32 with window 64, 128 and 120, and G = 5, each at its own
+     limit;
+   * the RWKV6 wkv recurrence, at the LM path's (2, 40, 4096, 64) (the
+     chunked form), with the model's strong decays w = exp(-exp(x)), at a
+     ragged T = 1000, at T = 1 (the recurrent kernel), two halves and a
+     split at 1001 against the whole, and w = 0 (atol 1e-4; w = 0 must
+     leave exactly the last k v^T);
    then times kernel, plain version and (where one PyTorch call computes
    the same function) the library call with CUDA events (median device
    time, cold L2) beside the least time the card could take; flash beside
@@ -154,6 +159,10 @@ ACC_TOL = 0.02
 STEP_ROWS_TOL = 1e-5
 # bf16 dense tensor-core peak (NVIDIA data sheet): the rate bf16 inputs allow
 BF16_OPS_PER_S = 989e12
+# TF32 dense tensor-core peak, half the bf16 rate: float32 work at float32
+# accuracy takes three TF32 products per product (3xTF32)
+TF32_OPS_PER_S = BF16_OPS_PER_S / 2
+TF32_PRODUCTS_PER_FP32 = 3
 # the reference's kernel tolerances (tests/test_kernels_{flash_attention,rwkv6}.py)
 FLASH_TOL_F32 = 2e-5
 WKV_TOL = 1e-4
@@ -171,7 +180,8 @@ DECODE_RTOL = 2e-2
 # or indexing fault in a kernel moves logits by O(1)
 CARD_CPU_RTOL = 1e-3
 LM_CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
-NO_SPILL_SOURCE = "flash_attention_sm90.cu"
+# the flash kernels keep O, S and P in registers: a spill serialises them
+NO_SPILL_SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu")
 LM_BATCH, LM_SEQ = 2, 4096              # train_4k's sequence length
 PROMPT, NEW_TOKENS, PARITY_TOKENS = 16, 16, 32
 # each kernel: its module and the module's launch counter
@@ -198,14 +208,16 @@ def fingerprint_bound_us(m: int, n: int) -> tuple[float, str]:
 
 
 def check_no_spills() -> None:
-    """The tensor-core flash kernel keeps O, S and P in registers (241 of
-    them at head_dim 256): ptxas must compile every instance without
-    spilling, or its wgmmas serialise on local memory."""
-    log = _build.library_path(NO_SPILL_SOURCE).with_suffix(".log").read_text()
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
-    if not spills or any(spills):
-        raise AssertionError(f"{NO_SPILL_SOURCE}: ptxas spill stores {spills}")
-    print(f"{NO_SPILL_SOURCE}: {len(spills)} instances, no spills", flush=True)
+    """Both flash kernels keep O, S and P in registers (241 of them at
+    head_dim 256 in the bf16 kernel): ptxas must compile every instance of
+    each without spilling, or their tensor-core products serialise on local
+    memory."""
+    for source in NO_SPILL_SOURCES:
+        log = _build.library_path(source).with_suffix(".log").read_text()
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+        if not spills or any(spills):
+            raise AssertionError(f"{source}: ptxas spill stores {spills}")
+        print(f"{source}: {len(spills)} instances, no spills", flush=True)
 
 
 def median_us(fn, arg, reps: int, flush: torch.Tensor) -> float:
@@ -847,6 +859,12 @@ def flash_phase(dev) -> tuple[dict, dict]:
         checks[what + " fp32"] = check_flash(*args, causal, window, what)
         args = tuple(t.to(torch.bfloat16) for t in args)
         checks[what + " bf16"] = check_flash(*args, causal, window, what)
+    # the bf16-rounded main-shape values have 8 significant bits, which one TF32
+    # product holds exactly; full-mantissa inputs need all three of 3xTF32
+    full = qkv(rng, B, S, Hq, Hkv, hd, torch.float32, dev)
+    for window in (1024, 0):
+        what = f"main full-mantissa (2, 4096, 8, 4, 256) window {window} fp32"
+        checks[what] = check_flash(*full, True, window, what)
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     pos = torch.arange(S, device=dev)
@@ -854,8 +872,10 @@ def flash_phase(dev) -> tuple[dict, dict]:
     for dt, (qd, kd, vd) in inputs.items():
         qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))   # SDPA's (B, H, S, hd)
         n_bytes = (2 * qd.numel() + kd.numel() + vd.numel()) * qd.element_size()
-        # bf16 runs on the tensor cores; the float32 kernel on the CUDA cores
-        ops_per_s = BF16_OPS_PER_S if dt == "bf16" else ALU32_OPS_PER_S
+        # bf16 on the tensor cores; float32 at float32 accuracy as three TF32
+        # products each (the rate beside it: the CUDA cores' 67 TFLOP/s)
+        ops_per_s = (BF16_OPS_PER_S if dt == "bf16"
+                     else TF32_OPS_PER_S / TF32_PRODUCTS_PER_FP32)
         rows[dt] = []
         for window in (1024, 0):
             band = pos[None, :] <= pos[:, None]
@@ -879,6 +899,8 @@ def flash_phase(dev) -> tuple[dict, dict]:
                 "library_backend": sdpa_backend(band_sdpa),
                 "bound_us": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations", "flop": n_ops}
+            if dt == "fp32":
+                row["bound_cuda_cores_us"] = max(t_bytes, n_ops / ALU32_OPS_PER_S * 1e6)
             if window == 0:
                 # the causal row also beside SDPA with no mask tensor, where
                 # PyTorch may pick its own flash backend
@@ -893,11 +915,16 @@ def flash_phase(dev) -> tuple[dict, dict]:
     return rows, checks
 
 
-def wkv_inputs(rng, B: int, H: int, T: int, hd: int, dev):
-    """r, k, v standard normal; decays in (0.55, 0.95); u, s0 small."""
+def wkv_inputs(rng, B: int, H: int, T: int, hd: int, dev, strong: bool = False):
+    """r, k, v standard normal; decays in (0.55, 0.95), or with ``strong``
+    the model's w = exp(-exp(x)) with x over -6..3 (0.9975, the init's
+    w0 = -6, down to 2e-9); u, s0 small."""
     def randn(*shape, scale=1.0):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
-    w = (1 / (1 + np.exp(-randn(B, H, T, hd))) * 0.4 + 0.55).astype(np.float32)
+    if strong:
+        w = np.exp(-np.exp(rng.uniform(-6.0, 3.0, (B, H, T, hd)))).astype(np.float32)
+    else:
+        w = (1 / (1 + np.exp(-randn(B, H, T, hd))) * 0.4 + 0.55).astype(np.float32)
     arrays = (randn(B, H, T, hd), randn(B, H, T, hd), randn(B, H, T, hd), w,
               randn(H, hd, scale=0.1), randn(B, H, hd, hd, scale=0.1))
     return tuple(torch.from_numpy(a).to(dev) for a in arrays)
@@ -911,9 +938,10 @@ def wkv_err(got, want, what: str) -> float:
 
 
 def wkv_phase(dev) -> tuple[dict, dict]:
-    """The wkv kernel against its plain version at the LM path's shape, at
-    T = 1, in two halves against the whole, and at w = 0; times at the
-    main-path shape."""
+    """The wkv kernels against their plain version at the LM path's shape
+    (chunked), with strong decays, at a ragged T = 1000, at T = 1
+    (recurrent), in two halves and split at 1001 (off every chunk boundary)
+    against the whole, and at w = 0; times at the main-path shape."""
     rng = np.random.default_rng(SEED + 7)
     B, H, T, hd = LM_BATCH, 40, LM_SEQ, 64                 # rwkv6-3b's heads
     main = wkv_inputs(rng, B, H, T, hd, dev)
@@ -935,6 +963,18 @@ def wkv_phase(dev) -> tuple[dict, dict]:
     last = zero[1][:, :, -1, :, None] * zero[2][:, :, -1, None, :]
     if float((got[1] - last).abs().max()) > 1e-6:
         raise AssertionError("w = 0 must leave only the last k v^T in the state")
+    y1, s1 = wk.rwkv6_cuda(r[:, :, :1001], k[:, :, :1001], v[:, :, :1001],
+                           w[:, :, :1001], u, s0)
+    y2, s2 = wk.rwkv6_cuda(r[:, :, 1001:], k[:, :, 1001:], v[:, :, 1001:],
+                           w[:, :, 1001:], u, s1)
+    checks["split at 1001 vs the whole"] = wkv_err((torch.cat([y1, y2], 2), s2), full,
+                                                   "split at 1001")
+    strong = wkv_inputs(rng, B, H, T, hd, dev, strong=True)
+    checks["strong decay (2, 40, 4096, 64)"] = wkv_err(
+        wk.rwkv6_cuda(*strong), wk.rwkv6_plain(*strong), "strong decay")
+    ragged = wkv_inputs(rng, B, H, 1000, hd, dev)
+    checks["ragged T = 1000 (2, 40, 1000, 64)"] = wkv_err(
+        wk.rwkv6_cuda(*ragged), wk.rwkv6_plain(*ragged), "T = 1000")
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     n_bytes = sum(t.numel() for t in main) * 4 + (B * H * T * hd + B * H * hd * hd) * 4
@@ -1166,7 +1206,7 @@ def kernel_entries(res: dict) -> list[dict]:
 
     def flash(dt, source, main_path, tolerance):
         checks = {w: c for w, c in flash_checks.items() if w.endswith(dt)}
-        main = max(c["max_abs_err"] for w, c in checks.items() if w.startswith("main ("))
+        main = max(c["max_abs_err"] for w, c in checks.items() if w.startswith("main"))
         causal = flash_rows[dt][1]
         # the main-path row is window 1024: five of gemma3's six layers
         return entry(f"flash_attention_{dt}", source,
@@ -1176,6 +1216,7 @@ def kernel_entries(res: dict) -> list[dict]:
                      library_call=flash_rows[dt][0]["library_call"],
                      library_causal_ms=us_to_ms(causal, "library_causal_us"),
                      library_causal_backend=causal.get("library_causal_backend"),
+                     bound_cuda_cores_ms=us_to_ms(flash_rows[dt][0], "bound_cuda_cores_us"),
                      shapes=flash_rows[dt], checks=checks)
 
     return [

@@ -49,7 +49,7 @@ CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
 BATCH, SEQ = 2, 4096
 PROMPT, DECODE_STEPS = 16, 8
 GROUPS = (("flash_attention kernels", ("flash_kernel", "flash_sm90_kernel")),
-          ("rwkv6 wkv kernel", ("wkv_kernel",)),
+          ("rwkv6 wkv kernels", ("wkv_kernel", "wkv_chunk_kernel")),
           ("matmul (cuBLAS)", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "splitk")))
 
 

@@ -20,10 +20,14 @@ from repro_torch.api.runner import (  # noqa: F401
     run,
 )
 from repro_torch.api.spec import (  # noqa: F401
+    AsyncSpec,
     ChainSpec,
+    CheckpointSpec,
     DataSpec,
     EvalSpec,
     ExperimentSpec,
+    FaultSpec,
     MeshSpec,
+    ObsSpec,
     TrainSpec,
 )

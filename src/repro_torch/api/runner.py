@@ -12,12 +12,13 @@ the ROADMAP queue item that brings it.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 from dataclasses import dataclass, field
 from typing import Any
 
-from repro_torch.api.spec import ExperimentSpec
+from repro_torch.api.spec import AsyncSpec, ExperimentSpec, MeshSpec
 from repro_torch.device import resolve_device
 from repro_torch.sim.driver import SimReport, SimulatedFederation
 from repro_torch.sim.population import ClientPopulation
@@ -74,7 +75,9 @@ def build_manifest(spec: ExperimentSpec, sim: SimulatedFederation,
 
 def check_supported(spec: ExperimentSpec) -> None:
     """Refuse what this slice does not run, naming the ROADMAP queue item
-    (§1 "Modules to port") that brings it."""
+    (§1 "Modules to port") that brings it: anything but the defaults in
+    ``async_``, ``faults``, ``obs``, ``checkpoint`` and ``mesh`` (past
+    ``shards``, which has its own message)."""
     if spec.train.mode != "sync":
         raise NotImplementedError(
             f"mode={spec.train.mode!r} is not ported yet (ROADMAP queue 1 "
@@ -91,6 +94,22 @@ def check_supported(spec: ExperimentSpec) -> None:
         raise NotImplementedError(
             f"strategy {spec.train.strategy!r} is not ported yet (ROADMAP "
             "queue 1 item 4: the other strategies)")
+    if spec.async_ != AsyncSpec():
+        raise NotImplementedError(
+            f"async_={spec.async_} is not ported yet (ROADMAP queue 1 item 3: "
+            "async FedBuff)")
+    for name in ("faults", "obs", "checkpoint"):
+        section = getattr(spec, name)
+        if section != type(section)():
+            raise NotImplementedError(
+                f"{name}={section} is not ported yet (ROADMAP queue 1 item 5: "
+                "checkpoint/, faults/ and the flight recorder)")
+    mesh = dataclasses.replace(spec.mesh, shards=MeshSpec().shards)
+    if mesh != MeshSpec():
+        raise NotImplementedError(
+            f"mesh cohort/platform/x64/xla_flags {mesh} are not ported yet "
+            "(ROADMAP queue 1 item 6: multi-GPU; the port runs one card in "
+            "float32)")
 
 
 def run(spec: ExperimentSpec, population: ClientPopulation | None = None, *,

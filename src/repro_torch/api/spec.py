@@ -1,17 +1,21 @@
 """`ExperimentSpec` — one declarative description of a BFLN experiment.
 
-Port of ``repro.api.spec`` with the sections this slice runs: ``data``
-(the population), ``train`` (the round loop), ``eval``, ``chain``
-(incentives), ``mesh`` (only ``shards``), ``engine`` and ``seed``.  Field
-names, defaults and validation are the reference's, so the defaults
-describe the paper's main path: BFLN, sync, n = 1000, cohort 10%, 20
-rounds, MLP ``hidden=(64,)`` / ``rep_dim=32``, 5 clusters, ``synth10``.
-The reference's other sections (``async_``, ``obs``, ``checkpoint``,
-``faults``) come with later slices; ``from_dict`` refuses them by name.
+Port of ``repro.api.spec``: the same nine sections — ``data`` (the
+population), ``train`` (the round loop), ``async_`` (FedBuff), ``eval``,
+``chain`` (incentives), ``mesh``, ``obs``, ``checkpoint``, ``faults`` — and
+``engine`` / ``seed``, with the reference's field names, defaults and
+validation, so the defaults describe the paper's main path: BFLN, sync,
+n = 1000, cohort 10%, 20 rounds, MLP ``hidden=(64,)`` / ``rep_dim=32``, 5
+clusters, ``synth10``.  The sections this slice does not run are carried as
+data (``repro_torch.{faults,obs,checkpoint}.spec`` are copies of the
+reference's), and ``run`` refuses their non-default values.
 
-Every spec round-trips through JSON and hashes to a ``config_digest``.  The
-port's digest covers only the port's sections, so it differs from the
-reference's digest of the same experiment.
+Every spec round-trips through JSON and hashes to a ``config_digest`` (all
+sections but ``obs`` and ``checkpoint``) and a ``resume_digest`` (also
+without ``faults``), equal to the reference's digests of the same spec, so
+a port run's manifest matches the reference's.  The reference's
+``sim_config`` / ``from_flat`` (its legacy flat ``SimConfig``) have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -20,6 +24,10 @@ import hashlib
 import json
 from dataclasses import dataclass, field
 from typing import Any, Mapping
+
+from repro_torch.checkpoint.spec import CheckpointSpec
+from repro_torch.faults.spec import FaultSpec
+from repro_torch.obs.spec import ObsSpec
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -100,6 +108,22 @@ class TrainSpec:
 
 
 @dataclass(frozen=True)
+class AsyncSpec:
+    """FedBuff buffered aggregation knobs (``mode='async'`` only)."""
+    buffer_size: int = 16             # flush threshold K
+    staleness_alpha: float = 0.5      # w(s) = (1+s)^-alpha
+    server_lr: float = 1.0            # global += lr · merged delta
+    concurrency: int = 64             # target in-flight clients
+
+    def __post_init__(self):
+        _check(self.buffer_size >= 1, f"buffer_size must be >= 1, got {self.buffer_size}")
+        _check(self.concurrency >= 1, f"concurrency must be >= 1, got {self.concurrency}")
+        _check(self.staleness_alpha >= 0,
+               f"staleness_alpha must be >= 0, got {self.staleness_alpha}")
+        _check(self.server_lr > 0, f"server_lr must be > 0, got {self.server_lr}")
+
+
+@dataclass(frozen=True)
 class EvalSpec:
     every: int = 5                    # 0 = only final eval
     clients: int = 128                # population sub-sample for evaluation
@@ -124,18 +148,51 @@ class ChainSpec:
         _check(self.initial_stake >= 0, f"initial_stake must be >= 0, got {self.initial_stake}")
 
 
+#: Cohort-axis execution modes for the mesh round engine.
+COHORT_MODES = ("sharded", "replicated")
+
+
 @dataclass(frozen=True)
 class MeshSpec:
-    """Client-axis device mesh: ``shards`` devices (one, in this slice)."""
+    """Client-axis device mesh for the row-sharded parameter arena.
+
+    ``cohort`` picks how the per-round cohort runs on that mesh
+    (``"sharded"``: each device trains its slice; ``"replicated"``: every
+    device gathers the whole cohort).  ``platform`` / ``x64`` /
+    ``xla_flags`` are the reference's process-level JAX runtime knobs
+    (``""`` lets JAX pick the platform).  This slice runs one device:
+    ``run`` refuses anything but the defaults.
+    """
     shards: int = 1
+    cohort: str = "sharded"           # "sharded" | "replicated"
+    platform: str = ""                # "" = let the reference pick
+    x64: bool = False                 # float64 in the reference
+    xla_flags: tuple[str, ...] = ()   # the reference's extra XLA_FLAGS
 
     def __post_init__(self):
         _check(isinstance(self.shards, int) and self.shards >= 1,
                f"mesh shards must be an int >= 1, got {self.shards!r}")
+        _check(self.cohort in COHORT_MODES,
+               f"mesh cohort must be one of {COHORT_MODES}, "
+               f"got {self.cohort!r}")
+        _check(isinstance(self.platform, str),
+               f"mesh platform must be a string, got {self.platform!r}")
+        _check(isinstance(self.x64, bool),
+               f"mesh x64 must be a bool, got {self.x64!r}")
+        _check(isinstance(self.xla_flags, tuple)
+               and all(isinstance(f, str) and f for f in self.xla_flags),
+               f"mesh xla_flags must be a tuple of non-empty strings, "
+               f"got {self.xla_flags!r}")
 
 
-_SUB_SPECS = {"data": DataSpec, "train": TrainSpec, "eval": EvalSpec,
-              "chain": ChainSpec, "mesh": MeshSpec}
+_SUB_SPECS = {"data": DataSpec, "train": TrainSpec, "async_": AsyncSpec,
+              "eval": EvalSpec, "chain": ChainSpec, "mesh": MeshSpec,
+              "obs": ObsSpec, "checkpoint": CheckpointSpec,
+              "faults": FaultSpec}
+
+#: FaultSpec round-list fields normalised list -> tuple on JSON load.
+_FAULT_TUPLE_FIELDS = ("producer_fail_rounds", "bad_block_rounds",
+                       "drop_commit_rounds", "delay_commit_rounds")
 
 
 @dataclass(frozen=True)
@@ -143,11 +200,21 @@ class ExperimentSpec:
     """One experiment, declaratively: ``run(spec) -> ExperimentResult``."""
     data: DataSpec = field(default_factory=DataSpec)
     train: TrainSpec = field(default_factory=TrainSpec)
+    async_: AsyncSpec = field(default_factory=AsyncSpec)
     eval: EvalSpec = field(default_factory=EvalSpec)
     chain: ChainSpec = field(default_factory=ChainSpec)
     mesh: MeshSpec = field(default_factory=MeshSpec)
+    obs: ObsSpec = field(default_factory=ObsSpec)   # flight recorder (off)
+    checkpoint: CheckpointSpec = field(         # snapshot/resume (off)
+        default_factory=CheckpointSpec)
+    faults: FaultSpec = field(default_factory=FaultSpec)  # injection (off)
     engine: bool = True               # arena-backed round engine
     seed: int = 0
+
+    def __post_init__(self):
+        _check(self.mesh.shards == 1 or self.engine,
+               "mesh shards > 1 requires engine=True (the legacy oracle "
+               "driver is single-device only)")
 
     def population_spec(self):
         """The ``PopulationSpec`` this experiment's population uses."""
@@ -158,6 +225,9 @@ class ExperimentSpec:
         d = dataclasses.asdict(self)
         d["train"]["hidden"] = list(self.train.hidden)
         d["train"]["strategy_params"] = dict(self.train.strategy_params)
+        d["mesh"]["xla_flags"] = list(self.mesh.xla_flags)
+        for f in _FAULT_TUPLE_FIELDS:
+            d["faults"][f] = list(getattr(self.faults, f))
         return d
 
     def to_json(self, indent: int | None = None) -> str:
@@ -166,16 +236,24 @@ class ExperimentSpec:
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "ExperimentSpec":
         d = dict(d)
+        if "async" in d:                      # alias for the keyword-escaped
+            d["async_"] = d.pop("async")      # field name
         unknown = set(d) - set(_SUB_SPECS) - {"engine", "seed"}
         if unknown:
             raise ValueError(
-                f"unknown spec section(s) {sorted(unknown)}; the port takes "
+                f"unknown spec section(s) {sorted(unknown)}; expected "
                 f"{sorted(_SUB_SPECS)} + ['engine', 'seed']")
         kw: dict[str, Any] = {}
         for name, sub_cls in _SUB_SPECS.items():
             sub = dict(d.get(name, {}))
             if name == "train" and "hidden" in sub:
                 sub["hidden"] = tuple(sub["hidden"])
+            if name == "mesh" and "xla_flags" in sub:
+                sub["xla_flags"] = tuple(sub["xla_flags"])
+            if name == "faults":
+                for f in _FAULT_TUPLE_FIELDS:
+                    if f in sub:
+                        sub[f] = tuple(sub[f])
             kw[name] = sub_cls(**sub)
         for name in ("engine", "seed"):
             if name in d:
@@ -186,7 +264,20 @@ class ExperimentSpec:
     def from_json(cls, text: str) -> "ExperimentSpec":
         return cls.from_dict(json.loads(text))
 
+    def _digest(self, *dropped: str) -> str:
+        d = self.to_dict()
+        for section in dropped:
+            d.pop(section)
+        return hashlib.sha256(json.dumps(d, sort_keys=True).encode()).hexdigest()
+
     def config_digest(self) -> str:
-        """Stable SHA-256 over the canonical JSON form — the reproducibility
-        stamp every run manifest carries."""
-        return hashlib.sha256(self.to_json().encode()).hexdigest()
+        """Stable SHA-256 over the canonical JSON form without ``obs`` and
+        ``checkpoint`` (out of band: they never change the trajectory) — the
+        reproducibility stamp every run manifest carries."""
+        return self._digest("obs", "checkpoint")
+
+    def resume_digest(self) -> str:
+        """The experiment identity a checkpoint binds to: ``config_digest``
+        without ``faults`` as well, so a crashed run can resume with its
+        fault schedule cleared."""
+        return self._digest("obs", "checkpoint", "faults")

@@ -1,97 +1,106 @@
 // Causal / sliding-window GQA flash attention in float32 on Hopper (sm_90a),
-// online softmax on the CUDA cores.
+// on the tensor cores at float32 accuracy (3xTF32).
 //
 // Replaces the Pallas TPU kernel `flash_attention` / `_flash_kernel` in
 // src/repro/kernels/flash_attention.py for float32 inputs (bf16 inputs go
-// to csrc/flash_attention_sm90.cu, on the tensor cores, which would take
-// float32 as TF32).  For q (B, S, Hq, hd), k and v (B, S, Hkv, hd), query
-// head h reading kv head h / (Hq / Hkv):
+// to csrc/flash_attention_sm90.cu).  For q (B, S, Hq, hd), k and v
+// (B, S, Hkv, hd), query head h reading kv head h / (Hq / Hkv):
 //
-//     s[q, k]  = (q_q * 1/sqrt(hd)) . k_k          masked to -1e30 unless
+//     s[q, k]  = (q_q . k_k) / sqrt(hd)            masked to -1e30 unless
 //                                                  k <= q (causal) and
 //                                                  q - k < window (window > 0)
 //     out[q]   = sum_k softmax_k(s[q, :]) v_k      divided by max(l, 1e-30)
 //
 // with the running (max, sum, accumulator) of the Pallas kernel, in the
 // same order: m' = max(m, max_k s), p = exp(s - m'), l = l e^(m - m') + sum p,
-// acc = acc e^(m - m') + p V.
+// acc = acc e^(m - m') + p V, m starting at the masked value (here in log2
+// units: scores are scaled by log2 e and exponentiated with exp2).
+//
+// Precision: 3xTF32.  The tensor cores take float32 operands as TF32 (10
+// mantissa bits), 2^-11 relative per product: one such product puts about
+// 1.5e-3 on the outputs, far outside the float32 tolerance (2e-5).  So
+// every operand x is split as hi = tf32(x), lo = tf32(x - hi), and each
+// product is hi hi' + hi lo' + lo hi' (CUTLASS's fast-accurate float32
+// scheme), summed in float32: the dropped lo lo' and lo's rounding leave
+// about 2^-22 per product, near float32's own.  Both products go through
+// the split: S = Q K^T and O += P V (P split in registers).
 //
 // Design.  The TPU kernel walked a sequential grid (B, Hq, nq, nk) with the
 // running state in VMEM scratch and skipped dead kv blocks with pl.when.
-// Here one block of 4 warps owns kRows = 16 query rows: qt = 16 / G query
+// Here one block of 8 warps owns kRows = 64 query rows, qt = 64 / G query
 // positions times the G query heads that share one kv head, so every kv
-// tile a block stages in shared memory serves all G heads of its group.
-// The block computes its first and last live kv tile from its position
-// range (the window's lower edge, the causal upper edge) and loops over
-// only those: dead tiles cost nothing, as with pl.when.
+// tile a block stages serves all G heads (and is read from L2 by 8x fewer
+// blocks than with 16 rows).  The block computes its first and last live
+// kv tile from its position range and loops over only those; blocks start
+// with the longest rows (the causal diagonal's far end).
 //
-// A kv tile is 32 keys, copied from device memory into shared memory by
-// 16-byte cp.async copies, two tiles in flight: the
-// next tile's copy runs while the block computes on this one, so the
-// copy's latency is hidden (a first version loaded the tiles with
-// synchronous 2-byte loads and spent most of its time waiting on them).
-// Keys past S are zero-filled by the copy and masked, so S need not be a
-// multiple of any tile (the Pallas kernel asserts S % block == 0; the
-// model path does not guarantee it).  q is scaled and converted to fp32
-// once per block.  Lane j computes the scores of key j against the warp's
-// 4 rows, reading its key row 16 bytes at a time (rows are padded by 16
-// bytes, so each quarter-warp's loads hit distinct banks) and the query
-// rows as broadcasts; the warp reduces max and sum with shuffles, and each
-// lane owns the head dimensions d = lane + 32 c of its rows' accumulators
-// (ceil(hd / 32) <= 8 registers a row).  q, k and v are read in the
-// model's (B, S, H, hd) layout through their strides: no transposes; every
-// row must start on 16 bytes (the wrapper checks).  At hd = 256 the two
-// stages and the query rows take 148 KB of shared memory, above the 48 KB
-// static limit: it is dynamic shared memory, raised with
-// cudaFuncSetAttribute before each launch.
+// A kv tile is 64 keys.  K and V are staged by 16-byte cp.async copies in
+// turn: V of tile t lands while Q K^T of tile t runs, K of tile t + 1 while
+// P V of tile t runs.  The products are mma.sync m16n8k8 TF32 with
+// hand-loaded fragments, so V is read in its (S, hd) layout (TF32 wgmma has
+// no transpose bit).  Within each 8-wide step of the contraction the
+// fragment's columns (t, t + 4) are read from the adjacent pair (2t, 2t + 1)
+// of Q, K and P: one 8-byte shared load each, and the sum is unchanged.
+// Row strides are padded (Q, K by 8 floats, V by 4, P by 8) so that every
+// fragment load hits 32 distinct banks.
+//
+// Registers: O for 16 rows x 256 columns would be 128 fp32 registers a
+// thread.  So the warps work in pairs on 16 rows: the pair splits the 64
+// keys of Q K^T (32 each) and the head dimension of O (D / 2 each).  The
+// pair exchanges its row maxima and then P (16 x 64) through shared memory,
+// behind a 64-thread named barrier; each warp keeps the row sums of its own
+// keys, added up once at the end.  At D = 256: 64 registers of O, 16 of S.
+//
+// Keys past S and head dimensions past hd are zero-filled by the copies and
+// masked, so S need not be a multiple of any tile and hd is padded to the
+// instance D in {32, 64, 128, 256}.  q, k and v are read in the model's
+// (B, S, H, hd) layout through their strides: no transposes; every row must
+// start on 16 bytes (the wrapper checks).  At D = 256 the block's shared
+// memory is 221 KB, dynamic, raised with cudaFuncSetAttribute per launch.
 //
 // Bound on the H100: operations.  At the LM path's (2, 4096, 8 / 4, 256)
-// the kernel must move about 200 MB (60 us at 3.35 TB/s) but do 4 * hd
+// the kernel must move about 200 MB (60 us at 3.35 TB/s) and do 4 * hd
 // flops for each of the 2 * 8 * 8.4 M live (q, k) pairs of a causal layer,
-// 137 GFLOP: 2.05 ms at the fp32 rate outside the tensor cores (67
-// TFLOP/s), 0.90 ms for a window of 1024.  It runs those FMAs with
-// operands from shared memory, well above that bound.
+// 137 GFLOP; as three TF32 products on the tensor cores (494 TFLOP/s
+// dense) that is 0.83 ms, 0.36 ms for a window of 1024 (on the CUDA cores,
+// at 67 TFLOP/s, 2.05 and 0.90 ms).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kRows = 64;                   // query rows (position, head) a block
+constexpr int kKeys = 64;                   // keys a tile
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRows = kWarps * kRowsPerWarp;   // query rows per block
-constexpr int kKeys = 32;                      // keys per kv tile: one per lane
-constexpr int kMaxChunks = 8;                  // hd <= 256
-constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf = -1e30f * kLog2e;  // the masked score, in log2 units
 
 struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;
   int S, Hq, Hkv, hd, qt, causal, window;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float scale;
 };
 
-// the four values of one 16-byte chunk
-__device__ __forceinline__ void unpack(const uint4& raw, float* f) {
-  const float* p = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) f[e] = p[e];
-}
+// shared memory of the instance for head dimension D (floats)
+template <int D>
+struct Smem {
+  static constexpr int QS = D + 8;          // Q and K row stride: 8-byte fragment loads
+  static constexpr int VS = D + 4;          // V row stride: 4-byte fragment loads
+  static constexpr int PS = kKeys + 8;      // P row stride
+  static constexpr int k = kRows * QS;
+  static constexpr int v = k + kKeys * QS;
+  static constexpr int p = v + kKeys * VS;
+  static constexpr int red = p + kRows * PS;   // row maxima, then row sums, per half
+  static constexpr size_t bytes = sizeof(float) * (red + 4 * kRows);
+};
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// 16-byte global -> shared copy; src_bytes = 0 zero-fills the destination
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
@@ -103,196 +112,253 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-constexpr int kVec = 4;                        // floats per 16-byte chunk
-
-// floats between key rows in shared memory: hd plus 16 bytes of padding
-__host__ __device__ __forceinline__ int key_stride(int hd) { return hd + kVec; }
-
-size_t smem_bytes(int hd) {
-  return sizeof(float) * (2 * (size_t)kKeys * (key_stride(hd) + hd) + (size_t)kRows * hd);
+// the 64 threads of warp pair `pair` (warps pair and pair + 4)
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair));
 }
 
-// NC = ceil(hd / 32): accumulator registers per row and lane.
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int hd = a.hd;
-  const int ks = key_stride(hd);
-  const int chunks = hd / kVec;             // 16-byte chunks per row
-  float* Ks = reinterpret_cast<float*>(smem);               // 2 stages x kKeys x ks
-  float* Vs = Ks + 2 * kKeys * ks;                          // 2 stages x kKeys x hd
-  float* Qs = Vs + 2 * kKeys * hd;                          // kRows x hd, pre-scaled
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
 
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  float* out = static_cast<float*>(a.out);
+// x = hi + lo, hi = tf32(x), lo = tf32(x - hi): TF32 bit patterns in fp32 registers
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// c (16 x 8) += a (16 x 8) b (8 x 8), TF32 operands, fp32 sums.  Fragments
+// (lane = 4 g + t): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// b0 (t, g), b1 (t + 4, g); c0, c1 (g, 2t + {0, 1}), c2, c3 (g + 8, ...).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b at float32 accuracy: lo hi' + hi lo' + hi hi', small terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma(c, al, bh);
+  mma(c, ah, bl);
+  mma(c, ah, bh);
+}
+
+// the A fragment of rows (g, g + 8) at columns (2t, 2t + 1) of an 8-wide step
+__device__ __forceinline__ void load_a(const float* row_g, const float* row_g8,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 x = ld2(row_g), y = ld2(row_g8);
+  split(x.x, hi[0], lo[0]);
+  split(y.x, hi[1], lo[1]);
+  split(x.y, hi[2], lo[2]);
+  split(y.y, hi[3], lo[3]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel(const Args a) {
+  using L = Smem<D>;
+  constexpr int DC = D / 4;                 // 16-byte chunks per smem row
+  constexpr int NO = D / 16;                // O's 8-column tiles per warp
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Ks = smem + L::k;
+  float* Vs = smem + L::v;
+  float* Ps = smem + L::p;
+  float* red = smem + L::red;
 
   const int G = a.Hq / a.Hkv;
   const int b = blockIdx.z, hk = blockIdx.y;
-  const int q_lo = blockIdx.x * a.qt;
+  const int q_lo = (gridDim.x - 1 - blockIdx.x) * a.qt;   // longest rows first
   const int q_hi = min(q_lo + a.qt, a.S) - 1;
   const int nrows = a.qt * G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int pair = warp & 3, half = warp >> 2;
+  const int row0 = pair * 16;               // the pair's 16 rows
 
   // live kv range of the block's positions [q_lo, q_hi]
   const int kv_lo = a.window > 0 ? max(0, q_lo - a.window + 1) : 0;
   const int kv_hi = a.causal ? q_hi : a.S - 1;
   const int t_lo = kv_lo / kKeys, t_hi = kv_hi / kKeys;
 
-  // tile t (keys t * kKeys ..) into stage st, zero-filled past S
-  auto copy_tile = [&](int t, int st) {
-    float* kd = Ks + st * kKeys * ks;
-    float* vd = Vs + st * kKeys * hd;
-    for (int c = tid; c < kKeys * chunks; c += kThreads) {
-      const int j = c / chunks, d = (c - j * chunks) * kVec;
+  // row r of the block: position q_lo + r / G, query head hk * G + r % G;
+  // columns past hd and rows past the block's zero-filled
+  for (int e = tid; e < kRows * DC; e += kThreads) {
+    const int r = e / DC, d = (e - r * DC) * 4;
+    const int qp = q_lo + r / G;
+    const bool live = r < nrows && qp < a.S && d < a.hd;
+    const float* src = live ? a.q + b * a.q_sb + qp * a.q_ss +
+                                  (long long)(hk * G + r % G) * a.q_sh + d
+                            : a.q;
+    cp_async16(Qs + r * L::QS + d, src, live ? 16 : 0);
+  }
+  // tile t of k or v (keys t * kKeys ..) into dst, zero-filled past S and hd
+  auto copy_tile = [&](float* dst, int stride, const float* x, long long sb, long long ss,
+                       long long sh, int t) {
+    for (int e = tid; e < kKeys * DC; e += kThreads) {
+      const int j = e / DC, d = (e - j * DC) * 4;
       const int kp = t * kKeys + j;
-      const long long row = kp < a.S ? kp : a.S - 1;
-      const int bytes = kp < a.S ? 16 : 0;
-      cp_async16(kd + j * ks + d, k + b * a.k_sb + row * a.k_ss + hk * a.k_sh + d, bytes);
-      cp_async16(vd + j * hd + d, v + b * a.v_sb + row * a.v_ss + hk * a.v_sh + d, bytes);
+      const bool live = kp < a.S && d < a.hd;
+      const float* src = live ? x + b * sb + kp * ss + hk * sh + d : x;
+      cp_async16(dst + j * stride + d, src, live ? 16 : 0);
     }
     cp_async_commit();
   };
-  copy_tile(t_lo, 0);
+  copy_tile(Ks, L::QS, a.k, a.k_sb, a.k_ss, a.k_sh, t_lo);   // with Q: one group
+  copy_tile(Vs, L::VS, a.v, a.v_sb, a.v_ss, a.v_sh, t_lo);
 
-  // row r of the block: query position q_lo + r / G, query head hk * G + r % G
-  for (int c = tid; c < kRows * chunks; c += kThreads) {
-    const int r = c / chunks, d = (c - r * chunks) * kVec;
-    const int qp = q_lo + r / G;
-    float x[kVec];
-    if (r < nrows && qp < a.S) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          q + b * a.q_sb + qp * a.q_ss + (long long)(hk * G + r % G) * a.q_sh + d);
-      unpack(raw, x);
-    } else {
+  int qpos[2];
+  float m[2], l[2], o[NO][4];
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) Qs[r * hd + d + e] = x[e] * a.scale;
+  for (int x = 0; x < 2; ++x) {
+    qpos[x] = q_lo + (row0 + g + 8 * x) / G;
+    m[x] = kNegInf;
+    l[x] = 0.f;
   }
-
-  int qpos[kRowsPerWarp];
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][NC];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    qpos[i] = q_lo + (warp * kRowsPerWarp + i) / G;
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+    for (int x = 0; x < 4; ++x) o[n][x] = 0.f;
+  const float scale2 = a.scale * kLog2e;
+  const float* q_g = Qs + (row0 + g) * L::QS + 2 * tg;
+  const float* p_g = Ps + (row0 + g) * L::PS + 2 * tg;
 
   for (int t = t_lo; t <= t_hi; ++t) {
-    const int st = (t - t_lo) & 1;
-    if (t < t_hi) {                         // the next tile flies during this one
-      copy_tile(t + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();                        // tile t (and the query rows) landed
+    cp_async_wait<1>();                     // K of tile t (and Q) landed
+    __syncthreads();
 
-    // scores: lane = key t * kKeys + lane, against the warp's rows
-    float s[kRowsPerWarp];
+    // S (16 rows x the pair half's 32 keys) = Q K^T
+    float s[4][4];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
-    const float* krow = Ks + st * kKeys * ks + lane * ks;
-    const float4* qrow = reinterpret_cast<const float4*>(Qs + warp * kRowsPerWarp * hd);
-    const int hd4 = hd / 4;
-    for (int c = 0; c < chunks; ++c) {
-      float kf[kVec];
-      unpack(*reinterpret_cast<const uint4*>(krow + c * kVec), kf);
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int e = 0; e < kVec; e += 4) {
-        const int d4 = (c * kVec + e) / 4;
+      for (int x = 0; x < 4; ++x) s[n][x] = 0.f;
+    const float* k_g = Ks + (half * 32 + g) * L::QS + 2 * tg;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      load_a(q_g + kk * 8, q_g + 8 * L::QS + kk * 8, ah, al);
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          const float4 qd = qrow[i * hd4 + d4];
-          s[i] = fmaf(qd.x, kf[e], s[i]);
-          s[i] = fmaf(qd.y, kf[e + 1], s[i]);
-          s[i] = fmaf(qd.z, kf[e + 2], s[i]);
-          s[i] = fmaf(qd.w, kf[e + 3], s[i]);
-        }
+      for (int n = 0; n < 4; ++n) {
+        const float2 kb = ld2(k_g + n * 8 * L::QS + kk * 8);
+        uint32_t bh[2], bl[2];
+        split(kb.x, bh[0], bl[0]);
+        split(kb.y, bh[1], bl[1]);
+        mma3(s[n], ah, al, bh, bl);
       }
     }
+    __syncthreads();                        // every warp is done with K of tile t
+    if (t < t_hi) copy_tile(Ks, L::QS, a.k, a.k_sb, a.k_ss, a.k_sh, t + 1);
+    else cp_async_commit();                 // an empty group keeps the count
 
-    const int kp = t * kKeys + lane;
-    float p[kRowsPerWarp];
+    // mask, scale to log2 units, and the pair's row maxima
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      bool ok = kp < a.S;
-      if (a.causal) ok = ok && kp <= qpos[i];
-      if (a.window > 0) ok = ok && qpos[i] - kp < a.window;
-      const float si = ok ? s[i] : kNegInf;
-      const float m_new = fmaxf(m[i], warp_max(si));
-      p[i] = expf(si - m_new);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + warp_sum(p[i]);
-      m[i] = m_new;
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-
-    // acc += p V: lane owns dims lane + 32 c
-    const float* vt = Vs + st * kKeys * hd;
-    for (int j = 0; j < kKeys; ++j) {
-      float vj[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = lane + 32 * c;
-        vj[c] = d < hd ? vt[j * hd + d] : 0.f;
+      for (int x = 0; x < 4; ++x) {
+        const int kp = t * kKeys + half * 32 + n * 8 + 2 * tg + (x & 1);
+        const int qp = qpos[x >> 1];
+        bool ok = kp < a.S;
+        if (a.causal) ok = ok && kp <= qp;
+        if (a.window > 0) ok = ok && qp - kp < a.window;
+        s[n][x] = ok ? s[n][x] * scale2 : kNegInf;
+        mx[x >> 1] = fmaxf(mx[x >> 1], s[n][x]);
       }
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float pj = __shfl_sync(0xffffffffu, p[i], j);
+    for (int x = 0; x < 2; ++x) {
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 1));
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 2));
+      if (tg == 0) red[half * kRows + row0 + g + 8 * x] = mx[x];
+    }
+    pair_sync(pair);
+    float corr[2];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pj, vj[c], acc[i][c]);
+    for (int x = 0; x < 2; ++x) {
+      const float m_new =
+          fmaxf(m[x], fmaxf(mx[x], red[(half ^ 1) * kRows + row0 + g + 8 * x]));
+      corr[x] = exp2f(m[x] - m_new);
+      m[x] = m_new;
+      l[x] *= corr[x];
+    }
+    // P = exp2(s - m) into shared memory; this lane's part of the row sums
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float p[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        p[x] = exp2f(s[n][x] - m[x >> 1]);
+        l[x >> 1] += p[x];
+      }
+      float* dst = Ps + (row0 + g) * L::PS + half * 32 + n * 8 + 2 * tg;
+      *reinterpret_cast<float2*>(dst) = make_float2(p[0], p[1]);
+      *reinterpret_cast<float2*>(dst + 8 * L::PS) = make_float2(p[2], p[3]);
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+    cp_async_wait<1>();                     // V of tile t landed
+    __syncthreads();                        // ... for every warp, and P for the pair
+
+    // O (16 rows x the half's D / 2 columns) += P V
+    const float* v_t = Vs + (2 * tg) * L::VS + half * (D / 2) + g;
+#pragma unroll 2
+    for (int kk = 0; kk < kKeys / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      load_a(p_g + kk * 8, p_g + 8 * L::PS + kk * 8, ah, al);
+      const float* vk = v_t + kk * 8 * L::VS;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t bh[2], bl[2];
+        split(vk[n * 8], bh[0], bl[0]);
+        split(vk[n * 8 + L::VS], bh[1], bl[1]);
+        mma3(o[n], ah, al, bh, bl);
       }
     }
-    __syncthreads();                        // stage st is free for tile t + 2
+    __syncthreads();                        // every warp is done with V of tile t
+    if (t < t_hi) copy_tile(Vs, L::VS, a.v, a.v_sb, a.v_ss, a.v_sh, t + 1);
   }
 
+  // the row sums over both halves' keys
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp * kRowsPerWarp + i;
-    if (r >= nrows || qpos[i] >= a.S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* o = out + (((long long)b * a.S + qpos[i]) * a.Hq + hk * G + r % G) * hd;
+  for (int x = 0; x < 2; ++x) {
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+    if (tg == 0) red[2 * kRows + half * kRows + row0 + g + 8 * x] = l[x];
+  }
+  pair_sync(pair);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < hd) o[d] = acc[i][c] / den;
+  for (int x = 0; x < 2; ++x) {
+    const int r = row0 + g + 8 * x;
+    if (r >= nrows || qpos[x] >= a.S) continue;
+    const float den = fmaxf(l[x] + red[2 * kRows + (half ^ 1) * kRows + r], 1e-30f);
+    float* dst = a.out + (((long long)b * a.S + qpos[x]) * a.Hq + hk * G + r % G) * a.hd;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int d = half * (D / 2) + n * 8 + 2 * tg;
+      if (d < a.hd)
+        *reinterpret_cast<float2*>(dst + d) =
+            make_float2(o[n][2 * x] / den, o[n][2 * x + 1] / den);
     }
   }
 }
 
-template <int NC>
+template <int D>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  // above 48 KB a block gets dynamic shared memory only when asked for
-  const size_t bytes = smem_bytes(a.hd);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem<D>::bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.S + a.qt - 1) / a.qt, a.Hkv, B);
-  flash_kernel<NC><<<grid, kThreads, bytes, stream>>>(a);
+  flash_kernel<D><<<grid, kThreads, Smem<D>::bytes, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-int dispatch(const Args& a, int B, cudaStream_t stream) {
-  switch ((a.hd + 31) / 32) {
-    case 1: return launch<1>(a, B, stream);
-    case 2: return launch<2>(a, B, stream);
-    case 3: return launch<3>(a, B, stream);
-    case 4: return launch<4>(a, B, stream);
-    case 5: return launch<5>(a, B, stream);
-    case 6: return launch<6>(a, B, stream);
-    case 7: return launch<7>(a, B, stream);
-    case 8: return launch<8>(a, B, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -307,14 +373,14 @@ extern "C" int flash_attention_launch(
     int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal, int window,
     float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kRows || hd <= 0 ||
-      hd % 4 != 0 || hd > 32 * kMaxChunks || B > 65535 || Hkv > 65535)
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 16 || hd <= 0 ||
+      hd % 4 != 0 || hd > 256 || B > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   Args a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.out = out;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
   a.S = S;
   a.Hq = Hq;
   a.Hkv = Hkv;
@@ -332,5 +398,9 @@ extern "C" int flash_attention_launch(
   a.v_ss = v_ss;
   a.v_sh = v_sh;
   a.scale = scale;
-  return dispatch(a, B, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd <= 32) return launch<32>(a, B, s);
+  if (hd <= 64) return launch<64>(a, B, s);
+  if (hd <= 128) return launch<128>(a, B, s);
+  return launch<256>(a, B, s);
 }

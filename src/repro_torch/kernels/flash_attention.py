@@ -13,11 +13,12 @@ online-softmax kernel) with the semantics of its oracle
 :func:`attention_plain` follows ``attention_ref`` (materialises the scores);
 :func:`flash_attention_cuda` launches a hand-written kernel on the tensors'
 strides, with no transposes and any S, chosen by the tensors' dtype: bf16
-goes to the tensor-core kernel (``csrc/flash_attention_sm90.cu``: TMA,
-wgmma), float32 to ``csrc/flash_attention.cu`` (CUDA-core FMAs: the tensor
-cores would take float32 as TF32).  ``repro_torch.kernels.ops.attention``
-picks by where the tensors lie: the plain version for CPU tensors, a kernel
-for CUDA tensors, which launches or raises; there is no fallback.
+goes to ``csrc/flash_attention_sm90.cu`` (TMA, wgmma), float32 to
+``csrc/flash_attention.cu`` (mma.sync in 3xTF32: each float32 operand split
+into two TF32 terms, so the tensor cores keep float32 accuracy).
+``repro_torch.kernels.ops.attention`` picks by where the tensors lie: the
+plain version for CPU tensors, a kernel for CUDA tensors, which launches or
+raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -91,7 +92,7 @@ def _launcher(dtype: torch.dtype):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0) -> torch.Tensor:
     """(B, S, Hq, hd) attention on a CUDA device by the hand-written kernel
-    of the tensors' dtype (bf16: tensor cores; float32: CUDA cores), on the
+    of the tensors' dtype (bf16: wgmma; float32: 3xTF32 mma.sync), on the
     current stream; the result is (B, S, Hq, hd) contiguous in q's dtype.
     q, k and v are read through their strides (unit stride over hd and rows
     on 16 bytes required: the kernels copy 16 bytes or TMA boxes).  Raises

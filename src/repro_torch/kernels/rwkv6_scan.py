@@ -13,8 +13,10 @@ returning (y (B, H, T, hd), S_T).  Calls compose: two halves with the state
 carried give the whole.
 
 :func:`rwkv6_plain` is the oracle's step loop; :func:`rwkv6_cuda` launches
-the hand-written kernel (``csrc/rwkv6_scan.cu``), reading r, k, v, w through
-their strides.  ``repro_torch.kernels.ops.rwkv6_wkv`` picks by where the
+the hand-written kernels (``csrc/rwkv6_scan.cu``), reading r, k, v, w through
+their strides: for T >= CHUNK the chunked-parallel form (one block a
+chunk, each chunk's state handed to the next), for shorter T (decode) the
+recurrent kernel.  ``repro_torch.kernels.ops.rwkv6_wkv`` picks by where the
 tensors lie: the plain version for CPU tensors, the kernel for CUDA tensors,
 which launches or raises; there is no fallback.
 """
@@ -27,6 +29,7 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
+CHUNK = 64                # csrc/rwkv6_scan.cu's kChunk: T >= CHUNK runs chunked
 
 # Launches of rwkv6_cuda since the last reset (set it to 0).
 launches = 0
@@ -62,25 +65,27 @@ def rwkv6_plain(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
 def _kernel() -> ctypes.CDLL:
     lib = _build.load("rwkv6_scan.cu")
     fn = lib.rwkv6_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    if lib.rwkv6_scan_chunk() != CHUNK:
+        raise RuntimeError(f"rwkv6_scan.cu chunks {lib.rwkv6_scan_chunk()} steps, "
+                           f"the wrapper expects {CHUNK}")
     return lib
 
 
 def rwkv6_cuda(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
-    """The recurrence on a CUDA device by the hand-written kernel, on the
-    current stream.  r, k, v, w are read through their strides (unit stride
+    """The recurrence on a CUDA device by the hand-written kernels (chunked
+    for T >= CHUNK, recurrent below), on the current stream; one call counts
+    one launch.  r, k, v, w are read through their strides (unit stride
     over hd required); y comes back as a (B, H, T, hd) view of (B, T, H, hd)
     memory, so the model's transpose back to (B, T, H * hd) is free.  Raises
-    on anything the kernel does not take, on an input that requires grad
-    (the kernel has no backward yet), and if the launch is refused."""
+    on anything the kernels do not take (before it looks at the device), on
+    an input that requires grad (they have no backward yet), on tensors not
+    on one CUDA device, and if a launch is refused."""
     global launches
     _check(r, k, v, w, u, s0)
     tensors = (r, k, v, w, u, s0)
-    if r.device.type != "cuda" or any(t.device != r.device for t in tensors):
-        raise ValueError("rwkv6_cuda needs CUDA tensors on one device, "
-                         f"got {[str(t.device) for t in tensors]}")
     if any(t.requires_grad for t in tensors):
         raise RuntimeError("rwkv6_cuda has no backward kernel yet: call it "
                            "under torch.no_grad() or inference_mode()")
@@ -93,13 +98,28 @@ def rwkv6_cuda(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     if any(t.stride(3) != 1 for t in (r, k, v, w)) \
             or not (u.is_contiguous() and s0.is_contiguous()):
         raise ValueError("rwkv6_cuda needs unit stride over hd and contiguous u, s0")
+    chunked = T >= CHUNK
+    if chunked and any(t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3])
+                       for t in (r, k, v, w)):
+        raise ValueError(f"rwkv6_cuda at T >= {CHUNK} (the chunked form) needs every "
+                         "row of r, k, v, w on 16 bytes (pointers and strides)")
+    if r.device.type != "cuda" or any(t.device != r.device for t in tensors):
+        raise ValueError("rwkv6_cuda needs CUDA tensors on one device, "
+                         f"got {[str(t.device) for t in tensors]}")
     y = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device).transpose(1, 2)
     sT = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    scratch = (None, None)
+    if chunked:
+        # two state slots a (b, h), handed from chunk to chunk, and the
+        # ticket counter and one flag a chunk (zeroed)
+        slots = torch.empty((B, H, 2, hd, hd), dtype=torch.float32, device=r.device)
+        sync = torch.zeros(1 + B * H * -(-T // CHUNK), dtype=torch.int32, device=r.device)
+        scratch = (slots.data_ptr(), sync.data_ptr())
     lib = _kernel()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.rwkv6_scan_launch(
-            *(t.data_ptr() for t in (r, k, v, w, u, s0, y, sT)), B, H, T, hd,
+            *(t.data_ptr() for t in (r, k, v, w, u, s0, y, sT)), *scratch, B, H, T, hd,
             *(s for t in (r, k, v, w, y) for s in t.stride()[:3]), stream)
     if err:
         raise RuntimeError(f"rwkv6 kernel launch failed: CUDA error {err}")

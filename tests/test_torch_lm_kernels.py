@@ -9,16 +9,25 @@ reference's own tolerances: attention 2e-5 in float32 and 3e-2 in bfloat16,
 wkv 1e-4.  Covered: causal, sliding-window and non-causal attention, GQA
 groups of 1, 2, 4 and 8, head_dim 32, 64, 128 and 256, S off every block
 size; the model's two attention forms (`attend_full`, `attend_chunked`);
-wkv at T = 1, chunked composition (two halves == the whole), w = 0.
+wkv at T = 1, chunked composition (two halves == the whole), w = 0.  The
+arithmetic of the two Hopper designs is checked here too, in PyTorch: the
+float32 flash kernel's 3xTF32 products hold 2e-5 where one TF32 product
+does not, and the wkv kernel's chunked form (chunks and sub-chunks, decays
+only multiplied) matches the plain version and the Pallas kernel at ragged
+T, w = 0 (exactly the last k v^T), strong decays and a split off every
+chunk boundary.
 
 The CUDA kernels are held against the plain versions on the card (`cuda`
 marker; skipped without one): the float32 kernel at 2e-5, and the bf16
 tensor-core kernel element by element against the float32 result of the
 same inputs, within one rounding to bfloat16 (2^-8 |want| + 2e-5), at the
-LM path's (2, 4096, 8 / 4, 256) with windows 1024 and 0 and at the edge
-cases (ragged S, non-causal, G = 8 and 5, head_dim 32, 120 and 128,
-windows).  What the kernels do not take, the flash wrapper refuses before it
-looks at the device, so those refusals are tested here on the CPU."""
+LM path's (2, 4096, 8 / 4, 256) with windows 1024 and 0 (float32 on
+full-mantissa inputs) and at the edge cases (ragged S, non-causal, G = 8
+and 5, head_dim 32, 120 and 128, windows); the wkv kernels (chunked for
+T >= 64, recurrent below) at the LM shape, ragged T, strong decays, a
+split off the chunk boundaries and w = 0.  What the kernels do not take,
+the wrappers refuse before they look at the device, so those refusals are
+tested here on the CPU."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -190,6 +199,170 @@ def test_plain_wkv_zero_decay_forgets_state():
     _wkv_check((y, sT), jops.rwkv6_wkv(*(jnp.asarray(a) for a in (r, k, v, w, u, s0))))
 
 
+# --------------------------------------------------------------------------- #
+# The arithmetic of the two Hopper designs, in PyTorch on the CPU (test-only
+# helpers, on no path): csrc/flash_attention.cu's 3xTF32 products and
+# csrc/rwkv6_scan.cu's chunked form
+# --------------------------------------------------------------------------- #
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero:
+    cvt.rna.tf32.f32): add half of the dropped 13 bits, then mask them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, terms):
+    """a @ b with TF32 operands and float32 sums: one term (hi hi') or
+    three (hi hi' + hi lo' + lo hi', lo = tf32(x - hi))."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if terms == 3:
+        out = out + ah @ _tf32(b - bh) + _tf32(a - ah) @ bh
+    return out
+
+
+def _attention_tf32(q, k, v, *, causal, window, terms):
+    """The float32 kernel's arithmetic: S = (Q K^T) scale and O = P V, each
+    product of TF32 operands, the softmax in float32."""
+    B, S, Hq, hd = q.shape
+    G = Hq // k.shape[2]
+    qh = q.permute(0, 2, 1, 3)                                   # (B, Hq, S, hd)
+    kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(G, dim=1) for t in (k, v))
+    s = _mm_tf32(qh, kh.transpose(-1, -2), terms) / (hd ** 0.5)
+    pos = torch.arange(S)
+    ok = pos[None, :] <= pos[:, None] if causal else torch.ones(S, S, dtype=torch.bool)
+    if window > 0:
+        ok &= pos[:, None] - pos[None, :] < window
+    p = torch.softmax(s.masked_fill(~ok, tfa.NEG_INF), dim=-1)
+    return _mm_tf32(p, vh, terms).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("shape,window", [((1, 128, 4, 2, 64), 0),
+                                          ((1, 160, 4, 1, 256), 48)])
+def test_three_tf32_terms_hold_the_float32_tolerance_and_one_does_not(shape, window):
+    """Full-mantissa float32 inputs: the 3xTF32 products stay within 2e-5 of
+    the plain version, one TF32 product does not (why the kernel splits)."""
+    q, k, v = _torch(*_qkv(*shape, seed=sum(shape)))
+    want = tfa.attention_plain(q, k, v, causal=True, window=window)
+    err = {terms: float((_attention_tf32(q, k, v, causal=True, window=window,
+                                         terms=terms) - want).abs().max())
+           for terms in (1, 3)}
+    assert err[3] <= ATOL_F32 < err[1], err
+
+
+def _wkv_chunked(r, k, v, w, u, s0, L, sub):
+    """csrc/rwkv6_scan.cu's chunked form: T in chunks of L, each chunk in
+    sub-chunks of ``sub`` steps; decays only ever multiplied, never divided,
+    so no factor exceeds 1 and w = 0 is exact:
+    1. per chunk, from a zero state: A[t, s] (s < t) = r_t . (k_s * w_{s+1}
+       ... w_{t-1}); within a sub-chunk by carrying q_s = k_s * (product so
+       far) forward in t, which leaves k^_s = k_s decayed to its sub-chunk's
+       end; across sub-chunks sa < tc as r^_t . (M k^_s), r^_t = r_t decayed
+       from tc's start, M the whole products F of the sub-chunks between.
+       The bonus (r_t . u k_t) on the diagonal; y = A v; the chunk's state
+       K = sum_g diag(F_{g+1} ... F_last) sum_{s in g} k^_s v_s^T and its
+       decay D = prod_g F_g;
+    2. across chunks: S_{c+1} = diag(D_c) S_c + K_c, from s0;
+    3. y_t += (r^_t * F_0 ... F_{g(t)-1}) . S_c."""
+    B, H, T, hd = r.shape
+    nc, ns = -(-T // L), L // sub
+    pad = nc * L - T
+
+    def chunks(x, fill):
+        x = torch.cat([x, x.new_full((B, H, pad, hd), fill)], dim=2)
+        return x.reshape(B, H, nc, L, hd)
+    rc, kc, vc, wc = chunks(r, 0.0), chunks(k, 0.0), chunks(v, 0.0), chunks(w, 1.0)
+    idx = torch.arange(L)
+    q, A = kc.clone(), torch.zeros(B, H, nc, L, L)
+    for t in range(L):
+        live = (idx < t) & (idx // sub == t // sub)     # s < t, t's sub-chunk
+        A[..., t, :] = torch.where(live, (q * rc[..., t, None, :]).sum(-1), 0.0)
+        q = torch.where(live[:, None], q * wc[..., t, None, :], q)
+    rhat, F = torch.zeros_like(rc), torch.ones(B, H, nc, ns, hd)
+    for t in range(L):
+        g = t // sub
+        rhat[..., t, :] = rc[..., t, :] * F[..., g, :]
+        F[..., g, :] = F[..., g, :] * wc[..., t, :]
+
+    def blk(x, g):
+        return x[..., g * sub:(g + 1) * sub, :]
+    for sa in range(ns):
+        for tc in range(sa + 1, ns):
+            m = torch.ones(B, H, nc, hd)
+            for g in range(sa + 1, tc):
+                m = m * F[..., g, :]
+            A[..., tc * sub:(tc + 1) * sub, sa * sub:(sa + 1) * sub] = \
+                blk(rhat, tc) @ (blk(q, sa) * m[..., None, :]).transpose(-1, -2)
+    A = A + torch.diag_embed((rc * u[None, :, None, None, :] * kc).sum(-1))
+    y = A @ vc
+    K = torch.zeros(B, H, nc, hd, hd)
+    for g in range(ns):
+        d = torch.ones(B, H, nc, hd)
+        for x in range(g + 1, ns):
+            d = d * F[..., x, :]
+        K = K + d[..., None] * (blk(q, g).transpose(-1, -2) @ blk(vc, g))
+    decay = torch.ones(B, H, nc, hd)
+    for g in range(ns):
+        decay = decay * F[..., g, :]
+    S = s0.clone()
+    states = []
+    for c in range(nc):
+        states.append(S)
+        S = decay[:, :, c, :, None] * S + K[:, :, c]
+    pre = torch.ones(B, H, nc, hd)
+    for g in range(ns):
+        rhat[..., g * sub:(g + 1) * sub, :] *= pre[..., None, :]
+        pre = pre * F[..., g, :]
+    y = y + rhat @ torch.stack(states, 2)
+    return y.reshape(B, H, nc * L, hd)[:, :, :T], S
+
+
+def _strong_decay(args, seed):
+    """The model's decay w = exp(-exp(x)) with x over -6..3: from 0.9975
+    (the init's w0 = -6) down to 2e-9."""
+    x = np.random.default_rng(seed).uniform(-6.0, 3.0, args[3].shape)
+    return args[:3] + (np.exp(-np.exp(x)).astype(np.float32),) + args[4:]
+
+
+WKV_CHUNKED = {
+    # name: ((B, H, T, hd), L, sub-chunk, decay)
+    "ragged-T": ((1, 2, 100, 16), 16, 4, "reference"),
+    "one-partial-chunk": ((2, 1, 13, 8), 16, 8, "reference"),
+    "strong-decay": ((1, 2, 96, 32), 32, 8, "strong"),
+    "zero-decay": ((1, 3, 70, 16), 16, 4, "zero"),
+    "kernel-chunks-hd64": ((1, 1, 130, 64), 64, 16, "strong"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WKV_CHUNKED))
+def test_chunked_wkv_form_matches_plain_and_pallas(case):
+    shape, L, sub, decay = WKV_CHUNKED[case]
+    args = _wkv_inputs(*shape, seed=sum(shape) + L)
+    if decay == "strong":
+        args = _strong_decay(args, seed=L)
+    elif decay == "zero":
+        args[3][:] = 0.0
+    got = _wkv_chunked(*_torch(*args), L, sub)
+    _wkv_check(got, twkv.rwkv6_plain(*_torch(*args)))
+    _wkv_check(got, jops.rwkv6_wkv(*(jnp.asarray(a) for a in args)))
+    if decay == "zero":                       # only the last k v^T is left
+        k, v = args[1], args[2]
+        last = k[:, :, -1, :, None] * v[:, :, -1, None, :]
+        assert np.array_equal(_np(got[1]), last)
+
+
+def test_chunked_wkv_split_off_a_chunk_boundary():
+    """Two calls split at T = 37 (off every chunk boundary of L = 16), the
+    state carried, against the whole sequence in one plain call."""
+    r, k, v, w, u, s0 = _torch(*_strong_decay(_wkv_inputs(1, 2, 90, 16, seed=11), 12))
+    y1, s1 = _wkv_chunked(r[:, :, :37], k[:, :, :37], v[:, :, :37], w[:, :, :37], u, s0,
+                          16, 4)
+    y2, s2 = _wkv_chunked(r[:, :, 37:], k[:, :, 37:], v[:, :, 37:], w[:, :, 37:], u, s1,
+                          16, 4)
+    _wkv_check((torch.cat([y1, y2], 2), s2), twkv.rwkv6_plain(r, k, v, w, u, s0))
+
+
 FLASH_REFUSED = {
     # name: ((B, S, Hq, Hkv, hd), q dtype, error)
     "float16": ((1, 8, 2, 1, 32), torch.float16, TypeError),
@@ -213,6 +386,17 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take(case):
         tfa.flash_attention_cuda(q, k, v)
     assert "CUDA tensors" not in str(info.value)
     assert (tfa.launches, tfa.launches_bf16) == before
+
+
+def test_wkv_wrapper_refuses_rows_off_16_bytes_in_the_chunked_form():
+    """At T >= CHUNK the kernels copy 16-byte rows: a slice that starts a
+    row off the grid is refused before the device is looked at."""
+    r, k, v, w, u, s0 = _torch(*_wkv_inputs(1, 2, twkv.CHUNK + 1, 8))
+    off = torch.zeros(r.numel() + 1)[1:].view(r.shape).copy_(r)     # 4 bytes off
+    with pytest.raises(ValueError, match="16 bytes"):
+        twkv.rwkv6_cuda(off, k, v, w, u, s0)
+    with pytest.raises(ValueError, match="CUDA tensors"):    # aligned: on to the device
+        twkv.rwkv6_cuda(r, k, v, w, u, s0)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -242,6 +426,9 @@ CUDA_ATTN = {
     "gqa8-hd32-fp32": (1, 257, 8, 1, 32, True, 100, torch.float32),
     "hd120-fp32": (1, 130, 4, 1, 120, True, 0, torch.float32),
     "hd256-window1024-fp32": (1, 2048, 8, 4, 256, True, 1024, torch.float32),
+    # full-mantissa float32 (one TF32 product would miss 2e-5; 3xTF32 holds it)
+    "main-shape-window1024-fp32": (2, 4096, 8, 4, 256, True, 1024, torch.float32),
+    "main-shape-global-fp32": (2, 4096, 8, 4, 256, True, 0, torch.float32),
     "ragged-bf16": (1, 1000, 4, 2, 64, True, 0, torch.bfloat16),
     "noncausal-bf16": (1, 512, 4, 4, 128, False, 0, torch.bfloat16),
     "gqa8-window100-bf16": (1, 300, 8, 1, 64, True, 100, torch.bfloat16),
@@ -274,7 +461,8 @@ def test_cuda_flash_matches_plain(case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,T,hd", [(2, 40, 1024, 64), (2, 40, 1, 64), (1, 3, 77, 32),
-                                      (1, 2, 50, 128), (1, 1, 9, 8)])
+                                      (1, 2, 50, 128), (1, 1, 9, 8), (2, 40, 1000, 64),
+                                      (1, 2, 200, 128), (1, 3, 130, 8)])
 def test_cuda_wkv_matches_plain(B, H, T, hd):
     _need_cuda()
     args = _torch(*_wkv_inputs(B, H, T, hd, seed=T), device="cuda")
@@ -293,3 +481,34 @@ def test_cuda_wkv_matches_plain(B, H, T, hd):
         y2, s2 = twkv.rwkv6_cuda(r[:, :, h:], k[:, :, h:], v[:, :, h:], w[:, :, h:], u, s1)
         assert float((torch.cat([y1, y2], 2) - got[0]).abs().max()) <= WKV_ATOL
         assert float((s2 - got[1]).abs().max()) <= WKV_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,hd,split", [(2, 40, 4096, 64, 1001), (1, 4, 300, 16, 77),
+                                            (1, 2, 130, 128, 65)])
+def test_cuda_wkv_strong_decay_and_off_chunk_split(B, H, T, hd, split):
+    """The model's decays w = exp(-exp(x)), x over -6..3, through the chunked
+    form, whole and in two calls split off every chunk boundary."""
+    _need_cuda()
+    args = _torch(*_strong_decay(_wkv_inputs(B, H, T, hd, seed=T), seed=split),
+                  device="cuda")
+    want = twkv.rwkv6_plain(*args)
+    got = twkv.rwkv6_cuda(*args)
+    r, k, v, w, u, s0 = args
+    y1, s1 = twkv.rwkv6_cuda(r[:, :, :split], k[:, :, :split], v[:, :, :split],
+                             w[:, :, :split], u, s0)
+    y2, s2 = twkv.rwkv6_cuda(r[:, :, split:], k[:, :, split:], v[:, :, split:],
+                             w[:, :, split:], u, s1)
+    for pair in (got, (torch.cat([y1, y2], 2), s2)):
+        for a, b in zip(pair, want):
+            assert float((a - b).abs().max()) <= WKV_ATOL
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_zero_decay_leaves_the_last_kv():
+    _need_cuda()
+    args = list(_torch(*_wkv_inputs(1, 4, 200, 64, seed=2), device="cuda"))
+    args[3].zero_()
+    _, sT = twkv.rwkv6_cuda(*args)
+    last = args[1][:, :, -1, :, None] * args[2][:, :, -1, None, :]
+    assert torch.equal(sT, last)

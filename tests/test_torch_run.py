@@ -164,13 +164,14 @@ def test_run_refuses_what_the_slice_does_not_do(change, match):
 
 def test_spec_defaults_equal_the_reference_and_round_trip():
     ref, port = ref_api.ExperimentSpec(), ExperimentSpec()
-    for section in ("data", "train", "eval", "chain"):
+    for section in ("data", "train", "async_", "eval", "chain", "mesh", "obs",
+                    "checkpoint", "faults"):
         assert dataclasses.asdict(getattr(port, section)) == \
             dataclasses.asdict(getattr(ref, section))
     assert port.seed == ref.seed and port.engine == ref.engine
     assert ExperimentSpec.from_json(port.to_json()) == port
     assert ExperimentSpec.from_json(port.to_json()).config_digest() == port.config_digest()
     with pytest.raises(ValueError, match="unknown spec section"):
-        ExperimentSpec.from_dict({"faults": {}})
+        ExperimentSpec.from_dict({"fault": {}})
     with pytest.raises(ValueError, match="unknown strategy"):
         TrainSpec(strategy="nope")
