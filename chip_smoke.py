@@ -9,10 +9,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    process per source, all at once; both flash kernels must compile
    without register spills) and holds each kernel against its plain
    PyTorch version on the card:
+   * the launch floors: an empty kernel, and one that moves 16 bytes
+     (`csrc/launch_floor.cu`), under the same timer as every kernel;
    * fingerprint, bit for bit, at the serving bank (5, 6570), a commit
      cohort (100, 6570), a population (1000, 6570), ragged (17, 131) and
      (1, 1) shapes, rows split over several blocks (3, 70001), an all-zero
-     row, rows off the 16-byte grid, and fp32 arena rows read in place;
+     row, rows off the 16-byte grid, fp32 arena rows read in place, and
+     every cluster size (1, 2, 4, 8) on and off the 16-byte grid; one call
+     must make exactly one device launch (torch.profiler); timed at every
+     shape a path launches it at, (1 / 5 / 100 / 1000, 6570), at the
+     chooser's cluster size and at each forced one, and once more after an
+     L2 flush that leaves no dirty lines;
    * cluster aggregation, bit for bit, in float32 and bf16 rows, at the
      train path's (100, 6570) with C = 5, m = 1, m = 3, ragged (37, 131), a
      whole population (1000, 6570), m = 3000 (more than one 256-row chunk),
@@ -20,7 +27,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      cluster, all-zero weights, zero-weight rows holding NaN, a row of -0.0
      and a bad label;
    * Pearson, at atol 1e-5, at the train path's (100, 32), (7, 5), (1, 3),
-     a constant row and (300, 600);
+     a constant row, (300, 600), (129, 33), (1, 1), (2000, 32) and
+     (300, 600) + 1e3 (a large mean), the last four exactly symmetric; one
+     call must make exactly one device launch; timed at (100, 32) and at
+     (300, 600);
    * flash attention: the bf16 tensor-core kernel at the LM path's
      (2, 4096, 8 / 4, 256) with window 1024 and 0, element by element
      against the float32 result of the same inputs (|got - want| <=
@@ -78,14 +88,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
 `{"kernels": [...]}` with each kernel's launches on its main path (and per
-path: train, serve, lm_forward, lm_decode, lm_fp32), error, times and
-bound, one
+path: train, serve, lm_forward, lm_decode, lm_fp32), error, times, bound
+and the two launch floors, one
 JSON line each `{"train": {...}}`, `{"serve": {...}}`, `{"lm": {...}}`, and
 last `{"ok": true, "device": {...}}`.  Without CUDA
 it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -220,17 +231,23 @@ def check_no_spills() -> None:
         print(f"{source}: {len(spills)} instances, no spills", flush=True)
 
 
-def median_us(fn, arg, reps: int, flush: torch.Tensor) -> float:
+def median_us(fn, arg, reps: int, flush: torch.Tensor,
+              clean_l2: bool = False) -> float:
     """Median device time over ``reps`` CUDA-event-timed calls, each after
     the L2 cache was overwritten (a 128 MiB write; the H100's L2 holds
     50 MB).  A ~1 ms device-side sleep before each start event lets the host
     queue the whole call first, so the time is the device's alone and not
-    the host's launch overhead."""
+    the host's launch overhead.  The write leaves L2 full of dirty lines, so
+    a call that reads B bytes from memory may also write up to B bytes back;
+    ``clean_l2`` overwrites the cache by reading the 128 MiB instead."""
     for _ in range(3):
         fn(arg)
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if clean_l2:
+            flush.view(torch.float32).sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -268,6 +285,54 @@ def check_exact(bits: torch.Tensor, what: str) -> int:
     return err
 
 
+def device_kernels(fn) -> list[str]:
+    """The device activities (kernels, copies, fills) of one call of
+    ``fn``, by name, one entry each (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(None)
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            for _ in range(e.count)]
+
+
+def one_launch(fn, what: str) -> str:
+    """Raises unless one call of ``fn`` makes exactly one device launch;
+    returns that kernel's name."""
+    names = device_kernels(fn)
+    if len(names) != 1:
+        raise AssertionError(f"{what}: one call made {len(names)} device "
+                             f"launches, expected 1: {names}")
+    return names[0]
+
+
+def launch_floors_us(flush: torch.Tensor) -> dict:
+    """The device times, under median_us, of the two kernels of
+    csrc/launch_floor.cu: an empty one (the least any one launch can show)
+    and one that loads 16 bytes and stores them elsewhere (a launch plus one
+    memory round trip)."""
+    lib = _build.load("launch_floor.cu")
+    lib.launch_floor_launch.argtypes = [ctypes.c_void_p]
+    lib.round_trip_launch.argtypes = [ctypes.c_void_p] * 3
+    src = torch.zeros(4, device=flush.device)
+    dst = torch.empty(4, device=flush.device)
+
+    def empty(_):
+        if lib.launch_floor_launch(torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("the empty kernel's launch failed")
+
+    def round_trip(_):
+        if lib.round_trip_launch(src.data_ptr(), dst.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("the round-trip kernel's launch failed")
+    one_launch(empty, "the empty kernel")
+    one_launch(round_trip, "the round-trip kernel")
+    return {"empty_us": median_us(empty, None, 200, flush),
+            "round_trip_us": median_us(round_trip, None, 200, flush)}
+
+
 def kernel_phase(dev) -> tuple[list[dict], int]:
     rng = np.random.default_rng(SEED)
     timed = [(5, 6570), (100, 6570), (1000, 6570)]
@@ -286,15 +351,34 @@ def kernel_phase(dev) -> tuple[list[dict], int]:
     rows = torch.randn((1000, 6570), generator=gen, device=dev)
     errs.append(check_exact(rows.view(torch.int32),
                             "fp32 arena rows read in place"))
+    # every cluster size, on rows on and off the 16-byte grid
+    buf = random_bits(rng, 1, 100 * 6570 + 1, dev)[0]
+    for c in fp.CLUSTER_SIZES:
+        for off in (0, 1):
+            bits = buf[off:off + 100 * 6570].view(100, 6570)
+            want = fp.fingerprint_plain(bits)
+            if not torch.equal(fp.fingerprint_cuda(bits, cluster=c), want):
+                raise AssertionError(f"fingerprint kernel at cluster size {c} "
+                                     f"(offset {off}) != plain version")
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     shapes = []
-    for m, n in timed:
+    # every shape a path launches it at: the start-up digest (1, .), the
+    # serving bank (5, .), a cohort (100, .), and a population (1000, .)
+    for m, n in [(1, 6570)] + timed:
         bits = random_bits(rng, m, n, dev)
         bound, bound_by = fingerprint_bound_us(m, n)
+        kernel = one_launch(lambda _: fp.fingerprint_cuda(bits),
+                            f"fingerprint_cuda at ({m}, {n})")
         shapes.append({
-            "m": m, "n": n, "bit_exact": True,
+            "m": m, "n": n, "bit_exact": True, "cluster": fp.cluster_size(m, n),
+            "device_kernels_per_call": 1, "device_kernel": kernel,
             "kernel_us": median_us(fp.fingerprint_cuda, bits, 200, flush),
+            "kernel_us_clean_l2": median_us(fp.fingerprint_cuda, bits, 200, flush,
+                                            clean_l2=True),
+            "kernel_us_by_cluster": {
+                c: median_us(lambda b: fp.fingerprint_cuda(b, cluster=c), bits,
+                             100, flush) for c in fp.CLUSTER_SIZES},
             "plain_us": median_us(fp.fingerprint_plain, bits, 30, flush),
             "bound_us": bound, "bound_by": bound_by})
     return shapes, max(errs)
@@ -417,15 +501,33 @@ def pearson_phase(dev) -> tuple[dict, float]:
     errs.append(check_pearson(x, "a constant row"))
     if pe.pearson_cuda(x)[3].any():
         raise AssertionError("a constant row must correlate 0 with every row")
+    # m off the tile, D off 4; one row; many tiles; a large mean (two-pass)
+    for what, x in [("(129, 33)", protos(129, 33)), ("(1, 1)", protos(1, 1)),
+                    ("(2000, 32)", protos(2000, 32)),
+                    ("(300, 600) + 1e3", protos(300, 600) + 1e3)]:
+        errs.append(check_pearson(x, what))
+        got = pe.pearson_cuda(x)
+        if not torch.equal(got, got.T):
+            raise AssertionError(f"pearson on {what} is not exactly symmetric")
 
     x = protos(m, d)
+    wide = protos(300, 600)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     bound, bound_by = bound_us((m * d + m * m) * 4, 2 * m * m * d + 3 * m * d)
-    row = {"m": m, "d": d,
+    wide_bound, wide_by = bound_us((300 * 600 + 300 * 300) * 4,
+                                   2 * 300 * 300 * 600 + 3 * 300 * 600)
+    row = {"m": m, "d": d, "tile": pe.TILE,
+           "device_kernels_per_call": 1,
+           "device_kernel": one_launch(lambda _: pe.pearson_cuda(x),
+                                       "pearson_cuda at (100, 32)"),
            "kernel_us": median_us(pe.pearson_cuda, x, 200, flush),
            "plain_us": median_us(pe.pearson_plain, x, 100, flush),
            "library_us": median_us(torch.corrcoef, x, 200, flush),
-           "bound_us": bound, "bound_by": bound_by}
+           "bound_us": bound, "bound_by": bound_by,
+           "wide": {"m": 300, "d": 600, "bound_us": wide_bound, "bound_by": wide_by,
+                    "kernel_us": median_us(pe.pearson_cuda, wide, 100, flush),
+                    "plain_us": median_us(pe.pearson_plain, wide, 30, flush),
+                    "library_us": median_us(torch.corrcoef, wide, 100, flush)}}
     return row, max(errs)
 
 
@@ -816,14 +918,7 @@ def live_pairs(S: int, causal: bool, window: int) -> int:
 def sdpa_backend(fn) -> dict:
     """The device kernels of one call of ``fn`` (torch.profiler), and the
     SDPA backend their names show."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(None)
-        torch.cuda.synchronize()
-    names = sorted({e.key for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA})
+    names = sorted(set(device_kernels(fn)))
     low = " ".join(names).lower()
     # cuDNN's, PyTorch's flash (flash_fwd), memory-efficient (fmha_cutlass)
     # or, failing those, the math path (matmuls and a softmax)
@@ -1145,6 +1240,9 @@ def main() -> int:
 
     res: dict = {}
     t0 = time.perf_counter()
+    res["floors"] = launch_floors_us(torch.empty(128 << 20, dtype=torch.uint8,
+                                                 device=dev))
+    print(f"launch floors {res['floors']}", flush=True)
     res["fp"] = kernel_phase(dev)
     res["agg"] = cluster_agg_phase(dev)
     res["pe"] = pearson_phase(dev)
@@ -1195,14 +1293,15 @@ def kernel_entries(res: dict) -> list[dict]:
                 "library_ms": us_to_ms(row, "library_us"),
                 "kernel_us": row["kernel_us"], "plain_us": row["plain_us"],
                 "bound_us": row["bound_us"], "library_us": row.get("library_us"),
-                **extra}
+                "launch_floor_ms": res["floors"]["empty_us"] / 1e3,
+                "round_trip_floor_ms": res["floors"]["round_trip_us"] / 1e3, **extra}
 
     shapes, fp_err = res["fp"]
     agg_row, agg_row16 = res["agg"]
     pe_row, pe_err = res["pe"]
     flash_rows, flash_checks = res["flash"]
     wkv_row, wkv_checks = res["wkv"]
-    cohort = shapes[1]                  # (100, 6570): the train path's rows
+    cohort = shapes[2]                  # (100, 6570): the train path's rows
 
     def flash(dt, source, main_path, tolerance):
         checks = {w: c for w, c in flash_checks.items() if w.endswith(dt)}
@@ -1222,7 +1321,7 @@ def kernel_entries(res: dict) -> list[dict]:
     return [
         entry("fingerprint", "fingerprint.cu", "src/repro/kernels/fingerprint.py:102",
               "train", cohort, fp_err, 0, bit_exact=True, shape=[100, 6570],
-              shapes=shapes),
+              cluster=cohort["cluster"], shapes=shapes),
         entry("cluster_agg", "cluster_agg.cu", "src/repro/kernels/cluster_agg.py:43",
               "train", agg_row, agg_row["max_abs_err"], 0, bit_exact=True,
               shape=[100, 6570], dtype="float32", library_call="torch.matmul(mix, rows)",
@@ -1238,6 +1337,7 @@ def kernel_entries(res: dict) -> list[dict]:
                     "row": agg_row16}),
         entry("pearson", "pearson.cu", "src/repro/kernels/pearson.py:59",
               "train", pe_row, pe_err, PEARSON_TOL, shape=[100, 32],
+              tile=pe_row["tile"], wide=pe_row["wide"],
               library_call="torch.corrcoef(protos)"),
         flash("bf16", "flash_attention_sm90.cu", "lm_forward",
               {"rtol": FLASH_RTOL_BF16, "atol": FLASH_TOL_F32,

@@ -19,8 +19,9 @@ every intermediate below 2^63.
 
 :func:`fingerprint_rows` picks by where the tensor lies: a CPU tensor takes
 :func:`fingerprint_plain`, a CUDA tensor the hand-written kernel
-(``csrc/fingerprint.cu``) through :func:`fingerprint_cuda` — which launches
-or raises; there is no fallback.
+(``csrc/fingerprint.cu``: one launch, each row split over a thread-block
+cluster of :func:`cluster_size` blocks) through :func:`fingerprint_cuda` —
+which launches or raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -36,8 +37,10 @@ from repro_torch.runtime.arena import ArenaLayout, bitcast_u32
 # Odd base (MurmurHash3's c1), as in the reference.
 FINGERPRINT_BASE = np.uint32(0x85EBCA77)
 _MASK = 0xFFFFFFFF
-_THREADS = 256            # threads per block, fixed in the kernel
-_VECS_PER_THREAD = 8      # 16-byte loads a thread takes before a row splits
+THREADS = 256             # threads per block, fixed in the kernel
+CLUSTER_SIZES = (1, 2, 4, 8)   # blocks per row (8: the portable cluster limit)
+# blocks the card should get: two on each of the H100's 132 SMs
+BLOCKS_WANTED = 2 * 132
 
 # Kernel launches of fingerprint_cuda since the last reset (set it to 0).
 launches = 0
@@ -88,6 +91,19 @@ def fingerprint_plain(bits: torch.Tensor) -> torch.Tensor:
     return _to_int32_bits(torch.stack([a, b], dim=1))
 
 
+def cluster_size(m: int, n: int) -> int:
+    """Blocks per row (the kernel's thread-block cluster) for an (m, n)
+    matrix: the least of 1, 2, 4, 8 that gives the card BLOCKS_WANTED
+    blocks, but no more than lets every thread take one 16-byte load of the
+    row (the row's unaligned head may take up to 3 elements)."""
+    nvec = max(0, (n - 3) // 4)
+    c = 1
+    while c < CLUSTER_SIZES[-1] and m * c < BLOCKS_WANTED \
+            and 2 * c * THREADS <= nvec:
+        c *= 2
+    return c
+
+
 def _kernel() -> ctypes.CDLL:
     lib = _build.load("fingerprint.cu")
     fn = lib.fingerprint_launch
@@ -97,27 +113,36 @@ def _kernel() -> ctypes.CDLL:
     return lib
 
 
-def fingerprint_cuda(bits: torch.Tensor) -> torch.Tensor:
-    """(m, N) int32 bits on a CUDA device -> (m, 2) int32 residues, by the
-    hand-written kernel on the current stream.  Raises on anything the
-    kernel does not take, and if the launch is refused."""
+def fingerprint_cuda(bits: torch.Tensor, *, cluster: int | None = None
+                     ) -> torch.Tensor:
+    """(m, N) int32 bits on a CUDA device -> (m, 2) int32 residues, by one
+    launch of the hand-written kernel on the current stream.  ``cluster``
+    forces the blocks per row (1, 2, 4 or 8; default
+    :func:`cluster_size`), for tests and measurements.  Raises on anything
+    the kernel does not take, and if the launch is refused."""
     global launches
     _check_bits(bits)
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"fingerprint_cuda: cluster must be one of "
+                         f"{CLUSTER_SIZES}, got {cluster}")
     if bits.device.type != "cuda":
         raise ValueError(f"fingerprint_cuda needs a CUDA tensor, got "
                          f"{bits.device}")
     if not bits.is_contiguous():
         raise ValueError("fingerprint_cuda needs contiguous rows")
     m, n = bits.shape
-    out = torch.zeros((m, 2), dtype=torch.int32, device=bits.device)
-    if m == 0 or n == 0:
+    c = cluster_size(m, n) if cluster is None else cluster
+    if m * c > 2**31 - 1:
+        raise ValueError(f"fingerprint_cuda: {m} rows x {c} blocks exceed "
+                         f"the grid's 2^31 - 1")
+    out = torch.empty((m, 2), dtype=torch.int32, device=bits.device)
+    if m == 0:
         return out
-    chunks = min(65535, max(1, -(-(n // 4) // (_THREADS * _VECS_PER_THREAD))))
     lib = _kernel()
     with torch.cuda.device(bits.device):
         stream = torch.cuda.current_stream(bits.device).cuda_stream
         err = lib.fingerprint_launch(bits.data_ptr(), out.data_ptr(), m, n,
-                                     chunks, stream)
+                                     c, stream)
     if err:
         raise RuntimeError(f"fingerprint kernel launch failed: CUDA error {err}")
     launches += 1

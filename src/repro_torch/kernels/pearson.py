@@ -16,7 +16,8 @@ tolerance).
 
 :func:`pearson_rows` picks by where the tensor lies: a CPU tensor takes
 :func:`pearson_plain`, a CUDA tensor the hand-written kernel
-(``csrc/pearson.cu``) through :func:`pearson_cuda` — which launches or
+(``csrc/pearson.cu``: one launch, each block computing the statistics of
+its own tile's rows) through :func:`pearson_cuda` — which launches or
 raises; there is no fallback.
 """
 from __future__ import annotations
@@ -28,9 +29,9 @@ import torch
 from repro_torch.kernels import _build
 
 EPS = 1e-8
+TILE = 16                 # the kernel's output tile side (csrc/pearson.cu)
 
-# Launches of pearson_cuda since the last reset (set it to 0).  One call
-# runs the stats and gram kernels of one C entry point; it counts once.
+# Launches of pearson_cuda since the last reset (set it to 0): one a call.
 launches = 0
 
 
@@ -53,15 +54,15 @@ def pearson_plain(protos: torch.Tensor, eps: float = EPS) -> torch.Tensor:
 def _kernel() -> ctypes.CDLL:
     lib = _build.load("pearson.cu")
     fn = lib.pearson_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
 def pearson_cuda(protos: torch.Tensor, eps: float = EPS) -> torch.Tensor:
-    """(m, D) float32 on a CUDA device -> (m, m) float32, by the
-    hand-written kernel on the current stream.  Raises on anything the
+    """(m, D) float32 on a CUDA device -> (m, m) float32, by one launch of
+    the hand-written kernel on the current stream.  Raises on anything the
     kernel does not take, and if the launch is refused."""
     global launches
     _check(protos)
@@ -74,12 +75,11 @@ def pearson_cuda(protos: torch.Tensor, eps: float = EPS) -> torch.Tensor:
         raise ValueError(f"pearson_cuda takes 1 <= m <= {65535 * 16} and "
                          f"D >= 1, got ({m}, {d})")
     out = torch.empty((m, m), dtype=torch.float32, device=protos.device)
-    stats = torch.empty((2, m), dtype=torch.float32, device=protos.device)
     lib = _kernel()
     with torch.cuda.device(protos.device):
         stream = torch.cuda.current_stream(protos.device).cuda_stream
-        err = lib.pearson_launch(protos.data_ptr(), stats.data_ptr(),
-                                 out.data_ptr(), m, d, eps, stream)
+        err = lib.pearson_launch(protos.data_ptr(), out.data_ptr(), m, d, eps,
+                                 stream)
     if err:
         raise RuntimeError(f"pearson kernel launch failed: CUDA error {err}")
     launches += 1

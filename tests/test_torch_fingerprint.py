@@ -142,3 +142,104 @@ def test_cuda_kernel_bit_exact_to_plain(m, n):
     buf = _port(_bits(1, m * n + 1)).cuda()[0]
     off = buf[1:].view(m, n)
     assert torch.equal(tfp.fingerprint_cuda(off), tfp.fingerprint_plain(off))
+
+
+def _kernel_split(offset: int, n: int, c: int):
+    """The kernel's split of one row whose first element lies ``offset``
+    bytes past a 16-byte boundary (csrc/fingerprint.cu): a scalar head up to
+    the boundary, C contiguous spans of 16-byte vectors, a scalar tail.
+    Returns (head, [(first element, elements) per block], tail start)."""
+    head = min(n, ((16 - offset % 16) % 16) // 4)
+    nvec = (n - head) // 4
+    span = -(-nvec // c)
+    spans = []
+    for b in range(c):
+        q0, q1 = min(b * span, nvec), min((b + 1) * span, nvec)
+        spans.append((head + 4 * q0, 4 * (q1 - q0)))
+    return head, spans, head + 4 * nvec
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 131, 1023, 2051, 6570, 70001])
+@pytest.mark.parametrize("m", [1, 2, 5, 33, 65, 100, 263, 264, 1000, 70000,
+                               2**31 - 1])
+def test_cluster_size_chooser(m, n):
+    c = tfp.cluster_size(m, n)
+    assert c in tfp.CLUSTER_SIZES
+    assert m * c <= 2**31 - 1                      # grid.x = m * C
+    if c > 1:                                      # more blocks only while
+        assert m * (c // 2) < tfp.BLOCKS_WANTED    # the card wants them, and
+        assert c * tfp.THREADS <= (n - 3) // 4     # each thread has a load
+    for offset in (0, 4, 8, 12):
+        head, spans, tail0 = _kernel_split(offset, n, c)
+        assert head < 4 and n - tail0 < 4
+        covered = list(range(head))
+        for first, count in spans:
+            # every vector load aligned (an empty span loads nothing)
+            assert count == 0 or (offset + 4 * first) % 16 == 0
+            covered += range(first, first + count)
+        covered += range(tail0, n)
+        assert covered == list(range(n))           # each element exactly once
+
+
+def test_cluster_size_at_the_path_shapes():
+    # start-up digest, serving bank, cohort: four blocks a row; a population
+    # of 1000 rows fills the card with one block a row
+    assert [tfp.cluster_size(m, 6570) for m in (1, 5, 100, 1000)] == [4, 4, 4, 1]
+
+
+def test_cuda_wrapper_refuses_a_bad_cluster_before_the_device():
+    with pytest.raises(ValueError, match="cluster"):
+        tfp.fingerprint_cuda(torch.zeros((2, 3), dtype=torch.int32), cluster=3)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+def _exact_once(x, **kw):
+    before = tfp.launches
+    got = tfp.fingerprint_cuda(x, **kw)
+    assert tfp.launches == before + 1
+    assert torch.equal(got, tfp.fingerprint_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,n", [(100, 6570), (5, 6570), (1, 6570), (17, 131),
+                                 (3, 70001)])
+def test_cuda_kernel_bit_exact_at_every_cluster_size(m, n, cluster):
+    _cuda_or_skip()
+    buf = _port(_bits(1, m * n + 3, seed=cluster)).cuda()[0]
+    for off in (0, 1, 2, 3):                 # rows on and off the 16-byte grid
+        _exact_once(buf[off:off + m * n].view(m, n), cluster=cluster)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(70000, 3), (7, 1), (7, 2), (7, 3), (7, 4),
+                                 (7, 5)])
+def test_cuda_kernel_head_and_tail_only(m, n):
+    # more rows than grid.y could take, and rows of scalar head and tail only
+    _cuda_or_skip()
+    _exact_once(_port(_bits(m, n, seed=n)).cuda())
+    buf = _port(_bits(1, m * n + 1, seed=n)).cuda()[0]
+    _exact_once(buf[1:].view(m, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 1, 8])
+def test_cuda_kernel_several_load_groups_a_thread(cluster):
+    _cuda_or_skip()
+    _exact_once(_port(_bits(3, 70001, seed=5)).cuda(), cluster=cluster)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_repeated_is_stable():
+    # a distributed-shared-memory race would show only sometimes
+    _cuda_or_skip()
+    x = _port(_bits(100, 6570, seed=9)).cuda()
+    want = tfp.fingerprint_plain(x)
+    before = tfp.launches
+    for _ in range(50):
+        assert torch.equal(tfp.fingerprint_cuda(x), want)
+    assert tfp.launches == before + 50

@@ -89,3 +89,23 @@ def test_cuda_kernel_matches_plain(m, d):
     got = kp.pearson_rows(x)
     assert kp.launches == before + 1
     torch.testing.assert_close(got, kp.pearson_plain(x), rtol=0, atol=ATOL)
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,shift", [(129, 33, 0.0), (1, 1, 0.0), (2000, 32, 0.0),
+                                       (300, 600, 1e3), (100, 32, 0.0), (16, 64, 0.0),
+                                       (17, 65, 0.0), (3, 130, 0.0)])
+def test_cuda_kernel_edges_exactly_symmetric(m, d, shift):
+    # m off the tile, D off 4, one row, many tiles, a large mean (the
+    # two-pass statistics), D at, just past and past twice the kernel's
+    # 64-column chunk; each call one launch, the output exactly symmetric
+    # (a tile and its mirror are written from one block)
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x = torch.from_numpy(_protos(m, d, seed=m + d)).cuda() + shift
+    before = kp.launches
+    got = kp.pearson_cuda(x)
+    assert kp.launches == before + 1
+    torch.testing.assert_close(got, kp.pearson_plain(x), rtol=0, atol=ATOL)
+    assert torch.equal(got, got.T)
