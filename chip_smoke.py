@@ -45,6 +45,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ragged T = 1000, at T = 1 (the recurrent kernel), two halves and a
      split at 1001 against the whole, and w = 0 (atol 1e-4; w = 0 must
      leave exactly the last k v^T);
+   * the shapes only the baselines' and the paper's paths give the
+     kernels: the flat strategies' masked mean (cluster_agg at C = 1,
+     zero-weight rows holding NaN) at (100, 6570) and at Table II's
+     (20, 17226) and (20, 23076), BFLN's cluster means there at C = 2 / 5 /
+     7, all bit for bit; the fingerprint of those (20, N) rows at every
+     forced cluster size, on and off the 16-byte grid, bit for bit; the
+     Pearson matrix of (20, 64) prototypes within 1e-5, exactly symmetric;
    then times kernel, plain version and (where one PyTorch call computes
    the same function) the library call with CUDA events (median device
    time, cold L2) beside the least time the card could take; flash beside
@@ -62,7 +69,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    identical rows and cohort data: equal labels, the Pearson matrix within
    1e-5, the new rows within STEP_ROWS_TOL.  `serve(result.sim)` must then
    pass `verify_bank` and answer mixed-cluster requests.
-3. serve — the port's serving path at the default model width
+3. strategies — each of the four Table II baselines (fedavg, fedprox,
+   fedproto, fedhkd) through `run(ExperimentSpec(train=TrainSpec(
+   strategy=s)))` at the defaults on the card, its launches counted
+   (fingerprint once a round plus the freeriders' claim; cluster_agg once a
+   round, none for fedproto), then on the host CPU at the same depth: equal event-log digests, `chain_valid` and `ledger_conserved`
+   on both, balances within BALANCE_TOL, final accuracy within ACC_TOL;
+   round wall p50 and per-stage spans.
+4. paper — the port's Table II campaign at `table2_accuracy.main()`'s
+   defaults (synth10 and synth100, beta 0.1 / 0.3 / 0.5, bfln-2 / 5 / 7,
+   fedavg, fedprox, fedproto, fedhkd, 12 rounds of 20 clients, MLP
+   64-128-64-C) and `fig2_rewards.main()` on the card, each run's wall and
+   accuracy, Fig 2's reward-size correlation and spread; every BFLN run
+   must keep its chain valid and its ledger conserved, and the launches
+   must be those of the runs' rounds.  One cell (synth10, 0.1, bfln-5)
+   again on the host CPU: accuracy within PAPER_ACC_TOL, rewards equal in
+   every round whose labels agree.  The paper's orderings are recorded,
+   not gated.
+5. serve — the port's serving path at the default model width
    (MLP 64-64-32-10, N = 6570 params) for n = 1000 clients in K = 5
    clusters: three commit blocks whose cohort digests come through the
    kernel (one freerider copying a peer's digest in each, refused by
@@ -72,7 +96,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bank refused by `verify_bank` and `ServingEngine`.  The fingerprint
    kernel's launch count is reset just before this phase and must be > 0
    after it.
-4. lm — the LM zoo's inference path at full width, depth cut: gemma3-4b
+6. lm — the LM zoo's inference path at full width, depth cut: gemma3-4b
    (6 layers: five SWA-1024 and one global) and rwkv6-3b (4 layers), bf16
    weights from `init_params(seed)`.  Per configuration: `make_eval_step`
    at B = 2, S = 4096 (loss, wall) and `greedy_generate` at B = 2, a
@@ -88,10 +112,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
 `{"kernels": [...]}` with each kernel's launches on its main path (and per
-path: train, serve, lm_forward, lm_decode, lm_fp32), error, times, bound
-and the two launch floors, one
-JSON line each `{"train": {...}}`, `{"serve": {...}}`, `{"lm": {...}}`, and
-last `{"ok": true, "device": {...}}`.  Without CUDA
+path: train, train_fedavg, train_fedprox, train_fedproto, train_fedhkd,
+paper, serve, lm_forward, lm_decode, lm_fp32), error, times, bound and the
+two launch floors, one JSON line each `{"train": {...}}`,
+`{"strategies": {...}}`, `{"paper": {...}}`, `{"serve": {...}}`,
+`{"lm": {...}}`, and last `{"ok": true, "device": {...}}`.  Without CUDA
 it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -105,6 +130,7 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import torch
@@ -120,7 +146,7 @@ from repro_torch.blockchain import (  # noqa: E402
     Transaction,
     TxPool,
 )
-from repro_torch.api import ExperimentSpec, run  # noqa: E402
+from repro_torch.api import ExperimentSpec, TrainSpec, run  # noqa: E402
 from repro_torch.api.registry import build_strategy  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core.engine import RoundEngine  # noqa: E402
@@ -135,6 +161,8 @@ from repro_torch.models import classifier as clf  # noqa: E402
 from repro_torch.models import decode as lmdec  # noqa: E402
 from repro_torch.models import lm as lmsteps  # noqa: E402
 from repro_torch.models import transformer as lmt  # noqa: E402
+from repro_torch.paper import common as paper_common  # noqa: E402
+from repro_torch.paper import fig2_rewards, table2_accuracy  # noqa: E402
 from repro_torch.runtime.arena import ParamArena  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ProvenanceError,
@@ -195,6 +223,21 @@ LM_CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
 NO_SPILL_SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu")
 LM_BATCH, LM_SEQ = 2, 4096              # train_4k's sequence length
 PROMPT, NEW_TOKENS, PARITY_TOKENS = 16, 16, 32
+# the four Table II baselines, each run through run(spec) at the defaults
+BASELINES = ("fedavg", "fedprox", "fedproto", "fedhkd")
+# with one cluster and the identity affinity the producers and rewards do
+# not depend on the trained bits: card and CPU balances differ only by the
+# float64 sums of equal float32 rewards
+BALANCE_TOL = 1e-6
+# Table II's MLP 64-128-64-C: N per client at C = 10 (synth10) and 100 (synth100)
+TABLE2_WIDTHS = (17226, 23076)
+# the paper cell repeated on the host CPU, and its accuracy tolerance: the
+# personalised accuracy of 20 clients on 64 local test examples each, where
+# a flipped BFLN label moves a client to another cluster's model
+PAPER_CPU_CELL = ("synth10", 0.1, "bfln", 5)
+PAPER_ACC_TOL = 0.02
+# torch.profiler captures of one call, each checked by a marker kernel
+CAPTURE_TRIES = 3
 # each kernel: its module and the module's launch counter
 KERNELS = {"fingerprint": (fp, "launches"), "cluster_agg": (ca, "launches"),
            "pearson": (pe, "launches"), "flash_attention_bf16": (fa, "launches_bf16"),
@@ -287,15 +330,28 @@ def check_exact(bits: torch.Tensor, what: str) -> int:
 
 def device_kernels(fn) -> list[str]:
     """The device activities (kernels, copies, fills) of one call of
-    ``fn``, by name, one entry each (torch.profiler)."""
+    ``fn``, by name, one entry each (torch.profiler).  Each capture also
+    records one marker kernel launched just before the call
+    (``torch.cuda._sleep``, PyTorch's ``spin_kernel``); a capture without
+    it recorded nothing of the device (seen once on the card: a capture of
+    no activity at all) and is taken again, at most CAPTURE_TRIES times.
+    The marker is not among the names returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(None)
+    for _ in range(CAPTURE_TRIES):
         torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            for _ in range(e.count)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            fn(None)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA for _ in range(e.count)]
+        marker = [n for n in names if "spin_kernel" in n]
+        if marker:
+            names.remove(marker[0])
+            return names
+    raise AssertionError(f"torch.profiler recorded no marker kernel in "
+                         f"{CAPTURE_TRIES} captures: {names}")
 
 
 def one_launch(fn, what: str) -> str:
@@ -531,6 +587,83 @@ def pearson_phase(dev) -> tuple[dict, float]:
     return row, max(errs)
 
 
+def table2_kernel_phase(dev) -> dict:
+    """The three kernels of the baselines' and the paper's paths at the
+    shapes only those paths give them, against their plain versions, each
+    timed beside its bound: the flat strategies' masked mean (cluster_agg at
+    C = 1, every label 0, zero-weight rows holding NaN) over the engine's
+    (100, 6570) cohort and over Table II's (20, N) clients, N = 17226 (10
+    classes) and 23076 (100 classes), rows that alternate on and off the
+    16-byte grid; BFLN's cluster means there at C = 2 / 5 / 7; the
+    fingerprint of those (20, N) rows at every forced cluster size, on and
+    off the grid; and the Pearson matrix of BFLN's (20, 64) prototypes."""
+    rng = np.random.default_rng(SEED + 8)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    agg_rows = []
+    for m, n, c, masked in [(100, 6570, 1, True)] + [
+            (20, n, c, c == 1) for n in TABLE2_WIDTHS for c in (1, 2, 5, 7)]:
+        rows, labels, w = agg_case(rng, m, n, c, dev)
+        if c == 1:
+            labels.zero_()
+        if masked:
+            w[::3] = 0.0
+            w[0] = 1.0
+            rows[w == 0] = float("nan")
+        else:
+            w.fill_(1.0)                  # run_round: every client arrives
+        err = check_agg(rows, labels, w, c, f"({m}, {n}) C={c}")
+        wo, denom = ca.cluster_weights(labels, c, w)
+        onehot = (labels[:, None] == torch.arange(c, device=dev)[None, :]).float()
+        mix = (onehot / denom[None, :]) @ wo.T
+        n_live = int(w.gt(0).sum())
+        bound, bound_by = bound_us((n_live * n + m * n + m * c + c) * 4 + m * 8,
+                                   2 * n_live * n + c * n)
+        agg_rows.append({
+            "m": m, "n": n, "clusters": c, "arrival_mask": masked,
+            "nan_at_zero_weight": masked, "bit_exact": True, "max_abs_err": err,
+            "kernel_us": median_us(lambda _: ca.cluster_agg_cuda(rows, labels, wo, denom),
+                                   None, 200, flush),
+            "plain_us": median_us(lambda _: ca.cluster_agg_plain(rows, labels, wo, denom),
+                                  None, 30, flush),
+            "library_us": median_us(lambda _: torch.matmul(mix, rows), None, 200, flush),
+            "bound_us": bound, "bound_by": bound_by})
+
+    fp_rows = []
+    for n in TABLE2_WIDTHS:
+        buf = random_bits(rng, 1, 20 * n + 1, dev)[0]
+        for c in fp.CLUSTER_SIZES:
+            for off in (0, 1):
+                bits = buf[off:off + 20 * n].view(20, n)
+                if not torch.equal(fp.fingerprint_cuda(bits, cluster=c),
+                                   fp.fingerprint_plain(bits)):
+                    raise AssertionError(f"fingerprint kernel at (20, {n}), cluster "
+                                         f"size {c}, offset {off} != plain version")
+        bits = random_bits(rng, 20, n, dev)
+        err = check_exact(bits, f"(20, {n})")
+        bound, bound_by = fingerprint_bound_us(20, n)
+        fp_rows.append({
+            "m": 20, "n": n, "bit_exact": True, "max_abs_err": err,
+            "cluster": fp.cluster_size(20, n), "forced_clusters_checked": list(fp.CLUSTER_SIZES),
+            "kernel_us": median_us(fp.fingerprint_cuda, bits, 200, flush),
+            "plain_us": median_us(fp.fingerprint_plain, bits, 30, flush),
+            "library_us": None, "bound_us": bound, "bound_by": bound_by})
+
+    m, d = 20, 64
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(dev)
+    err = check_pearson(x, f"({m}, {d})")
+    got = pe.pearson_cuda(x)
+    if not torch.equal(got, got.T):
+        raise AssertionError(f"pearson on ({m}, {d}) is not exactly symmetric")
+    bound, bound_by = bound_us((m * d + m * m) * 4, 2 * m * m * d + 3 * m * d)
+    pe_row = {"m": m, "d": d, "max_abs_err": err, "tolerance": PEARSON_TOL,
+              "exactly_symmetric": True,
+              "kernel_us": median_us(pe.pearson_cuda, x, 200, flush),
+              "plain_us": median_us(pe.pearson_plain, x, 100, flush),
+              "library_us": median_us(torch.corrcoef, x, 200, flush),
+              "bound_us": bound, "bound_by": bound_by}
+    return {"cluster_agg": agg_rows, "fingerprint": fp_rows, "pearson": [pe_row]}
+
+
 class RoundTimer:
     """A recorder for the training path's ``obs`` hook: the wall time of
     every span by name, the device drained at both ends of each span so a
@@ -707,6 +840,156 @@ def train_phase(dev) -> dict:
             "block_hashes_equal_cpu": cpu["block_hashes_digest"] == m["block_hashes_digest"],
             "run_wall_s": wall_s, "cpu_run_wall_s": cpu_wall_s,
             "step_parity": parity, "served_requests": len(done)}
+
+
+def strategy_run(name: str, dev) -> dict:
+    """One baseline through ``run(ExperimentSpec(train=TrainSpec(strategy=
+    name)))`` at the defaults on the card, its launches counted, then the
+    same spec on the host CPU at the same depth."""
+    spec = ExperimentSpec(train=TrainSpec(strategy=name))
+    timer = RoundTimer()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = run(spec, device=dev, obs=timer)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    m, sim = result.manifest, result.sim
+    nonempty = sum(bool(r.arrived.any()) for r in result.report.history)
+    if sim.arena.data.shape != (1000, 6570) or sim.arena.data.device.type != "cuda":
+        raise AssertionError(f"{name}: arena {tuple(sim.arena.data.shape)} on "
+                             f"{sim.arena.data.device}")
+    if not (m["chain_valid"] and m["ledger_conserved"]):
+        raise AssertionError(f"{name}: chain_valid={m['chain_valid']} "
+                             f"ledger_conserved={m['ledger_conserved']}")
+    if m["rounds_run"] != spec.train.rounds or m["n_blocks"] != 1 + nonempty:
+        raise AssertionError(f"{name}: {m['rounds_run']} rounds, {m['n_blocks']} "
+                             f"blocks for {nonempty} non-empty rounds")
+    # the fingerprint once a round and once for the freeriders' claim; the
+    # masked mean once a round, except FedProto's models, never averaged
+    want = {k: 0 for k in KERNELS}
+    want.update(fingerprint=nonempty + 1,
+                cluster_agg=0 if name == "fedproto" else nonempty)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    acc = m["final_accuracy"]
+    if not 0.0 < acc <= 1.0:
+        raise AssertionError(f"{name}: final accuracy {acc}")
+
+    # the card against the host CPU: equal event logs, and with one cluster
+    # and the identity affinity the producers and rewards do not depend on
+    # the trained bits (CACC runs on the host for both), so equal balances
+    t1 = time.perf_counter()
+    cpu_res = run(spec, device="cpu")
+    cpu_wall_s = time.perf_counter() - t1
+    cpu = cpu_res.manifest
+    if cpu["event_log_digest"] != m["event_log_digest"]:
+        raise AssertionError(f"{name}: card and CPU runs logged different events")
+    if not (cpu["chain_valid"] and cpu["ledger_conserved"]):
+        raise AssertionError(f"{name}: the CPU run's chain or ledger does not hold")
+    bal_err = float(np.abs(result.report.balances - cpu_res.report.balances).max())
+    if not bal_err <= BALANCE_TOL:
+        raise AssertionError(f"{name}: balances card vs CPU differ by {bal_err}")
+    if abs(cpu["final_accuracy"] - acc) > ACC_TOL:
+        raise AssertionError(f"{name}: final accuracy card {acc} "
+                             f"vs CPU {cpu['final_accuracy']} > {ACC_TOL} apart")
+    rounds_ms = timer.spans["round.total"]
+    return {"launches": launches, "rounds": m["rounds_run"],
+            "nonempty_rounds": nonempty, "n_params": sim.arena.n_params,
+            "n_blocks": m["n_blocks"], "chain_valid": m["chain_valid"],
+            "ledger_conserved": m["ledger_conserved"],
+            "round_ms_p50": float(np.median(rounds_ms)),
+            "round_ms_max": float(np.max(rounds_ms)),
+            "phase_ms_p50": {k: float(np.median(v)) for k, v in timer.spans.items()},
+            "final_accuracy_card": acc,
+            "final_accuracy_cpu": cpu["final_accuracy"], "acc_tol": ACC_TOL,
+            "event_log_digest_match": True, "balances_max_abs_diff": bal_err,
+            "balance_tol": BALANCE_TOL, "run_wall_s": wall_s,
+            "cpu_run_wall_s": cpu_wall_s}
+
+
+def strategies_phase(dev) -> dict:
+    return {name: strategy_run(name, dev) for name in BASELINES}
+
+
+def paper_phase(dev) -> dict:
+    """The port's Table II campaign at ``table2_accuracy.main()``'s
+    defaults and ``fig2_rewards.main()``, on the card, each run observed
+    through ``run_fl``: its wall, and for BFLN its chain and ledger, which
+    must hold.  Then one cell (synth10, beta 0.1, bfln-5) again on the host
+    CPU: its accuracy within PAPER_ACC_TOL of the card's, its rewards equal
+    in every round whose labels agree."""
+    runs, keep = [], {}
+
+    def observed(dataset, bias, strategy, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr, acc = paper_common.run_fl(dataset, bias, strategy, **kw)
+        torch.cuda.synchronize()
+        rec = {"dataset": dataset, "bias": bias, "strategy": strategy,
+               "n_clusters": kw.get("n_clusters"), "rounds": len(tr.history),
+               "accuracy": acc, "wall_s": time.perf_counter() - t0}
+        if strategy == "bfln":
+            rec.update(chain_valid=tr.chain.validate(),
+                       ledger_conserved=tr.ledger.conserved())
+            if not (rec["chain_valid"] and rec["ledger_conserved"]):
+                raise AssertionError(f"paper run {rec}: the chain or ledger "
+                                     "does not hold")
+        runs.append(rec)
+        if (dataset, bias, strategy, kw.get("n_clusters")) == PAPER_CPU_CELL:
+            keep["card"] = (tr, acc)
+        return tr, acc
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(table2_accuracy, "run_fl", observed), \
+            mock.patch.object(fig2_rewards, "run_fl", observed):
+        table2 = table2_accuracy.main(device=dev)
+        fig2 = fig2_rewards.main(device=dev)
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    if len(table2) != 2 * 3 * len(table2_accuracy.STRATEGIES):
+        raise AssertionError(f"Table II gave {len(table2)} cells")
+    # a BFLN round: one Pearson matrix, one cluster mean, one fingerprint of
+    # the trained rows; a flat round one masked mean (none for FedProto)
+    want = {k: 0 for k in KERNELS}
+    for rec in runs:
+        if rec["strategy"] == "bfln":
+            for k in ("cluster_agg", "pearson", "fingerprint"):
+                want[k] += rec["rounds"]
+        elif rec["strategy"] != "fedproto":
+            want["cluster_agg"] += rec["rounds"]
+    if launches != want:
+        raise AssertionError(f"paper-path launches {launches}, expected {want}")
+
+    dataset, bias, strategy, n_clusters = PAPER_CPU_CELL
+    card_tr, card_acc = keep["card"]
+    t1 = time.perf_counter()
+    cpu_tr, cpu_acc = paper_common.run_fl(dataset, bias, strategy,
+                                          n_clusters=n_clusters, device="cpu")
+    cpu_wall_s = time.perf_counter() - t1
+    if abs(card_acc - cpu_acc) > PAPER_ACC_TOL:
+        raise AssertionError(f"paper cell {PAPER_CPU_CELL}: accuracy card {card_acc} "
+                             f"vs CPU {cpu_acc} > {PAPER_ACC_TOL} apart")
+    agree, differ = [], []
+    for a, b in zip(card_tr.history, cpu_tr.history, strict=True):
+        if np.array_equal(a.labels, b.labels):
+            if not np.array_equal(a.rewards, b.rewards):
+                raise AssertionError(f"paper cell round {a.round_idx}: equal labels, "
+                                     f"rewards {a.rewards} vs {b.rewards}")
+            agree.append(a.round_idx)
+        else:
+            differ.append(a.round_idx)
+    return {"launches": launches, "runs": runs, "table2": table2,
+            "fig2": {k: {f: v[f] for f in ("reward_size_correlation", "reward_spread",
+                                           "chain_valid", "ledger_conserved")}
+                     for k, v in fig2.items()},
+            "wall_s": wall_s,
+            "cpu_cell": {"cell": list(PAPER_CPU_CELL), "accuracy_card": card_acc,
+                         "accuracy_cpu": cpu_acc, "acc_tol": PAPER_ACC_TOL,
+                         "rounds_labels_agree": agree, "rounds_labels_differ": differ,
+                         "rewards_equal_where_labels_agree": True,
+                         "cpu_wall_s": cpu_wall_s}}
 
 
 class FlushLog:
@@ -1248,15 +1531,15 @@ def main() -> int:
     res["pe"] = pearson_phase(dev)
     res["flash"] = flash_phase(dev)
     res["wkv"] = wkv_phase(dev)
+    res["table2_shapes"] = table2_kernel_phase(dev)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
-    for phase, run_phase in (("train", train_phase), ("serve", serve_phase),
-                             ("lm", lm_phase)):
+    for phase, run_phase in PHASES:
         t0 = time.perf_counter()
         res[phase] = run_phase(dev)
         print(f"{phase} phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernel_entries(res)}), flush=True)
-    for phase in ("train", "serve", "lm"):
+    for phase, _ in PHASES:
         print(json.dumps({phase: res[phase]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1269,6 +1552,9 @@ def kernel_entries(res: dict) -> list[dict]:
     every path, error and tolerance, and its times beside its bound."""
     by_path = {"train": res["train"]["launches"],
                "serve": res["serve"]["launches_by_kernel"]}
+    for name in BASELINES:
+        by_path[f"train_{name}"] = res["strategies"][name]["launches"]
+    by_path["paper"] = res["paper"]["launches"]
     for path in ("lm_forward", "lm_decode"):
         by_path[path] = {name: sum(run["launches"][path][name]
                                    for run in res["lm"].values())
@@ -1318,13 +1604,17 @@ def kernel_entries(res: dict) -> list[dict]:
                      bound_cuda_cores_ms=us_to_ms(flash_rows[dt][0], "bound_cuda_cores_us"),
                      shapes=flash_rows[dt], checks=checks)
 
+    # the shapes only the baselines' and the paper's paths give the kernels
+    new = res["table2_shapes"]
     return [
         entry("fingerprint", "fingerprint.cu", "src/repro/kernels/fingerprint.py:102",
               "train", cohort, fp_err, 0, bit_exact=True, shape=[100, 6570],
-              cluster=cohort["cluster"], shapes=shapes),
+              cluster=cohort["cluster"], shapes=shapes,
+              paper_shapes=new["fingerprint"]),
         entry("cluster_agg", "cluster_agg.cu", "src/repro/kernels/cluster_agg.py:43",
               "train", agg_row, agg_row["max_abs_err"], 0, bit_exact=True,
               shape=[100, 6570], dtype="float32", library_call="torch.matmul(mix, rows)",
+              masked_mean_shapes=new["cluster_agg"],
               # the same kernel on bf16 rows, which no path gives it yet (the
               # launch counter counts both dtypes; every path's rows are fp32)
               bf16={"launches": "none on a path", "max_abs_err": agg_row16["max_abs_err"],
@@ -1338,7 +1628,7 @@ def kernel_entries(res: dict) -> list[dict]:
         entry("pearson", "pearson.cu", "src/repro/kernels/pearson.py:59",
               "train", pe_row, pe_err, PEARSON_TOL, shape=[100, 32],
               tile=pe_row["tile"], wide=pe_row["wide"],
-              library_call="torch.corrcoef(protos)"),
+              library_call="torch.corrcoef(protos)", paper_shapes=new["pearson"]),
         flash("bf16", "flash_attention_sm90.cu", "lm_forward",
               {"rtol": FLASH_RTOL_BF16, "atol": FLASH_TOL_F32,
                "against": "float32 plain version, per element"}),
@@ -1348,6 +1638,10 @@ def kernel_entries(res: dict) -> list[dict]:
               "lm_forward", wkv_row, wkv_checks["main (2, 40, 4096, 64)"], WKV_TOL,
               shape=[2, 40, 4096, 64], dtype="float32", checks=wkv_checks),
     ]
+
+
+PHASES = (("train", train_phase), ("strategies", strategies_phase),
+          ("paper", paper_phase), ("serve", serve_phase), ("lm", lm_phase))
 
 
 if __name__ == "__main__":

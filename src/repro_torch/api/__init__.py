@@ -6,7 +6,11 @@
     result = run(ExperimentSpec())          # BFLN sync rounds on the card
     frontend = serve(result)                # chain-verified serving tier
 
-Port of ``repro.api`` for the paper's main path (BFLN, sync, one device).
+Port of ``repro.api`` for synchronous rounds on one device: one spec runs
+any registered strategy (BFLN, FedAvg, FedProx, FedProto, FedHKD, or one
+registered with :func:`register_strategy`) through the round engine.
+``load_packed_clients`` and ``make_mlp_bundle`` set up the paper's
+full-participation runs (``repro_torch.paper``).
 """
 from repro_torch.api.registry import (  # noqa: F401
     build_strategy,
@@ -18,6 +22,11 @@ from repro_torch.api.runner import (  # noqa: F401
     build_manifest,
     event_log_digest,
     run,
+)
+from repro_torch.api.setup import (  # noqa: F401
+    PackedClients,
+    load_packed_clients,
+    make_mlp_bundle,
 )
 from repro_torch.api.spec import (  # noqa: F401
     AsyncSpec,

@@ -1,22 +1,21 @@
 """String-keyed strategy registry: the one place strategies are looked up.
 
-Port of ``repro.api.registry``.  A builder has the signature
+Port of ``repro.api.registry``.  Every federated strategy — BFLN and the
+paper's four Table II baselines — registers a *builder* under a short name,
+with the signature
 
     builder(bundle, *, probe, n_clusters, **params) -> Strategy
 
-The port registers ``bfln``.  The reference's four Table II baselines are
-known names whose builders come with a later slice (ROADMAP queue 1 item
-4): asking for one raises ``NotImplementedError``.
+where ``params`` are strategy-specific hyper-parameters (e.g. FedProx
+``mu``).  ``TrainSpec.strategy`` is validated against this registry, so a
+strategy registered by a user runs through ``run(spec)`` too.
 """
 from __future__ import annotations
 
+from collections.abc import Callable
 from typing import Protocol
 
-from repro_torch.core.baselines import Strategy, make_bfln
-
-#: Every strategy the reference registers; the port builds those in
-#: ``_REGISTRY``.
-KNOWN_STRATEGIES = ("bfln", "fedavg", "fedhkd", "fedproto", "fedprox")
+from repro_torch.core.baselines import STRATEGY_FACTORIES, Strategy, make_bfln
 
 
 class StrategyBuilder(Protocol):
@@ -41,14 +40,11 @@ def strategy_names() -> list[str]:
 
 def build_strategy(name: str, bundle, *, probe=None, n_clusters: int = 5,
                    **params) -> Strategy:
-    builder = _REGISTRY.get(name)
-    if builder is None:
-        if name in KNOWN_STRATEGIES:
-            raise NotImplementedError(
-                f"strategy {name!r} is not ported yet (ROADMAP queue 1 item "
-                f"4: the other strategies); the port runs {strategy_names()}")
+    try:
+        builder = _REGISTRY[name]
+    except KeyError:
         raise ValueError(f"unknown strategy {name!r}; "
-                         f"registered: {strategy_names()}")
+                         f"registered: {strategy_names()}") from None
     return builder(bundle, probe=probe, n_clusters=n_clusters, **params)
 
 
@@ -60,4 +56,14 @@ def _bfln(bundle, *, probe, n_clusters, **params):
     return make_bfln(bundle, probe, n_clusters, **params)
 
 
+def _plain(make: Callable) -> StrategyBuilder:
+    def builder(bundle, *, probe=None, n_clusters=0, **params):
+        return make(bundle, **params)
+    return builder
+
+
 register_strategy("bfln", _bfln)
+# the probe-less baselines come straight from the factory table in
+# repro_torch.core.baselines
+for _name, _make in STRATEGY_FACTORIES.items():
+    register_strategy(_name, _plain(_make))

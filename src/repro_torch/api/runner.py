@@ -6,9 +6,9 @@ returns the report with a *manifest*: a flat, JSON-able record stamped with
 the spec's ``config_digest`` (the reference's manifest, without its
 ``engine_compile_counts``: nothing compiles here).
 
-This slice runs BFLN's synchronous rounds through the engine on one
-device; ``run`` refuses anything else with ``NotImplementedError`` naming
-the ROADMAP queue item that brings it.
+It runs every registered strategy's synchronous rounds through the engine
+on one device; ``run`` refuses anything else with ``NotImplementedError``
+naming the ROADMAP queue item that brings it.
 """
 from __future__ import annotations
 
@@ -90,10 +90,6 @@ def check_supported(spec: ExperimentSpec) -> None:
         raise NotImplementedError(
             f"mesh shards={spec.mesh.shards} is not ported yet (ROADMAP "
             "queue 1 item 6: multi-GPU)")
-    if spec.train.strategy != "bfln":
-        raise NotImplementedError(
-            f"strategy {spec.train.strategy!r} is not ported yet (ROADMAP "
-            "queue 1 item 4: the other strategies)")
     if spec.async_ != AsyncSpec():
         raise NotImplementedError(
             f"async_={spec.async_} is not ported yet (ROADMAP queue 1 item 3: "

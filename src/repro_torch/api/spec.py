@@ -89,10 +89,13 @@ class TrainSpec:
     rep_dim: int = 32
 
     def __post_init__(self):
-        from repro_torch.api.registry import KNOWN_STRATEGIES
+        # checked lazily against the registry, so a strategy registered by
+        # a user is accepted
+        from repro_torch.api.registry import strategy_names
         from repro_torch.sim.sampler import SAMPLERS
-        _check(self.strategy in KNOWN_STRATEGIES,
-               f"unknown strategy {self.strategy!r}; known: {list(KNOWN_STRATEGIES)}")
+        _check(self.strategy in strategy_names(),
+               f"unknown strategy {self.strategy!r}; "
+               f"registered: {strategy_names()}")
         _check(self.mode in ("sync", "async"),
                f"mode must be 'sync' or 'async', got {self.mode!r}")
         _check(self.sampler in SAMPLERS,

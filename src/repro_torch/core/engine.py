@@ -5,10 +5,12 @@ reference fuses a round into one jitted program that donates the arena;
 PyTorch runs eagerly, so here the same steps run in the same order as plain
 calls on the arena's device, and the arena is updated IN PLACE:
 
-    arena gather -> local_train (Adam, client axis written out) ->
-    strategy.aggregate_cohort (BFLN: prototypes -> Pearson kernel ->
-    spectral -> cluster-aggregation kernel) -> fingerprint kernel over the
-    trained rows -> where(arrived) scatter-back
+    arena gather -> strategy.round_extras -> local_train (Adam, client
+    axis written out) -> strategy.aggregate_cohort (BFLN: prototypes ->
+    Pearson kernel -> spectral -> cluster-aggregation kernel; FedAvg,
+    FedProx, FedHKD: the masked mean through the same kernel; FedProto:
+    the trained rows) -> fingerprint kernel over the trained rows ->
+    where(arrived) scatter-back
 
 Each stage is a span of ``obs`` (``step.gather``, ``step.local_train``,
 the strategy's ``step.*`` stages, ``step.fingerprint``, ``step.scatter``);
@@ -55,6 +57,9 @@ class RoundEngine:
     def __init__(self, layout: ArenaLayout, *, strategy: Strategy,
                  opt: Optimizer, n_clusters: int, local_epochs: int,
                  stacked_apply_fn: Callable, obs=None):
+        if strategy.aggregate_cohort is None:
+            raise ValueError(f"strategy {strategy.name!r} has no "
+                             "aggregate_cohort stage for the round engine")
         self.layout = layout
         self.strategy = strategy
         self.opt = opt
@@ -72,14 +77,18 @@ class RoundEngine:
     def sync_step(self, arena: ParamArena, cohort_idx: torch.Tensor,
                   cx: torch.Tensor, cy: torch.Tensor,
                   arrived: torch.Tensor) -> SyncRoundOut:
-        """One BFLN sync round over the cohort; writes the arrived slots'
-        aggregated rows into ``arena`` in place."""
+        """One sync round of the strategy over the cohort; writes the
+        arrived slots' aggregated rows into ``arena`` in place."""
         layout, strategy, obs = self.layout, self.strategy, self.obs
         with obs.span("step.gather"):
             params = layout.unflatten(arena.gather(cohort_idx))
         with obs.span("step.local_train"):
+            # the server payload over ALL k gathered slots, before training
+            extras = strategy.round_extras(params, cx, cy)
             res = local_train(strategy.local_loss, self.opt, params,
-                              self.opt.init(params), cx, cy, self.local_epochs)
+                              self.opt.init(params), cx, cy, extras,
+                              self.local_epochs,
+                              shared_extras=strategy.shared_extras)
             local_rows = layout.flatten(res.params)
         # aggregation over ALL cohort slots (stragglers burn local compute
         # too); only the aggregation weights honour the arrival mask

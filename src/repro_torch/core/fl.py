@@ -10,6 +10,12 @@ The loss function returns each client's own mean loss, ``(m,)``.  The step
 differentiates their SUM: client c's loss depends on client c's parameters
 only, so the gradient of the sum with respect to client c's leaves is
 exactly client c's gradient — one backward pass trains the whole cohort.
+
+``extras`` is the strategy's server payload for the round (FedProx's
+anchor, FedProto's / FedHKD's global prototypes).  Per-client extras carry
+the client axis and reach the loss as they are; a shared payload
+(``shared_extras``) has no client axis and broadcasts against the stacked
+params.  Extras are constants of every step: they never require grad.
 """
 from __future__ import annotations
 
@@ -19,11 +25,11 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.optim import Optimizer
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 Pytree = Any
-# loss_fn(stacked_params, x (m, B, ...), y (m, B)) -> (m,) per-client loss
-LossFn = Callable[[Pytree, torch.Tensor, torch.Tensor], torch.Tensor]
+# loss_fn(stacked_params, x (m, B, ...), y (m, B), extras) -> (m,) per-client loss
+LossFn = Callable[[Pytree, torch.Tensor, torch.Tensor, Any], torch.Tensor]
 
 
 class LocalTrainResult(NamedTuple):
@@ -34,23 +40,37 @@ class LocalTrainResult(NamedTuple):
 
 def local_train(loss_fn: LossFn, opt: Optimizer, stacked_params: Pytree,
                 stacked_opt_state: Pytree, x: torch.Tensor, y: torch.Tensor,
-                epochs: int) -> LocalTrainResult:
+                extras: Any, epochs: int, shared_extras: bool = False
+                ) -> LocalTrainResult:
     """``epochs`` passes of minibatch training on every client at once;
     returns the trained params (detached), the optimizer state and each
-    client's mean loss over its steps."""
-    nb = x.shape[1]
+    client's mean loss over its steps.  ``extras`` as in the module
+    docstring: with ``shared_extras`` False every leaf must carry the
+    client axis."""
+    nb, m = x.shape[1], x.shape[0]
+    extras = tree_map(torch.Tensor.detach, extras)
+    if not shared_extras and any(e.shape[:1] != (m,) for e in tree_leaves(extras)):
+        raise ValueError(f"per-client extras need the client axis ({m},)")
     params, opt_state = stacked_params, stacked_opt_state
     losses = []
     for idx in range(epochs * nb):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            per_client = loss_fn(p, x[:, idx % nb], y[:, idx % nb])
+            per_client = loss_fn(p, x[:, idx % nb], y[:, idx % nb], extras)
             per_client.sum().backward()
         params, opt_state = opt.update(tree_map(torch.Tensor.detach, p),
                                        tree_map(lambda t: t.grad, p),
                                        opt_state)
         losses.append(per_client.detach())
     return LocalTrainResult(params, opt_state, torch.stack(losses).mean(dim=0))
+
+
+def evaluate(predict_fn: Callable, stacked_params: Pytree, x: torch.Tensor,
+             y: torch.Tensor) -> torch.Tensor:
+    """Per-client accuracy on per-client data: ``x (m, n, ...)``,
+    ``y (m, n)`` -> ``(m,)`` (``run_fl``'s personalised accuracy)."""
+    logits = predict_fn(stacked_params, x)                  # (m, n, C)
+    return (torch.argmax(logits, dim=-1) == y).float().mean(dim=1)
 
 
 def _accuracies(predict_fn: Callable, stacked_params: Pytree,

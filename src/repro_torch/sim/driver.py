@@ -95,7 +95,7 @@ class SimReport:
 
 
 class SimulatedFederation:
-    """BFLN sync rounds over sampled cohorts of a virtual population, on a
+    """Sync rounds of the spec's strategy over sampled cohorts of a virtual population, on a
     deterministic virtual clock, with the population's parameters in one
     arena on ``device`` (``None`` means the card).
 
@@ -131,8 +131,11 @@ class SimulatedFederation:
                                   n_clusters=t.n_clusters,
                                   **t.strategy_params)
         self.trainer = FederatedTrainer(
+            self.bundle, strategy, self.opt, local_epochs=t.local_epochs,
             n_clusters=t.n_clusters, total_reward=c.total_reward, rho=c.rho,
-            ledger=TokenLedger(n, c.initial_stake))
+            initial_stake=c.initial_stake)
+        # population-wide ledger (the trainer's chain_round settles against it)
+        self.trainer.ledger = TokenLedger(n, c.initial_stake)
 
         params = clf.init_stacked(mcfg, torch.Generator().manual_seed(spec.seed),
                                   n, device=device)
@@ -268,7 +271,7 @@ class SimulatedFederation:
             digests = self.engine.format_digests(out.residues)
         with obs.span("round.chain", round=r):
             cres = self.trainer.chain_round(
-                r, out.labels, out.corr, cohort=cohort, arrived=arrived,
+                r, None, out.labels, out.corr, cohort=cohort, arrived=arrived,
                 digests=digests, tamper=self._tampers(cohort, arrived))
 
         labels = out.labels.cpu().numpy()

@@ -30,3 +30,18 @@ def tree_leaves(tree: Pytree) -> list:
     tree_map(out.append, tree)
     return out
 
+
+
+def tree_sub(a: Pytree, b: Pytree) -> Pytree:
+    return tree_map(lambda x, y: x - y, a, b)
+
+
+def tree_sq_norm(tree: Pytree) -> Any:
+    """Squared norm of each client's slice of a stacked tree: every leaf
+    ``(m, ...)`` squared and summed over all axes but the first, then the
+    leaves added -> ``(m,)``."""
+    leaves = tree_leaves(tree)
+    total = leaves[0].square().reshape(leaves[0].shape[0], -1).sum(dim=1)
+    for leaf in leaves[1:]:
+        total = total + leaf.square().reshape(leaf.shape[0], -1).sum(dim=1)
+    return total

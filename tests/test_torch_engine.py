@@ -31,6 +31,7 @@ from repro.core.incentives import allocate_rewards as jax_allocate  # noqa: E402
 from repro.models import classifier as jclf  # noqa: E402
 from repro.optim import adam as jax_adam  # noqa: E402
 from repro.runtime.arena import ParamArena as JArena  # noqa: E402
+from repro_torch.api.setup import make_mlp_bundle as t_make_mlp_bundle  # noqa: E402
 from repro_torch.blockchain import TokenLedger  # noqa: E402
 from repro_torch.core import consensus as tcons  # noqa: E402
 from repro_torch.core.baselines import ModelBundle, make_bfln as t_make_bfln  # noqa: E402
@@ -209,7 +210,9 @@ def test_chain_round_matches_reference_given_the_same_inputs():
     jbundle = make_mlp_bundle(4, 2, hidden=(3,), rep_dim=2)[1]
     jt = JTrainer(jbundle, "fedavg", jax_adam(1e-3), n_clusters=c)
     jt.ledger = JLedger(n, 5.0)
-    tt = FederatedTrainer(n_clusters=c, ledger=TokenLedger(n, 5.0))
+    tbundle = t_make_mlp_bundle(4, 2, hidden=(3,), rep_dim=2)[1]
+    tt = FederatedTrainer(tbundle, "fedavg", adam(1e-3), n_clusters=c)
+    tt.ledger = TokenLedger(n, 5.0)
     for r in range(4):
         cohort = np.sort(rng.choice(n, size=k, replace=False))
         arrived = rng.random(k) < 0.8
@@ -221,7 +224,7 @@ def test_chain_round_matches_reference_given_the_same_inputs():
         jr = jt.chain_round(r, None, jnp.asarray(labels), jnp.asarray(corr),
                             cohort=cohort, arrived=arrived, tamper=tamper,
                             digests=digests)
-        tr = tt.chain_round(r, torch.from_numpy(labels), torch.from_numpy(corr),
+        tr = tt.chain_round(r, None, torch.from_numpy(labels), torch.from_numpy(corr),
                             cohort=cohort, arrived=arrived, digests=digests,
                             tamper=tamper)
         assert tr.producer == jr.producer

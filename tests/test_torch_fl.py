@@ -121,7 +121,8 @@ def test_local_train_matches_reference(epochs):
         jnp.asarray(y), jnp.zeros((M,)), epochs))(jp)
     tp = _t(p)
     tres = tfl.local_train(tstrat.local_loss, topt, tp, topt.init(tp),
-                           torch.from_numpy(x), torch.from_numpy(y), epochs)
+                           torch.from_numpy(x), torch.from_numpy(y),
+                           torch.zeros(M), epochs)
     np.testing.assert_allclose(tres.mean_loss.numpy(), np.asarray(jres.mean_loss),
                                rtol=1e-5)
     assert tres.opt_state["step"] == epochs * NB
