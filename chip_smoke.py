@@ -52,6 +52,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      7, all bit for bit; the fingerprint of those (20, N) rows at every
      forced cluster size, on and off the 16-byte grid, bit for bit; the
      Pearson matrix of (20, 64) prototypes within 1e-5, exactly symmetric;
+   * the async path's shapes (ASYNC_SHAPE, a flush's (16, 6570) rows): the
+     fingerprint at every forced cluster size, on and off the 16-byte grid,
+     and the merge — cluster_agg at C = 1 over staleness weights gated by
+     verification, zero-weight rows holding NaN, through
+     `weighted_delta_mean` (one launch, the plain version's row 0) and with
+     every weight 0 (an exact +0.0 delta), all bit for bit;
    then times kernel, plain version and (where one PyTorch call computes
    the same function) the library call with CUDA events (median device
    time, cold L2) beside the least time the card could take; flash beside
@@ -76,7 +82,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    round, none for fedproto), then on the host CPU at the same depth: equal event-log digests, `chain_valid` and `ledger_conserved`
    on both, balances within BALANCE_TOL, final accuracy within ACC_TOL;
    round wall p50 and per-stage spans.
-4. paper — the port's Table II campaign at `table2_accuracy.main()`'s
+4. async — FedBuff, `run(ExperimentSpec(train=TrainSpec(mode="async")))`
+   at the defaults (n = 1000, N = 6570, buffer 16, concurrency 64, alpha
+   0.5, server lr 1.0, 20 flushes, eval every 5) on the card, launches
+   counted (the fingerprint once a flush plus the freeriders' claim,
+   cluster_agg once a flush for the merge, Pearson never) beside the counts
+   the code implies, then on the host CPU: equal event logs and balances,
+   chain valid and ledger conserved on both, final accuracy within
+   ACC_TOL; flush wall p50 / p99 and every `flush.*` stage's wall.
+5. faults — FAULT_SCHEDULE (a producer failure, a bad block, a dropped and
+   a delayed commit, retry on) in one sync and one async run at the
+   defaults, on the card and the CPU: equal event logs, balances,
+   quarantined rounds, late commits and verified fractions; chain valid,
+   ledger conserved.
+6. resume — in both modes on the card at the defaults, snapshots every
+   RESUME_INTERVAL: checkpointing moves no digest; a crash at boundary
+   RESUME_CRASH by `InjectedCrash` in process and by SIGKILL in a child
+   process (`subprocess.run` with a timeout, return code -9), each resumed
+   in this process with `run(..., resume_from=dir)`: resume_step the crash
+   boundary, event-log, block-hash and balances digests and final accuracy
+   equal to the uninterrupted run's; a snapshot corrupted or truncated by
+   the injector skipped by `load_latest`.  The snapshot directories lie in
+   a `tempfile.mkdtemp()` removed afterwards.
+7. paper — the port's Table II campaign at `table2_accuracy.main()`'s
    defaults (synth10 and synth100, beta 0.1 / 0.3 / 0.5, bfln-2 / 5 / 7,
    fedavg, fedprox, fedproto, fedhkd, 12 rounds of 20 clients, MLP
    64-128-64-C) and `fig2_rewards.main()` on the card, each run's wall and
@@ -86,7 +114,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    again on the host CPU: accuracy within PAPER_ACC_TOL, rewards equal in
    every round whose labels agree.  The paper's orderings are recorded,
    not gated.
-5. serve — the port's serving path at the default model width
+8. serve — the port's serving path at the default model width
    (MLP 64-64-32-10, N = 6570 params) for n = 1000 clients in K = 5
    clusters: three commit blocks whose cohort digests come through the
    kernel (one freerider copying a peer's digest in each, refused by
@@ -96,7 +124,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bank refused by `verify_bank` and `ServingEngine`.  The fingerprint
    kernel's launch count is reset just before this phase and must be > 0
    after it.
-6. lm — the LM zoo's inference path at full width, depth cut: gemma3-4b
+9. lm — the LM zoo's inference path at full width, depth cut: gemma3-4b
    (6 layers: five SWA-1024 and one global) and rwkv6-3b (4 layers), bf16
    weights from `init_params(seed)`.  Per configuration: `make_eval_step`
    at B = 2, S = 4096 (loss, wall) and `greedy_generate` at B = 2, a
@@ -113,10 +141,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
 `{"kernels": [...]}` with each kernel's launches on its main path (and per
 path: train, train_fedavg, train_fedprox, train_fedproto, train_fedhkd,
-paper, serve, lm_forward, lm_decode, lm_fp32), error, times, bound and the
-two launch floors, one JSON line each `{"train": {...}}`,
-`{"strategies": {...}}`, `{"paper": {...}}`, `{"serve": {...}}`,
-`{"lm": {...}}`, and last `{"ok": true, "device": {...}}`.  Without CUDA
+async, faults, resume, paper, serve, lm_forward, lm_decode, lm_fp32), error,
+times, bound and the two launch floors (the fingerprint and cluster_agg
+entries with their `async_shape` row), one JSON line each
+`{"train": {...}}`, `{"strategies": {...}}`, `{"async": {...}}`,
+`{"faults": {...}}`, `{"resume": {...}}`, `{"paper": {...}}`,
+`{"serve": {...}}`, `{"lm": {...}}`, and last `{"ok": true, "device":
+{...}}`.  Without CUDA
 it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -124,9 +155,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -146,7 +180,14 @@ from repro_torch.blockchain import (  # noqa: E402
     Transaction,
     TxPool,
 )
-from repro_torch.api import ExperimentSpec, TrainSpec, run  # noqa: E402
+from repro_torch.api import (  # noqa: E402
+    CheckpointSpec,
+    ExperimentSpec,
+    FaultSpec,
+    InjectedCrash,
+    TrainSpec,
+    run,
+)
 from repro_torch.api.registry import build_strategy  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core.engine import RoundEngine  # noqa: E402
@@ -174,6 +215,7 @@ from repro_torch.serve import (  # noqa: E402
 )
 from repro_torch.serve.snapshot import mlp_layout  # noqa: E402
 from repro_torch.sim import VirtualClock  # noqa: E402
+from repro_torch.sim.async_agg import staleness_weight, weighted_delta_mean  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 SEED = 0
@@ -238,6 +280,25 @@ PAPER_CPU_CELL = ("synth10", 0.1, "bfln", 5)
 PAPER_ACC_TOL = 0.02
 # torch.profiler captures of one call, each checked by a marker kernel
 CAPTURE_TRIES = 3
+# a FedBuff flush's rows: AsyncSpec().buffer_size updates of N = 6570
+ASYNC_SHAPE = (16, 6570)
+# resume: a snapshot every RESUME_INTERVAL rounds/flushes, the crash at the
+# boundary RESUME_CRASH, the child process's time limit
+RESUME_INTERVAL, RESUME_CRASH, CHILD_TIMEOUT_S = 5, 10, 300
+DIGEST_KEYS = ("event_log_digest", "block_hashes_digest", "balances_digest",
+               "final_accuracy")
+# a producer failure, a bad block, a dropped and a delayed commit, retry on
+FAULT_SCHEDULE = FaultSpec(seed=19, producer_fail_rounds=(2, 7),
+                           bad_block_rounds=(3, 11), drop_commit_rounds=(4, 12),
+                           delay_commit_rounds=(5,), retry=True)
+# the child killed by an injected SIGKILL: argv = src path, spec JSON
+KILL_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.api import ExperimentSpec, run
+run(ExperimentSpec.from_json(sys.argv[2]))
+raise SystemExit("survived an injected SIGKILL")
+"""
 # each kernel: its module and the module's launch counter
 KERNELS = {"fingerprint": (fp, "launches"), "cluster_agg": (ca, "launches"),
            "pearson": (pe, "launches"), "flash_attention_bf16": (fa, "launches_bf16"),
@@ -664,6 +725,70 @@ def table2_kernel_phase(dev) -> dict:
     return {"cluster_agg": agg_rows, "fingerprint": fp_rows, "pearson": [pe_row]}
 
 
+def async_kernel_phase(dev) -> dict:
+    """The two kernels of the async path at a flush's shape ASYNC_SHAPE
+    against their plain versions, each timed beside its bound: the
+    fingerprint of the trained rows at every forced cluster size, on and
+    off the 16-byte grid; the merge (cluster_agg at C = 1, every label 0)
+    over staleness weights gated by verification, zero-weight rows holding
+    NaN, through `weighted_delta_mean` (row 0 of the kernel's output), and
+    with every weight 0 (an exact zero delta)."""
+    rng = np.random.default_rng(SEED + 9)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    m, n = ASYNC_SHAPE
+    buf = random_bits(rng, 1, m * n + 1, dev)[0]
+    for c in fp.CLUSTER_SIZES:
+        for off in (0, 1):
+            bits = buf[off:off + m * n].view(m, n)
+            if not torch.equal(fp.fingerprint_cuda(bits, cluster=c),
+                               fp.fingerprint_plain(bits)):
+                raise AssertionError(f"fingerprint kernel at ({m}, {n}), cluster "
+                                     f"size {c}, offset {off} != plain version")
+    bits = random_bits(rng, m, n, dev)
+    err = check_exact(bits, f"({m}, {n})")
+    bound, bound_by = fingerprint_bound_us(m, n)
+    fp_row = {"m": m, "n": n, "bit_exact": True, "max_abs_err": err,
+              "cluster": fp.cluster_size(m, n),
+              "forced_clusters_checked": list(fp.CLUSTER_SIZES),
+              "kernel_us": median_us(fp.fingerprint_cuda, bits, 200, flush),
+              "plain_us": median_us(fp.fingerprint_plain, bits, 30, flush),
+              "library_us": None, "bound_us": bound, "bound_by": bound_by}
+
+    rows = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(dev)
+    w = staleness_weight(rng.integers(0, 6, m)) * (rng.random(m) < 0.75)
+    w[0] = 1.0
+    rows[torch.from_numpy(w == 0).to(dev)] = float("nan")
+    w = torch.from_numpy(w.astype(np.float32)).to(dev)
+    labels = torch.zeros(m, dtype=torch.long, device=dev)
+    err = check_agg(rows, labels, w, 1, f"({m}, {n}) C=1, NaN at zero weight")
+    wo, denom = ca.cluster_weights(labels, 1, w)
+    before = ca.launches
+    merged = weighted_delta_mean(rows, w)
+    want = ca.cluster_agg_plain(rows, labels, wo, denom)[0]
+    if ca.launches != before + 1 or not torch.equal(merged.view(torch.int32),
+                                                    want.view(torch.int32)) \
+            or not torch.isfinite(merged).all():
+        raise AssertionError("weighted_delta_mean on the card is not one launch "
+                             "giving the plain version's row 0")
+    if weighted_delta_mean(rows, torch.zeros_like(w)).view(torch.int32).any():
+        raise AssertionError("a flush of all-zero weights must merge to +0.0")
+    onehot = torch.ones((m, 1), device=dev)
+    mix = (onehot / denom[None, :]) @ wo.T
+    n_live = int(w.gt(0).sum())
+    bound, bound_by = bound_us((n_live * n + m * n + m + 1) * 4 + m * 8,
+                               2 * n_live * n + n)
+    agg_row = {"m": m, "n": n, "clusters": 1, "live_rows": n_live,
+               "nan_at_zero_weight": True, "bit_exact": True, "max_abs_err": err,
+               "kernel_us": median_us(lambda _: ca.cluster_agg_cuda(rows, labels, wo, denom),
+                                      None, 200, flush),
+               "plain_us": median_us(lambda _: ca.cluster_agg_plain(rows, labels, wo, denom),
+                                     None, 30, flush),
+               "library_us": median_us(lambda _: torch.matmul(mix, rows), None, 200, flush),
+               "bound_us": bound, "bound_by": bound_by}
+    agg_row["kernel_over_library"] = agg_row["kernel_us"] / agg_row["library_us"]
+    return {"fingerprint": fp_row, "cluster_agg": agg_row}
+
+
 class RoundTimer:
     """A recorder for the training path's ``obs`` hook: the wall time of
     every span by name, the device drained at both ends of each span so a
@@ -910,6 +1035,232 @@ def strategy_run(name: str, dev) -> dict:
 
 def strategies_phase(dev) -> dict:
     return {name: strategy_run(name, dev) for name in BASELINES}
+
+
+def digests(manifest: dict) -> dict:
+    return {k: manifest[k] for k in DIGEST_KEYS}
+
+
+def card_and_cpu(spec: ExperimentSpec, dev, what: str,
+                 gate_balances: bool = True) -> dict:
+    """``spec`` through ``run`` on the card, its launches counted and its
+    spans timed, then on the host CPU: equal event logs, the chain valid
+    and the ledger conserved on both, final accuracy within ACC_TOL, and
+    (``gate_balances``) balances within BALANCE_TOL.  Returns both results,
+    the launches and the timer."""
+    timer = RoundTimer()
+    reset_launches()
+    t0 = time.perf_counter()
+    card = run(spec, device=dev, obs=timer)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    t1 = time.perf_counter()
+    cpu = run(spec, device="cpu")
+    cpu_wall_s = time.perf_counter() - t1
+    m, c = card.manifest, cpu.manifest
+    if card.sim.arena.data.device.type != "cuda":
+        raise AssertionError(f"{what}: the run's arena is not on the card")
+    for name, man in (("card", m), ("CPU", c)):
+        if not (man["chain_valid"] and man["ledger_conserved"]):
+            raise AssertionError(f"{what}: the {name} run's chain or ledger does "
+                                 "not hold")
+    if m["event_log_digest"] != c["event_log_digest"]:
+        raise AssertionError(f"{what}: card and CPU runs logged different events")
+    bal_err = float(np.abs(card.report.balances - cpu.report.balances).max())
+    if gate_balances and not bal_err <= BALANCE_TOL:
+        raise AssertionError(f"{what}: balances card vs CPU differ by {bal_err}")
+    if abs(m["final_accuracy"] - c["final_accuracy"]) > ACC_TOL:
+        raise AssertionError(f"{what}: final accuracy card {m['final_accuracy']} vs "
+                             f"CPU {c['final_accuracy']} > {ACC_TOL} apart")
+    return {"card": card, "cpu": cpu, "launches": launches, "timer": timer,
+            "summary": {"event_log_digest_match": True,
+                        "event_log_digest": m["event_log_digest"],
+                        "balances_max_abs_diff": bal_err,
+                        "balance_tol": BALANCE_TOL if gate_balances else None,
+                        "chain_valid": True, "ledger_conserved": True,
+                        "n_blocks": m["n_blocks"], "rounds_run": m["rounds_run"],
+                        "final_accuracy_card": m["final_accuracy"],
+                        "final_accuracy_cpu": c["final_accuracy"], "acc_tol": ACC_TOL,
+                        "block_hashes_equal_cpu":
+                            m["block_hashes_digest"] == c["block_hashes_digest"],
+                        "run_wall_s": wall_s, "cpu_run_wall_s": cpu_wall_s}}
+
+
+def async_phase(dev) -> dict:
+    """FedBuff at the spec defaults (n = 1000, N = 6570, buffer 16,
+    concurrency 64, alpha 0.5, server lr 1.0, 20 flushes, eval every 5) on
+    the card and the CPU (`card_and_cpu`), with the flush's stage walls.
+    Each flush launches the fingerprint once (async_step) and cluster_agg
+    once (the merge); the fingerprint once more at start-up for the
+    freeriders' claim; Pearson never (single-cluster CACC)."""
+    spec = ExperimentSpec(train=TrainSpec(mode="async"))
+    out = card_and_cpu(spec, dev, "async")
+    card, timer, launches = out["card"], out["timer"], out["launches"]
+    flushes = card.manifest["rounds_run"]
+    if flushes != spec.train.rounds or card.manifest["n_blocks"] != 1 + flushes:
+        raise AssertionError(f"async: {flushes} flushes, "
+                             f"{card.manifest['n_blocks']} blocks")
+    want = {k: 0 for k in KERNELS}
+    want.update(fingerprint=flushes + 1, cluster_agg=flushes)
+    if launches != want:
+        raise AssertionError(f"async-path launches {launches}, expected {want}")
+    flush_ms = timer.spans["flush.total"]
+    hist = card.report.history
+    return {"launches": launches, "launches_expected": want, "flushes": flushes,
+            "n_clients": card.manifest["n_clients"],
+            "buffer_size": spec.async_.buffer_size,
+            "concurrency": spec.async_.concurrency,
+            "n_params": card.sim.arena.n_params,
+            "flush_ms_p50": float(np.median(flush_ms)),
+            "flush_ms_p99": float(np.percentile(flush_ms, 99)),
+            "flush_ms_max": float(np.max(flush_ms)),
+            "phase_ms_p50": {k: float(np.median(v)) for k, v in timer.spans.items()},
+            "phase_ms_total": {k: float(np.sum(v)) for k, v in timer.spans.items()},
+            "staleness_mean": float(np.mean([r.staleness_mean for r in hist])),
+            "events": len(card.report.event_log), **out["summary"]}
+
+
+def faults_phase(dev) -> dict:
+    """FAULT_SCHEDULE (a producer failure, a bad block, a dropped and a
+    delayed commit, retry on) at the defaults in a BFLN sync run, a BFLN
+    async run and a FedAvg sync run, each on the card and the CPU
+    (`card_and_cpu`): equal event logs, quarantined rounds, late commits
+    and verified fractions in every round.  Balances must be equal where
+    they do not depend on the trained bits — async (single-cluster CACC)
+    and FedAvg (one cluster, the identity affinity).  BFLN's sync producers
+    and rewards follow its spectral labels, which the card's and the CPU's
+    Pearson matrices (equal to 1e-5, not in every bit) may split
+    differently, so there its balances and the rounds whose producers
+    differ are reported, not gated."""
+    out, launches = {}, {k: 0 for k in KERNELS}
+    for name, strategy, mode in (("sync", "bfln", "sync"), ("async", "bfln", "async"),
+                                 ("sync_fedavg", "fedavg", "sync")):
+        spec = ExperimentSpec(train=TrainSpec(strategy=strategy, mode=mode),
+                              faults=FAULT_SCHEDULE)
+        res = card_and_cpu(spec, dev, f"faults/{name}",
+                           gate_balances=name != "sync")
+        chains = [r.sim.trainer.chain for r in (res["card"], res["cpu"])]
+        quarantined = [[b.round_idx for b in c.quarantined] for c in chains]
+        late = [[(b.round_idx, tx.sender, tx.round_idx) for b in c.blocks
+                 for tx in b.transactions
+                 if tx.kind == MODEL_COMMIT_KIND and tx.round_idx != b.round_idx]
+                for c in chains]
+        verified = [[r.verified_frac for r in x.report.history]
+                    for x in (res["card"], res["cpu"])]
+        if quarantined[0] != quarantined[1] or late[0] != late[1] \
+                or verified[0] != verified[1]:
+            raise AssertionError(f"faults/{name}: quarantine {quarantined}, late "
+                                 f"commits {late} or verified fractions differ")
+        if quarantined[0] != list(FAULT_SCHEDULE.bad_block_rounds) or not late[0]:
+            raise AssertionError(f"faults/{name}: quarantined {quarantined[0]}, "
+                                 f"late commits {late[0]}")
+        for k, v in res["launches"].items():
+            launches[k] += v
+        hist, cpu_hist = res["card"].report.history, res["cpu"].report.history
+        out[name] = {"strategy": strategy, "launches": res["launches"],
+                     "quarantined": quarantined[0], "late_commits": late[0],
+                     "verified_frac": verified[0],
+                     "dropouts": [r.n_dropouts for r in hist],
+                     "producers": [r.producer for r in hist],
+                     "rounds_producer_differs_cpu": [
+                         a.round_idx for a, b in zip(hist, cpu_hist, strict=True)
+                         if a.producer != b.producer], **res["summary"]}
+    return {"launches": launches, "faults": dataclasses.asdict(FAULT_SCHEDULE), **out}
+
+
+def resume_phase(dev) -> dict:
+    """Crash-consistent checkpoint/resume at the defaults, in both modes on
+    the card, snapshots every RESUME_INTERVAL rounds/flushes under a
+    ``tempfile.mkdtemp()`` directory removed afterwards: the uninterrupted
+    run; the same with checkpoints on (digests equal: a pure observer); a
+    crash at boundary RESUME_CRASH by exception in process and by SIGKILL
+    in a child process (return code -9), each resumed here with the fault
+    schedule cleared — resume_step RESUME_CRASH, digests equal; the newest
+    snapshot corrupted or truncated by the injector, skipped by
+    ``load_latest`` (resume_step RESUME_CRASH - RESUME_INTERVAL)."""
+    root = tempfile.mkdtemp(prefix="bfln-resume-")
+    src = str(Path(__file__).resolve().parent / "src")
+    reset_launches()
+    cases = []
+    try:
+        for mode in ("sync", "async"):
+            base = ExperimentSpec(train=TrainSpec(mode=mode))
+            t0 = time.perf_counter()
+            want = digests(run(base, device=dev).manifest)
+            plain_wall_s = time.perf_counter() - t0
+
+            def resumed(name, faults, expect_step, crash="exception"):
+                ck = CheckpointSpec(interval=RESUME_INTERVAL,
+                                    dir=os.path.join(root, f"{mode}-{name}"))
+                spec = dataclasses.replace(base, checkpoint=ck, faults=faults)
+                timer = RoundTimer()
+                t0 = time.perf_counter()
+                if crash == "sigkill":
+                    proc = subprocess.run(
+                        [sys.executable, "-c", KILL_CHILD, src, spec.to_json()],
+                        capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+                    if proc.returncode != -9:
+                        raise AssertionError(f"resume/{mode}/{name}: child exited "
+                                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+                else:
+                    try:
+                        run(spec, device=dev, obs=timer)
+                    except InjectedCrash:
+                        pass
+                    else:
+                        raise AssertionError(f"resume/{mode}/{name}: no crash")
+                crashed_s = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                res = run(dataclasses.replace(base, checkpoint=ck), device=dev,
+                          resume_from=ck.dir, obs=timer)
+                torch.cuda.synchronize()
+                m = res.manifest
+                if m["resume_step"] != expect_step or digests(m) != want \
+                        or not (m["chain_valid"] and m["ledger_conserved"]):
+                    raise AssertionError(
+                        f"resume/{mode}/{name}: step {m['resume_step']} (want "
+                        f"{expect_step}), digests {digests(m)} vs {want}")
+                cases.append({
+                    "mode": mode, "case": name, "crash": crash,
+                    "resume_step": m["resume_step"], "digests_equal": True,
+                    "chain_valid": True, "ledger_conserved": True,
+                    "snapshot_bytes": m["checkpoint_bytes"],
+                    "ckpt_save_ms": timer.spans.get("ckpt.save"),
+                    "ckpt_restore_ms": timer.spans.get("ckpt.restore"),
+                    "crashed_run_wall_s": crashed_s,
+                    "resumed_run_wall_s": time.perf_counter() - t1,
+                    "plain_run_wall_s": plain_wall_s})
+
+            # checkpoints on, no crash: a pure observer
+            ck = CheckpointSpec(interval=RESUME_INTERVAL,
+                                dir=os.path.join(root, f"{mode}-observer"))
+            timer = RoundTimer()
+            t0 = time.perf_counter()
+            m = run(dataclasses.replace(base, checkpoint=ck), device=dev,
+                    obs=timer).manifest
+            if digests(m) != want or m["checkpoints_written"] != \
+                    base.train.rounds // RESUME_INTERVAL:
+                raise AssertionError(f"resume/{mode}: checkpointing moved the "
+                                     "digests or missed a boundary")
+            cases.append({"mode": mode, "case": "observer", "digests_equal": True,
+                          "checkpoints_written": m["checkpoints_written"],
+                          "snapshot_bytes": m["checkpoint_bytes"],
+                          "ckpt_save_ms": timer.spans["ckpt.save"],
+                          "run_wall_s": time.perf_counter() - t0,
+                          "plain_run_wall_s": plain_wall_s})
+            crash = dict(crash_round=RESUME_CRASH, crash_phase="post_checkpoint")
+            for crash_mode in ("exception", "sigkill"):
+                resumed(crash_mode, FaultSpec(crash_mode=crash_mode, **crash),
+                        RESUME_CRASH, crash=crash_mode)
+            for damage in ("corrupt", "truncate"):
+                resumed(damage, FaultSpec(**crash, **{
+                    f"{damage}_checkpoint_round": RESUME_CRASH}),
+                    RESUME_CRASH - RESUME_INTERVAL)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": read_launches(), "interval": RESUME_INTERVAL,
+            "crash_at": RESUME_CRASH, "cases": cases}
 
 
 def paper_phase(dev) -> dict:
@@ -1532,6 +1883,7 @@ def main() -> int:
     res["flash"] = flash_phase(dev)
     res["wkv"] = wkv_phase(dev)
     res["table2_shapes"] = table2_kernel_phase(dev)
+    res["async_shapes"] = async_kernel_phase(dev)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
     for phase, run_phase in PHASES:
         t0 = time.perf_counter()
@@ -1555,6 +1907,8 @@ def kernel_entries(res: dict) -> list[dict]:
     for name in BASELINES:
         by_path[f"train_{name}"] = res["strategies"][name]["launches"]
     by_path["paper"] = res["paper"]["launches"]
+    for path in ("async", "faults", "resume"):
+        by_path[path] = res[path]["launches"]
     for path in ("lm_forward", "lm_decode"):
         by_path[path] = {name: sum(run["launches"][path][name]
                                    for run in res["lm"].values())
@@ -1610,11 +1964,15 @@ def kernel_entries(res: dict) -> list[dict]:
         entry("fingerprint", "fingerprint.cu", "src/repro/kernels/fingerprint.py:102",
               "train", cohort, fp_err, 0, bit_exact=True, shape=[100, 6570],
               cluster=cohort["cluster"], shapes=shapes,
-              paper_shapes=new["fingerprint"]),
+              paper_shapes=new["fingerprint"],
+              async_shape=dict(res["async_shapes"]["fingerprint"],
+                               launches_async=by_path["async"]["fingerprint"])),
         entry("cluster_agg", "cluster_agg.cu", "src/repro/kernels/cluster_agg.py:43",
               "train", agg_row, agg_row["max_abs_err"], 0, bit_exact=True,
               shape=[100, 6570], dtype="float32", library_call="torch.matmul(mix, rows)",
               masked_mean_shapes=new["cluster_agg"],
+              async_shape=dict(res["async_shapes"]["cluster_agg"],
+                               launches_async=by_path["async"]["cluster_agg"]),
               # the same kernel on bf16 rows, which no path gives it yet (the
               # launch counter counts both dtypes; every path's rows are fp32)
               bf16={"launches": "none on a path", "max_abs_err": agg_row16["max_abs_err"],
@@ -1641,7 +1999,9 @@ def kernel_entries(res: dict) -> list[dict]:
 
 
 PHASES = (("train", train_phase), ("strategies", strategies_phase),
-          ("paper", paper_phase), ("serve", serve_phase), ("lm", lm_phase))
+          ("async", async_phase), ("faults", faults_phase),
+          ("resume", resume_phase), ("paper", paper_phase),
+          ("serve", serve_phase), ("lm", lm_phase))
 
 
 if __name__ == "__main__":

@@ -6,9 +6,11 @@
     result = run(ExperimentSpec())          # BFLN sync rounds on the card
     frontend = serve(result)                # chain-verified serving tier
 
-Port of ``repro.api`` for synchronous rounds on one device: one spec runs
-any registered strategy (BFLN, FedAvg, FedProx, FedProto, FedHKD, or one
-registered with :func:`register_strategy`) through the round engine.
+Port of ``repro.api`` on one device: one spec runs any registered
+strategy (BFLN, FedAvg, FedProx, FedProto, FedHKD, or one registered with
+:func:`register_strategy`) through the round engine, in sync rounds or
+async FedBuff flushes, under any ``FaultSpec``, with checkpoints and
+``run(spec, resume_from=...)``.
 ``load_packed_clients`` and ``make_mlp_bundle`` set up the paper's
 full-participation runs (``repro_torch.paper``).
 """
@@ -40,3 +42,5 @@ from repro_torch.api.spec import (  # noqa: F401
     ObsSpec,
     TrainSpec,
 )
+from repro_torch.checkpoint import CheckpointError  # noqa: F401
+from repro_torch.faults import InjectedCrash  # noqa: F401

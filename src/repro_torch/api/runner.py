@@ -6,9 +6,11 @@ returns the report with a *manifest*: a flat, JSON-able record stamped with
 the spec's ``config_digest`` (the reference's manifest, without its
 ``engine_compile_counts``: nothing compiles here).
 
-It runs every registered strategy's synchronous rounds through the engine
-on one device; ``run`` refuses anything else with ``NotImplementedError``
-naming the ROADMAP queue item that brings it.
+It runs every registered strategy through the engine on one device, in
+sync rounds or async FedBuff flushes, with any fault schedule and with
+checkpoints and ``resume_from``; ``run`` refuses anything else (the flight
+recorder, the legacy driver, the mesh) with ``NotImplementedError`` naming
+the ROADMAP queue item that brings it.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import json
 from dataclasses import dataclass, field
 from typing import Any
 
-from repro_torch.api.spec import AsyncSpec, ExperimentSpec, MeshSpec
+from repro_torch.api.spec import ExperimentSpec, MeshSpec, ObsSpec
 from repro_torch.device import resolve_device
 from repro_torch.sim.driver import SimReport, SimulatedFederation
 from repro_torch.sim.population import ClientPopulation
@@ -50,7 +52,7 @@ def build_manifest(spec: ExperimentSpec, sim: SimulatedFederation,
                    report: SimReport) -> dict[str, Any]:
     """The reproducibility record: config digest first, then everything a
     replay must reproduce."""
-    return {
+    manifest: dict[str, Any] = {
         "config_digest": spec.config_digest(),
         "strategy": spec.train.strategy,
         "mode": spec.train.mode,
@@ -71,17 +73,20 @@ def build_manifest(spec: ExperimentSpec, sim: SimulatedFederation,
             report.balances.tobytes()).hexdigest(),
         "final_accuracy": report.final_accuracy,
     }
+    if sim.ckpt is not None:
+        manifest["checkpoints_written"] = sim._ckpt_written
+        manifest["checkpoint_bytes"] = sim._ckpt_bytes
+    if sim._resumed_from is not None:
+        manifest["resumed_from"] = sim._resumed_from[0]
+        manifest["resume_step"] = sim._resumed_from[1]
+    return manifest
 
 
 def check_supported(spec: ExperimentSpec) -> None:
-    """Refuse what this slice does not run, naming the ROADMAP queue item
-    (§1 "Modules to port") that brings it: anything but the defaults in
-    ``async_``, ``faults``, ``obs``, ``checkpoint`` and ``mesh`` (past
-    ``shards``, which has its own message)."""
-    if spec.train.mode != "sync":
-        raise NotImplementedError(
-            f"mode={spec.train.mode!r} is not ported yet (ROADMAP queue 1 "
-            "item 3: async FedBuff)")
+    """Refuse what the port does not run, naming the ROADMAP queue item
+    (§1 "Modules to port") that brings it: the flight recorder (a
+    non-default ``obs``), ``engine=False`` and anything but the defaults in
+    ``mesh`` (past ``shards``, which has its own message)."""
     if not spec.engine:
         raise NotImplementedError(
             "engine=False (the reference's legacy oracle driver) is not "
@@ -90,16 +95,10 @@ def check_supported(spec: ExperimentSpec) -> None:
         raise NotImplementedError(
             f"mesh shards={spec.mesh.shards} is not ported yet (ROADMAP "
             "queue 1 item 6: multi-GPU)")
-    if spec.async_ != AsyncSpec():
+    if spec.obs != ObsSpec():
         raise NotImplementedError(
-            f"async_={spec.async_} is not ported yet (ROADMAP queue 1 item 3: "
-            "async FedBuff)")
-    for name in ("faults", "obs", "checkpoint"):
-        section = getattr(spec, name)
-        if section != type(section)():
-            raise NotImplementedError(
-                f"{name}={section} is not ported yet (ROADMAP queue 1 item 5: "
-                "checkpoint/, faults/ and the flight recorder)")
+            f"obs={spec.obs} is not ported yet (ROADMAP queue 1 item 5b: the "
+            "flight recorder, obs/{metrics,names,schema,sinks}.py)")
     mesh = dataclasses.replace(spec.mesh, shards=MeshSpec().shards)
     if mesh != MeshSpec():
         raise NotImplementedError(
@@ -109,11 +108,20 @@ def check_supported(spec: ExperimentSpec) -> None:
 
 
 def run(spec: ExperimentSpec, population: ClientPopulation | None = None, *,
-        device=None, obs=None) -> ExperimentResult:
+        device=None, obs=None, resume_from: str | None = None
+        ) -> ExperimentResult:
     """Run one experiment end to end on ``device`` (``None`` means the
     card; without CUDA that raises).  ``population`` may be passed to reuse
     one already built from this spec on this device.  ``obs`` is an
     optional recorder for the round's phase spans (``SimulatedFederation``).
+
+    ``resume_from`` restores a snapshot written by ``spec.checkpoint`` (a
+    file, or a checkpoint directory whose newest readable snapshot is used)
+    and continues the run from that boundary.  The snapshot's stamped
+    ``resume_digest`` must equal the spec's — obs/checkpoint/faults are
+    free to differ, so a crashed run can be resumed with its fault schedule
+    cleared — and the resumed run ends with the uninterrupted run's
+    manifest digests.
     """
     check_supported(spec)
     device = resolve_device(device)
@@ -124,6 +132,6 @@ def run(spec: ExperimentSpec, population: ClientPopulation | None = None, *,
             "supplied population was built from a different PopulationSpec "
             "than spec.data/spec.seed would rebuild")
     sim = SimulatedFederation(population, spec, device=device, obs=obs)
-    report = sim.run()
+    report = sim.run(resume_from=resume_from)
     return ExperimentResult(spec, report, build_manifest(spec, sim, report),
                             sim=sim)

@@ -2,11 +2,9 @@
 
 Copy of ``repro.checkpoint.spec`` as data: field names, defaults and
 validation are the reference's, so an ``ExperimentSpec`` hashes to the
-same ``config_digest`` in both packages.  Nothing here acts on it:
-the port's driver does not checkpoint yet (ROADMAP queue 1 item 5);
-``run`` refuses a non-default ``CheckpointSpec``.
+same ``config_digest`` in both packages.
 
-When ``interval > 0`` the reference snapshots the complete experiment
+When ``interval > 0`` the driver snapshots the complete experiment
 state into ``dir`` at every round/flush boundary divisible by
 ``interval``, keeping the newest ``keep_last`` snapshots.
 

@@ -17,10 +17,15 @@ the strategy's ``step.*`` stages, ``step.fingerprint``, ``step.scatter``);
 the default recorder does nothing.  Arrival is a fixed-shape mask, as in
 the reference.  What the host reads
 back each round is O(cohort): labels, the Pearson matrix, the fingerprint
-residues and the loss (``SyncRoundOut``).  The reference's compile-cache
-audit (``cache_sizes`` / ``lower_entry``) has no counterpart: there is no
-compilation.  The async step, the global eval and the cohort-sharded mesh
-path come with later slices (ROADMAP queue 1 items 3 and 6).
+residues and the loss (``SyncRoundOut``).
+
+The async flush's step (``async_step``) is the same training without the
+aggregation: ``round_extras`` over the buffered base rows ->
+``local_train`` -> one fingerprint call over the trained rows; the merge
+is the driver's (``repro_torch.sim.async_agg``).  The reference's
+compile-cache audit (``cache_sizes`` / ``lower_entry``) has no
+counterpart: there is no compilation.  The cohort-sharded mesh path comes
+with a later slice (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -51,8 +56,8 @@ class SyncRoundOut(NamedTuple):
 
 
 class RoundEngine:
-    """Arena-backed sync rounds and evaluation entries, on the arena's
-    device."""
+    """Arena-backed sync rounds, async flush steps and evaluation entries,
+    on the arena's device."""
 
     def __init__(self, layout: ArenaLayout, *, strategy: Strategy,
                  opt: Optimizer, n_clusters: int, local_epochs: int,
@@ -100,6 +105,30 @@ class RoundEngine:
             upd = arena.masked_scatter(cohort_idx, arrived > 0, agg.rows)
         return SyncRoundOut(agg.labels, agg.corr, residues,
                             res.mean_loss.mean(), upd)
+
+    def async_step(self, base_rows: torch.Tensor, cx: torch.Tensor,
+                   cy: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """A FedBuff flush batch: local updates of the ``(K, N)`` base rows
+        (each client's dispatch snapshot) and their fingerprints, no
+        aggregation -> ``(local_rows, residues, mean_loss)``."""
+        layout, strategy, obs = self.layout, self.strategy, self.obs
+        with obs.span("step.local_train"):
+            params = layout.unflatten(base_rows)
+            extras = strategy.round_extras(params, cx, cy)
+            res = local_train(strategy.local_loss, self.opt, params,
+                              self.opt.init(params), cx, cy, extras,
+                              self.local_epochs,
+                              shared_extras=strategy.shared_extras)
+            local_rows = layout.flatten(res.params)
+        with obs.span("step.fingerprint"):
+            residues = fingerprint_rows(bitcast_u32(local_rows))
+        return local_rows, residues, res.mean_loss.mean()
+
+    def eval_global(self, global_row: torch.Tensor, ex: torch.Tensor,
+                    ey: torch.Tensor) -> torch.Tensor:
+        """Accuracy of the one ``(N,)`` global model on the eval batch."""
+        return self._client_accs(global_row[None], ex, ey)[0]
 
     def eval_cohort(self, cohort_rows: torch.Tensor, arrived: torch.Tensor,
                     labels: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor

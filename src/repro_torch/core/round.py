@@ -7,8 +7,10 @@ full-participation protocol (``init`` / ``run_round``; Table II and Fig 2,
 (``chain_round``): hash commitments, the CACC packing queue, the block,
 consensus verification and participation-aware reward settlement.  The
 simulator drives ``chain_round`` alone; its training half runs in the
-round engine (``repro_torch.core.engine``).  The fault-injection hooks come
-with a later slice (ROADMAP queue 1 item 5).
+round engine (``repro_torch.core.engine``).  A bound fault injector
+(:meth:`FederatedTrainer.attach_faults`, ``repro_torch.faults``) makes the
+protocol absorb dropped and delayed commits, a failed producer and a bad
+block, as the reference's does.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.core import consensus as cacc
 from repro_torch.core.baselines import AggOut, ModelBundle, Strategy
 from repro_torch.core.fl import global_evaluate, local_train
 from repro_torch.core.incentives import allocate_rewards
+from repro_torch.faults import NULL_INJECTOR
 from repro_torch.kernels.fingerprint import cohort_digests
 from repro_torch.obs import NULL_RECORDER
 from repro_torch.optim import Optimizer
@@ -100,6 +103,7 @@ class FederatedTrainer:
         self.ledger: TokenLedger | None = None
         self._queue: list[int] = []
         self.obs = NULL_RECORDER
+        self.faults = NULL_INJECTOR
 
     def attach_obs(self, obs) -> None:
         """Bind a recorder to the trainer, its chain and its ledger."""
@@ -107,6 +111,12 @@ class FederatedTrainer:
         self.chain.obs = obs
         if self.ledger is not None:
             self.ledger.obs = obs
+
+    def attach_faults(self, faults) -> None:
+        """Bind a fault injector (``repro_torch.faults``) so the chain
+        protocol absorbs injected producer failures, bad blocks and
+        commit-delivery faults.  Default: the shared no-op injector."""
+        self.faults = faults
 
     def init(self, stacked_params: Pytree) -> tuple[Pytree, Pytree]:
         """Size the ledger to the stacked clients (with the chain) and
@@ -194,17 +204,39 @@ class FederatedTrainer:
                 digests = cohort_digests(local_params)
 
         # -- Fig.1 step 2: arrived clients commit model digests ------------ #
+        faults = self.faults
         with obs.span("chain.commit", cat="chain", round=round_idx) as sp:
+            # commits a fault delayed in an earlier round arrive only now —
+            # they land in THIS block, where verification ignores them
+            # (model_hash txs from another round carry no weight)
+            for late in faults.release_commits():
+                self.pool.submit(late)
+                obs.event("fault.commit_delivered_late", round=round_idx,
+                          client=late.sender, from_round=late.round_idx)
             entries: list[tuple[int, str]] = []  # what the producer aggregated
-            for slot in range(k):
-                if not arrived[slot]:
-                    continue
+            arrived_slots = [s for s in range(k) if arrived[s]]
+            drop_i = faults.commit_drop_slot(round_idx, len(arrived_slots))
+            delay_i = faults.commit_delay_slot(round_idx, len(arrived_slots))
+            for j, slot in enumerate(arrived_slots):
                 gid = int(cohort[slot])
                 claimed = tamper.get(gid, digests[slot])
                 if not isinstance(claimed, str):
                     claimed = digest_of(claimed)
-                self.pool.submit(Transaction(MODEL_COMMIT_KIND, gid, claimed,
-                                             round_idx))
+                tx = Transaction(MODEL_COMMIT_KIND, gid, claimed, round_idx)
+                if j == drop_i:
+                    # lost in transit: the producer aggregated this client's
+                    # update, but its commit never reaches the pool — the
+                    # client fails verification and forfeits its reward
+                    obs.event("fault.commit_dropped", round=round_idx,
+                              client=gid)
+                    obs.inc("fault.commit_dropped")
+                elif j == delay_i:
+                    faults.hold_commit(tx)
+                    obs.event("fault.commit_delayed", round=round_idx,
+                              client=gid)
+                    obs.inc("fault.commit_delayed")
+                else:
+                    self.pool.submit(tx)
                 entries.append((gid, digests[slot]))
             sp.set(n_commits=len(entries))
 
@@ -220,12 +252,29 @@ class FederatedTrainer:
                                                    active)
             except ValueError:
                 producer = min(active)  # no representative arrived this round
+            if faults.producer_fails(round_idx):
+                # producer death mid-pack: fail over to the next consensus
+                # candidate, exactly as every validator would recompute the
+                # slot from the same queue and the reduced active set
+                remaining = active - {producer}
+                if remaining:
+                    failed = producer
+                    try:
+                        producer = cacc.producer_for_round(
+                            self._queue, round_idx, remaining)
+                    except ValueError:
+                        producer = min(remaining)
+                    obs.event("fault.producer_failover", round=round_idx,
+                              failed=failed, successor=producer)
+                    obs.inc("fault.producer_failover")
+                # a sole active client has no successor: it keeps the slot
 
         # -- Fig.1 step 5: producer records sender-bound commitments ------- #
         commits = RoundCommitments(round_idx, tuple(entries))
         self.pool.submit(Transaction(
             AGG_COMMIT_KIND, producer, commits.to_payload(), round_idx))
-        block = self.chain.pack_block(round_idx, producer, self.pool)
+        block = self.chain.pack_block(round_idx, producer, self.pool,
+                                      faults=faults)
 
         # -- Fig.1 step 6: consensus verification + incentives ------------- #
         verified_total = self.chain.verify_round(block, n_total)

@@ -2,14 +2,13 @@
 
 Copy of ``repro.faults.spec`` as data: field names, defaults and
 validation are the reference's, so an ``ExperimentSpec`` hashes to the
-same ``config_digest`` in both packages.  Nothing here acts on it:
-the port's driver has no fault injector yet (ROADMAP queue 1 item 5);
-``run`` refuses a non-default ``FaultSpec``.
+same ``config_digest`` in both packages.  The injector that executes it
+is ``repro_torch.faults.injector.FaultInjector``.
 
 Every fault is scheduled deterministically from ``seed`` (the injector's
 own stream, never the simulator's).
 
-Fault classes (the reference's ``repro.faults.FaultInjector`` handles them):
+Fault classes (see :class:`repro_torch.faults.FaultInjector` for the handling):
 
 * **process crash** — ``crash_round``/``crash_phase``/``crash_mode``: die at
   a chosen point; ``"sigkill"`` kills the process outright (the

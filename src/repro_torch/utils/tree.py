@@ -15,10 +15,12 @@ def tree_index(tree: Pytree, i) -> Pytree:
 
 def tree_map(fn: Callable, tree: Pytree, *rest: Pytree) -> Pytree:
     """Apply ``fn`` leaf by leaf over (nested) dicts and lists of the same
-    structure (a tuple counts as a list)."""
+    structure (a tuple counts as a list), dict keys in sorted order — the
+    order ``jax.tree`` visits them, so a reduction over the leaves sums in
+    the reference's order."""
     if isinstance(tree, Mapping):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
@@ -29,7 +31,6 @@ def tree_leaves(tree: Pytree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
-
 
 
 def tree_sub(a: Pytree, b: Pytree) -> Pytree:

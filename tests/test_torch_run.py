@@ -30,6 +30,7 @@ from repro_torch.api import (  # noqa: E402
     build_manifest,
     run,
 )
+from repro_torch.api.runner import check_supported  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.serve import serve, verify_bank  # noqa: E402
 from repro_torch.sim.driver import SimulatedFederation  # noqa: E402
@@ -152,15 +153,19 @@ def test_run_returns_a_result_on_the_cpu():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(train=TrainSpec(mode="async")), "item 3"),
+    # async runs now, for BFLN and the baselines alike: accepted (match None)
+    (dict(train=TrainSpec(mode="async")), None),
     (dict(engine=False), "item 3"),
     (dict(mesh=MeshSpec(shards=2)), "item 6"),
-    # the baselines run sync through the engine; async is refused for them too
-    (dict(train=TrainSpec(strategy="fedavg", mode="async")), "item 3"),
+    (dict(train=TrainSpec(strategy="fedavg", mode="async")), None),
 ])
 def test_run_refuses_what_the_slice_does_not_do(change, match):
+    spec = dataclasses.replace(ExperimentSpec(), **change)
+    if match is None:
+        check_supported(spec)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        run(dataclasses.replace(ExperimentSpec(), **change), device="cpu")
+        run(spec, device="cpu")
 
 
 def test_spec_defaults_equal_the_reference_and_round_trip():
