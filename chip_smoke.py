@@ -42,9 +42,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      limit;
    * the RWKV6 wkv recurrence, at the LM path's (2, 40, 4096, 64) (the
      chunked form), with the model's strong decays w = exp(-exp(x)), at a
-     ragged T = 1000, at T = 1 (the recurrent kernel), two halves and a
-     split at 1001 against the whole, and w = 0 (atol 1e-4; w = 0 must
-     leave exactly the last k v^T);
+     ragged T = 1000, at T = 1 (the recurrent kernel, also timed there:
+     the decode shape (2, 40, 1, 64)), two halves and a split at 1001
+     against the whole, and w = 0 (atol 1e-4; w = 0 must leave exactly
+     the last k v^T);
    * the shapes only the baselines' and the paper's paths give the
      kernels: the flat strategies' masked mean (cluster_agg at C = 1,
      zero-weight rows holding NaN) at (100, 6570) and at Table II's
@@ -104,7 +105,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    equal to the uninterrupted run's; a snapshot corrupted or truncated by
    the injector skipped by `load_latest`.  The snapshot directories lie in
    a `tempfile.mkdtemp()` removed afterwards.
-7. paper — the port's Table II campaign at `table2_accuracy.main()`'s
+7. obs — the port's flight recorder at the defaults on the card, sync
+   and async, each run three ways, twice each in turns (OBS_ORDER):
+   untraced (a host clock around each span, no wait for the card), traced
+   (`ObsSpec(enabled=True)`, trace and Chrome export; every span waits for
+   its kernels), traced without `block_until_ready`, and RoundTimer's
+   drained spans.  All end on the same digests; every trace
+   line passes the port's `validate_trace_lines`, its sha256 is the
+   manifest's, every name is registered in `obs/names.py`, and the runs
+   report no `compile` event (every library was loaded before them); each
+   kernel of the path launched.  The p50 of every `round.*`, `flush.*`
+   and `step.*` span is set beside RoundTimer's drained p50, of this phase
+   and of the train and async phases; the phase fails if a traced `round.step` /
+   `flush.step` p50 is below OBS_STEP_FLOOR of the drained one.  Then a
+   traced 2-round run in a fresh process (its `compile` events must name
+   exactly the cluster_agg, fingerprint and Pearson sources, once each),
+   a run with `profile_dir` (its `torch_trace.json` must hold those three
+   kernels' events), and `core.aggregation.paa_round` on the card against
+   the CPU on well-separated clients (labels equal, Pearson within 1e-5,
+   prototypes and new params within PAA_ATOL, one Pearson launch).
+8. paper — the port's Table II campaign at `table2_accuracy.main()`'s
    defaults (synth10 and synth100, beta 0.1 / 0.3 / 0.5, bfln-2 / 5 / 7,
    fedavg, fedprox, fedproto, fedhkd, 12 rounds of 20 clients, MLP
    64-128-64-C) and `fig2_rewards.main()` on the card, each run's wall and
@@ -114,7 +134,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    again on the host CPU: accuracy within PAPER_ACC_TOL, rewards equal in
    every round whose labels agree.  The paper's orderings are recorded,
    not gated.
-8. serve — the port's serving path at the default model width
+9. serve — the port's serving path at the default model width
    (MLP 64-64-32-10, N = 6570 params) for n = 1000 clients in K = 5
    clusters: three commit blocks whose cohort digests come through the
    kernel (one freerider copying a peer's digest in each, refused by
@@ -124,7 +144,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bank refused by `verify_bank` and `ServingEngine`.  The fingerprint
    kernel's launch count is reset just before this phase and must be > 0
    after it.
-9. lm — the LM zoo's inference path at full width, depth cut: gemma3-4b
+10. lm — the LM zoo's inference path at full width, depth cut: gemma3-4b
    (6 layers: five SWA-1024 and one global) and rwkv6-3b (4 layers), bf16
    weights from `init_params(seed)`.  Per configuration: `make_eval_step`
    at B = 2, S = 4096 (loss, wall) and `greedy_generate` at B = 2, a
@@ -141,11 +161,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
 `{"kernels": [...]}` with each kernel's launches on its main path (and per
 path: train, train_fedavg, train_fedprox, train_fedproto, train_fedhkd,
-async, faults, resume, paper, serve, lm_forward, lm_decode, lm_fp32), error,
-times, bound and the two launch floors (the fingerprint and cluster_agg
-entries with their `async_shape` row), one JSON line each
+async, faults, resume, obs, paper, serve, lm_forward, lm_decode, lm_fp32),
+error, times, bound and the two launch floors (the fingerprint and
+cluster_agg entries with their `async_shape` row, rwkv6 with its
+`decode_shape` row), one JSON line each
 `{"train": {...}}`, `{"strategies": {...}}`, `{"async": {...}}`,
-`{"faults": {...}}`, `{"resume": {...}}`, `{"paper": {...}}`,
+`{"faults": {...}}`, `{"resume": {...}}`, `{"obs": {...}}`, `{"paper": {...}}`,
 `{"serve": {...}}`, `{"lm": {...}}`, and last `{"ok": true, "device":
 {...}}`.  Without CUDA
 it exits non-zero and prints no result.  Imports nothing of JAX.
@@ -154,6 +175,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -185,11 +207,13 @@ from repro_torch.api import (  # noqa: E402
     ExperimentSpec,
     FaultSpec,
     InjectedCrash,
+    ObsSpec,
     TrainSpec,
     run,
 )
 from repro_torch.api.registry import build_strategy  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.core import aggregation as core_agg  # noqa: E402
 from repro_torch.core.engine import RoundEngine  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.data.lm import batch_stream, make_token_stream  # noqa: E402
@@ -202,9 +226,16 @@ from repro_torch.models import classifier as clf  # noqa: E402
 from repro_torch.models import decode as lmdec  # noqa: E402
 from repro_torch.models import lm as lmsteps  # noqa: E402
 from repro_torch.models import transformer as lmt  # noqa: E402
+from repro_torch.obs import (  # noqa: E402
+    ALL_NAMES,
+    PORT_SPAN_NAMES,
+    file_sha256,
+    validate_trace_lines,
+)
+from repro_torch.obs.names import is_registered  # noqa: E402
 from repro_torch.paper import common as paper_common  # noqa: E402
 from repro_torch.paper import fig2_rewards, table2_accuracy  # noqa: E402
-from repro_torch.runtime.arena import ParamArena  # noqa: E402
+from repro_torch.runtime.arena import ArenaLayout, ParamArena  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ProvenanceError,
     ServeConfig,
@@ -299,6 +330,29 @@ from repro_torch.api import ExperimentSpec, run
 run(ExperimentSpec.from_json(sys.argv[2]))
 raise SystemExit("survived an injected SIGKILL")
 """
+# a traced round.step (flush.step) p50 below this share of the drained one
+# times the launches, not the step: its span did not wait for the card
+OBS_STEP_FLOOR = 0.5
+# each mode's runs in the obs phase, in turns: untraced (a host clock, no
+# wait), traced (spans wait for the card), traced without the waits, and
+# RoundTimer's drained spans again (the host's speed drifts between phases)
+OBS_ORDER = ("untraced", "traced", "traced_no_wait", "drained", "drained",
+             "traced_no_wait", "traced", "untraced")
+# the fresh process whose traced run reports the kernel libraries it loads:
+# argv = src path, trace path
+OBS_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.api import ExperimentSpec, ObsSpec, TrainSpec, run
+run(ExperimentSpec(train=TrainSpec(rounds=2),
+                   obs=ObsSpec(enabled=True, trace_path=sys.argv[2])))
+"""
+# the kernel libraries a sync BFLN run loads, and their kernels' names
+TRAIN_SOURCES = {"cluster_agg.cu": "cluster_agg_kernel",
+                 "fingerprint.cu": "fingerprint_kernel", "pearson.cu": "pearson_kernel"}
+# paa_round on the card vs the CPU: the Pearson matrix at the reference's
+# tolerance, the prototypes and the new params at the float32 sums' 1e-6
+PAA_ATOL = 1e-6
 # each kernel: its module and the module's launch counter
 KERNELS = {"fingerprint": (fp, "launches"), "cluster_agg": (ca, "launches"),
            "pearson": (pe, "launches"), "flash_attention_bf16": (fa, "launches_bf16"),
@@ -805,7 +859,31 @@ class RoundTimer:
     def inc(self, *args, **kwargs) -> None:
         pass
 
-    event = observe = set_gauge = inc
+    event = observe = set_gauge = compile_delta = inc
+
+
+class HostTimer(RoundTimer):
+    """A recorder that times every span on the host clock and waits for
+    nothing: an untraced run's rounds as its caller sees them."""
+
+    def span(self, name: str, **attrs):
+        return _HostSpan(self.spans.setdefault(name, []))
+
+
+class _HostSpan:
+    def __init__(self, sink):
+        self.sink = sink
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.sink.append((time.perf_counter() - self.t0) * 1e3)
+        return False
 
 
 class _DrainedSpan:
@@ -1263,6 +1341,223 @@ def resume_phase(dev) -> dict:
             "crash_at": RESUME_CRASH, "cases": cases}
 
 
+def trace_records(manifest: dict) -> list[dict]:
+    """The run's trace: its sha256 the manifest's ``trace_digest``, every
+    line valid under the port's schema, every name registered."""
+    path = manifest["trace_path"]
+    if file_sha256(path) != manifest["trace_digest"]:
+        raise AssertionError(f"obs: {path} does not hash to the manifest's digest")
+    lines = open(path).read().splitlines()
+    validate_trace_lines(lines)
+    recs = [json.loads(line) for line in lines]
+    bad = sorted({r["name"] for r in recs[1:]
+                  if not is_registered(r["name"], ALL_NAMES | PORT_SPAN_NAMES)})
+    if bad:
+        raise AssertionError(f"obs: unregistered names in {path}: {bad}")
+    return recs
+
+
+def span_ms(recs: list[dict]) -> dict[str, list[float]]:
+    """Wall ms of every ``round.*``, ``flush.*`` and ``step.*`` span, by name."""
+    durs: dict[str, list[float]] = {}
+    for r in recs:
+        if r["kind"] == "span" and r["name"].startswith(("round.", "flush.", "step.")):
+            durs.setdefault(r["name"], []).append(r["dur_us"] / 1e3)
+    return durs
+
+
+def traced_mode(mode: str, drained: dict, dev, root: str) -> dict:
+    """One mode at the defaults on the card four ways, each run twice in
+    turns (OBS_ORDER): untraced (a host clock around each span, no wait
+    for the card), traced with ``block_until_ready`` (each span waits for
+    its kernels), traced without it, and drained (RoundTimer).  Every run ends on the same
+    digests; each trace validates, names only registered names and reports
+    no compile (every library was loaded before); each kernel of the path
+    launched.  Span p50s pool both runs of a way; the traced step's p50 is
+    at least OBS_STEP_FLOOR of the drained one (``drained``: RoundTimer's
+    p50s of the same spans)."""
+    base = ExperimentSpec(train=TrainSpec(mode=mode))
+    total = "round.total" if mode == "sync" else "flush.total"
+    step = "round.step" if mode == "sync" else "flush.step"
+    used = ("fingerprint", "cluster_agg") + (("pearson",) if mode == "sync" else ())
+    want = None
+    ways: dict[str, dict] = {}
+    for i, name in enumerate(OBS_ORDER):
+        way = ways.setdefault(name, {"run_wall_s": [], "spans": {}})
+        if name in ("untraced", "drained"):
+            spec, clock = base, HostTimer() if name == "untraced" else RoundTimer()
+        else:
+            spec, clock = dataclasses.replace(base, obs=ObsSpec(
+                enabled=True, block_until_ready=name == "traced",
+                trace_path=os.path.join(root, f"{mode}-{name}-{i}.jsonl"),
+                chrome_path=os.path.join(root, f"{mode}-{name}-{i}-chrome.json"))), None
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run(spec, device=dev, obs=clock)
+        torch.cuda.synchronize()
+        way["run_wall_s"].append(time.perf_counter() - t0)
+        launches = read_launches()
+        m = res.manifest
+        if want is None:
+            want = digests(m)
+        if digests(m) != want:
+            raise AssertionError(f"obs/{mode}/{name}: tracing moved the digests: "
+                                 f"{digests(m)} vs {want}")
+        if not all(launches[k] for k in used):
+            raise AssertionError(f"obs/{mode}/{name}: launches {launches}")
+        if clock is not None:
+            spans = clock.spans
+        else:
+            recs = trace_records(m)
+            compiles = [r for r in recs if r["kind"] == "event" and r["name"] == "compile"]
+            if compiles or m["timing"]["compiles"]:
+                raise AssertionError(f"obs/{mode}/{name}: compile events in a run that "
+                                     f"loaded no library: {compiles}")
+            spans = span_ms(recs)
+            way.update(launches=launches, records=len(recs),
+                       trace_bytes=os.path.getsize(m["trace_path"]))
+        for k, v in spans.items():
+            if k.startswith(("round.", "flush.", "step.")):
+                way["spans"].setdefault(k, []).extend(v)
+    out = {}
+    for name, way in ways.items():
+        spans = way.pop("spans")
+        out[name] = dict(way, rounds=len(spans[total]),
+                         round_ms_p50=float(np.median(spans[total])),
+                         round_ms_p99=float(np.percentile(spans[total], 99)),
+                         span_ms_p50={k: float(np.median(v)) for k, v in sorted(spans.items())})
+    traced = out["traced"]["span_ms_p50"]
+    out["digests_equal"] = True
+    out["drained_span_ms_p50"] = {k: v for k, v in drained.items() if k in traced}
+    out["traced_over_drained"] = {k: traced[k] / v
+                                  for k, v in out["drained_span_ms_p50"].items()}
+    out["traced_over_drained_in_turn"] = {
+        k: traced[k] / v for k, v in out["drained"]["span_ms_p50"].items() if k in traced}
+    if not traced[step] >= OBS_STEP_FLOOR * drained[step]:
+        raise AssertionError(f"obs/{mode}: traced {step} p50 {traced[step]} ms is below "
+                             f"{OBS_STEP_FLOOR} x the drained {drained[step]} ms: the "
+                             "span times the launches, not the step")
+    out["traced_over_untraced_round"] = (out["traced"]["round_ms_p50"]
+                                         / out["untraced"]["round_ms_p50"])
+    out["wait_cost_round_ms_p50"] = (out["traced"]["round_ms_p50"]
+                                     - out["traced_no_wait"]["round_ms_p50"])
+    return out
+
+
+def child_compile_events(root: str) -> dict:
+    """A traced 2-round run in a fresh process: its compile events name
+    exactly the kernel libraries a sync run loads, each once."""
+    trace = os.path.join(root, "child.jsonl")
+    src = str(Path(__file__).resolve().parent / "src")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", OBS_CHILD, src, trace],
+                          capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+    if proc.returncode:
+        raise AssertionError(f"obs: the traced child exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    lines = open(trace).read().splitlines()
+    validate_trace_lines(lines)
+    recs = [json.loads(line) for line in lines]
+    entries = [r["attrs"]["entry"] for r in recs
+               if r["kind"] == "event" and r["name"] == "compile"]
+    counted = [r["value"] for r in recs if r["kind"] == "counter" and r["name"] == "compiles"]
+    if sorted(entries) != sorted(TRAIN_SOURCES) or counted != [len(TRAIN_SOURCES)]:
+        raise AssertionError(f"obs: the child's compile events {entries} (compiles "
+                             f"{counted}), expected {sorted(TRAIN_SOURCES)} once each")
+    return {"entries": entries, "compiles": counted[0],
+            "rounds": sorted({r["round"] for r in recs
+                              if r["kind"] == "event" and r["name"] == "compile"},
+                             key=str),
+            "child_wall_s": time.perf_counter() - t0}
+
+
+def profile_dir_kernels(dev, root: str) -> dict:
+    """A traced 2-round run with ``profile_dir``: its ``torch_trace.json``
+    must hold the card's events of the fingerprint, Pearson and
+    cluster_agg kernels.  A capture that recorded no device activity at all
+    (seen once on the card) is taken again, at most CAPTURE_TRIES times."""
+    for tries in range(1, CAPTURE_TRIES + 1):
+        prof = os.path.join(root, f"prof{tries}")
+        spec = ExperimentSpec(train=TrainSpec(rounds=2), obs=ObsSpec(
+            enabled=True, trace_path=os.path.join(root, f"prof{tries}.jsonl"),
+            profile_dir=prof))
+        run(spec, device=dev)
+        path = os.path.join(prof, "torch_trace.json")
+        events = json.load(open(path))["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        if kernels:
+            break
+    found = {src: sum(name in k for k in kernels) for src, name in TRAIN_SOURCES.items()}
+    if not all(found.values()):
+        raise AssertionError(f"obs: {path} holds no kernel event for "
+                             f"{[s for s, n in found.items() if not n]}")
+    return {"kernel_events": len(kernels), "by_source": found, "tries": tries,
+            "trace_bytes": os.path.getsize(path)}
+
+
+def paa_round_check(dev) -> dict:
+    """``core.aggregation.paa_round`` on the card against the CPU on
+    well-separated clients (100 MLPs 64-64-32-10 around 5 models, the
+    arrival mask as weights): labels equal, the Pearson matrix within
+    PEARSON_TOL, prototypes and new params within PAA_ATOL; one Pearson
+    launch."""
+    mcfg = clf.MLPConfig(in_dim=64, hidden=(64,), rep_dim=32, num_classes=10)
+    m, c = 100, 5
+    gen = torch.Generator().manual_seed(SEED + 9)
+    centers = clf.init_stacked(mcfg, gen, c, same_init=False, device="cpu")
+    layout = ArenaLayout.from_stacked(centers)
+    rng = np.random.default_rng(SEED + 9)
+    noise = torch.from_numpy(rng.standard_normal((m, layout.n_params)).astype(np.float32))
+    stacked = layout.unflatten(layout.flatten(centers)[torch.arange(m) % c] + 0.002 * noise)
+    probe = torch.from_numpy(rng.standard_normal((32, mcfg.in_dim)).astype(np.float32))
+    weights = torch.from_numpy((rng.random(m) < 0.8).astype(np.float32))
+    embed = functools.partial(clf.embed_stacked, mcfg)
+    before = pe.launches
+    card = core_agg.paa_round(embed, tree_map(lambda x: x.to(dev), stacked), probe.to(dev),
+                              c, weights.to(dev))
+    torch.cuda.synchronize()
+    launched = pe.launches - before
+    cpu = core_agg.paa_round(embed, stacked, probe, c, weights)
+    labels = card.labels.cpu()
+    if not torch.equal(labels, cpu.labels) or len(set(labels.tolist())) != c \
+            or launched != 1:
+        raise AssertionError(f"paa_round labels card {labels.tolist()} vs CPU "
+                             f"{cpu.labels.tolist()}, Pearson launches {launched}")
+    corr_err = float((card.corr.cpu() - cpu.corr).abs().max())
+    proto_err = float((card.prototypes.cpu() - cpu.prototypes).abs().max())
+    param_err = max(float((card.new_stacked_params[k].cpu() - v).abs().max())
+                    for k, v in cpu.new_stacked_params.items())
+    if not (corr_err <= PEARSON_TOL and proto_err <= PAA_ATOL and param_err <= PAA_ATOL):
+        raise AssertionError(f"paa_round card vs CPU: corr {corr_err}, prototypes "
+                             f"{proto_err}, new params {param_err}")
+    return {"m": m, "n_clusters": c, "n_params": layout.n_params, "labels_equal": True,
+            "cluster_sizes": card.cluster_sizes.cpu().tolist(),
+            "pearson_launches": launched, "corr_max_abs": corr_err,
+            "corr_tol": PEARSON_TOL, "prototypes_max_abs": proto_err,
+            "new_params_max_abs": param_err, "tol": PAA_ATOL}
+
+
+def obs_phase(dev, res: dict) -> dict:
+    """The port's flight recorder on the card: each mode untraced and
+    traced (``traced_mode``, against the drained span times of the train
+    and async phases), the compile events of a fresh process, a
+    ``profile_dir`` run's kernel events, and ``paa_round`` card vs CPU.
+    Traces lie in a ``tempfile.mkdtemp()`` directory removed afterwards."""
+    root = tempfile.mkdtemp(prefix="bfln-obs-")
+    try:
+        out = {"sync": traced_mode("sync", res["train"]["phase_ms_p50"], dev, root),
+               "async": traced_mode("async", res["async"]["phase_ms_p50"], dev, root),
+               "compile_events": child_compile_events(root),
+               "profile_dir": profile_dir_kernels(dev, root),
+               "paa_round": paa_round_check(dev)}
+        # the last traced run of each mode
+        out["launches"] = {k: out["sync"]["traced"]["launches"][k]
+                           + out["async"]["traced"]["launches"][k] for k in KERNELS}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def paper_phase(dev) -> dict:
     """The port's Table II campaign at ``table2_accuracy.main()``'s
     defaults and ``fig2_rewards.main()``, on the card, each run observed
@@ -1356,7 +1651,7 @@ class FlushLog:
     def inc(self, *args, **kwargs) -> None:
         pass
 
-    event = observe = set_gauge = inc
+    event = observe = set_gauge = compile_delta = inc
 
 
 class _Span:
@@ -1715,6 +2010,15 @@ def wkv_phase(dev) -> tuple[dict, dict]:
            "library_us": None,
            "bound_us": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "flop": n_ops}
+    # the decode shape, T = 1: the recurrent kernel, once a layer a token
+    n_bytes = sum(t.numel() for t in one) * 4 + (B * H * hd + B * H * hd * hd) * 4
+    n_ops = B * H * (WKV_FLOPS_PER_STATE * hd * hd + WKV_FLOPS_PER_CHANNEL * hd)
+    bound, bound_by = bound_us(n_bytes, n_ops)
+    row["decode"] = {"shape": [B, H, 1, hd], "dtype": "float32",
+                     "kernel_us": median_us(lambda _: wk.rwkv6_cuda(*one), None, 200, flush),
+                     "plain_us": median_us(lambda _: wk.rwkv6_plain(*one), None, 50, flush),
+                     "library_us": None, "bound_us": bound, "bound_by": bound_by,
+                     "bytes": n_bytes, "flop": n_ops}
     return row, checks
 
 
@@ -1887,7 +2191,8 @@ def main() -> int:
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
     for phase, run_phase in PHASES:
         t0 = time.perf_counter()
-        res[phase] = run_phase(dev)
+        # the obs phase reads the train and async phases' drained span times
+        res[phase] = run_phase(dev, res) if phase == "obs" else run_phase(dev)
         print(f"{phase} phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernel_entries(res)}), flush=True)
@@ -1907,7 +2212,7 @@ def kernel_entries(res: dict) -> list[dict]:
     for name in BASELINES:
         by_path[f"train_{name}"] = res["strategies"][name]["launches"]
     by_path["paper"] = res["paper"]["launches"]
-    for path in ("async", "faults", "resume"):
+    for path in ("async", "faults", "resume", "obs"):
         by_path[path] = res[path]["launches"]
     for path in ("lm_forward", "lm_decode"):
         by_path[path] = {name: sum(run["launches"][path][name]
@@ -1994,13 +2299,20 @@ def kernel_entries(res: dict) -> list[dict]:
               {"rtol": 0.0, "atol": FLASH_TOL_F32, "against": "plain version"}),
         entry("rwkv6", "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:45",
               "lm_forward", wkv_row, wkv_checks["main (2, 40, 4096, 64)"], WKV_TOL,
-              shape=[2, 40, 4096, 64], dtype="float32", checks=wkv_checks),
+              shape=[2, 40, 4096, 64], dtype="float32", checks=wkv_checks,
+              decode_shape={"launches_lm_decode": by_path["lm_decode"]["rwkv6"],
+                            "max_abs_err": wkv_checks["T = 1 (2, 40, 1, 64)"],
+                            "ms": us_to_ms(wkv_row["decode"], "kernel_us"),
+                            "plain_ms": us_to_ms(wkv_row["decode"], "plain_us"),
+                            "bound_ms": us_to_ms(wkv_row["decode"], "bound_us"),
+                            "bound_by": wkv_row["decode"]["bound_by"],
+                            "library_ms": None, "row": wkv_row["decode"]}),
     ]
 
 
 PHASES = (("train", train_phase), ("strategies", strategies_phase),
           ("async", async_phase), ("faults", faults_phase),
-          ("resume", resume_phase), ("paper", paper_phase),
+          ("resume", resume_phase), ("obs", obs_phase), ("paper", paper_phase),
           ("serve", serve_phase), ("lm", lm_phase))
 
 

@@ -23,6 +23,7 @@ from repro_torch.api.runner import (  # noqa: F401
     ExperimentResult,
     build_manifest,
     event_log_digest,
+    format_manifest,
     run,
 )
 from repro_torch.api.setup import (  # noqa: F401

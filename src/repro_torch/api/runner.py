@@ -7,21 +7,26 @@ the spec's ``config_digest`` (the reference's manifest, without its
 ``engine_compile_counts``: nothing compiles here).
 
 It runs every registered strategy through the engine on one device, in
-sync rounds or async FedBuff flushes, with any fault schedule and with
-checkpoints and ``resume_from``; ``run`` refuses anything else (the flight
-recorder, the legacy driver, the mesh) with ``NotImplementedError`` naming
-the ROADMAP queue item that brings it.
+sync rounds or async FedBuff flushes, with any fault schedule, with
+checkpoints and ``resume_from``, and with the flight recorder
+(``spec.obs``: the trace file, its digest and the timing readout in the
+manifest, as the reference's).  ``run`` refuses the legacy driver
+(``engine=False``, deliberately not ported) and the mesh with
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Any
 
-from repro_torch.api.spec import ExperimentSpec, MeshSpec, ObsSpec
+from repro_torch.api.spec import ExperimentSpec, MeshSpec
 from repro_torch.device import resolve_device
+from repro_torch.obs import console_summary, write_chrome_trace, write_jsonl
 from repro_torch.sim.driver import SimReport, SimulatedFederation
 from repro_torch.sim.population import ClientPopulation
 
@@ -44,8 +49,17 @@ class ExperimentResult:
 
     def summary(self) -> str:
         m = self.manifest
-        return (f"[{m['strategy']}/{m['mode']}] {self.report.summary()} "
+        line = (f"[{m['strategy']}/{m['mode']}] {self.report.summary()} "
                 f"config_digest={m['config_digest'][:12]}")
+        t = m.get("timing")
+        if t:
+            unit = "flush" if m.get("mode") == "async" else "round"
+            line += (f"\n  timing: {unit} p50={t.get('round_ms_p50', 0):.1f}ms"
+                     f" p99={t.get('round_ms_p99', 0):.1f}ms")
+            if "chain_overhead_pct" in t:
+                line += f" chain={t['chain_overhead_pct']:.1f}%"
+            line += f" compiles={t.get('compiles', 0)}"
+        return line
 
 
 def build_manifest(spec: ExperimentSpec, sim: SimulatedFederation,
@@ -82,23 +96,24 @@ def build_manifest(spec: ExperimentSpec, sim: SimulatedFederation,
     return manifest
 
 
+def format_manifest(manifest: dict[str, Any]) -> str:
+    return "\n".join(f"  {k}: {v}" for k, v in manifest.items())
+
+
 def check_supported(spec: ExperimentSpec) -> None:
-    """Refuse what the port does not run, naming the ROADMAP queue item
-    (§1 "Modules to port") that brings it: the flight recorder (a
-    non-default ``obs``), ``engine=False`` and anything but the defaults in
-    ``mesh`` (past ``shards``, which has its own message)."""
+    """Refuse what the port does not run: ``engine=False`` (deliberately
+    not ported, ROADMAP §1) and anything but the defaults in ``mesh``
+    (ROADMAP queue 1 item 6; ``shards`` has its own message)."""
     if not spec.engine:
         raise NotImplementedError(
-            "engine=False (the reference's legacy oracle driver) is not "
-            "ported (ROADMAP queue 1 item 3 ports the engine paths only)")
+            "engine=False (the reference's legacy oracle driver) is "
+            "deliberately not ported (ROADMAP §1 \"Deliberately not "
+            "ported\"): the port's engine is held against the reference's "
+            "engine instead")
     if spec.mesh.shards > 1:
         raise NotImplementedError(
             f"mesh shards={spec.mesh.shards} is not ported yet (ROADMAP "
             "queue 1 item 6: multi-GPU)")
-    if spec.obs != ObsSpec():
-        raise NotImplementedError(
-            f"obs={spec.obs} is not ported yet (ROADMAP queue 1 item 5b: the "
-            "flight recorder, obs/{metrics,names,schema,sinks}.py)")
     mesh = dataclasses.replace(spec.mesh, shards=MeshSpec().shards)
     if mesh != MeshSpec():
         raise NotImplementedError(
@@ -113,7 +128,10 @@ def run(spec: ExperimentSpec, population: ClientPopulation | None = None, *,
     """Run one experiment end to end on ``device`` (``None`` means the
     card; without CUDA that raises).  ``population`` may be passed to reuse
     one already built from this spec on this device.  ``obs`` is an
-    optional recorder for the round's phase spans (``SimulatedFederation``).
+    optional recorder for the round's phase spans (``SimulatedFederation``)
+    when ``spec.obs`` is off; with it on, the run's own ``FlightRecorder``
+    writes the trace and stamps its digest and timing into the manifest,
+    and ``spec.obs.profile_dir`` wraps the run in ``torch.profiler``.
 
     ``resume_from`` restores a snapshot written by ``spec.checkpoint`` (a
     file, or a checkpoint directory whose newest readable snapshot is used)
@@ -132,6 +150,50 @@ def run(spec: ExperimentSpec, population: ClientPopulation | None = None, *,
             "supplied population was built from a different PopulationSpec "
             "than spec.data/spec.seed would rebuild")
     sim = SimulatedFederation(population, spec, device=device, obs=obs)
-    report = sim.run(resume_from=resume_from)
-    return ExperimentResult(spec, report, build_manifest(spec, sim, report),
-                            sim=sim)
+    profile_dir = spec.obs.profile_dir if spec.obs.enabled else None
+    with _profiled(profile_dir, device):
+        report = sim.run(resume_from=resume_from)
+    manifest = build_manifest(spec, sim, report)
+    if spec.obs.enabled:
+        _emit_trace(spec, sim, manifest)
+    return ExperimentResult(spec, report, manifest, sim=sim)
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: str | None, device):
+    """``torch.profiler`` around the run — host activity, and the card's
+    when the run is on CUDA — written to ``profile_dir/torch_trace.json``:
+    the counterpart of the reference's ``jax.profiler.trace``."""
+    if profile_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "torch_trace.json"))
+
+
+def _emit_trace(spec: ExperimentSpec, sim: SimulatedFederation,
+                manifest: dict[str, Any]) -> None:
+    """Flush the flight recorder's sinks and stamp the trace digest into the
+    manifest.  Strictly post-run: nothing here can perturb the simulation
+    it describes."""
+    obs = sim.obs
+    meta = {k: manifest[k] for k in
+            ("config_digest", "strategy", "mode", "engine", "mesh_shards",
+             "seed", "n_clients", "rounds_run")}
+    digest = write_jsonl(spec.obs.trace_path, meta, obs.records, obs.metrics)
+    manifest["trace_path"] = spec.obs.trace_path
+    manifest["trace_digest"] = digest
+    manifest["timing"] = obs.timing_summary()
+    if spec.obs.chrome_path is not None:
+        write_chrome_trace(spec.obs.chrome_path, obs.records)
+        manifest["chrome_trace_path"] = spec.obs.chrome_path
+    if spec.obs.console:
+        print(console_summary(
+            obs.metrics, title=f"trace {spec.train.strategy}/"
+            f"{spec.train.mode} -> {spec.obs.trace_path}"))

@@ -13,9 +13,10 @@ reference's), and ``run`` refuses their non-default values.
 Every spec round-trips through JSON and hashes to a ``config_digest`` (all
 sections but ``obs`` and ``checkpoint``) and a ``resume_digest`` (also
 without ``faults``), equal to the reference's digests of the same spec, so
-a port run's manifest matches the reference's.  The reference's
-``sim_config`` / ``from_flat`` (its legacy flat ``SimConfig``) have no
-counterpart here.
+a port run's manifest matches the reference's.  ``from_flat`` takes the
+reference's flat ``SimConfig`` knobs; the flat view itself
+(``sim_config``, ``SimConfig``) is the reference's deprecated shim and is
+not ported.
 """
 from __future__ import annotations
 
@@ -193,6 +194,21 @@ _SUB_SPECS = {"data": DataSpec, "train": TrainSpec, "async_": AsyncSpec,
               "obs": ObsSpec, "checkpoint": CheckpointSpec,
               "faults": FaultSpec}
 
+#: The reference's flat ``SimConfig`` knobs -> (section, field).  Every
+#: flat default equals its section's, so a knob left out takes the default.
+_FLAT_KNOBS = {
+    **{f: ("train", f) for f in ("strategy", "strategy_params", "rounds",
+                                 "sample_frac", "n_clusters", "local_epochs",
+                                 "lr", "deadline", "sampler", "mode",
+                                 "hidden", "rep_dim")},
+    **{f: ("async_", f) for f in ("buffer_size", "staleness_alpha",
+                                  "server_lr", "concurrency")},
+    "eval_every": ("eval", "every"), "eval_clients": ("eval", "clients"),
+    "eval_examples": ("eval", "examples"),
+    **{f: ("chain", f) for f in ("total_reward", "rho", "initial_stake")},
+    "mesh_shards": ("mesh", "shards"), "mesh_cohort": ("mesh", "cohort"),
+}
+
 #: FaultSpec round-list fields normalised list -> tuple on JSON load.
 _FAULT_TUPLE_FIELDS = ("producer_fail_rounds", "bad_block_rounds",
                        "drop_commit_rounds", "delay_commit_rounds")
@@ -262,6 +278,27 @@ class ExperimentSpec:
             if name in d:
                 kw[name] = d[name]
         return cls(**kw)
+
+    @classmethod
+    def from_flat(cls, data: DataSpec | None = None, **flat) -> "ExperimentSpec":
+        """Build a nested spec from the reference's flat ``SimConfig``-style
+        knobs (``rounds=``, ``buffer_size=``, ``eval_every=``, ``engine=``,
+        ``seed=``, ...) — the migration path for flat CLIs."""
+        sections: dict[str, dict] = {}
+        top = {k: flat.pop(k) for k in ("engine", "seed") if k in flat}
+        unknown = set(flat) - set(_FLAT_KNOBS)
+        if unknown:
+            raise TypeError(f"unknown flat knob(s) {sorted(unknown)}")
+        for knob, value in flat.items():
+            section, name = _FLAT_KNOBS[knob]
+            if name == "hidden":
+                value = tuple(value)
+            elif name == "strategy_params":
+                value = dict(value)
+            sections.setdefault(section, {})[name] = value
+        return cls(data=data if data is not None else DataSpec(),
+                   **{s: _SUB_SPECS[s](**kw) for s, kw in sections.items()},
+                   **top)
 
     @classmethod
     def from_json(cls, text: str) -> "ExperimentSpec":

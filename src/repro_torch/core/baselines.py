@@ -180,6 +180,8 @@ def masked_mean_rows(rows: torch.Tensor, arrived_w: torch.Tensor) -> torch.Tenso
 def _mean_combine(rows, partial, arrived_w, obs):
     with obs.span("step.cluster_mean"):
         new_rows = masked_mean_rows(rows, arrived_w)
+        if obs.enabled:
+            obs.ready(new_rows)
     return CohortAggOut(new_rows, *_single_cluster_view(rows))
 
 
@@ -311,19 +313,30 @@ def make_bfln(model: ModelBundle, probe_x: torch.Tensor, n_clusters: int,
     def cohort_partial(stacked_params, cx, cy, arrived_w, obs):
         # per-slot prototypes (k, D): the only cross-slot input of the combine
         with obs.span("step.prototypes"):
-            return client_prototypes(model.embed_fn, stacked_params, probe_x)
+            protos = client_prototypes(model.embed_fn, stacked_params, probe_x)
+            if obs.enabled:
+                obs.ready(protos)
+            return protos
 
     def cohort_combine(rows, protos, arrived_w, obs):
         # PAA with the arrival mask as aggregation weights: Pearson kernel ->
         # spectral clustering -> cluster-aggregation kernel on the flat rows
         with obs.span("step.pearson"):
             corr = pearson_matrix(protos)
+            if obs.enabled:
+                obs.ready(corr)
         with obs.span("step.embedding"):
             emb = spectral_embedding(pearson_affinity(corr), n_clusters)
+            if obs.enabled:
+                obs.ready(emb)
         with obs.span("step.kmeans"):
             labels, _ = kmeans(emb, n_clusters, kmeans_iters)
+            if obs.enabled:
+                obs.ready(labels)
         with obs.span("step.cluster_mean"):
             new_rows = cluster_mean_rows(rows, labels, n_clusters, arrived_w)
+            if obs.enabled:
+                obs.ready(new_rows)
         return CohortAggOut(new_rows, labels, corr)
 
     aggregate_cohort = compose_cohort(cohort_partial, cohort_combine)

@@ -13,9 +13,12 @@ calls on the arena's device, and the arena is updated IN PLACE:
     where(arrived) scatter-back
 
 Each stage is a span of ``obs`` (``step.gather``, ``step.local_train``,
-the strategy's ``step.*`` stages, ``step.fingerprint``, ``step.scatter``);
-the default recorder does nothing.  Arrival is a fixed-shape mask, as in
-the reference.  What the host reads
+the strategy's ``step.*`` stages, ``step.fingerprint``, ``step.scatter``)
+that ends with ``obs.ready`` on the stage's output when the recorder is
+enabled, so a traced stage's wall time covers its kernels; the default
+recorder does nothing.  Arrival is a fixed-shape mask, as in
+the reference, and each entry counts its calls (``engine.calls.<entry>``,
+as the reference's do).  What the host reads
 back each round is O(cohort): labels, the Pearson matrix, the fingerprint
 residues and the loss (``SyncRoundOut``).
 
@@ -85,8 +88,11 @@ class RoundEngine:
         """One sync round of the strategy over the cohort; writes the
         arrived slots' aggregated rows into ``arena`` in place."""
         layout, strategy, obs = self.layout, self.strategy, self.obs
+        obs.inc("engine.calls.sync_step")
         with obs.span("step.gather"):
             params = layout.unflatten(arena.gather(cohort_idx))
+            if obs.enabled:
+                obs.ready(params)
         with obs.span("step.local_train"):
             # the server payload over ALL k gathered slots, before training
             extras = strategy.round_extras(params, cx, cy)
@@ -95,14 +101,20 @@ class RoundEngine:
                               self.local_epochs,
                               shared_extras=strategy.shared_extras)
             local_rows = layout.flatten(res.params)
+            if obs.enabled:
+                obs.ready(local_rows)
         # aggregation over ALL cohort slots (stragglers burn local compute
         # too); only the aggregation weights honour the arrival mask
         agg = strategy.aggregate_cohort(res.params, local_rows, cx, cy,
                                         arrived, obs)
         with obs.span("step.fingerprint"):
             residues = fingerprint_rows(bitcast_u32(local_rows))
+            if obs.enabled:
+                obs.ready(residues)
         with obs.span("step.scatter"):
             upd = arena.masked_scatter(cohort_idx, arrived > 0, agg.rows)
+            if obs.enabled:
+                obs.ready(upd)
         return SyncRoundOut(agg.labels, agg.corr, residues,
                             res.mean_loss.mean(), upd)
 
@@ -113,6 +125,7 @@ class RoundEngine:
         (each client's dispatch snapshot) and their fingerprints, no
         aggregation -> ``(local_rows, residues, mean_loss)``."""
         layout, strategy, obs = self.layout, self.strategy, self.obs
+        obs.inc("engine.calls.async_step")
         with obs.span("step.local_train"):
             params = layout.unflatten(base_rows)
             extras = strategy.round_extras(params, cx, cy)
@@ -121,19 +134,25 @@ class RoundEngine:
                               self.local_epochs,
                               shared_extras=strategy.shared_extras)
             local_rows = layout.flatten(res.params)
+            if obs.enabled:
+                obs.ready(local_rows)
         with obs.span("step.fingerprint"):
             residues = fingerprint_rows(bitcast_u32(local_rows))
+            if obs.enabled:
+                obs.ready(residues)
         return local_rows, residues, res.mean_loss.mean()
 
     def eval_global(self, global_row: torch.Tensor, ex: torch.Tensor,
                     ey: torch.Tensor) -> torch.Tensor:
         """Accuracy of the one ``(N,)`` global model on the eval batch."""
+        self.obs.inc("engine.calls.eval_global")
         return self._client_accs(global_row[None], ex, ey)[0]
 
     def eval_cohort(self, cohort_rows: torch.Tensor, arrived: torch.Tensor,
                     labels: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Arrival-masked cohort accuracy and per-cluster accuracy (C,)."""
+        self.obs.inc("engine.calls.eval_cohort")
         accs = self._client_accs(cohort_rows, ex, ey)
         w = arrived.float()
         acc = (accs * w).sum() / torch.clamp(w.sum(), min=1.0)
@@ -146,6 +165,7 @@ class RoundEngine:
     def eval_population(self, arena_data: torch.Tensor, ids: torch.Tensor,
                         ex: torch.Tensor, ey: torch.Tensor) -> torch.Tensor:
         """Mean accuracy of the sampled clients' rows."""
+        self.obs.inc("engine.calls.eval_population")
         return self._client_accs(arena_data.index_select(0, ids), ex, ey).mean()
 
     def format_digests(self, residues: torch.Tensor) -> list[str]:

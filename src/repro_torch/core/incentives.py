@@ -1,14 +1,16 @@
 """Incentive mechanism based on cluster membership size (paper §IV-C-1).
 
-Port of ``repro.core.incentives.allocate_rewards``, in float32 as the
-reference computes it:
+Port of ``repro.core.incentives``, in float32 as the reference computes
+it:
 
     Gamma(n_i) = kappa n_i^rho,  kappa = R / sum_i n_i^rho      (Eqs. 7-8)
     per-client reward r = Gamma(n_i) / n_i,  fee g = kappa / N   (Eq. 9)
 
 ``participating`` masks partial-participation rounds: sizes count only
 participants, non-participants get nothing, the fee divides by the
-participant count.
+participant count.  :func:`apply_round_settlement` is the tensor mirror
+of the host ledger's settlement (``repro_torch.blockchain.ledger`` is the
+authoritative copy).
 """
 from __future__ import annotations
 
@@ -48,3 +50,18 @@ def allocate_rewards(labels: torch.Tensor, n_clusters: int,
     client_reward = per_capita[labels] * part
     fee = kappa / torch.clamp(part.sum(), min=1.0)
     return RewardAllocation(cluster_reward, client_reward, kappa, fee)
+
+
+def apply_round_settlement(balances: torch.Tensor, alloc: RewardAllocation,
+                           producer: int, verified: torch.Tensor
+                           ) -> torch.Tensor:
+    """Settle one round on a balances tensor: every *verified* client
+    receives its reward and pays the fee g; the producer collects the fees
+    only if its OWN commitment verified, else they are burned; unverified
+    clients receive and pay nothing (their reward is burned)."""
+    verified = verified.to(balances.dtype)
+    fees = alloc.fee * verified
+    credit = alloc.client_reward * verified
+    balances = balances + credit - fees
+    balances[producer] += fees.sum() * verified[producer]
+    return balances

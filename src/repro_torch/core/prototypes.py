@@ -17,6 +17,13 @@ import torch.nn.functional as F
 Pytree = Any
 
 
+def prototype(embed_fn: Callable, params: Pytree,
+              probe_x: torch.Tensor) -> torch.Tensor:
+    """Paper Eq. 1: the mean of ``embed_fn(params, probe_x) -> (psi, D)``
+    over the probe batch, for ONE client's params -> ``(D,)``."""
+    return embed_fn(params, probe_x).mean(dim=0)
+
+
 def client_prototypes(embed_fn: Callable, stacked_params: Pytree,
                       probe_x: torch.Tensor) -> torch.Tensor:
     """Prototypes of every stacked model at once: ``embed_fn(stacked_params,

@@ -14,6 +14,7 @@ block, as the reference's does.
 """
 from __future__ import annotations
 
+from collections.abc import Callable
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -162,6 +163,23 @@ class FederatedTrainer:
                                                 agg.stacked_params, test_x, test_y))
         self.history.append(record)
         return agg.stacked_params, stacked_opt, record
+
+    def fit(self, stacked_params: Pytree, cx, cy, test_x, test_y,
+            rounds: int, log_every: int = 0,
+            log_fn: Callable[[str], None] = print) -> Pytree:
+        """``init`` then ``rounds`` calls of ``run_round``; every
+        ``log_every`` rounds (and the last) one line to ``log_fn``, in the
+        reference's format.  Returns the final stacked params."""
+        stacked_params, stacked_opt = self.init(stacked_params)
+        for r in range(rounds):
+            stacked_params, stacked_opt, rec = self.run_round(
+                r, stacked_params, stacked_opt, cx, cy, test_x, test_y)
+            if log_every and (r % log_every == 0 or r == rounds - 1):
+                log_fn(f"[{self.strategy.name}] round {r:3d} "
+                       f"loss={rec.mean_loss:.4f} acc={rec.accuracy:.4f}"
+                       + (f" clusters={rec.cluster_sizes.tolist()}"
+                          if rec.cluster_sizes is not None else ""))
+        return stacked_params
 
     def chain_round(self, round_idx: int, local_params: Pytree | None,
                     labels: torch.Tensor, corr: torch.Tensor,

@@ -73,6 +73,14 @@ def build(sources: list[str] | None = None) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
+def load_counts() -> dict[str, int]:
+    """``{source: 1}`` for every library this process has loaded — the
+    port's counterpart of the reference's jit cache sizes: a source appears
+    once its library was first loaded (and built, if stale), which is what
+    the flight recorder's ``compile`` events report."""
+    return {source: 1 for source in sorted(_libs)}
+
+
 def load(source: str) -> ctypes.CDLL:
     """The built library of ``csrc/<source>``, building it first if stale."""
     lib = _libs.get(source)

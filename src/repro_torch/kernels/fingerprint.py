@@ -171,6 +171,13 @@ def row_digests(rows: torch.Tensor) -> list[str]:
     return [format_digest(r, rows.shape[1]) for r in res]
 
 
+def stack_flatten_u32(stacked_params) -> torch.Tensor:
+    """Stacked dict (leading client axis) -> (m, N) bit matrix in the
+    arena's canonical column order, as int32 holding the uint32 bits — the
+    fingerprint's input (``ArenaLayout.flatten_u32``)."""
+    return ArenaLayout.from_stacked(stacked_params).flatten_u32(stacked_params)
+
+
 def cohort_digests(stacked_params) -> list[str]:
     """Per-client digest strings for a cohort-stacked dict of tensors."""
     layout = ArenaLayout.from_stacked(stacked_params)

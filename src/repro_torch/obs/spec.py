@@ -1,10 +1,13 @@
 """`ObsSpec` — declarative observability configuration.
 
-Copy of ``repro.obs.spec`` as data: field names, defaults and
-validation are the reference's, so an ``ExperimentSpec`` hashes to the
-same ``config_digest`` in both packages.  Nothing here acts on it:
-the port has no flight recorder yet (ROADMAP queue 1 item 5); ``run``
-refuses a non-default ``ObsSpec``.
+Copy of ``repro.obs.spec``: field names, defaults and validation are the
+reference's, so an ``ExperimentSpec`` hashes to the same ``config_digest``
+in both packages.  ``run`` acts on it as the reference's does: with
+``enabled`` the simulator binds a ``FlightRecorder``
+(``repro_torch.obs.recorder``) and the run writes its trace.  The one
+difference is ``profile_dir``: the port wraps the run in
+``torch.profiler.profile`` and writes ``torch_trace.json`` there, where the
+reference wraps it in ``jax.profiler.trace``.
 
 Observability is *out of band* by contract: it may time and count but never
 perturb, so ``ObsSpec`` is deliberately excluded from
@@ -37,7 +40,7 @@ class ObsSpec:
     block_until_ready: bool = True    # sync device inside timed spans so a
                                       # span's wall time covers the device work
                                       # it launched (timing only — never values)
-    profile_dir: str | None = None    # wrap the run in jax.profiler.trace()
+    profile_dir: str | None = None    # wrap the run in torch.profiler
     sample_cap: int = 2048            # streaming-summary reservoir size
 
     def __post_init__(self):

@@ -97,6 +97,21 @@ class ArenaLayout:
         return torch.cat([leaves[i].to(self.dtype).reshape(m, -1)
                           for i in self.order], dim=1)
 
+    def flatten_u32(self, stacked: Pytree) -> torch.Tensor:
+        """Stacked dict -> ``(m, N)`` bit matrix (the fingerprint input), as
+        the int32 tensor holding the uint32 bits (the port's convention, see
+        :func:`bitcast_u32`).  Leaves that are not 32 bits wide are cast to
+        float32 first, as the reference's ``flatten_u32`` does."""
+        leaves = [leaf for _, leaf in leaves_with_keys(stacked)]
+        m = leaves[0].shape[0]
+        cols = []
+        for i in self.order:
+            leaf = leaves[i]
+            if leaf.element_size() != 4:
+                leaf = leaf.float()
+            cols.append(leaf.contiguous().view(torch.int32).reshape(m, -1))
+        return torch.cat(cols, dim=1)
+
     def unflatten(self, flat: torch.Tensor) -> Pytree:
         """``(m, N)`` matrix -> stacked dict of views (exact inverse of
         :meth:`flatten`)."""

@@ -14,12 +14,15 @@ stacked logits.
     chain — a bank that fails the refuse-to-serve gate never serves.
 
 The reference's compile-cache audit (``cache_sizes`` / ``entry_names`` /
-``lower_entry``) has no counterpart: PyTorch runs eagerly.
+``lower_entry``) has no counterpart: PyTorch runs eagerly.  Where the
+reference's forward reports its jit cache to the recorder, this one
+reports the kernel libraries loaded (``kernels._build.load_counts``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import load_counts
 from repro_torch.models import classifier as clf
 from repro_torch.obs import NULL_RECORDER
 from repro_torch.serve.snapshot import ModelBank, ProvenanceError, verify_bank
@@ -61,6 +64,7 @@ class ServingEngine:
             out = logits[cids, torch.arange(x.shape[0], device=x.device)]
             sp.set(batch=int(out.shape[0]))
         self.obs.inc("serve.batches")
+        self.obs.compile_delta(load_counts())
         return out
 
     def forward_per_request(self, x, cids) -> torch.Tensor:

@@ -34,6 +34,12 @@ rounds or flushes: the capture on the round's thread, the write on one
 background thread, at most one write in flight; ``run(resume_from=...)``
 continues from a snapshot with digests equal to the uninterrupted run's.
 
+With ``ObsSpec.enabled`` the run binds a ``FlightRecorder``
+(``repro_torch.obs``): spans for every phase and engine stage, each waiting
+for the kernels it launched (``obs.ready``) where the reference's does, the
+reference's gauges and series, and a ``compile`` event in the round that
+first loads a kernel library.
+
 Byzantine clients train honestly but commit a digest of params they did not
 train (the paper's freeriding attack); CACC verification refuses them.
 The legacy ``engine=False`` driver and the mesh are not ported.
@@ -57,8 +63,9 @@ from repro_torch.core.engine import RoundEngine
 from repro_torch.core.round import FederatedTrainer, digest_of
 from repro_torch.device import resolve_device
 from repro_torch.faults import NULL_INJECTOR, FaultInjector
+from repro_torch.kernels._build import load_counts
 from repro_torch.models import classifier as clf
-from repro_torch.obs import NULL_RECORDER
+from repro_torch.obs import NULL_RECORDER, FlightRecorder
 from repro_torch.optim import adam
 from repro_torch.runtime.arena import ParamArena
 from repro_torch.sim import events as ev
@@ -127,9 +134,10 @@ class SimulatedFederation:
     the population's parameters in one arena on ``device`` (``None`` means
     the card).
 
-    ``obs`` is a recorder with the surface of ``repro_torch.obs.
-    NullRecorder`` (the default): ``span`` / ``inc`` / ``event`` calls mark
-    the round's phases for a caller that times them.
+    With ``spec.obs.enabled`` the run binds its own ``FlightRecorder``
+    on the virtual clock.  Otherwise ``obs`` may be any recorder with the
+    surface of ``repro_torch.obs.NullRecorder`` (the default) — a caller
+    that times the phases itself; passing one with an enabled spec raises.
     """
 
     def __init__(self, population: ClientPopulation, spec: ExperimentSpec,
@@ -138,11 +146,21 @@ class SimulatedFederation:
         if population.device != device:
             raise ValueError(f"population lives on {population.device}, the "
                              f"run on {device}")
+        if obs is not None and spec.obs.enabled:
+            raise ValueError("pass either an explicit obs recorder or an "
+                             "enabled spec.obs, not both")
+        # kernel libraries loaded before this run: its compile events name
+        # only the ones it loads itself
+        self._libs_before = frozenset(load_counts())
         self.spec = spec
         self.cfg = spec.train
         self.pop = population
         self.device = device
-        self.obs = obs if obs is not None else NULL_RECORDER
+        self.clock = VirtualClock()
+        if spec.obs.enabled:
+            self.obs = FlightRecorder(spec.obs, clock=lambda: self.clock.now)
+        else:
+            self.obs = obs if obs is not None else NULL_RECORDER
         n = population.n_clients
         t, c = spec.train, spec.chain
 
@@ -180,7 +198,6 @@ class SimulatedFederation:
         self.sampler = get_sampler(t.sampler)
 
         self.rng = np.random.default_rng(spec.seed)
-        self.clock = VirtualClock()
         self.queue = EventQueue()
         self.event_log: list[tuple] = []
         self.history: list[SimRoundRecord] = []
@@ -196,6 +213,15 @@ class SimulatedFederation:
         self._ckpt_bytes = 0
         self._ckpt_executor: ThreadPoolExecutor | None = None
         self._ckpt_future = None       # at most one write in flight
+        if self.obs.enabled:
+            arena_bytes = self.arena.data.numel() * self.arena.data.element_size()
+            self.obs.set_gauge("arena.bytes", arena_bytes)
+            self.obs.set_gauge("arena.per_device_bytes", arena_bytes)  # one card
+            # per-round cohort traffic, the reference's replicated form: the
+            # (k, N) block gathered in and the row updates scattered out
+            k = max(1, int(round(t.sample_frac * n)))
+            self.obs.set_gauge("engine.cohort_bytes",
+                               2 * k * self.arena.layout.n_params * 4)
         self.trainer.attach_obs(self.obs)
         self.trainer.attach_faults(self.faults)
 
@@ -215,6 +241,14 @@ class SimulatedFederation:
 
     def _log(self, event: ev.Event) -> None:
         self.event_log.append(event.log_entry())
+
+    def _compile_delta(self, round_idx: int | None = None) -> None:
+        """``compile`` events for the kernel libraries this run has loaded
+        since the last call (the reference's jit cache-size deltas)."""
+        if self.obs.enabled:
+            self.obs.compile_delta(
+                {s: c for s, c in load_counts().items()
+                 if s not in self._libs_before}, round_idx)
 
     def _sampler_state(self) -> SamplerState:
         return SamplerState(balances=self.trainer.ledger.balances,
@@ -335,6 +369,9 @@ class SimulatedFederation:
         with obs.span("round.step", round=r):
             out = self.engine.sync_step(self.arena, cohort_idx, cx, cy,
                                         arrived_w)
+            if obs.enabled:
+                obs.ready(out)
+        self._compile_delta(r)
         with obs.span("round.digests", round=r):
             digests = self.engine.format_digests(out.residues)
         self.faults.maybe_crash(r, "pre_chain")
@@ -360,6 +397,9 @@ class SimulatedFederation:
                 record.accuracy, record.cluster_accuracy = \
                     self.engine.eval_cohort(out.new_rows, arrived_w,
                                             out.labels, ex, ey)
+                if obs.enabled:
+                    obs.ready(record.accuracy)
+            self._compile_delta(r)
         return record
 
     # ------------------------------------------------------------------ #
@@ -491,6 +531,9 @@ class SimulatedFederation:
             base_rows = torch.stack([snapshots[v] for v in versions])  # (k, N)
             local_rows, residues, mean_loss = self.engine.async_step(
                 base_rows, cx, cy)
+            if obs.enabled:
+                obs.ready(local_rows)
+        self._compile_delta(version)
         self.faults.maybe_crash(version, "pre_chain")
         with obs.span("flush.chain", cat="flush", round=version):
             cres = self.trainer.chain_round(
@@ -504,7 +547,18 @@ class SimulatedFederation:
                 local_rows - base_rows,
                 torch.from_numpy(w).to(local_rows.device))
             global_state = global_state + acfg.server_lr * merged
+            if obs.enabled:
+                obs.ready(global_state)
         agg.buffer = []
+        if obs.enabled:
+            # how much each flush discounts its stale contributors (and
+            # zeroes its unverified ones)
+            for s in staleness:
+                obs.observe("async.staleness", float(s))
+            for wv in w:
+                obs.observe("async.staleness_weight", float(wv))
+            obs.point("async.staleness_mean", float(staleness.mean()),
+                      round=version)
 
         new_version = version + 1
         self.last_labels[clients] = 0
@@ -525,6 +579,9 @@ class SimulatedFederation:
             # deferred like the sync eval: on the host at the end of the run
             with obs.span("flush.eval", cat="flush", round=version):
                 record.accuracy = self.engine.eval_global(global_state, ex, ey)
+                if obs.enabled:
+                    obs.ready(record.accuracy)
+            self._compile_delta(version)
         self.history.append(record)
         return new_version, global_state
 
@@ -630,10 +687,15 @@ class SimulatedFederation:
         with self.obs.span("run.final_eval", cat="run") as sp:
             final_acc = self._evaluate_clients(eval_ids)
             sp.set(n_eval=n_eval)
+        self._compile_delta()
         ledger = self.trainer.ledger
-        return SimReport(
+        report = SimReport(
             config=self.spec, history=self.history, event_log=self.event_log,
             final_accuracy=final_acc, balances=ledger.balances.copy(),
             chain_valid=self.trainer.chain.validate(),
             n_blocks=len(self.trainer.chain.blocks),
             ledger_conserved=ledger.conserved())
+        if self.obs.enabled:
+            self.obs.set_gauge("run.final_accuracy", report.final_accuracy)
+            self.obs.set_gauge("run.n_blocks", report.n_blocks)
+        return report

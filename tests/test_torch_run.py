@@ -155,7 +155,7 @@ def test_run_returns_a_result_on_the_cpu():
 @pytest.mark.parametrize("change,match", [
     # async runs now, for BFLN and the baselines alike: accepted (match None)
     (dict(train=TrainSpec(mode="async")), None),
-    (dict(engine=False), "item 3"),
+    (dict(engine=False), "Deliberately not ported"),
     (dict(mesh=MeshSpec(shards=2)), "item 6"),
     (dict(train=TrainSpec(strategy="fedavg", mode="async")), None),
 ])

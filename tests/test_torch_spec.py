@@ -3,9 +3,9 @@ same spec hashes to the same `config_digest` and `resume_digest` in both
 packages, and either package reads the other's JSON.  A change in any
 hashed section moves both digests alike (`faults` only the config digest);
 a change in `obs` or `checkpoint` moves neither.  `run()` refuses every
-non-default value of a section the port does not run yet (the flight
-recorder, the mesh), naming the ROADMAP item that brings it, and accepts
-the sections it runs (async, faults, checkpoint)."""
+non-default value of a section the port does not run yet (the mesh),
+naming the ROADMAP item that brings it, and accepts the sections it runs
+(async, faults, the flight recorder, checkpoint)."""
 import dataclasses
 
 import pytest
@@ -101,7 +101,7 @@ def test_port_validates_like_the_reference(d, match):
 REFUSED = {
     "async": (dict(async_=port_api.AsyncSpec(buffer_size=8)), None),
     "faults": (dict(faults=port_api.FaultSpec(retry=True)), None),
-    "obs": (dict(obs=port_api.ObsSpec(enabled=True)), "item 5b"),
+    "obs": (dict(obs=port_api.ObsSpec(enabled=True)), None),
     "checkpoint": (dict(checkpoint=port_api.CheckpointSpec(interval=1)), None),
     "mesh-cohort": (dict(mesh=port_api.MeshSpec(cohort="replicated")), "item 6"),
     "mesh-platform": (dict(mesh=port_api.MeshSpec(platform="gpu")), "item 6"),
