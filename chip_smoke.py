@@ -7,8 +7,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. kernels — builds every CUDA source of the port (`nvcc`, sm_90a, one
    process per source, all at once; both flash kernels must compile
-   without register spills) and holds each kernel against its plain
-   PyTorch version on the card:
+   without register spills; the backward kernels' spill counts are
+   printed and reported) and holds each kernel against its plain PyTorch
+   version on the card:
    * the launch floors: an empty kernel, and one that moves 16 bytes
      (`csrc/launch_floor.cu`), under the same timer as every kernel;
    * fingerprint, bit for bit, at the serving bank (5, 6570), a commit
@@ -46,6 +47,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the decode shape (2, 40, 1, 64)), two halves and a split at 1001
      against the whole, and w = 0 (atol 1e-4; w = 0 must leave exactly
      the last k v^T);
+   * the flash backward (`csrc/flash_attention_bwd.cu`, three launches
+     counted as one) at the LM path's (2, 4096, 8 / 4, 256), window 1024
+     and causal global, in bf16 and float32, and at ragged (1, 1000, 4, 2,
+     64), G = 8 with window 100, hd 120 and non-causal: float32 within
+     FLASH_BWD_RTOL_F32 max |want| per gradient, bf16 per element against
+     the float32 plain backward of the same inputs (FLASH_RTOL_BF16 |want|
+     + FLASH_BWD_ATOL_BF16 max |want|); timed beside its bound, the plain
+     backward and SDPA's backward (band mask and, causal, `is_causal`);
+   * the wkv backward (`csrc/rwkv6_scan_bwd.cu`) at (2, 40, 4096, 64) with
+     the model's decays and a non-zero s0 and dS_T, at T = 1000, T = 1 and
+     w = 0, every gradient within 1e-4 max(1, max |want|); timed;
    * the shapes only the baselines' and the paper's paths give the
      kernels: the flat strategies' masked mean (cluster_agg at C = 1,
      zero-weight rows holding NaN) at (100, 6570) and at Table II's
@@ -157,17 +169,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (kernels; the path `lm_fp32`, where the float32 flash kernel runs, its
    counts read around the card's forward) against the host CPU (plain
    versions) within CARD_CPU_RTOL.
+11. lm_train — the LM zoo's training path at the same widths and depths
+   (bf16, `remat` on as the full configs set it): LM_TRAIN_STEPS steps of
+   `make_train_step` with AdamW at a constant LM_TRAIN_LR on one fixed
+   (2, 4096) batch, every kernel's launch count reset just before and read
+   just after (a gemma3 step: the bf16 flash forward 12 times, 6 and 6
+   recomputed, and its backward 6 times; an rwkv6 step: the wkv forward 8
+   times and its backward 4 times); every loss finite and the last below
+   the first; step wall p50 (drained), tokens/s and peak memory.  Then one
+   float32 one-period step at (1, 128) on the card (the path
+   `lm_train_fp32`) against the host CPU from the same weights: the loss
+   within TRAIN_LOSS_RTOL, every gradient leaf within TRAIN_GRAD_RTOL
+   max(1, max |g_cpu|).
 
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
 `{"kernels": [...]}` with each kernel's launches on its main path (and per
 path: train, train_fedavg, train_fedprox, train_fedproto, train_fedhkd,
-async, faults, resume, obs, paper, serve, lm_forward, lm_decode, lm_fp32),
+async, faults, resume, obs, paper, serve, lm_forward, lm_decode, lm_fp32,
+lm_train, lm_train_fp32; the three backward kernels' main paths are
+lm_train and lm_train_fp32),
 error, times, bound and the two launch floors (the fingerprint and
 cluster_agg entries with their `async_shape` row, rwkv6 with its
 `decode_shape` row), one JSON line each
 `{"train": {...}}`, `{"strategies": {...}}`, `{"async": {...}}`,
 `{"faults": {...}}`, `{"resume": {...}}`, `{"obs": {...}}`, `{"paper": {...}}`,
-`{"serve": {...}}`, `{"lm": {...}}`, and last `{"ok": true, "device":
+`{"serve": {...}}`, `{"lm": {...}}`, `{"lm_train": {...}}`, and last
+`{"ok": true, "device":
 {...}}`.  Without CUDA
 it exits non-zero and prints no result.  Imports nothing of JAX.
 """
@@ -233,6 +260,7 @@ from repro_torch.obs import (  # noqa: E402
     validate_trace_lines,
 )
 from repro_torch.obs.names import is_registered  # noqa: E402
+from repro_torch import optim as topt  # noqa: E402
 from repro_torch.paper import common as paper_common  # noqa: E402
 from repro_torch.paper import fig2_rewards, table2_accuracy  # noqa: E402
 from repro_torch.runtime.arena import ArenaLayout, ParamArena  # noqa: E402
@@ -294,6 +322,26 @@ CARD_CPU_RTOL = 1e-3
 LM_CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
 # the flash kernels keep O, S and P in registers: a spill serialises them
 NO_SPILL_SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu")
+# the backward kernels' sources: their spills are printed and reported, not gated
+BACKWARD_SOURCES = ("flash_attention_bwd.cu", "rwkv6_scan_bwd.cu")
+# the flash backward against its plain version: float32 inputs within
+# FLASH_BWD_RTOL_F32 max |want| per gradient; bf16 inputs per element against
+# the float32 plain backward of the same inputs (the same bf16 output O),
+# |got - want| <= FLASH_RTOL_BF16 |want| + FLASH_BWD_ATOL_BF16 max |want|
+FLASH_BWD_RTOL_F32 = 1e-4
+FLASH_BWD_ATOL_BF16 = 1e-3
+# the gradient's products per live (q, k) pair: S, dP, dV, dQ, dK, 2 hd each
+FLASH_BWD_FLOPS_PER_PAIR_HD = 10
+# the wkv gradient's flops per step and (b, h): the state recomputed, dS
+# carried, dr, dk, dv, dw (2 hd^2 each)
+WKV_BWD_FLOPS_PER_STATE = 12
+# lm_train: AdamW at a constant lr over one fixed batch, LM_TRAIN_STEPS steps
+LM_TRAIN_STEPS, LM_TRAIN_LR = 8, 1e-3
+# the float32 one-period train step, card vs CPU: the loss at rtol 1e-4,
+# every gradient leaf within 1e-3 max(1, max |g_cpu|) (float32 sums in other
+# orders through a full-width backward; a masking or indexing fault moves
+# gradients by O(1))
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
 LM_BATCH, LM_SEQ = 2, 4096              # train_4k's sequence length
 PROMPT, NEW_TOKENS, PARITY_TOKENS = 16, 16, 32
 # the four Table II baselines, each run through run(spec) at the defaults
@@ -309,8 +357,11 @@ TABLE2_WIDTHS = (17226, 23076)
 # a flipped BFLN label moves a client to another cluster's model
 PAPER_CPU_CELL = ("synth10", 0.1, "bfln", 5)
 PAPER_ACC_TOL = 0.02
-# torch.profiler captures of one call, each checked by a marker kernel
-CAPTURE_TRIES = 3
+# torch.profiler captures of one call, each checked by a marker kernel; a
+# capture that missed it is taken again after a pause of CAPTURE_PAUSE_S
+# times the tries so far (a run on the card once recorded nothing at all in
+# three captures in a row)
+CAPTURE_TRIES, CAPTURE_PAUSE_S = 8, 0.25
 # a FedBuff flush's rows: AsyncSpec().buffer_size updates of N = 6570
 ASYNC_SHAPE = (16, 6570)
 # resume: a snapshot every RESUME_INTERVAL rounds/flushes, the crash at the
@@ -356,7 +407,10 @@ PAA_ATOL = 1e-6
 # each kernel: its module and the module's launch counter
 KERNELS = {"fingerprint": (fp, "launches"), "cluster_agg": (ca, "launches"),
            "pearson": (pe, "launches"), "flash_attention_bf16": (fa, "launches_bf16"),
-           "flash_attention_fp32": (fa, "launches"), "rwkv6": (wk, "launches")}
+           "flash_attention_fp32": (fa, "launches"), "rwkv6": (wk, "launches"),
+           "flash_attention_bwd_bf16": (fa, "launches_bwd_bf16"),
+           "flash_attention_bwd_fp32": (fa, "launches_bwd"),
+           "rwkv6_bwd": (wk, "launches_bwd")}
 
 
 def reset_launches() -> None:
@@ -387,6 +441,18 @@ def check_no_spills() -> None:
         if not spills or any(spills):
             raise AssertionError(f"{source}: ptxas spill stores {spills}")
         print(f"{source}: {len(spills)} instances, no spills", flush=True)
+
+
+def report_spills() -> dict:
+    """The backward kernels' ptxas spill stores per instance, printed and
+    returned (reported, not gated)."""
+    out = {}
+    for source in BACKWARD_SOURCES:
+        log = _build.library_path(source).with_suffix(".log").read_text()
+        out[source] = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+        print(f"{source}: {len(out[source])} instances, spill stores {out[source]}",
+              flush=True)
+    return out
 
 
 def median_us(fn, arg, reps: int, flush: torch.Tensor,
@@ -443,30 +509,44 @@ def check_exact(bits: torch.Tensor, what: str) -> int:
     return err
 
 
-def device_kernels(fn) -> list[str]:
+class CaptureError(AssertionError):
+    """torch.profiler recorded nothing usable of a call in CAPTURE_TRIES
+    captures."""
+
+
+def device_kernels(fn, marker: bool = True) -> list[str]:
     """The device activities (kernels, copies, fills) of one call of
     ``fn``, by name, one entry each (torch.profiler).  Each capture also
     records one marker kernel launched just before the call
     (``torch.cuda._sleep``, PyTorch's ``spin_kernel``); a capture without
     it recorded nothing of the device (seen once on the card: a capture of
     no activity at all) and is taken again, at most CAPTURE_TRIES times.
-    The marker is not among the names returned."""
+    The marker is not among the names returned.  With ``marker=False``,
+    for a call whose kernels the autograd engine launches from its own
+    thread (captures of such calls on the card held the call's kernels but
+    not the marker), no marker is launched and a capture that recorded any
+    device activity is taken."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(CAPTURE_TRIES):
+    for tries in range(CAPTURE_TRIES):
+        time.sleep(CAPTURE_PAUSE_S * tries)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1)
+            if marker:
+                torch.cuda._sleep(1)
             fn(None)
             torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA for _ in range(e.count)]
-        marker = [n for n in names if "spin_kernel" in n]
-        if marker:
-            names.remove(marker[0])
+        if not marker and names:
             return names
-    raise AssertionError(f"torch.profiler recorded no marker kernel in "
-                         f"{CAPTURE_TRIES} captures: {names}")
+        spin = [n for n in names if "spin_kernel" in n]
+        if spin:
+            names.remove(spin[0])
+            return names
+    wanted = "marker kernel" if marker else "device activity"
+    raise CaptureError(f"torch.profiler recorded no {wanted} in {CAPTURE_TRIES} "
+                       f"captures: {names}")
 
 
 def one_launch(fn, what: str) -> str:
@@ -990,9 +1070,8 @@ def train_phase(dev) -> dict:
                              f"for {nonempty} non-empty rounds")
     # one launch per non-empty round each; the fingerprint also digests the
     # freeriders' all-zero claim once at start-up
-    want = {"fingerprint": nonempty + 1, "cluster_agg": nonempty,
-            "pearson": nonempty, "flash_attention_bf16": 0,
-            "flash_attention_fp32": 0, "rwkv6": 0}
+    want = dict({k: 0 for k in KERNELS}, fingerprint=nonempty + 1,
+                cluster_agg=nonempty, pearson=nonempty)
     if launches != want:
         raise AssertionError(f"train-path launches {launches}, expected {want}")
     acc = m["final_accuracy"]
@@ -1844,14 +1923,21 @@ def live_pairs(S: int, causal: bool, window: int) -> int:
     return int((hi - lo + 1).sum())
 
 
-def sdpa_backend(fn) -> dict:
+def sdpa_backend(fn, marker: bool = True) -> dict:
     """The device kernels of one call of ``fn`` (torch.profiler), and the
-    SDPA backend their names show."""
-    names = sorted(set(device_kernels(fn)))
+    SDPA backend their names show.  The backend only labels a library time,
+    which CUDA events measure; where the profiler recorded nothing usable
+    the label says so and the run goes on."""
+    try:
+        names = sorted(set(device_kernels(fn, marker)))
+    except CaptureError as err:
+        print(f"SDPA backend not recorded: {err}", file=sys.stderr, flush=True)
+        return {"backend": "not recorded", "kernels": [], "capture_error": str(err)}
     low = " ".join(names).lower()
-    # cuDNN's, PyTorch's flash (flash_fwd), memory-efficient (fmha_cutlass)
-    # or, failing those, the math path (matmuls and a softmax)
-    backend = ("cudnn" if "cudnn" in low else "flash" if "flash_fwd" in low
+    # cuDNN's, PyTorch's flash (flash_fwd / flash_bwd), memory-efficient
+    # (fmha_cutlass) or, failing those, the math path (matmuls and a softmax)
+    backend = ("cudnn" if "cudnn" in low
+               else "flash" if "flash_fwd" in low or "flash_bwd" in low
                else "efficient" if "fmha" in low else "math")
     return {"backend": backend, "kernels": [nm[:100] for nm in names]}
 
@@ -2022,6 +2108,285 @@ def wkv_phase(dev) -> tuple[dict, dict]:
     return row, checks
 
 
+def check_flash_bwd(q, k, v, dout, causal: bool, window: int, what: str) -> dict:
+    """The backward kernel against the plain backward on the same inputs
+    (the forward kernel's output O for both): float32 within
+    FLASH_BWD_RTOL_F32 max |want|; bf16 per element against the float32
+    plain backward, FLASH_RTOL_BF16 |want| + FLASH_BWD_ATOL_BF16 max |want|."""
+    out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention_backward_cuda(q, k, v, out, dout, causal=causal, window=window)
+    want = fa.attention_backward_plain(q.float(), k.float(), v.float(), out.float(),
+                                       dout.float(), causal=causal, window=window)
+    bf16 = q.dtype == torch.bfloat16
+    errs, shares = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.dtype != q.dtype or g.shape != w.shape:
+            raise AssertionError(f"flash backward on {what}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}")
+        top = float(w.abs().max())
+        diff = (g.float() - w).abs()
+        limit = (FLASH_RTOL_BF16 * w.abs() + FLASH_BWD_ATOL_BF16 * top) if bf16 \
+            else torch.full_like(w, FLASH_BWD_RTOL_F32 * top)
+        errs[name], shares[name] = float(diff.max()), float((diff / limit).max())
+        if not shares[name] <= 1.0:
+            raise AssertionError(f"flash backward kernel vs plain on {what}: {name} is "
+                                 f"{shares[name]} of its limit (max abs error "
+                                 f"{errs[name]}, max |want| {top})")
+    return {"max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+            "max_share_of_limit": max(shares.values()),
+            "tolerance": ({"rtol": FLASH_RTOL_BF16, "atol_of_max": FLASH_BWD_ATOL_BF16}
+                          if bf16 else {"atol_of_max": FLASH_BWD_RTOL_F32})}
+
+
+# the backward's edge cases, each in float32 and in bf16: (B, S, Hq, Hkv, hd),
+# causal, window
+FLASH_BWD_CASES = {"ragged (1, 1000, 4, 2, 64)": ((1, 1000, 4, 2, 64), True, 0),
+                   "G = 8 (1, 300, 8, 1, 64) window 100": ((1, 300, 8, 1, 64), True, 100),
+                   "hd 120 (1, 130, 4, 1, 120)": ((1, 130, 4, 1, 120), True, 0),
+                   "non-causal (1, 512, 4, 4, 128)": ((1, 512, 4, 4, 128), False, 0)}
+
+
+def sdpa_backward(q, k, v, dout, **kwargs):
+    """One call: the backward of SDPA (enable_gqa) through torch.autograd,
+    its forward run once beforehand; a library time for the table, never a
+    path of the port."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kwargs)
+    do = dout.transpose(1, 2)
+
+    def call(_):
+        return torch.autograd.grad(o, (qt, kt, vt), do, retain_graph=True)
+    return call
+
+
+def flash_bwd_phase(dev) -> tuple[dict, dict]:
+    """The flash backward kernel against its plain version at the LM path's
+    (2, 4096, 8 / 4, 256), window 1024 and causal global, in bf16 and
+    float32, and at the edge cases; times at the main shape, per dtype and
+    window, beside the bound, the plain backward and SDPA's backward."""
+    rng = np.random.default_rng(SEED + 8)
+    B, S, Hq, Hkv, hd = LM_BATCH, LM_SEQ, 8, 4, 256
+    q, k, v = qkv(rng, B, S, Hq, Hkv, hd, torch.bfloat16, dev)
+    dout = torch.from_numpy(rng.standard_normal((B, S, Hq, hd)).astype(np.float32)
+                            ).to(dev, torch.bfloat16)
+    inputs = {"bf16": (q, k, v, dout), "fp32": tuple(t.float() for t in (q, k, v, dout))}
+    checks = {}
+    for dt, args in inputs.items():
+        for window in (1024, 0):
+            what = f"main (2, 4096, 8, 4, 256) window {window} {dt}"
+            checks[what] = check_flash_bwd(*args, True, window, what)
+    for what, (shape, causal, window) in FLASH_BWD_CASES.items():
+        q3, k3, v3 = qkv(rng, *shape, torch.float32, dev)
+        d3 = torch.from_numpy(rng.standard_normal(tuple(q3.shape)).astype(np.float32)).to(dev)
+        checks[what + " fp32"] = check_flash_bwd(q3, k3, v3, d3, causal, window, what)
+        checks[what + " bf16"] = check_flash_bwd(
+            *(t.to(torch.bfloat16) for t in (q3, k3, v3, d3)), causal, window, what)
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    pos = torch.arange(S, device=dev)
+    rows = {}
+    for dt, (qd, kd, vd, dd) in inputs.items():
+        item = qd.element_size()
+        # read q, k, v, O, dO once, write dq, dk, dv once
+        n_bytes = (4 * qd.numel() + 4 * kd.numel()) * item
+        ops_per_s = (BF16_OPS_PER_S if dt == "bf16"
+                     else TF32_OPS_PER_S / TF32_PRODUCTS_PER_FP32)
+        rows[dt] = []
+        for window in (1024, 0):
+            out = fa.flash_attention_cuda(qd, kd, vd, causal=True, window=window)
+            band = pos[None, :] <= pos[:, None]
+            if window:
+                band &= pos[:, None] - pos[None, :] < window
+            n_ops = FLASH_BWD_FLOPS_PER_PAIR_HD * hd * B * Hq * live_pairs(S, True, window)
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / ops_per_s * 1e6
+            band_bwd = sdpa_backward(qd, kd, vd, dd, attn_mask=band)
+            row = {
+                "shape": [B, S, Hq, Hkv, hd], "dtype": str(qd.dtype).removeprefix("torch."),
+                "window": window,
+                "kernel_us": median_us(lambda _: fa.flash_attention_backward_cuda(
+                    qd, kd, vd, out, dd, causal=True, window=window), None, 5, flush),
+                "plain_us": median_us(lambda _: fa.attention_backward_plain(
+                    qd, kd, vd, out, dd, causal=True, window=window), None, 2, flush),
+                "library_us": median_us(band_bwd, None, 5, flush),
+                "library_call": "torch.autograd.grad of F.scaled_dot_product_attention"
+                                "(band mask, enable_gqa=True)",
+                "library_backend": sdpa_backend(band_bwd, marker=False),
+                "bound_us": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "flop": n_ops,
+                "bytes": n_bytes}
+            del band_bwd
+            if dt == "fp32":
+                row["bound_cuda_cores_us"] = max(t_bytes, n_ops / ALU32_OPS_PER_S * 1e6)
+            if window == 0:
+                causal_bwd = sdpa_backward(qd, kd, vd, dd, is_causal=True)
+                row["library_causal_us"] = median_us(causal_bwd, None, 5, flush)
+                row["library_causal_call"] = ("torch.autograd.grad of F.scaled_dot_"
+                                              "product_attention(is_causal=True, "
+                                              "enable_gqa=True)")
+                row["library_causal_backend"] = sdpa_backend(causal_bwd, marker=False)
+                del causal_bwd
+            rows[dt].append(row)
+            del out
+            torch.cuda.empty_cache()
+    return rows, checks
+
+
+def check_wkv_bwd(args, what: str) -> dict:
+    """The wkv backward kernel against its plain version: every gradient
+    within WKV_TOL max(1, max |want|)."""
+    got = wk.rwkv6_backward_cuda(*args)
+    want = wk.rwkv6_backward_plain(*args)
+    errs, shares = {}, {}
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        errs[name] = float((g - w).abs().max())
+        shares[name] = errs[name] / (WKV_TOL * max(1.0, float(w.abs().max())))
+        if not shares[name] <= 1.0:
+            raise AssertionError(f"wkv backward kernel on {what}: {name} max abs error "
+                                 f"{errs[name]} is {shares[name]} of its limit")
+    return {"max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+            "max_share_of_limit": max(shares.values())}
+
+
+def wkv_bwd_phase(dev) -> tuple[dict, dict]:
+    """The wkv backward kernel against its plain version at the LM path's
+    (2, 40, 4096, 64) with the model's decays and a non-zero s0 and dS_T, at
+    T = 1000, at T = 1 and with w = 0; times at the main shape."""
+    rng = np.random.default_rng(SEED + 9)
+    B, H, T, hd = LM_BATCH, 40, LM_SEQ, 64
+
+    def cotangents(shape):
+        return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                     for s in (shape, shape[:2] + (shape[3], shape[3])))
+    main = (*wkv_inputs(rng, B, H, T, hd, dev, strong=True), *cotangents((B, H, T, hd)))
+    checks = {"main (2, 40, 4096, 64), strong decays, s0 and dS_T":
+              check_wkv_bwd(main, "main")}
+    ragged = (*wkv_inputs(rng, B, H, 1000, hd, dev), *cotangents((B, H, 1000, hd)))
+    checks["ragged T = 1000 (2, 40, 1000, 64)"] = check_wkv_bwd(ragged, "T = 1000")
+    one = (*wkv_inputs(rng, B, H, 1, hd, dev), *cotangents((B, H, 1, hd)))
+    checks["T = 1 (2, 40, 1, 64)"] = check_wkv_bwd(one, "T = 1")
+    zero = list(wkv_inputs(rng, 1, 4, 200, hd, dev)) + list(cotangents((1, 4, 200, hd)))
+    zero[3].zero_()
+    checks["w = 0 (1, 4, 200, 64)"] = check_wkv_bwd(zero, "w = 0")
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    seq = B * H * T * hd * 4
+    state = B * H * hd * hd * 4
+    # read r, k, v, w, dy, u, s0, dS_T once; write dr, dk, dv, dw, du, ds0 once
+    n_bytes = 9 * seq + 2 * H * hd * 4 + 3 * state
+    n_ops = B * H * T * WKV_BWD_FLOPS_PER_STATE * hd * hd
+    bound, bound_by = bound_us(n_bytes, n_ops)
+    row = {"shape": [B, H, T, hd], "dtype": "float32",
+           "kernel_us": median_us(lambda _: wk.rwkv6_backward_cuda(*main), None, 10, flush),
+           "plain_us": median_us(lambda _: wk.rwkv6_backward_plain(*main), None, 1, flush),
+           "library_us": None, "bound_us": bound, "bound_by": bound_by,
+           "bytes": n_bytes, "flop": n_ops}
+    return row, checks
+
+
+def lm_train_config(cfg, dev) -> dict:
+    """LM_TRAIN_STEPS AdamW steps at a constant LM_TRAIN_LR on one fixed
+    (LM_BATCH, LM_SEQ) batch, every kernel's launch count reset just before
+    and read just after; the losses finite, the last below the first."""
+    params = lmt.init_params(cfg, seed=SEED, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = lm_batch(cfg, dev)
+    opt = topt.adamw(LM_TRAIN_LR)
+    step = lmsteps.make_train_step(cfg, opt)
+    state = opt.init(params)
+    n_attn = sum(s.mixer == "attn" for s in cfg.pattern) * cfg.n_periods \
+        + sum(s.mixer == "attn" for s in cfg.remainder)
+    n_rwkv = cfg.n_layers - n_attn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls = [], []
+    reset_launches()
+    for _ in range(LM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, params, state = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: train losses {losses}")
+    # with remat each period's forward runs again in the backward
+    again = 2 if cfg.remat else 1
+    n = LM_TRAIN_STEPS
+    want = dict({k: 0 for k in KERNELS},
+                flash_attention_bf16=again * n_attn * n, flash_attention_bwd_bf16=n_attn * n,
+                rwkv6=again * n_rwkv * n, rwkv6_bwd=n_rwkv * n)
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: train launches {launches}, expected {want}")
+    p50 = float(np.median(walls))
+    del params, state, step
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "param_dtype": cfg.param_dtype, "n_params": n_params, "remat": cfg.remat,
+            "batch": LM_BATCH, "seq": LM_SEQ, "steps": n, "lr": LM_TRAIN_LR,
+            "optimizer": "adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)",
+            "losses": losses, "step_wall_s": walls, "step_wall_s_p50": p50,
+            "tokens_per_s": LM_BATCH * LM_SEQ / p50, "peak_gb": peak_gb,
+            "launches": launches}
+
+
+def grad_recorder():
+    """An optimizer whose update returns the gradients as its state."""
+    return topt.Optimizer(init=lambda p: None, update=lambda p, g, s: (p, g))
+
+
+def train_card_vs_cpu(cfg, dev) -> dict:
+    """The configuration in float32, one period, B = 1, S = 128: one train
+    step's loss and gradients on the card (kernels) against the host CPU
+    (plain versions), same weights; the card's step is the path
+    ``lm_train_fp32``, its launch counts read around it."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", n_layers=len(cfg.pattern))
+    p_dev = lmt.init_params(cfg32, seed=SEED + 1, device=dev)
+    p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+    gen = torch.Generator().manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (1, 129), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = lmsteps.make_train_step(cfg32, grad_recorder())
+    t0 = time.perf_counter()
+    reset_launches()
+    loss_card, _, g_card = step(p_dev, None, {k: t.to(dev) for k, t in batch.items()})
+    torch.cuda.synchronize()
+    launches = read_launches()
+    loss_cpu, _, g_cpu = step(p_cpu, None, batch)
+    loss_err = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{cfg.name}: card vs CPU train loss rel err {loss_err}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(g_card), tree_leaves(g_cpu))):
+        err = float((a.cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+        if not err <= TRAIN_GRAD_RTOL:
+            raise AssertionError(f"{cfg.name}: card vs CPU gradient leaf {i} "
+                                 f"{tuple(b.shape)}: {err} of max(1, max |g|)")
+        worst = max(worst, err)
+    n_attn = sum(s.mixer == "attn" for s in cfg32.pattern)
+    n_rwkv = cfg32.n_layers - n_attn
+    again = 2 if cfg32.remat else 1
+    want = dict({k: 0 for k in KERNELS}, flash_attention_fp32=again * n_attn,
+                flash_attention_bwd_fp32=n_attn, rwkv6=again * n_rwkv, rwkv6_bwd=n_rwkv)
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: float32 train step launches {launches}, "
+                             f"expected {want}")
+    return {"n_layers": cfg32.n_layers, "shape": [1, 128], "remat": cfg32.remat,
+            "loss_card": float(loss_card), "loss_cpu": float(loss_cpu),
+            "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
+            "grad_err_of_max": worst, "grad_rtol": TRAIN_GRAD_RTOL,
+            "launches": launches, "wall_s": time.perf_counter() - t0}
+
+
+def lm_train_phase(dev) -> dict:
+    out = {}
+    for name, n in LM_CONFIGS:
+        cfg = dataclasses.replace(ARCHS[name], n_layers=n)
+        out[name] = lm_train_config(cfg, dev)
+        out[name]["card_vs_cpu"] = train_card_vs_cpu(cfg, dev)
+    return out
+
+
 def lm_batch(cfg, dev) -> dict:
     """One (B, S) batch of the synthetic Markov token stream."""
     stream = make_token_stream(cfg.vocab_size, 4 * LM_BATCH * (LM_SEQ + 1), seed=SEED)
@@ -2176,7 +2541,7 @@ def main() -> int:
         print(log.read_text().strip(), flush=True)
     check_no_spills()
 
-    res: dict = {}
+    res: dict = {"backward_spills": report_spills()}
     t0 = time.perf_counter()
     res["floors"] = launch_floors_us(torch.empty(128 << 20, dtype=torch.uint8,
                                                  device=dev))
@@ -2186,6 +2551,8 @@ def main() -> int:
     res["pe"] = pearson_phase(dev)
     res["flash"] = flash_phase(dev)
     res["wkv"] = wkv_phase(dev)
+    res["flash_bwd"] = flash_bwd_phase(dev)
+    res["wkv_bwd"] = wkv_bwd_phase(dev)
     res["table2_shapes"] = table2_kernel_phase(dev)
     res["async_shapes"] = async_kernel_phase(dev)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2221,6 +2588,12 @@ def kernel_entries(res: dict) -> list[dict]:
     by_path["lm_fp32"] = {name: sum(run["card_vs_cpu"]["launches"][name]
                                     for run in res["lm"].values())
                           for name in KERNELS}
+    by_path["lm_train"] = {name: sum(run["launches"][name]
+                                     for run in res["lm_train"].values())
+                           for name in KERNELS}
+    by_path["lm_train_fp32"] = {name: sum(run["card_vs_cpu"]["launches"][name]
+                                          for run in res["lm_train"].values())
+                                for name in KERNELS}
 
     def us_to_ms(row, key):
         return None if row.get(key) is None else row[key] / 1e3
@@ -2262,6 +2635,28 @@ def kernel_entries(res: dict) -> list[dict]:
                      library_causal_backend=causal.get("library_causal_backend"),
                      bound_cuda_cores_ms=us_to_ms(flash_rows[dt][0], "bound_cuda_cores_us"),
                      shapes=flash_rows[dt], checks=checks)
+
+    flash_bwd_rows, flash_bwd_checks = res["flash_bwd"]
+    wkv_bwd_row, wkv_bwd_checks = res["wkv_bwd"]
+    spills = res["backward_spills"]
+
+    def flash_bwd(dt, main_path, tolerance):
+        checks = {w: c for w, c in flash_bwd_checks.items() if w.endswith(dt)}
+        main = max(c["max_abs_err"] for w, c in checks.items() if w.startswith("main"))
+        row, causal = flash_bwd_rows[dt]
+        # the main-path row is window 1024: five of gemma3's six layers
+        return entry(f"flash_attention_bwd_{dt}", "flash_attention_bwd.cu",
+                     "src/repro/kernels/flash_attention.py:80", main_path, row, main,
+                     tolerance, shape=[2, 4096, 8, 4, 256], dtype=row["dtype"], window=1024,
+                     no_pallas_counterpart="the gradient of the kernel at `replaces`: the "
+                                           "reference differentiates its jnp attention",
+                     library_call=row["library_call"],
+                     library_backend=row["library_backend"],
+                     library_causal_ms=us_to_ms(causal, "library_causal_us"),
+                     library_causal_backend=causal.get("library_causal_backend"),
+                     bound_cuda_cores_ms=us_to_ms(row, "bound_cuda_cores_us"),
+                     ptxas_spill_stores=spills["flash_attention_bwd.cu"],
+                     shapes=flash_bwd_rows[dt], checks=checks)
 
     # the shapes only the baselines' and the paper's paths give the kernels
     new = res["table2_shapes"]
@@ -2307,13 +2702,28 @@ def kernel_entries(res: dict) -> list[dict]:
                             "bound_ms": us_to_ms(wkv_row["decode"], "bound_us"),
                             "bound_by": wkv_row["decode"]["bound_by"],
                             "library_ms": None, "row": wkv_row["decode"]}),
+        flash_bwd("bf16", "lm_train",
+                  {"rtol": FLASH_RTOL_BF16, "atol_of_max": FLASH_BWD_ATOL_BF16,
+                   "against": "float32 plain backward, per element"}),
+        flash_bwd("fp32", "lm_train_fp32",
+                  {"atol_of_max": FLASH_BWD_RTOL_F32, "against": "plain backward"}),
+        entry("rwkv6_bwd", "rwkv6_scan_bwd.cu", "src/repro/kernels/rwkv6_scan.py:45",
+              "lm_train", wkv_bwd_row,
+              wkv_bwd_checks["main (2, 40, 4096, 64), strong decays, s0 and dS_T"][
+                  "max_abs_err"],
+              {"atol_of_max_or_1": WKV_TOL, "against": "plain backward"},
+              shape=[2, 40, 4096, 64], dtype="float32", checks=wkv_bwd_checks,
+              no_pallas_counterpart="the gradient of the kernel at `replaces`: the "
+                                    "reference differentiates its lax.scan",
+              library_none_because="no one PyTorch call computes the wkv gradient",
+              ptxas_spill_stores=spills["rwkv6_scan_bwd.cu"]),
     ]
 
 
 PHASES = (("train", train_phase), ("strategies", strategies_phase),
           ("async", async_phase), ("faults", faults_phase),
           ("resume", resume_phase), ("obs", obs_phase), ("paper", paper_phase),
-          ("serve", serve_phase), ("lm", lm_phase))
+          ("serve", serve_phase), ("lm", lm_phase), ("lm_train", lm_train_phase))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile the port's LM inference path on one NVIDIA GPU with torch.profiler.
+"""Profile the port's LM paths on one NVIDIA GPU with torch.profiler.
 
     python3 profile_lm.py
 
@@ -13,7 +13,11 @@ with CPU and CUDA activities:
   the float32 log-softmax loss);
 * ``decode``: DECODE_STEPS `decode_step` calls at B = 2 against a cache
   already holding PROMPT tokens (one token each, as `greedy_generate` runs
-  them).
+  them);
+* ``train``: one `make_train_step` call at B = 2, S = 4096 (AdamW at a
+  constant TRAIN_LR; the forward, its recompute under remat, the backward
+  through the flash / wkv backward kernels, the update), after one
+  unprofiled step.
 
 Prints the card's name and power limit, per configuration and path the top
 device activities by device time, and one JSON line ``{"profile_lm":
@@ -21,7 +25,8 @@ device activities by device time, and one JSON line ``{"profile_lm":
 the summed device time, the device busy share (device time over wall; one
 stream, so nothing overlaps), the number of device activities, and the
 device time by group — the port's flash-attention kernels (bf16 tensor
-cores and float32) and wkv kernel, matrix products (cuBLAS), and the rest.
+cores and float32), their backward kernels, the wkv kernels and their
+backward kernels, matrix products (cuBLAS), and the rest.
 The profiler's own cost is in the wall time.  Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -39,6 +44,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import optim  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.models import decode as lmdec  # noqa: E402
 from repro_torch.models import lm as lmsteps  # noqa: E402
@@ -48,7 +54,11 @@ SEED = 0
 CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
 BATCH, SEQ = 2, 4096
 PROMPT, DECODE_STEPS = 16, 8
-GROUPS = (("flash_attention kernels", ("flash_kernel", "flash_sm90_kernel")),
+TRAIN_LR = 1e-3
+GROUPS = (("flash_attention backward kernels", ("prep_kernel<", "dkdv_kernel<",
+                                                "dq_kernel<")),
+          ("rwkv6 wkv backward kernels", ("bounds_kernel<", "bwd_kernel<")),
+          ("flash_attention kernels", ("flash_kernel", "flash_sm90_kernel")),
           ("rwkv6 wkv kernels", ("wkv_kernel", "wkv_chunk_kernel")),
           ("matmul (cuBLAS)", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "splitk")))
 
@@ -111,7 +121,19 @@ def profile_config(name: str, n_layers: int, dev) -> dict:
         _, state["cache"] = serve(params, state["cache"], tokens[:, i:i + 1])
         state["pos"] = i + 1
     out["decode"] = profiled(one_token, DECODE_STEPS)
-    del params, cache, state
+    del cache, state
+
+    opt = optim.adamw(TRAIN_LR)
+    train = {"step": lmsteps.make_train_step(cfg, opt), "params": params,
+             "opt_state": opt.init(params)}
+    del params
+
+    def one_step():
+        _, train["params"], train["opt_state"] = train["step"](
+            train["params"], train["opt_state"], batch)
+    one_step()                                                 # start-up
+    out["train"] = profiled(one_step, 1)
+    del train
     torch.cuda.empty_cache()
     return out
 

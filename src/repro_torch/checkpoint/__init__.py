@@ -7,8 +7,10 @@ from repro_torch.checkpoint.io import (  # noqa: F401
     list_checkpoints,
     load_latest,
     load_pytree,
+    restore_trainer_state,
     save_checkpoint,
     save_pytree,
+    save_trainer_state,
 )
 from repro_torch.checkpoint.spec import CheckpointSpec  # noqa: F401
 from repro_torch.checkpoint.state import (  # noqa: F401

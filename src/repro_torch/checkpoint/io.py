@@ -22,7 +22,10 @@ or a numpy array.  The reference's own files are not read.
 
 Directory management (``save_checkpoint`` / ``load_latest``) keeps the
 last K snapshots and falls back to the newest *readable* one when the
-latest is corrupt.
+latest is corrupt.  ``save_trainer_state`` / ``restore_trainer_state`` keep
+an LM trainer's tensors (parameters and optimizer state) in the same
+container, a bfloat16 tensor as its uint16 bits tagged ``("bfloat16",
+bits)``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,9 @@ import tempfile
 from typing import Any
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
 
 Tree = Any
 
@@ -258,3 +264,62 @@ def load_latest(ckpt_dir: str) -> tuple[int, Tree]:
     raise CheckpointError(
         "every checkpoint in {!r} is unreadable:\n  {}".format(
             ckpt_dir, "\n  ".join(errors)))
+
+
+# --------------------------------------------------------------------- #
+# trainer state: parameters and optimizer state of tensors
+# --------------------------------------------------------------------- #
+
+_BF16_TAG = "bfloat16"
+
+
+def _host_tree(x: Tree) -> Tree:
+    """Tensors -> numpy arrays (bfloat16 as a tagged uint16 bit view);
+    dicts, lists and plain values as they are."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().to("cpu")
+        if t.dtype == torch.bfloat16:
+            return (_BF16_TAG, t.view(torch.int16).numpy().view(np.uint16).copy())
+        return t.numpy().copy()
+    if isinstance(x, dict):
+        return {k: _host_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_host_tree(v) for v in x]
+    return x
+
+
+def _device_tree(x: Tree, device: torch.device) -> Tree:
+    """The inverse of :func:`_host_tree`, tensors on ``device``."""
+    if isinstance(x, tuple) and len(x) == 2 and x[0] == _BF16_TAG:
+        return torch.from_numpy(x[1].view(np.int16).copy()).view(torch.bfloat16).to(device)
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x.copy()).to(device)
+    if isinstance(x, dict):
+        return {k: _device_tree(v, device) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_device_tree(v, device) for v in x]
+    return x
+
+
+def save_trainer_state(path: str, params: Tree, opt_state: Tree,
+                       round_idx: int, extra: dict | None = None) -> None:
+    """``{"params", "opt_state", "round_idx", "extra_json"}`` into one
+    checkpoint file, as the reference writes it (tensors brought to the
+    host first)."""
+    save_pytree(path, {"params": _host_tree(params),
+                       "opt_state": _host_tree(opt_state),
+                       "round_idx": np.asarray(round_idx),
+                       "extra_json": np.frombuffer(
+                           json.dumps(extra or {}).encode(), np.uint8)})
+
+
+def restore_trainer_state(path: str, device=None):
+    """``(params, opt_state, round_idx, extra)`` from
+    :func:`save_trainer_state`, every tensor on ``device`` (the card
+    unless the caller names another)."""
+    device = resolve_device(device)
+    state = load_pytree(path)
+    extra = json.loads(bytes(state["extra_json"]).decode())
+    return (_device_tree(state["params"], device),
+            _device_tree(state["opt_state"], device),
+            int(state["round_idx"]), extra)

@@ -3,7 +3,8 @@
 The port never sees a JAX object: parameters and arena rows arrive as numpy
 arrays, a chain as plain records (``dataclasses.asdict`` of each reference
 block).  An LM's parameters (lists of stacked layers, bfloat16 leaves) take
-:func:`lm_params_from_numpy`.  A bank saved by the reference
+:func:`lm_params_from_numpy`, its optimizer's state
+:func:`opt_state_from_numpy`.  A bank saved by the reference
 (``ModelBank.save``, one ``.npz``) needs nothing here: it loads through
 ``repro_torch.serve.load_bank``.
 """
@@ -57,6 +58,20 @@ def lm_params_from_numpy(tree: Any, device=None) -> Any:
             return [walk(v) for v in x]
         return _tensor_from_numpy(x, device)
     return walk(tree)
+
+
+def opt_state_from_numpy(state: Mapping[str, Any], device=None) -> dict:
+    """The reference optimizer's state as numpy arrays — ``{"step", "m",
+    "v"}`` (adam, adamw), ``{"step", "mu"}`` (momentum) or ``{"step"}``
+    (sgd) — -> the port's: the step a plain int, the moment trees (the
+    parameters' structure, float32 leaves) tensors on ``device``, bit for
+    bit."""
+    device = resolve_device(device)
+    out: dict = {"step": int(np.asarray(state["step"]))}
+    for key in ("m", "v", "mu"):
+        if key in state:
+            out[key] = lm_params_from_numpy(state[key], device)
+    return out
 
 
 def _keys_of(path: str) -> tuple[str, ...]:

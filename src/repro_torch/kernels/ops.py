@@ -4,7 +4,10 @@ Counterpart of ``repro.kernels.ops``.  A wrapper takes the plain PyTorch
 version for a CPU tensor and launches its Hopper kernel for a CUDA tensor;
 it never falls back from one to the other.  All five of the reference's
 kernels have a wrapper: ``fingerprint``, ``pearson``, ``cluster_aggregate``,
-``attention``, ``rwkv6_wkv``.
+``attention``, ``rwkv6_wkv``.  The last two are differentiable: they go
+through ``FlashAttentionFn`` / ``Rwkv6Fn`` on both devices, so a CPU tensor
+takes the plain forward and the plain backward, a CUDA tensor the forward
+kernel and the backward kernel.
 """
 from __future__ import annotations
 
@@ -12,9 +15,9 @@ import torch
 
 from repro_torch.kernels.cluster_agg import cluster_mean_rows
 from repro_torch.kernels.fingerprint import fingerprint_rows
-from repro_torch.kernels.flash_attention import attention_plain, flash_attention_cuda
+from repro_torch.kernels.flash_attention import FlashAttentionFn
 from repro_torch.kernels.pearson import pearson_rows
-from repro_torch.kernels.rwkv6_scan import rwkv6_cuda, rwkv6_plain
+from repro_torch.kernels.rwkv6_scan import Rwkv6Fn
 
 
 def fingerprint(bits: torch.Tensor) -> torch.Tensor:
@@ -39,21 +42,13 @@ def cluster_aggregate(rows: torch.Tensor, labels: torch.Tensor,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0) -> torch.Tensor:
     """Flash attention (causal / sliding-window, GQA): q (B, S, Hq, hd),
-    k and v (B, S, Hkv, hd) -> (B, S, Hq, hd)."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
-    raise ValueError(f"attention: no path for device {q.device}")
+    k and v (B, S, Hkv, hd) -> (B, S, Hq, hd), differentiable."""
+    return FlashAttentionFn.apply(q, k, v, causal, window)
 
 
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """RWKV6 wkv recurrence: r, k, v, w (B, H, T, hd), u (H, hd), s0
-    (B, H, hd, hd) -> (y (B, H, T, hd), final state)."""
-    if r.device.type == "cpu":
-        return rwkv6_plain(r, k, v, w, u, s0)
-    if r.device.type == "cuda":
-        return rwkv6_cuda(r, k, v, w, u, s0)
-    raise ValueError(f"rwkv6_wkv: no path for device {r.device}")
+    (B, H, hd, hd) -> (y (B, H, T, hd), final state), differentiable."""
+    return Rwkv6Fn.apply(r, k, v, w, u, s0)

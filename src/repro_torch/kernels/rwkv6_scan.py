@@ -19,6 +19,21 @@ chunk, each chunk's state handed to the next), for shorter T (decode) the
 recurrent kernel.  ``repro_torch.kernels.ops.rwkv6_wkv`` picks by where the
 tensors lie: the plain version for CPU tensors, the kernel for CUDA tensors,
 which launches or raises; there is no fallback.
+
+The gradient (the reference differentiates its ``lax.scan``; there is no
+Pallas backward) is :class:`Rwkv6Fn`, whose backward carries dS backward in
+time from dS_T:
+
+    dr_t = (S_{t-1} + diag(u) k_t v_t^T) dy_t      du += r_t * k_t (v_t . dy_t)
+    dk_t = r_t * u (v_t . dy_t) + dS_t v_t         dw_t = rowsum(dS_t * S_{t-1})
+    dv_t = (sum_i r_t u k_t) dy_t + dS_t^T k_t     dS_{t-1} = diag(w_t) dS_t + r_t dy_t^T
+
+ending with ds0 = dS_0 (du summed over the batch).  For CPU tensors
+:func:`rwkv6_backward_plain` (every state kept), for CUDA tensors
+:func:`rwkv6_backward_cuda` (``csrc/rwkv6_scan_bwd.cu``: one launch stores
+the state at every CHUNK-step boundary, a second walks the chunks in
+reverse, recomputing each chunk's states from its boundary; no division by
+w, which may be 0).
 """
 from __future__ import annotations
 
@@ -29,10 +44,19 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
+BWD_HEAD_DIMS = (16, 32, 64)  # csrc/rwkv6_scan_bwd.cu's instances
 CHUNK = 64                # csrc/rwkv6_scan.cu's kChunk: T >= CHUNK runs chunked
 
-# Launches of rwkv6_cuda since the last reset (set it to 0).
+# Launches since the last reset (set them to 0): of rwkv6_cuda, and of
+# rwkv6_backward_cuda (one call, its two launches, counts one).
 launches = 0
+launches_bwd = 0
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """The plain versions compute in float32, or in float64 on float64
+    inputs (``torch.autograd.gradcheck``)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -48,11 +72,12 @@ def _check(r, k, v, w, u, s0) -> None:
 def rwkv6_plain(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     """The recurrence step by step in plain PyTorch on the tensors' own
     device (``ref.rwkv6_scan_ref``: the reference for the kernel, and the
-    CPU path).  Returns (y in r's dtype, S_T float32)."""
+    CPU path).  Returns (y in r's dtype, S_T in float32, float64 for
+    float64 inputs)."""
     _check(r, k, v, w, u, s0)
-    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
-    uf = u.float()[None, :, :, None]
-    s = s0.float()
+    rf, kf, vf, wf = (_wide(t) for t in (r, k, v, w))
+    uf = _wide(u)[None, :, :, None]
+    s = _wide(s0)
     ys = []
     for t in range(r.shape[2]):
         kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
@@ -60,6 +85,36 @@ def rwkv6_plain(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
         s = s * wf[:, :, t, :, None] + kv
     y = torch.stack(ys, dim=2) if ys else rf.new_zeros(r.shape)
     return y.to(r.dtype), s
+
+
+def rwkv6_backward_plain(r, k, v, w, u, s0, dy, dsT):
+    """Gradients (dr, dk, dv, dw, du, ds0) of :func:`rwkv6_plain` for the
+    upstream dy (B, H, T, hd) and dS_T (B, H, hd, hd): the reverse loop in
+    plain PyTorch, from every state of a forward pass kept (the reference
+    for the kernel, and the CPU path).  Each gradient in its input's dtype."""
+    _check(r, k, v, w, u, s0)
+    rf, kf, vf, wf, dyf = (_wide(t) for t in (r, k, v, w, dy))
+    uf = _wide(u)[None]
+    s = _wide(s0)
+    states = []
+    for t in range(r.shape[2]):
+        states.append(s)
+        s = s * wf[:, :, t, :, None] + kf[:, :, t, :, None] * vf[:, :, t, None, :]
+    g = _wide(dsT)
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros_like(rf[:, :, 0])
+    for t in reversed(range(r.shape[2])):
+        rt, kt, vt, wt, dyt = (x[:, :, t] for x in (rf, kf, vf, wf, dyf))
+        vdy = (vt * dyt).sum(-1, keepdim=True)
+        bonus = (rt * uf * kt).sum(-1, keepdim=True)
+        dr[:, :, t] = torch.einsum("bhkv,bhv->bhk", states[t], dyt) + uf * kt * vdy
+        dk[:, :, t] = rt * uf * vdy + torch.einsum("bhkv,bhv->bhk", g, vt)
+        dv[:, :, t] = bonus * dyt + torch.einsum("bhkv,bhk->bhv", g, kt)
+        dw[:, :, t] = (g * states[t]).sum(-1)
+        du = du + rt * kt * vdy
+        g = g * wt[..., None] + rt[..., None] * dyt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.sum(0).to(u.dtype), g.to(s0.dtype))
 
 
 def _kernel() -> ctypes.CDLL:
@@ -81,14 +136,11 @@ def rwkv6_cuda(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     over hd required); y comes back as a (B, H, T, hd) view of (B, T, H, hd)
     memory, so the model's transpose back to (B, T, H * hd) is free.  Raises
     on anything the kernels do not take (before it looks at the device), on
-    an input that requires grad (they have no backward yet), on tensors not
-    on one CUDA device, and if a launch is refused."""
+    tensors not on one CUDA device, and if a launch is refused.  It computes
+    no gradient itself: :class:`Rwkv6Fn` does."""
     global launches
     _check(r, k, v, w, u, s0)
     tensors = (r, k, v, w, u, s0)
-    if any(t.requires_grad for t in tensors):
-        raise RuntimeError("rwkv6_cuda has no backward kernel yet: call it "
-                           "under torch.no_grad() or inference_mode()")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"rwkv6_cuda takes float32 inputs, got "
                         f"{[t.dtype for t in tensors]}")
@@ -125,3 +177,105 @@ def rwkv6_cuda(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
         raise RuntimeError(f"rwkv6 kernel launch failed: CUDA error {err}")
     launches += 1
     return y, sT
+
+
+def _backward_kernel():
+    fn = _build.load("rwkv6_scan_bwd.cu").rwkv6_scan_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 27 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _rows_on_16_bytes(t: torch.Tensor) -> bool:
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 \
+        and all(st % 4 == 0 for st in t.stride()[:3])
+
+
+def rwkv6_backward_cuda(r, k, v, w, u, s0, dy, dsT):
+    """Gradients (dr, dk, dv, dw, du, ds0) of the recurrence on a CUDA
+    device by the hand-written backward kernel (``csrc/rwkv6_scan_bwd.cu``:
+    a forward walk that stores the state every CHUNK steps, then a reverse
+    walk over the chunks), on the current stream; one call counts one
+    launch.  r, k, v, w and dy are read through their strides (unit stride
+    over hd and rows on 16 bytes: r, k, v, w must have them, dy is made
+    contiguous when it has not); s0 contiguous, dsT made so.  dr, dk, dv, dw
+    come back as (B, H, T, hd) views of (B, T, H, hd) memory, du (H, hd)
+    summed over the batch in a fixed order, ds0 (B, H, hd, hd).  Raises on
+    anything the kernel does not take (before it looks at the device), on
+    tensors not on one CUDA device, and if a launch is refused."""
+    global launches_bwd
+    _check(r, k, v, w, u, s0)
+    B, H, T, hd = r.shape
+    tensors = (r, k, v, w, u, s0, dy, dsT)
+    if dy.shape != r.shape or dsT.shape != s0.shape:
+        raise ValueError(f"rwkv6_backward_cuda: dy {tuple(dy.shape)} and dsT "
+                         f"{tuple(dsT.shape)} do not fit r {tuple(r.shape)}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"rwkv6_backward_cuda takes float32 inputs, got "
+                        f"{[t.dtype for t in tensors]}")
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"rwkv6_backward_cuda takes hd in {BWD_HEAD_DIMS}, got {hd}")
+    if not all(_rows_on_16_bytes(t) for t in (r, k, v, w)) \
+            or not (u.is_contiguous() and s0.is_contiguous()):
+        raise ValueError("rwkv6_backward_cuda needs unit stride over hd and every row "
+                         "of r, k, v, w on 16 bytes (pointers and strides), and "
+                         "contiguous u, s0")
+    if r.device.type != "cuda" or any(t.device != r.device for t in tensors):
+        raise ValueError("rwkv6_backward_cuda needs CUDA tensors on one device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if not _rows_on_16_bytes(dy):
+        dy = dy.contiguous()
+    dsT = dsT.contiguous()
+    grads = [torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device
+                         ).transpose(1, 2) for _ in range(4)]      # dr, dk, dv, dw
+    if T == 0:
+        return (*grads, torch.zeros_like(u), dsT.clone())
+    du = torch.empty((H, hd), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    nc = -(-T // CHUNK)
+    # the state at every chunk boundary (launch 1), each chunk's sub-chunk
+    # boundaries (launch 2), the per-batch du and the ticket of each head's
+    # last block, which sums du over the batch (zeroed)
+    bounds = torch.empty((B, H, nc, hd, hd), dtype=torch.float32, device=r.device)
+    subs = torch.empty((B, H, CHUNK // 8, hd, hd), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    tickets = torch.zeros(H, dtype=torch.int32, device=r.device)
+    seqs = (r, k, v, w, dy, *grads)
+    fn = _backward_kernel()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in (*seqs, u, s0, dsT, du, ds0, bounds, subs,
+                                          du_part, tickets)),
+                 B, H, T, hd, *(st for t in seqs for st in t.stride()[:3]), stream)
+    if err:
+        raise RuntimeError(f"rwkv6 backward kernel launch failed: CUDA error {err}")
+    launches_bwd += 1
+    dr, dk, dv, dw = grads
+    return dr, dk, dv, dw, du, ds0
+
+
+class Rwkv6Fn(torch.autograd.Function):
+    """The differentiable recurrence: (y, S_T) of r, k, v, w, u, s0, forward
+    and backward on the tensors' device — plain versions for CPU tensors,
+    the kernels for CUDA tensors (never one for the other).  The backward
+    takes dy and dS_T (zeros when S_T is unused) and returns ds0 too, so a
+    carried state differentiates."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        if r.device.type == "cpu":
+            y, sT = rwkv6_plain(r, k, v, w, u, s0)
+        elif r.device.type == "cuda":
+            y, sT = rwkv6_cuda(r, k, v, w, u, s0)
+        else:
+            raise ValueError(f"rwkv6_wkv: no path for device {r.device}")
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return y, sT
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        backward = rwkv6_backward_plain if r.device.type == "cpu" else rwkv6_backward_cuda
+        grads = backward(r, k, v, w, u, s0, dy, dsT)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))

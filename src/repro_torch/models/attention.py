@@ -6,10 +6,11 @@ Port of ``repro.models.attention``.  Shapes: q (B, S, Hq, hd), k/v
 
 :func:`attend_full` and :func:`attend_chunked` compute the same function.
 Both go through ``repro_torch.kernels.ops.attention``, the hand-written
-flash-attention kernel on CUDA tensors; on CPU tensors :func:`attend_full`
-is that module's plain version (materialised scores) and
+flash-attention kernel on CUDA tensors, differentiable through its backward
+kernel (``FlashAttentionFn``); on CPU tensors :func:`attend_full` is that
+module's plain version (materialised scores, with the plain backward) and
 :func:`attend_chunked` keeps the reference's online-softmax scan over query
-and key chunks.  The reference's banded ``skip_masked_chunks`` variant is a
+and key chunks, which autograd differentiates.  The reference's banded ``skip_masked_chunks`` variant is a
 GSPMD workaround with the same result and is not ported.
 :func:`attend_decode` is plain PyTorch on both devices, as it is jnp in the
 reference.

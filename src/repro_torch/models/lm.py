@@ -1,10 +1,13 @@
-"""Eval / serve step builders for the LM zoo.
+"""Train / eval / serve step builders for the LM zoo.
 
-Port of ``repro.models.lm``.  ``make_eval_step`` is the forward-only loss the
-reference lowers for its ``prefill`` shape; ``make_serve_step`` and
-``greedy_generate`` are its serving loop.  Every entry runs under
-``torch.inference_mode()``: the port's attention and wkv kernels have no
-backward yet, so training (``make_train_step``) is ROADMAP queue 1 item 7b.
+Port of ``repro.models.lm``.  ``make_train_step`` is the reference's
+``jax.value_and_grad`` of ``lm_loss`` followed by the optimizer's update:
+autograd through the full forward (the attention and wkv kernels
+differentiate through their backward kernels on the card), then
+``opt.update`` under ``torch.no_grad()``.  ``make_eval_step`` is the
+forward-only loss the reference lowers for its ``prefill`` shape;
+``make_serve_step`` and ``greedy_generate`` are its serving loop; those
+three run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import torch
 
 from repro_torch.models.decode import decode_step, init_cache  # noqa: F401 (re-export)
 from repro_torch.models.transformer import ArchConfig, forward
+from repro_torch.optim import Optimizer
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 Pytree = Any
 AUX_WEIGHT = 0.01  # MoE load-balance coefficient
@@ -32,10 +37,32 @@ def lm_loss(cfg: ArchConfig, params: Pytree, batch: dict) -> torch.Tensor:
     return torch.mean(nll) + AUX_WEIGHT * aux
 
 
-def make_train_step(cfg: ArchConfig, opt: Any = None) -> Callable:
-    raise NotImplementedError(
-        f"{cfg.name}: LM training is not ported yet (ROADMAP queue 1 item 7b: "
-        "the optimizer, schedule, checkpoints and the kernels' backward)")
+def make_train_step(cfg: ArchConfig, opt: Optimizer
+                    ) -> Callable[[Pytree, Pytree, dict], tuple[torch.Tensor, Pytree, Pytree]]:
+    """``train_step(params, opt_state, batch) -> (loss, params, opt_state)``:
+    the loss of leaves detached with ``requires_grad_(True)``, its
+    gradient over every leaf in the reference's leaf order (zeros for a
+    leaf the loss does not use, as ``jax.grad`` gives), then the update.
+    The parameters passed in are not modified."""
+    def train_step(params, opt_state, batch):
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = lm_loss(cfg, _with_leaves(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        with torch.no_grad():
+            params, opt_state = opt.update(
+                _with_leaves(params, [t.detach() for t in leaves]),
+                _with_leaves(params, grads), opt_state)
+        return loss.detach(), params, opt_state
+
+    return train_step
+
+
+def _with_leaves(tree: Pytree, leaves: list) -> Pytree:
+    """``tree``'s structure with ``leaves`` in its leaf order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def make_eval_step(cfg: ArchConfig) -> Callable[[Pytree, dict], torch.Tensor]:

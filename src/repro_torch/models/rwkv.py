@@ -12,8 +12,10 @@ Channel-mix: token-shifted squared-ReLU MLP with sigmoid receptance gate.
 
 The recurrence (the reference's ``lax.scan`` over time) goes through
 ``repro_torch.kernels.ops.rwkv6_wkv``: the hand-written kernel on CUDA
-tensors, the plain step loop on CPU tensors.  Prefill and decode (T = 1)
-take the same call, carrying the state.
+tensors, the plain step loop on CPU tensors, each differentiable through
+its backward (``Rwkv6Fn``; it returns ds0 too, so a carried state
+differentiates, though ``forward``'s zero state needs none).  Prefill and
+decode (T = 1) take the same call, carrying the state.
 """
 from __future__ import annotations
 

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -391,12 +392,26 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
 
 def backbone(cfg: ArchConfig, params: Pytree, h: torch.Tensor,
              pos_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Apply all layers to hidden states h (B, S, D). Returns (h, moe_aux)."""
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for j in range(cfg.n_periods):
+    """Apply all layers to hidden states h (B, S, D). Returns (h, moe_aux).
+
+    With ``cfg.remat`` and grad enabled each period's layers run under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+    ``period_body`` in ``jax.checkpoint``: the backward runs the period's
+    forward again (its kernels launch twice).  The remainder layers are not
+    wrapped, nor are they in the reference."""
+    def period_body(j, h, aux):
         for i, spec in enumerate(cfg.pattern):
             h, a = _apply_layer(cfg, spec, tree_index(params["layers"][i], j), h, pos_ids)
             aux = aux + a
+        return h, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(cfg.n_periods):
+        if remat:
+            h, aux = checkpoint(period_body, j, h, aux, use_reentrant=False)
+        else:
+            h, aux = period_body(j, h, aux)
     for i, spec in enumerate(cfg.remainder):
         h, a = _apply_layer(cfg, spec, params["rem_layers"][i], h, pos_ids)
         aux = aux + a

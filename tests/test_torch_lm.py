@@ -40,6 +40,7 @@ from repro_torch.kernels import rwkv6_scan as twkv  # noqa: E402
 from repro_torch.models import decode as tdecode  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
+from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 RUNNABLE = ["gemma3-4b", "gemma-7b", "h2o-danube-3-4b", "minitron-8b", "rwkv6-3b"]
@@ -221,8 +222,12 @@ def test_unported_families_raise_naming_their_item(name):
         tt.forward(cfg, {}, tokens=toks)
     with pytest.raises(NotImplementedError, match=item):
         tdecode.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tlm.make_train_step(ARCHS["gemma3-4b"])
+    # training runs for a runnable config (item 7b); for these it raises
+    # naming their item when the step runs
+    assert callable(tlm.make_train_step(ARCHS["gemma3-4b"].reduced(), sgd(0.1)))
+    step = tlm.make_train_step(cfg, sgd(0.1))
+    with pytest.raises(NotImplementedError, match=item):
+        step({}, {"step": 0}, {"tokens": toks, "labels": toks})
 
 
 def test_lm_params_carry_across_bit_for_bit_in_bf16():

@@ -25,9 +25,12 @@ LM path's (2, 4096, 8 / 4, 256) with windows 1024 and 0 (float32 on
 full-mantissa inputs) and at the edge cases (ragged S, non-causal, G = 8
 and 5, head_dim 32, 120 and 128, windows); the wkv kernels (chunked for
 T >= 64, recurrent below) at the LM shape, ragged T, strong decays, a
-split off the chunk boundaries and w = 0.  What the kernels do not take,
-the wrappers refuse before they look at the device, so those refusals are
-tested here on the CPU."""
+split off the chunk boundaries and w = 0; and a q that requires grad
+goes through `FlashAttentionFn` to the backward kernel, whose q.grad must
+match the plain backward (`tests/test_torch_lm_grad.py` holds both backward
+kernels at their shapes).  What the kernels do not take, the wrappers
+refuse before they look at the device, so those refusals are tested here
+on the CPU."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,6 +51,10 @@ WKV_ATOL = 1e-4
 # the bf16 kernel against the float32 result of its inputs, per element: it
 # computes in float32 and rounds once to bf16 (half an ulp, 2^-8 |x|)
 RTOL_BF16_ROUNDING = 2.0 ** -8
+# the backward kernel against the plain backward (tests/test_torch_lm_grad.py):
+# float32 within 1e-4 max |want|; bf16 per element, one rounding plus 1e-3 max |want|
+GRAD_RTOL_F32 = 1e-4
+GRAD_ATOL_BF16 = 1e-3
 
 
 def _qkv(B, S, Hq, Hkv, hd, seed=0):
@@ -455,8 +462,24 @@ def test_cuda_flash_matches_plain(case):
                                window=window)
     rtol = RTOL_BF16_ROUNDING if dtype == torch.bfloat16 else 0.0
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=ATOL_F32)
-    with pytest.raises(RuntimeError, match="backward"):
-        tfa.flash_attention_cuda(q.requires_grad_(), k, v)
+    # q that requires grad goes through FlashAttentionFn: the forward kernel
+    # again, then the backward kernel, whose q.grad is the plain backward's
+    q.requires_grad_()
+    before = (tfa.launches_bwd, tfa.launches_bwd_bf16)
+    out = tops.attention(q, k, v, causal=causal, window=window)
+    dout = torch.ones_like(out)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (tfa.launches_bwd, tfa.launches_bwd_bf16) == (before[0] + (not bf16),
+                                                         before[1] + bf16)
+    want_dq = tfa.attention_backward_plain(q.detach().float(), k.float(), v.float(),
+                                           out.detach().float(), dout.float(),
+                                           causal=causal, window=window)[0]
+    diff = (q.grad.float() - want_dq).abs()
+    top = float(want_dq.abs().max())
+    limit = (RTOL_BF16_ROUNDING * want_dq.abs() + GRAD_ATOL_BF16 * top) if bf16 \
+        else torch.full_like(want_dq, GRAD_RTOL_F32 * top)
+    assert bool((diff <= limit).all()), f"q.grad: max abs error {float(diff.max())}"
 
 
 @pytest.mark.cuda
