@@ -47,17 +47,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the decode shape (2, 40, 1, 64)), two halves and a split at 1001
      against the whole, and w = 0 (atol 1e-4; w = 0 must leave exactly
      the last k v^T);
-   * the flash backward (`csrc/flash_attention_bwd.cu`, three launches
-     counted as one) at the LM path's (2, 4096, 8 / 4, 256), window 1024
-     and causal global, in bf16 and float32, and at ragged (1, 1000, 4, 2,
-     64), G = 8 with window 100, hd 120 and non-causal: float32 within
+   * the flash backward (three launches counted as one: bf16 in
+     `csrc/flash_attention_bwd_sm90.cu` on wgmma with the forward's L,
+     float32 in `csrc/flash_attention_bwd.cu`) at the LM path's
+     (2, 4096, 8 / 4, 256), window 1024 and causal global, in bf16 and
+     float32, and at ragged (1, 1000, 4, 2, 64), G = 8 with window 100,
+     hd 120, non-causal hd 128, G = 16, G = 5, hd 128 with window 100 and
+     hd 256 at S = 333 with a window edge inside a tile: float32 within
      FLASH_BWD_RTOL_F32 max |want| per gradient, bf16 per element against
      the float32 plain backward of the same inputs (FLASH_RTOL_BF16 |want|
-     + FLASH_BWD_ATOL_BF16 max |want|); timed beside its bound, the plain
-     backward and SDPA's backward (band mask and, causal, `is_causal`);
-   * the wkv backward (`csrc/rwkv6_scan_bwd.cu`) at (2, 40, 4096, 64) with
-     the model's decays and a non-zero s0 and dS_T, at T = 1000, T = 1 and
-     w = 0, every gradient within 1e-4 max(1, max |want|); timed;
+     + FLASH_BWD_ATOL_BF16 max |want|); the forward's L against the plain
+     log-sum-exp; timed beside its bound, the plain backward and SDPA's
+     backward (band mask and, causal, `is_causal`), and the bf16 forward
+     timed with and without writing L;
+   * the wkv backward (`csrc/rwkv6_scan_bwd.cu`, chunk-parallel in time
+     from the states the forward stores) at (2, 40, 4096, 64) with the
+     model's decays and a non-zero s0 and dS_T, at T = 1000, 1, 63, 64,
+     65, hd 16 and 32 and w = 0, every gradient within 1e-4 max(1,
+     max |want|); timed as the train path calls it (states from the
+     forward) and with the forward's states pass, and the wkv forward
+     timed with and without storing the states;
    * the shapes only the baselines' and the paper's paths give the
      kernels: the flat strategies' masked mean (cluster_agg at C = 1,
      zero-weight rows holding NaN) at (100, 6570) and at Table II's
@@ -323,7 +332,8 @@ LM_CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
 # the flash kernels keep O, S and P in registers: a spill serialises them
 NO_SPILL_SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu")
 # the backward kernels' sources: their spills are printed and reported, not gated
-BACKWARD_SOURCES = ("flash_attention_bwd.cu", "rwkv6_scan_bwd.cu")
+BACKWARD_SOURCES = ("flash_attention_bwd_sm90.cu", "flash_attention_bwd.cu",
+                    "rwkv6_scan_bwd.cu")
 # the flash backward against its plain version: float32 inputs within
 # FLASH_BWD_RTOL_F32 max |want| per gradient; bf16 inputs per element against
 # the float32 plain backward of the same inputs (the same bf16 output O),
@@ -2004,6 +2014,10 @@ def flash_phase(dev) -> tuple[dict, dict]:
                     qd, kd, vd, causal=True, window=window), None, 10, flush),
                 "plain_us": median_us(lambda _: fa.attention_plain(
                     qd, kd, vd, causal=True, window=window), None, 5, flush),
+                # the train path's call: the same kernel also writing L
+                "kernel_lse_us": median_us(lambda _: fa.flash_attention_cuda(
+                    qd, kd, vd, causal=True, window=window, return_lse=True), None, 10, flush)
+                if dt == "bf16" else None,
                 "library_us": median_us(band_sdpa, None, 10, flush),
                 "library_call": "F.scaled_dot_product_attention(band mask, enable_gqa=True)",
                 "library_backend": sdpa_backend(band_sdpa),
@@ -2092,6 +2106,9 @@ def wkv_phase(dev) -> tuple[dict, dict]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / ALU32_OPS_PER_S * 1e6
     row = {"shape": [B, H, T, hd], "dtype": "float32",
            "kernel_us": median_us(lambda _: wk.rwkv6_cuda(*main), None, 20, flush),
+           # the train path's call: the same kernel also storing each chunk's state
+           "kernel_states_us": median_us(lambda _: wk.rwkv6_cuda(*main, return_states=True),
+                                         None, 20, flush),
            "plain_us": median_us(lambda _: wk.rwkv6_plain(*main), None, 3, flush),
            "library_us": None,
            "bound_us": max(t_bytes, t_ops),
@@ -2110,14 +2127,27 @@ def wkv_phase(dev) -> tuple[dict, dict]:
 
 def check_flash_bwd(q, k, v, dout, causal: bool, window: int, what: str) -> dict:
     """The backward kernel against the plain backward on the same inputs
-    (the forward kernel's output O for both): float32 within
-    FLASH_BWD_RTOL_F32 max |want|; bf16 per element against the float32
-    plain backward, FLASH_RTOL_BF16 |want| + FLASH_BWD_ATOL_BF16 max |want|."""
-    out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
-    got = fa.flash_attention_backward_cuda(q, k, v, out, dout, causal=causal, window=window)
+    (the forward kernel's output O for both; bf16 also takes the forward's
+    L, held first against the plain log-sum-exp in log2 units within
+    FLASH_TOL_F32 max(1, max |L|)): float32 within FLASH_BWD_RTOL_F32
+    max |want|; bf16 per element against the float32 plain backward,
+    FLASH_RTOL_BF16 |want| + FLASH_BWD_ATOL_BF16 max |want|."""
+    bf16 = q.dtype == torch.bfloat16
+    lse_err = None
+    if bf16:
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                           return_lse=True)
+        want_lse = fa.attention_lse_plain(q, k, causal=causal, window=window)
+        lse_err = float((lse - want_lse).abs().max())
+        if not lse_err <= FLASH_TOL_F32 * max(1.0, float(want_lse.abs().max())):
+            raise AssertionError(f"flash forward L on {what}: max abs error {lse_err}")
+        del want_lse
+    else:
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window), None
+    got = fa.flash_attention_backward_cuda(q, k, v, out, dout, causal=causal, window=window,
+                                           lse=lse)
     want = fa.attention_backward_plain(q.float(), k.float(), v.float(), out.float(),
                                        dout.float(), causal=causal, window=window)
-    bf16 = q.dtype == torch.bfloat16
     errs, shares = {}, {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         if g.dtype != q.dtype or g.shape != w.shape:
@@ -2133,7 +2163,7 @@ def check_flash_bwd(q, k, v, dout, causal: bool, window: int, what: str) -> dict
                                  f"{shares[name]} of its limit (max abs error "
                                  f"{errs[name]}, max |want| {top})")
     return {"max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
-            "max_share_of_limit": max(shares.values()),
+            "max_share_of_limit": max(shares.values()), "lse_max_abs_err": lse_err,
             "tolerance": ({"rtol": FLASH_RTOL_BF16, "atol_of_max": FLASH_BWD_ATOL_BF16}
                           if bf16 else {"atol_of_max": FLASH_BWD_RTOL_F32})}
 
@@ -2143,7 +2173,13 @@ def check_flash_bwd(q, k, v, dout, causal: bool, window: int, what: str) -> dict
 FLASH_BWD_CASES = {"ragged (1, 1000, 4, 2, 64)": ((1, 1000, 4, 2, 64), True, 0),
                    "G = 8 (1, 300, 8, 1, 64) window 100": ((1, 300, 8, 1, 64), True, 100),
                    "hd 120 (1, 130, 4, 1, 120)": ((1, 130, 4, 1, 120), True, 0),
-                   "non-causal (1, 512, 4, 4, 128)": ((1, 512, 4, 4, 128), False, 0)}
+                   "non-causal (1, 512, 4, 4, 128)": ((1, 512, 4, 4, 128), False, 0),
+                   "G = 16 (1, 200, 16, 1, 64)": ((1, 200, 16, 1, 64), True, 0),
+                   "G = 5 (1, 257, 10, 2, 64)": ((1, 257, 10, 2, 64), True, 0),
+                   "hd 128 (1, 384, 4, 2, 128) window 100":
+                       ((1, 384, 4, 2, 128), True, 100),
+                   "hd 256 G = 16 (1, 333, 32, 2, 256) window 77":
+                       ((1, 333, 32, 2, 256), True, 77)}
 
 
 def sdpa_backward(q, k, v, dout, **kwargs):
@@ -2193,7 +2229,11 @@ def flash_bwd_phase(dev) -> tuple[dict, dict]:
                      else TF32_OPS_PER_S / TF32_PRODUCTS_PER_FP32)
         rows[dt] = []
         for window in (1024, 0):
-            out = fa.flash_attention_cuda(qd, kd, vd, causal=True, window=window)
+            # the train path's call: bf16 takes the L its forward wrote
+            out, lse = (fa.flash_attention_cuda(qd, kd, vd, causal=True, window=window,
+                                                return_lse=True) if dt == "bf16" else
+                        (fa.flash_attention_cuda(qd, kd, vd, causal=True, window=window),
+                         None))
             band = pos[None, :] <= pos[:, None]
             if window:
                 band &= pos[:, None] - pos[None, :] < window
@@ -2204,7 +2244,8 @@ def flash_bwd_phase(dev) -> tuple[dict, dict]:
                 "shape": [B, S, Hq, Hkv, hd], "dtype": str(qd.dtype).removeprefix("torch."),
                 "window": window,
                 "kernel_us": median_us(lambda _: fa.flash_attention_backward_cuda(
-                    qd, kd, vd, out, dd, causal=True, window=window), None, 5, flush),
+                    qd, kd, vd, out, dd, causal=True, window=window, lse=lse), None, 5,
+                    flush),
                 "plain_us": median_us(lambda _: fa.attention_backward_plain(
                     qd, kd, vd, out, dd, causal=True, window=window), None, 2, flush),
                 "library_us": median_us(band_bwd, None, 5, flush),
@@ -2226,15 +2267,17 @@ def flash_bwd_phase(dev) -> tuple[dict, dict]:
                 row["library_causal_backend"] = sdpa_backend(causal_bwd, marker=False)
                 del causal_bwd
             rows[dt].append(row)
-            del out
+            del out, lse
             torch.cuda.empty_cache()
     return rows, checks
 
 
 def check_wkv_bwd(args, what: str) -> dict:
     """The wkv backward kernel against its plain version: every gradient
-    within WKV_TOL max(1, max |want|)."""
-    got = wk.rwkv6_backward_cuda(*args)
+    within WKV_TOL max(1, max |want|); the kernel walks from the states its
+    forward stored, as on the train path."""
+    states = wk.rwkv6_cuda(*args[:6], return_states=True)[2]
+    got = wk.rwkv6_backward_cuda(*args, states=states)
     want = wk.rwkv6_backward_plain(*args)
     errs, shares = {}, {}
     for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
@@ -2250,7 +2293,10 @@ def check_wkv_bwd(args, what: str) -> dict:
 def wkv_bwd_phase(dev) -> tuple[dict, dict]:
     """The wkv backward kernel against its plain version at the LM path's
     (2, 40, 4096, 64) with the model's decays and a non-zero s0 and dS_T, at
-    T = 1000, at T = 1 and with w = 0; times at the main shape."""
+    T = 1000, 1, 63, 64 and 65 (either side of one chunk), at hd 16 and 32
+    and with w = 0; times at the main shape, with the states from the
+    forward as the train path has them, and with the forward's states pass
+    (a call without them)."""
     rng = np.random.default_rng(SEED + 9)
     B, H, T, hd = LM_BATCH, 40, LM_SEQ, 64
 
@@ -2267,6 +2313,12 @@ def wkv_bwd_phase(dev) -> tuple[dict, dict]:
     zero = list(wkv_inputs(rng, 1, 4, 200, hd, dev)) + list(cotangents((1, 4, 200, hd)))
     zero[3].zero_()
     checks["w = 0 (1, 4, 200, 64)"] = check_wkv_bwd(zero, "w = 0")
+    for shape in ((2, 40, 63, 64), (2, 40, 64, 64), (2, 40, 65, 64), (1, 3, 130, 16),
+                  (1, 3, 77, 32), (2, 4, 4096, 32)):
+        what = f"{shape}" + (" strong decays" if shape[3] == 16 else "")
+        args = (*wkv_inputs(rng, *shape, dev, strong=shape[3] == 16), *cotangents(shape))
+        checks[what] = check_wkv_bwd(args, what)
+    states = wk.rwkv6_cuda(*main[:6], return_states=True)[2]
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     seq = B * H * T * hd * 4
@@ -2276,7 +2328,8 @@ def wkv_bwd_phase(dev) -> tuple[dict, dict]:
     n_ops = B * H * T * WKV_BWD_FLOPS_PER_STATE * hd * hd
     bound, bound_by = bound_us(n_bytes, n_ops)
     row = {"shape": [B, H, T, hd], "dtype": "float32",
-           "kernel_us": median_us(lambda _: wk.rwkv6_backward_cuda(*main), None, 10, flush),
+           "kernel_us": median_us(lambda _: wk.rwkv6_backward_cuda(*main, states=states),
+                                  None, 10, flush),
            "plain_us": median_us(lambda _: wk.rwkv6_backward_plain(*main), None, 1, flush),
            "library_us": None, "bound_us": bound, "bound_by": bound_by,
            "bytes": n_bytes, "flop": n_ops}
@@ -2634,6 +2687,7 @@ def kernel_entries(res: dict) -> list[dict]:
                      library_causal_ms=us_to_ms(causal, "library_causal_us"),
                      library_causal_backend=causal.get("library_causal_backend"),
                      bound_cuda_cores_ms=us_to_ms(flash_rows[dt][0], "bound_cuda_cores_us"),
+                     ms_writing_lse=us_to_ms(flash_rows[dt][0], "kernel_lse_us"),
                      shapes=flash_rows[dt], checks=checks)
 
     flash_bwd_rows, flash_bwd_checks = res["flash_bwd"]
@@ -2645,7 +2699,8 @@ def kernel_entries(res: dict) -> list[dict]:
         main = max(c["max_abs_err"] for w, c in checks.items() if w.startswith("main"))
         row, causal = flash_bwd_rows[dt]
         # the main-path row is window 1024: five of gemma3's six layers
-        return entry(f"flash_attention_bwd_{dt}", "flash_attention_bwd.cu",
+        source = "flash_attention_bwd_sm90.cu" if dt == "bf16" else "flash_attention_bwd.cu"
+        return entry(f"flash_attention_bwd_{dt}", source,
                      "src/repro/kernels/flash_attention.py:80", main_path, row, main,
                      tolerance, shape=[2, 4096, 8, 4, 256], dtype=row["dtype"], window=1024,
                      no_pallas_counterpart="the gradient of the kernel at `replaces`: the "
@@ -2655,7 +2710,7 @@ def kernel_entries(res: dict) -> list[dict]:
                      library_causal_ms=us_to_ms(causal, "library_causal_us"),
                      library_causal_backend=causal.get("library_causal_backend"),
                      bound_cuda_cores_ms=us_to_ms(row, "bound_cuda_cores_us"),
-                     ptxas_spill_stores=spills["flash_attention_bwd.cu"],
+                     ptxas_spill_stores=spills[source],
                      shapes=flash_bwd_rows[dt], checks=checks)
 
     # the shapes only the baselines' and the paper's paths give the kernels
@@ -2695,6 +2750,7 @@ def kernel_entries(res: dict) -> list[dict]:
         entry("rwkv6", "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:45",
               "lm_forward", wkv_row, wkv_checks["main (2, 40, 4096, 64)"], WKV_TOL,
               shape=[2, 40, 4096, 64], dtype="float32", checks=wkv_checks,
+              ms_storing_states=us_to_ms(wkv_row, "kernel_states_us"),
               decode_shape={"launches_lm_decode": by_path["lm_decode"]["rwkv6"],
                             "max_abs_err": wkv_checks["T = 1 (2, 40, 1, 64)"],
                             "ms": us_to_ms(wkv_row["decode"], "kernel_us"),

@@ -26,7 +26,8 @@ the summed device time, the device busy share (device time over wall; one
 stream, so nothing overlaps), the number of device activities, and the
 device time by group — the port's flash-attention kernels (bf16 tensor
 cores and float32), their backward kernels, the wkv kernels and their
-backward kernels, matrix products (cuBLAS), and the rest.
+backward kernels, matrix products (cuBLAS), and the rest — and each of
+the port's own kernels by name (the backward's launches apart).
 The profiler's own cost is in the wall time.  Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -55,9 +56,12 @@ CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
 BATCH, SEQ = 2, 4096
 PROMPT, DECODE_STEPS = 16, 8
 TRAIN_LR = 1e-3
-GROUPS = (("flash_attention backward kernels", ("prep_kernel<", "dkdv_kernel<",
-                                                "dq_kernel<")),
-          ("rwkv6 wkv backward kernels", ("bounds_kernel<", "bwd_kernel<")),
+# the backward kernels: bf16 flash (delta, dK / dV, dQ of
+# csrc/flash_attention_bwd_sm90.cu), float32 flash (csrc/flash_attention_bwd.cu
+# adds prep), and the wkv's one chunk-parallel kernel
+GROUPS = (("flash_attention backward kernels", ("prep_kernel<", "delta_kernel",
+                                                "dkdv_kernel<", "dq_kernel<")),
+          ("rwkv6 wkv backward kernels", ("bwd_chunk_kernel<",)),
           ("flash_attention kernels", ("flash_kernel", "flash_sm90_kernel")),
           ("rwkv6 wkv kernels", ("wkv_kernel", "wkv_chunk_kernel")),
           ("matmul (cuBLAS)", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "splitk")))
@@ -73,7 +77,8 @@ def group_of(name: str) -> str:
 
 def profiled(fn, steps: int) -> dict:
     """Run ``fn`` ``steps`` times under the profiler; wall and device time
-    per step, busy share, top activities and device time by group."""
+    per step, busy share, top activities, device time by group, and each
+    of the port's own kernels (every launch of its groups) by name."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -95,7 +100,11 @@ def profiled(fn, steps: int) -> dict:
             "device_ms_by_group": groups,
             "top_device": [{"name": e.key[:120], "calls": e.count / steps,
                             "device_ms_per_step": e.self_device_time_total / 1e3 / steps}
-                           for e in device[:12]]}
+                           for e in device[:12]],
+            "port_kernels": [{"name": e.key[:120], "calls": e.count / steps,
+                              "device_ms_per_step": e.self_device_time_total / 1e3 / steps}
+                             for e in device
+                             if group_of(e.key) not in ("other", "matmul (cuBLAS)")]}
 
 
 def profile_config(name: str, n_layers: int, dev) -> dict:

@@ -1,5 +1,6 @@
 // Backward of causal / sliding-window GQA flash attention on Hopper (sm_90a),
-// for bf16 and float32 inputs, summed in float32 on the CUDA cores.
+// for float32 inputs, on the CUDA cores (bf16 inputs take
+// csrc/flash_attention_bwd_sm90.cu, on the tensor cores).
 //
 // The gradient of the function that the Pallas TPU kernel `flash_attention`
 // (src/repro/kernels/flash_attention.py) computes forward; the reference has
@@ -33,8 +34,8 @@
 //      it walks the live key tiles: dQ += dS K in registers.
 // Every block loops over its live range only, so the tiles the causal or
 // windowed mask empties are never visited; the blocks with the most work
-// start first.  Tiles are staged in float32 shared memory (bf16 converted on
-// load) by 16- or 8-byte loads, every load of a tile in flight before the
+// start first.  Tiles are staged in shared memory by 16-byte loads, every
+// load of a tile in flight before the
 // first store; rows past S, head dims past hd and rows past the group's
 // heads are zero and masked.  The products are float32 FMAs on the CUDA
 // cores: 2 x 2 register tiles for S and dP (dot products over a padded
@@ -51,7 +52,6 @@
 // (S and dP twice, in the prep and the dQ pass), and its inner loops read
 // shared memory as often as they multiply.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -85,21 +85,8 @@ struct Args {
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
 __device__ __forceinline__ void st4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 x) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -519,8 +506,8 @@ int launch_dtype(const Args& a, int B, cudaStream_t s) {
 
 }  // namespace
 
-// q (B, S, Hq, hd), k and v (B, S, Hkv, hd), float32 (bf16 = 0) or bf16
-// (bf16 = 1), each with unit stride over hd, the given element strides over
+// q (B, S, Hq, hd), k and v (B, S, Hkv, hd), float32, each with unit stride
+// over hd, the given element strides over
 // (b, s, h), and every row on 16 bytes; out, dout and dq (B, S, Hq, hd) and
 // dk, dv (B, S, Hkv, hd) contiguous in the same dtype; lse and delta
 // (B, Hq, S) float32 scratch.  Three launches on `stream`; returns the first
@@ -530,9 +517,9 @@ extern "C" int flash_attention_bwd_launch(
     void* dq, void* dk, void* dv, void* lse, void* delta, int B, int S, int Hq, int Hkv,
     int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal, int window,
-    float scale, int bf16, void* stream) {
+    float scale, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 16 || hd <= 0 ||
-      hd % (bf16 ? 8 : 4) != 0 || hd > 256 || B > 65535 || Hkv > 65535)
+      hd % 4 != 0 || hd > 256 || B > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -564,5 +551,5 @@ extern "C" int flash_attention_bwd_launch(
   a.v_sh = v_sh;
   a.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_dtype<__nv_bfloat16>(a, B, s) : launch_dtype<float>(a, B, s);
+  return launch_dtype<float>(a, B, s);
 }

@@ -70,7 +70,11 @@
 //   * The CTAs with the most kv tiles (the last query blocks, causal) start
 //     first.
 // q, k and v are read through their strides (multiples of 16 bytes, as TMA
-// requires; the wrapper checks); out (B, S, Hq, hd) is contiguous.
+// requires; the wrapper checks); out (B, S, Hq, hd) is contiguous.  Given
+// an `lse` buffer, the epilogue also writes each row's log-sum-exp L = m +
+// log2(l) of the scaled scores in log2 units, float32 (B, Hq, S), which the
+// backward (csrc/flash_attention_bwd_sm90.cu) takes instead of recomputing
+// it; the inference path passes null and writes nothing more.
 //
 // Bound on the H100: operations.  At the main path's (2, 4096, 8 / 4, 256)
 // the kernel must move about 100 MB (30 us at 3.35 TB/s) but do 4 hd flops
@@ -101,6 +105,7 @@ constexpr uint32_t kKvBox = kKeys * kRowBytes;  // 64 head dims of a kv tile
 
 struct Params {
   __nv_bfloat16* out;
+  float* lse;         // (B, Hq, S) L = m + log2(l) a row, or null
   int S, Hq, Hkv, hd, G, P, nq, causal, window;
   float scale;
   float scale_log2;   // scale * log2(e)
@@ -420,6 +425,15 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  if (a.lse != nullptr && kc == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r1 : r0, pos = half ? pos1 : pos0;
+      if (r < nrows && pos < a.S)
+        a.lse[((long long)b * a.Hq + hk * G + r % G) * a.S + pos] =
+            half ? m1 + log2f(l1) : m0 + log2f(l0);
+    }
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = half ? r1 : r0, pos = half ? pos1 : pos0;
@@ -494,7 +508,8 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 // q (B, S, Hq, hd), k and v (B, S, Hkv, hd) bfloat16, each with unit stride
 // over hd and the given element strides over (b, s, h), every stride times 2
 // and every pointer a multiple of 16 bytes; hd a multiple of 8 up to 256,
-// Hq / Hkv <= 16; out (B, S, Hq, hd) contiguous bfloat16.  Launches on
+// Hq / Hkv <= 16; out (B, S, Hq, hd) contiguous bfloat16; lse null or
+// (B, Hq, S) float32, written with each row's L.  Launches on
 // `stream` and returns cudaGetLastError() (0 on success), cudaErrorInvalidValue
 // for a shape it does not take, or cudaErrorNotSupported if libcuda's
 // tensor-map encoder is missing or refuses a map.
@@ -502,7 +517,7 @@ extern "C" int flash_attention_sm90_launch(
     const void* q, const void* k, const void* v, void* out, int B, int S, int Hq, int Hkv,
     int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal, int window,
-    float scale, void* stream) {
+    float scale, void* lse, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup || hd <= 0 ||
       hd % 8 != 0 || hd > 4 * kChunk || B > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
@@ -510,6 +525,7 @@ extern "C" int flash_attention_sm90_launch(
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   Params a;
   a.out = static_cast<__nv_bfloat16*>(out);
+  a.lse = static_cast<float*>(lse);
   a.S = S;
   a.Hq = Hq;
   a.Hkv = Hkv;

@@ -35,7 +35,9 @@
 //      diag(D_c) S_c + K_c through global memory (two slots a (b, h), a
 //      release flag a chunk; blocks take their chunk from an atomic ticket,
 //      (b, h) fastest, so the chunk a block waits on is always running or
-//      done), or writes it to sT at the last chunk.
+//      done), or writes it to sT at the last chunk.  Given a `states`
+//      buffer it also stores S_c, the state every chunk starts from, for
+//      the backward (csrc/rwkv6_scan_bwd.cu); inference passes null.
 //   3. adds y_inter = (r_t * w_start ... w_{t-1}) . S_c and writes y once.
 //
 // r, k, v, w are staged in shared memory by 16-byte cp.async copies (rows
@@ -71,6 +73,7 @@ struct Args {
   float* slots;      // (B, H, 2, hd, hd): the states passed between chunks
   unsigned* sync;    // 1 + B H nc, zeroed: the ticket counter, then one flag
                      // a chunk (its S_{c+1} published)
+  float* states;     // (B, H, nc, hd, hd): each chunk's S_c, or null
   int H, T, nc;
   long long r_sb, r_sh, r_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, w_sb, w_sh, w_st;
   long long y_sb, y_sh, y_st;
@@ -456,6 +459,9 @@ wkv_chunk_kernel(const Args a, int BH) {
     for (int u = 0; u < 4; ++u) {
       const float4 sc = __ldcg(reinterpret_cast<const float4*>(s_in + (i + u) * HD + j));
       *reinterpret_cast<float4*>(Ss + (i + u) * SS + j) = sc;
+      if (a.states != nullptr)
+        __stcg(reinterpret_cast<float4*>(a.states + (bh * a.nc + c) * E + (i + u) * HD + j),
+               sc);
       const float d = Dc[i + u];
       __stcg(reinterpret_cast<float4*>(s_out + (i + u) * HD + j),
              make_float4(fmaf(d, sc.x, kacc[x][u][0]), fmaf(d, sc.y, kacc[x][u][1]),
@@ -513,15 +519,17 @@ extern "C" int rwkv6_scan_chunk() { return kChunk; }
 // sT (B, H, hd, hd) float32 contiguous.  hd is one of 8, 16, 32, 64, 128.
 // For T >= rwkv6_scan_chunk(): slots (B, H, 2, hd, hd) float32 scratch,
 // sync (1 + B H nc) uint32 zeroed, nc = ceil(T / chunk), and every row of r,
-// k, v, w and y on 16 bytes; else slots and sync may be null.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// k, v, w and y on 16 bytes; else slots and sync may be null.  states: null,
+// or (B, H, nc, hd, hd) float32 written with every chunk's starting state
+// (chunked form only).  Launches on `stream` and returns cudaGetLastError()
+// (0 on success).
 extern "C" int rwkv6_scan_launch(
     const void* r, const void* k, const void* v, const void* w, const void* u,
     const void* s0, void* y, void* sT, void* slots, void* sync, int B, int H, int T, int hd,
     long long r_sb, long long r_sh, long long r_st, long long k_sb, long long k_sh,
     long long k_st, long long v_sb, long long v_sh, long long v_st, long long w_sb,
     long long w_sh, long long w_st, long long y_sb, long long y_sh, long long y_st,
-    void* stream) {
+    void* states, void* stream) {
   if (B <= 0 || H <= 0 || T < 0 || (long long)B * H > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -535,6 +543,7 @@ extern "C" int rwkv6_scan_launch(
   a.sT = static_cast<float*>(sT);
   a.slots = static_cast<float*>(slots);
   a.sync = static_cast<unsigned*>(sync);
+  a.states = static_cast<float*>(states);
   a.H = H;
   a.T = T;
   a.nc = (T + kChunk - 1) / kChunk;

@@ -19,13 +19,16 @@ into two TF32 terms, so the tensor cores keep float32 accuracy).
 
 The gradient (the reference differentiates its jnp attention; there is no
 Pallas backward) is :class:`FlashAttentionFn`: its forward saves q, k, v and
-the output, and its backward gives dq, dk, dv from them and dO —
-:func:`attention_backward_plain` for CPU tensors (scores materialised in
-float32), :func:`flash_attention_backward_cuda` for CUDA tensors
-(``csrc/flash_attention_bwd.cu``: per-row log-sum-exp and dO . O, then dK /
-dV per kv tile summed over the query heads of its group inside the block,
-then dQ per query tile; float32 CUDA-core products for both dtypes, no
-atomics).  ``repro_torch.kernels.ops.attention`` goes through the Function
+the output (and, for bf16 CUDA tensors, each row's log-sum-exp L, which the
+forward kernel writes), and its backward gives dq, dk, dv from them and dO
+— :func:`attention_backward_plain` for CPU tensors (scores materialised in
+float32), :func:`flash_attention_backward_cuda` for CUDA tensors: bf16 goes
+to ``csrc/flash_attention_bwd_sm90.cu`` (dO . O, then dK / dV per kv tile
+summed over the query heads of its group inside the block, then dQ per
+query tile, every product on wgmma with P and dS in two bf16 terms),
+float32 to ``csrc/flash_attention_bwd.cu`` (L and dO . O, dK / dV, dQ in
+float32 CUDA-core FMAs); neither uses atomics.
+``repro_torch.kernels.ops.attention`` goes through the Function
 on both devices: plain forward and plain backward for CPU tensors, kernel
 forward and kernel backward for CUDA tensors, which launch or raise; there
 is no fallback.
@@ -39,27 +42,36 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 256
 MAX_GROUP = 16            # query heads per kv head: the kernels' rows a block
-# each input dtype's kernel: its source and launch function (the same
-# arguments: q, k, v, out; B, S, Hq, Hkv, hd; the nine strides; causal,
-# window, scale, stream)
-_KERNELS = {torch.float32: ("flash_attention.cu", "flash_attention_launch"),
-            torch.bfloat16: ("flash_attention_sm90.cu", "flash_attention_sm90_launch")}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+# each input dtype's kernel: its source, launch function and argument types
+# (q, k, v, out; B, S, Hq, Hkv, hd; the nine strides; causal, window, scale;
+# for bf16 the lse buffer or null; stream)
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+         + [ctypes.c_int, ctypes.c_int, ctypes.c_float])
+_KERNELS = {torch.float32: ("flash_attention.cu", "flash_attention_launch",
+                            _ARGS + [ctypes.c_void_p]),
+            torch.bfloat16: ("flash_attention_sm90.cu", "flash_attention_sm90_launch",
+                             _ARGS + [ctypes.c_void_p] * 2)}
+# the backward kernels, float32 csrc/flash_attention_bwd.cu (q, k, v, out,
+# dout, dq, dk, dv, lse and delta scratch) and bf16
+# csrc/flash_attention_bwd_sm90.cu (q, k, v, out, dout, the forward's lse,
+# dq, dk, dv, delta scratch), then both B, S, Hq, Hkv, hd; q, k, v's nine
+# strides; causal, window, scale, stream
+_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-# the backward (csrc/flash_attention_bwd.cu, both dtypes): q, k, v, out, dout,
-# dq, dk, dv, lse and delta scratch; B, S, Hq, Hkv, hd; q, k, v's nine
-# strides; causal, window, scale, bf16, stream
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
-                 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                    ctypes.c_void_p])
+_BWD_KERNELS = {
+    torch.float32: ("flash_attention_bwd.cu", "flash_attention_bwd_launch", _BWD_ARGS),
+    torch.bfloat16: ("flash_attention_bwd_sm90.cu", "flash_attention_bwd_sm90_launch",
+                     _BWD_ARGS)}
 
 # Launches since the last reset (set them to 0): of the float32 kernel
 # (csrc/flash_attention.cu), of the bf16 tensor-core kernel
-# (csrc/flash_attention_sm90.cu), and of the backward kernel
-# (csrc/flash_attention_bwd.cu; one call, its three launches, counts one)
-# on float32 and on bf16 inputs.
+# (csrc/flash_attention_sm90.cu), and of the backward kernels on float32
+# (csrc/flash_attention_bwd.cu) and on bf16 inputs
+# (csrc/flash_attention_bwd_sm90.cu); one backward call, its three
+# launches, counts one.
 launches = 0
 launches_bf16 = 0
 launches_bwd = 0
@@ -82,16 +94,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{tuple(q.shape)} (Hq must be a multiple of Hkv)")
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Naive softmax attention with GQA, in plain PyTorch on the tensors'
-    own device (``ref.attention_ref``: the reference for the kernel, and the
-    CPU path).  Sq and Sk may differ; positions are 0..S-1 on both."""
-    _check(q, k, v)
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int
+                   ) -> torch.Tensor:
+    """The scaled scores (B, Hkv, G, Sq, Sk) in float32 (float64 on float64
+    inputs), NEG_INF where the mask drops a pair; positions 0..S-1."""
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    G = Hq // Hkv
-    qg = _wide(q.reshape(B, Sq, Hkv, G, hd)) / (hd ** 0.5)
+    qg = _wide(q.reshape(B, Sq, Hkv, Hq // Hkv, hd)) / (hd ** 0.5)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, _wide(k))
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
@@ -100,10 +109,30 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ok &= kpos <= qpos
     if window > 0:
         ok &= qpos - kpos < window
-    s = torch.where(ok, s, s.new_full((), NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    return torch.where(ok, s, s.new_full((), NEG_INF))
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Naive softmax attention with GQA, in plain PyTorch on the tensors'
+    own device (``ref.attention_ref``: the reference for the kernel, and the
+    CPU path).  Sq and Sk may differ; positions are 0..S-1 on both."""
+    _check(q, k, v)
+    B, Sq, Hq, hd = q.shape
+    p = torch.softmax(_masked_scores(q, k, causal, window), dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, _wide(v))
     return o.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Each query row's log-sum-exp of the scaled, masked scores of
+    :func:`attention_plain`, in log2 units, float32 (B, Hq, S): the plain
+    version of the L that the bf16 forward kernel writes for its backward
+    (``flash_attention_cuda(..., return_lse=True)``)."""
+    B, Sq, Hq, _ = q.shape
+    lse = torch.logsumexp(_masked_scores(q, k, causal, window), dim=-1)
+    return (lse * LOG2E).reshape(B, Hq, Sq).float()
 
 
 def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -121,20 +150,11 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns dq, dk, dv in q's, k's and v's dtypes."""
     _check(q, k, v)
     B, Sq, Hq, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     G = Hq // Hkv
     qg = _wide(q.reshape(B, Sq, Hkv, G, hd)) / (hd ** 0.5)
     kf, vf = _wide(k), _wide(v)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kpos <= qpos
-    if window > 0:
-        ok &= qpos - kpos < window
-    p = torch.softmax(torch.where(ok, s, s.new_full((), NEG_INF)), dim=-1)
-    del s
+    p = torch.softmax(_masked_scores(q, k, causal, window), dim=-1)
     dog = _wide(dout.reshape(B, Sq, Hkv, G, hd))
     delta = torch.einsum("bqhgd,bqhgd->bhgq", dog, _wide(out.reshape(B, Sq, Hkv, G, hd)))
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
@@ -145,11 +165,12 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (dq.reshape(B, Sq, Hq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
-def _launcher(dtype: torch.dtype):
-    """The launch function of ``dtype``'s kernel, built at first use."""
-    source, symbol = _KERNELS[dtype]
+def _launcher(kernels: dict, dtype: torch.dtype):
+    """The launch function of ``dtype``'s kernel in ``kernels``, built at
+    first use."""
+    source, symbol, argtypes = kernels[dtype]
     fn = getattr(_build.load(source), symbol)
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -181,52 +202,60 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) ->
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, window: int = 0) -> torch.Tensor:
+                         causal: bool = True, window: int = 0,
+                         return_lse: bool = False):
     """(B, S, Hq, hd) attention on a CUDA device by the hand-written kernel
     of the tensors' dtype (bf16: wgmma; float32: 3xTF32 mma.sync), on the
     current stream; the result is (B, S, Hq, hd) contiguous in q's dtype.
+    With ``return_lse`` (bf16 only) it returns (out, lse): each row's
+    log-sum-exp of the scaled scores in log2 units, float32 (B, Hq, S),
+    which the bf16 backward kernel takes; without, the kernel writes no L.
     q, k and v are read through their strides (unit stride over hd and rows
     on 16 bytes required: the kernels copy 16 bytes or TMA boxes).  Raises
     on anything the kernels do not take (whatever the device), on tensors
     not on one CUDA device, and if the launch is refused.  It computes no
     gradient itself: :class:`FlashAttentionFn` does."""
     global launches, launches_bf16
+    bf16 = q.dtype == torch.bfloat16
+    if return_lse and not bf16:
+        raise TypeError("flash_attention_cuda writes L (return_lse) for bf16 inputs only")
     _check_cuda(q, k, v, "flash_attention_cuda")
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     out = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    launch = _launcher(q.dtype)
+    extra = (None if lse is None else lse.data_ptr(),) if bf16 else ()
+    launch = _launcher(_KERNELS, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(*pointers, B, S, Hq, Hkv, hd, *strides, int(causal), int(window),
-                     1.0 / (hd ** 0.5), stream)
+                     1.0 / (hd ** 0.5), *extra, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    if q.dtype == torch.bfloat16:
+    if bf16:
         launches_bf16 += 1
     else:
         launches += 1
-    return out
-
-
-def _backward_launcher():
-    fn = _build.load("flash_attention_bwd.cu").flash_attention_bwd_launch
-    fn.argtypes = _BWD_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   out: torch.Tensor, dout: torch.Tensor, *,
-                                  causal: bool = True, window: int = 0
+                                  causal: bool = True, window: int = 0,
+                                  lse: torch.Tensor | None = None
                                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dq, dk, dv of the attention on a CUDA device by the hand-written
-    backward kernel (``csrc/flash_attention_bwd.cu``, float32 or bf16 inputs,
-    float32 sums), on the current stream: three launches, counted as one.
+    backward kernel of the inputs' dtype, on the current stream: three
+    launches, counted as one.  bf16: ``csrc/flash_attention_bwd_sm90.cu``
+    (wgmma, float32 sums) with the forward's per-row L (``lse``, float32
+    (B, Hq, S), from ``flash_attention_cuda(..., return_lse=True)``),
+    which it requires.  float32: ``csrc/flash_attention_bwd.cu``
+    (CUDA-core FMAs), which computes L itself and takes no ``lse``.
     q, k, v are read through their strides under the forward's checks;
     ``out`` (the forward's output) and ``dout`` are made contiguous here
     when they are not (a copy; the kernel reads them as (B, S, Hq, hd)
@@ -239,31 +268,41 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         raise ValueError(f"flash_attention_backward_cuda: out {tuple(out.shape)} "
                          f"{out.dtype} and dout {tuple(dout.shape)} {dout.dtype} must "
                          f"match q {tuple(q.shape)} {q.dtype}")
+    bf16 = q.dtype == torch.bfloat16
+    B, S, Hq, hd = q.shape
+    if (lse is None) == bf16 or (bf16 and (lse.shape != (B, Hq, S)
+                                           or lse.dtype != torch.float32
+                                           or not lse.is_contiguous())):
+        got = None if lse is None else f"{tuple(lse.shape)} {lse.dtype}"
+        raise ValueError("flash_attention_backward_cuda takes the forward's lse for, "
+                         f"and only for, bf16 inputs: float32 contiguous ({B}, {Hq}, "
+                         f"{S}); got {got} for {q.dtype}")
     _check_cuda(q, k, v, "flash_attention_backward_cuda")
-    if any(t.device != q.device for t in (out, dout)):
+    if any(t.device != q.device for t in (out, dout)) \
+            or (lse is not None and lse.device != q.device):
         raise ValueError("flash_attention_backward_cuda needs CUDA tensors on one "
                          f"device, got q on {q.device}, out on {out.device}, dout on "
-                         f"{dout.device}")
+                         f"{dout.device}" + ("" if lse is None else f", lse on {lse.device}"))
     out, dout = out.contiguous(), dout.contiguous()
-    B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     dq = torch.empty_like(out)
     dk = torch.empty((B, S, Hkv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dq.numel() == 0:
         return dq, dk, dv
-    # per (b, query head, row): the log-sum-exp of the scaled scores (log2
-    # units) and Delta = dO . O
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    pointers = (q, k, v, out, dout, dq, dk, dv, lse, delta)
+    # per (b, query head, row): Delta = dO . O, and (float32) the log-sum-exp
+    # of the scaled scores in log2 units
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    if bf16:
+        pointers = (q, k, v, out, dout, lse, dq, dk, dv, delta)
+    else:
+        pointers = (q, k, v, out, dout, dq, dk, dv, torch.empty_like(delta), delta)
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    launch = _backward_launcher()
-    bf16 = q.dtype == torch.bfloat16
+    launch = _launcher(_BWD_KERNELS, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(*(t.data_ptr() for t in pointers), B, S, Hq, Hkv, hd, *strides,
-                     int(causal), int(window), 1.0 / (hd ** 0.5), int(bf16), stream)
+                     int(causal), int(window), 1.0 / (hd ** 0.5), stream)
     if err:
         raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
     if bf16:
@@ -277,25 +316,34 @@ class FlashAttentionFn(torch.autograd.Function):
     """Differentiable attention: forward and backward on the tensors'
     device — plain versions for CPU tensors, the kernels for CUDA tensors
     (never one for the other).  The forward saves q, k, v and its output,
-    and hands the same output to whichever backward runs."""
+    and hands the same output to whichever backward runs; on bf16 CUDA
+    tensors that need a gradient it also saves the L its kernel writes."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
+        lse = None
         if q.device.type == "cpu":
             out = attention_plain(q, k, v, causal=causal, window=window)
         elif q.device.type == "cuda":
-            out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            if q.dtype == torch.bfloat16 and any(ctx.needs_input_grad[:3]):
+                out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                                return_lse=True)
+            else:
+                out = flash_attention_cuda(q, k, v, causal=causal, window=window)
         else:
             raise ValueError(f"attention: no path for device {q.device}")
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        backward = (attention_backward_plain if q.device.type == "cpu"
-                    else flash_attention_backward_cuda)
-        grads = backward(q, k, v, out, dout, causal=ctx.causal, window=ctx.window)
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = attention_backward_plain(q, k, v, out, dout, causal=ctx.causal,
+                                             window=ctx.window)
+        else:
+            grads = flash_attention_backward_cuda(q, k, v, out, dout, causal=ctx.causal,
+                                                  window=ctx.window, lse=lse)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
                 None, None)

@@ -30,10 +30,10 @@ time from dS_T:
 
 ending with ds0 = dS_0 (du summed over the batch).  For CPU tensors
 :func:`rwkv6_backward_plain` (every state kept), for CUDA tensors
-:func:`rwkv6_backward_cuda` (``csrc/rwkv6_scan_bwd.cu``: one launch stores
-the state at every CHUNK-step boundary, a second walks the chunks in
-reverse, recomputing each chunk's states from its boundary; no division by
-w, which may be 0).
+:func:`rwkv6_backward_cuda` (``csrc/rwkv6_scan_bwd.cu``: one launch, a
+block a chunk of CHUNK steps, dS handed from chunk to chunk in reverse and
+each chunk's steps walked from the state it starts from, which the forward
+kernel stores when asked; no division by w, which may be 0).
 """
 from __future__ import annotations
 
@@ -121,7 +121,7 @@ def _kernel() -> ctypes.CDLL:
     lib = _build.load("rwkv6_scan.cu")
     fn = lib.rwkv6_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 15 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     if lib.rwkv6_scan_chunk() != CHUNK:
         raise RuntimeError(f"rwkv6_scan.cu chunks {lib.rwkv6_scan_chunk()} steps, "
@@ -129,15 +129,19 @@ def _kernel() -> ctypes.CDLL:
     return lib
 
 
-def rwkv6_cuda(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
+def rwkv6_cuda(r, k, v, w, u, s0, *, return_states: bool = False):
     """The recurrence on a CUDA device by the hand-written kernels (chunked
     for T >= CHUNK, recurrent below), on the current stream; one call counts
     one launch.  r, k, v, w are read through their strides (unit stride
     over hd required); y comes back as a (B, H, T, hd) view of (B, T, H, hd)
-    memory, so the model's transpose back to (B, T, H * hd) is free.  Raises
-    on anything the kernels do not take (before it looks at the device), on
-    tensors not on one CUDA device, and if a launch is refused.  It computes
-    no gradient itself: :class:`Rwkv6Fn` does."""
+    memory, so the model's transpose back to (B, T, H * hd) is free.  With
+    ``return_states`` it returns (y, S_T, states): the state each chunk of
+    CHUNK steps starts from, (B, H, ceil(T / CHUNK), hd, hd) float32, which
+    the backward kernel takes (None below CHUNK steps, where the backward
+    needs none); without, the kernel stores none.  Raises on anything the
+    kernels do not take (before it looks at the device), on tensors not on
+    one CUDA device, and if a launch is refused.  It computes no gradient
+    itself: :class:`Rwkv6Fn` does."""
     global launches
     _check(r, k, v, w, u, s0)
     tensors = (r, k, v, w, u, s0)
@@ -161,22 +165,27 @@ def rwkv6_cuda(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     y = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device).transpose(1, 2)
     sT = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     scratch = (None, None)
+    states = None
     if chunked:
         # two state slots a (b, h), handed from chunk to chunk, and the
         # ticket counter and one flag a chunk (zeroed)
         slots = torch.empty((B, H, 2, hd, hd), dtype=torch.float32, device=r.device)
         sync = torch.zeros(1 + B * H * -(-T // CHUNK), dtype=torch.int32, device=r.device)
         scratch = (slots.data_ptr(), sync.data_ptr())
+        if return_states:
+            states = torch.empty((B, H, -(-T // CHUNK), hd, hd), dtype=torch.float32,
+                                 device=r.device)
     lib = _kernel()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.rwkv6_scan_launch(
             *(t.data_ptr() for t in (r, k, v, w, u, s0, y, sT)), *scratch, B, H, T, hd,
-            *(s for t in (r, k, v, w, y) for s in t.stride()[:3]), stream)
+            *(s for t in (r, k, v, w, y) for s in t.stride()[:3]),
+            None if states is None else states.data_ptr(), stream)
     if err:
         raise RuntimeError(f"rwkv6 kernel launch failed: CUDA error {err}")
     launches += 1
-    return y, sT
+    return (y, sT, states) if return_states else (y, sT)
 
 
 def _backward_kernel():
@@ -192,21 +201,33 @@ def _rows_on_16_bytes(t: torch.Tensor) -> bool:
         and all(st % 4 == 0 for st in t.stride()[:3])
 
 
-def rwkv6_backward_cuda(r, k, v, w, u, s0, dy, dsT):
+def rwkv6_backward_cuda(r, k, v, w, u, s0, dy, dsT, *, states=None):
     """Gradients (dr, dk, dv, dw, du, ds0) of the recurrence on a CUDA
     device by the hand-written backward kernel (``csrc/rwkv6_scan_bwd.cu``:
-    a forward walk that stores the state every CHUNK steps, then a reverse
-    walk over the chunks), on the current stream; one call counts one
-    launch.  r, k, v, w and dy are read through their strides (unit stride
-    over hd and rows on 16 bytes: r, k, v, w must have them, dy is made
-    contiguous when it has not); s0 contiguous, dsT made so.  dr, dk, dv, dw
-    come back as (B, H, T, hd) views of (B, T, H, hd) memory, du (H, hd)
-    summed over the batch in a fixed order, ds0 (B, H, hd, hd).  Raises on
-    anything the kernel does not take (before it looks at the device), on
-    tensors not on one CUDA device, and if a launch is refused."""
+    one launch, a block a chunk of CHUNK steps), on the current stream; one
+    call counts one launch.  ``states`` is the forward's
+    ``rwkv6_cuda(..., return_states=True)`` output, the state each chunk
+    starts from; it is required for T > CHUNK.  r, k, v, w
+    and dy are read through their strides (unit stride over hd and rows on
+    16 bytes: r, k, v, w must have them, dy is made contiguous when it has
+    not); s0 contiguous, dsT made so.  dr, dk, dv, dw come back as (B, H, T,
+    hd) views of (B, T, H, hd) memory, du (H, hd) summed over the chunks and
+    the batch in a fixed order, ds0 (B, H, hd, hd).  Raises on anything the
+    kernel does not take (before it looks at the device), on tensors not on
+    one CUDA device, and if a launch is refused."""
     global launches_bwd
     _check(r, k, v, w, u, s0)
     B, H, T, hd = r.shape
+    nc = -(-T // CHUNK)
+    if nc > 1 and states is None:
+        raise ValueError(f"rwkv6_backward_cuda at T > {CHUNK} needs the forward's chunk "
+                         "states: rwkv6_cuda(..., return_states=True)[2]")
+    if states is not None and (states.shape != (B, H, nc, hd, hd)
+                               or states.dtype != torch.float32
+                               or not states.is_contiguous()):
+        raise ValueError(f"rwkv6_backward_cuda: states {tuple(states.shape)} "
+                         f"{states.dtype} must be contiguous float32 "
+                         f"{(B, H, nc, hd, hd)}")
     tensors = (r, k, v, w, u, s0, dy, dsT)
     if dy.shape != r.shape or dsT.shape != s0.shape:
         raise ValueError(f"rwkv6_backward_cuda: dy {tuple(dy.shape)} and dsT "
@@ -231,22 +252,23 @@ def rwkv6_backward_cuda(r, k, v, w, u, s0, dy, dsT):
                          ).transpose(1, 2) for _ in range(4)]      # dr, dk, dv, dw
     if T == 0:
         return (*grads, torch.zeros_like(u), dsT.clone())
+    if states is not None and states.device != r.device:
+        raise ValueError(f"rwkv6_backward_cuda: states on {states.device}, r on {r.device}")
     du = torch.empty((H, hd), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    nc = -(-T // CHUNK)
-    # the state at every chunk boundary (launch 1), each chunk's sub-chunk
-    # boundaries (launch 2), the per-batch du and the ticket of each head's
-    # last block, which sums du over the batch (zeroed)
-    bounds = torch.empty((B, H, nc, hd, hd), dtype=torch.float32, device=r.device)
-    subs = torch.empty((B, H, CHUNK // 8, hd, hd), dtype=torch.float32, device=r.device)
-    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
-    tickets = torch.zeros(H, dtype=torch.int32, device=r.device)
+    # dS handed between chunks (two slots a (b, h)), each chunk's du, and
+    # (zeroed) the ticket counter, one flag a chunk and the ticket of each
+    # head's last block, which sums du over the chunks and the batch
+    slots = torch.empty((B, H, 2, hd, hd), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, nc, hd), dtype=torch.float32, device=r.device)
+    sync = torch.zeros(1 + B * H * nc + H, dtype=torch.int32, device=r.device)
     seqs = (r, k, v, w, dy, *grads)
     fn = _backward_kernel()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in (*seqs, u, s0, dsT, du, ds0, bounds, subs,
-                                          du_part, tickets)),
+        err = fn(*(t.data_ptr() for t in (*seqs, u, s0, dsT)),
+                 None if states is None else states.data_ptr(),
+                 *(t.data_ptr() for t in (du, ds0, slots, du_part, sync)),
                  B, H, T, hd, *(st for t in seqs for st in t.stride()[:3]), stream)
     if err:
         raise RuntimeError(f"rwkv6 backward kernel launch failed: CUDA error {err}")
@@ -260,22 +282,33 @@ class Rwkv6Fn(torch.autograd.Function):
     and backward on the tensors' device — plain versions for CPU tensors,
     the kernels for CUDA tensors (never one for the other).  The backward
     takes dy and dS_T (zeros when S_T is unused) and returns ds0 too, so a
-    carried state differentiates."""
+    carried state differentiates.  On CUDA tensors that need a gradient the
+    forward kernel also stores the state each chunk starts from, which the
+    backward kernel walks from: (B, H, ceil(T / CHUNK), hd, hd) float32,
+    84 MB at (2, 40, 4096, 64), held until the backward.  Under remat a
+    layer's states live only through its own backward; without remat every
+    layer's are held at once (about 2.7 GB at 32 such layers)."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):
+        states = None
         if r.device.type == "cpu":
             y, sT = rwkv6_plain(r, k, v, w, u, s0)
         elif r.device.type == "cuda":
-            y, sT = rwkv6_cuda(r, k, v, w, u, s0)
+            if any(ctx.needs_input_grad) and r.shape[3] in BWD_HEAD_DIMS:
+                y, sT, states = rwkv6_cuda(r, k, v, w, u, s0, return_states=True)
+            else:
+                y, sT = rwkv6_cuda(r, k, v, w, u, s0)
         else:
             raise ValueError(f"rwkv6_wkv: no path for device {r.device}")
-        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0, states)
         return y, sT
 
     @staticmethod
     def backward(ctx, dy, dsT):
-        r, k, v, w, u, s0 = ctx.saved_tensors
-        backward = rwkv6_backward_plain if r.device.type == "cpu" else rwkv6_backward_cuda
-        grads = backward(r, k, v, w, u, s0, dy, dsT)
+        r, k, v, w, u, s0, states = ctx.saved_tensors
+        if r.device.type == "cpu":
+            grads = rwkv6_backward_plain(r, k, v, w, u, s0, dy, dsT)
+        else:
+            grads = rwkv6_backward_cuda(r, k, v, w, u, s0, dy, dsT, states=states)
         return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))

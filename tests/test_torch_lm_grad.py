@@ -23,10 +23,21 @@ Tolerances, with their reasons:
 
 The Functions run on the CPU as on the card: plain forward and plain
 backward for CPU tensors, so these tests exercise the same saved tensors,
-GQA sums, dtypes and `None` gradients the card runs."""
+GQA sums, dtypes and `None` gradients the card runs.
+
+The arithmetic of the two Hopper backward kernels is settled here too, in
+PyTorch on the CPU: the bf16 flash backward's rounding (P and dS enter the
+tensor cores as bf16: one term breaks the card's per-element limit, two
+terms hold it, so `csrc/flash_attention_bwd_sm90.cu` uses two), the plain
+L its forward writes (`attention_lse_plain`) against `jax.nn.logsumexp`
+of the reference's scores, and the chunk-parallel wkv backward of
+`csrc/rwkv6_scan_bwd.cu` (chunk states, dS handed back chunk to chunk,
+each chunk walked in sub-chunks) against `jax.vjp` and the plain
+backward."""
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 from hypothesis import given, settings
@@ -218,13 +229,207 @@ def _gradcheck_both_functions():
     assert torch.autograd.gradcheck(tops.rwkv6_wkv, args)
 
 
+# --------------------------------------------------------------------------- #
+# The Hopper backward kernels' arithmetic, emulated on the CPU
+# --------------------------------------------------------------------------- #
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _attention_backward_bf16(q, k, v, out, dout, *, causal, window, terms):
+    """csrc/flash_attention_bwd_sm90.cu's arithmetic on bf16 values held in
+    float32: S and dP exact in float32 (bf16 products), P = 2^(S scale
+    log2(e) - L) with the forward's L, dS = P (dP - Delta); P and dS enter
+    dV = P^T dO, dK = dS^T Q scale, dQ = dS K scale as ``terms`` bf16 terms
+    (hi = bf16(x), lo = bf16(x - hi)), summed in float32; each gradient
+    rounded once to bf16."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qh, oh, doh = (t.permute(0, 2, 1, 3) for t in (q, out, dout))          # (B, Hq, S, hd)
+    kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(G, dim=1) for t in (k, v))
+    scale = 1.0 / hd ** 0.5
+    lse = tfa.attention_lse_plain(q, k, causal=causal, window=window)[..., None]
+    pos = torch.arange(S)
+    ok = pos[None, :] <= pos[:, None] if causal else torch.ones(S, S, dtype=torch.bool)
+    if window > 0:
+        ok &= pos[:, None] - pos[None, :] < window
+    p = torch.where(ok, torch.exp2((qh @ kh.transpose(-1, -2)) * (scale * tfa.LOG2E) - lse),
+                    0.0)
+    ds = p * (doh @ vh.transpose(-1, -2) - (doh * oh).sum(-1, keepdim=True))
+
+    def split(x):
+        hi = _bf16(x)
+        return (hi,) if terms == 1 else (hi, _bf16(x - hi))
+    dv = sum(t.transpose(-1, -2) @ doh for t in split(p))
+    dk = sum(t.transpose(-1, -2) @ qh for t in split(ds)) * scale
+    dq = sum(t @ kh for t in split(ds)) * scale
+    dk, dv = (t.reshape(B, Hkv, G, S, hd).sum(2) for t in (dk, dv))
+    return [_bf16(t.permute(0, 2, 1, 3)) for t in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("shape,window", [((1, 512, 4, 2, 256), 128),
+                                          ((1, 512, 4, 2, 256), 0),
+                                          ((1, 300, 16, 1, 64), 100)])
+def test_two_bf16_terms_of_p_and_ds_hold_the_card_limit_and_one_does_not(shape, window):
+    """bf16 inputs, causal: with P and dS in two bf16 terms every gradient
+    stays within chip_smoke.py's per-element limit (2^-8 |want| + 1e-3
+    max |want|) of the float32 plain backward; one rounding of P and dS
+    does not (why the kernel carries two)."""
+    B, S, Hq, Hkv, hd = shape
+    rng = np.random.default_rng(S + hd)
+    q, k, v, dout = (_bf16(torch.from_numpy(_rand(rng, *sh)))
+                     for sh in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd),
+                                (B, S, Hq, hd)))
+    out = _bf16(tfa.attention_plain(q, k, v, causal=True, window=window))
+    want = tfa.attention_backward_plain(q, k, v, out, dout, causal=True, window=window)
+    share = {}
+    for terms in (1, 2):
+        got = _attention_backward_bf16(q, k, v, out, dout, causal=True, window=window,
+                                       terms=terms)
+        share[terms] = max(float(((g - w).abs() / (CARD_BF16_RTOL * w.abs() + CARD_BF16_ATOL
+                                                   * w.abs().max())).max())
+                           for g, w in zip(got, want))
+    assert share[2] <= 1.0 < share[1], share
+
+
+@pytest.mark.parametrize("case", ["causal-g2-hd32", "window8-g4-hd120", "noncausal-g2-hd120",
+                                  "ragged-causal-g2-hd32"])
+def test_attention_lse_plain_matches_jax_logsumexp(case):
+    """The plain L (log2 units) against jax.nn.logsumexp of the reference's
+    masked scores (attention_ref's), times log2(e)."""
+    B, S, Hq, Hkv, hd, causal, window = ATTN_CASES[case]
+    rng = np.random.default_rng(S + hd + 1)
+    q, k = _rand(rng, B, S, Hq, hd), _rand(rng, B, S, Hkv, hd)
+    qg = jnp.asarray(q).reshape(B, S, Hkv, Hq // Hkv, hd) / (hd ** 0.5)
+    s = jnp.einsum("bqhgd,bkhd->bhgqk", qg, jnp.asarray(k))
+    pos = jnp.arange(S)
+    ok = pos[None, :] <= pos[:, None] if causal else jnp.ones((S, S), bool)
+    if window > 0:
+        ok &= pos[:, None] - pos[None, :] < window
+    want = np.asarray(jax.nn.logsumexp(jnp.where(ok, s, -1e30), axis=-1)
+                      ).reshape(B, Hq, S) / np.log(2.0)
+    got = tfa.attention_lse_plain(torch.from_numpy(q), torch.from_numpy(k), causal=causal,
+                                  window=window)
+    assert got.shape == (B, Hq, S) and got.dtype == torch.float32
+    _within(got.numpy(), want, ATTN_RTOL, "L")
+
+
+def _wkv_backward_chunked(r, k, v, w, u, s0, dy, dsT, L=64, sub=8):
+    """csrc/rwkv6_scan_bwd.cu's arithmetic, chunk-parallel in time, chunks of
+    L steps in sub-chunks of ``sub``; decays only ever multiplied:
+    1. the state S_c each chunk starts from, by the forward's hand-off
+       S_{c+1} = diag(D_c) S_c + K_c (K_c, D_c from the chunk alone);
+    2. dS handed back: each chunk's Lambda_c = sum_t (r_t * w_start ...
+       w_{t-1}) dy_t^T and D_c = prod_t w_t, dS at its start = diag(D_c)
+       dS_end + Lambda_c, from dS_T; the first chunk's is ds0;
+    3. each chunk walked backward from its dS_end, the states recomputed
+       forward from S_c, one sub-chunk's at a time: dr, dk, dv, dw and
+       du (summed over the chunks, then the batch)."""
+    B, H, T, hd = r.shape
+    nc = -(-T // L)
+    uf = u[None]
+    span = [(c * L, min(T, (c + 1) * L)) for c in range(nc)]
+
+    def step(s, t):
+        return s * w[:, :, t, :, None] + k[:, :, t, :, None] * v[:, :, t, None, :]
+    states, s = [], s0
+    for t0, t1 in span:
+        states.append(s)
+        kc, dc = torch.zeros_like(s0), torch.ones_like(s0[..., 0])
+        for t in range(t0, t1):
+            kc = step(kc, t)
+            dc = dc * w[:, :, t]
+        s = dc[..., None] * s + kc
+    ends, g = [None] * nc, dsT
+    for c in reversed(range(nc)):
+        ends[c] = g
+        lam, pre = torch.zeros_like(s0), torch.ones_like(s0[..., 0])
+        for t in range(*span[c]):
+            lam = lam + (r[:, :, t] * pre)[..., None] * dy[:, :, t, None, :]
+            pre = pre * w[:, :, t]
+        g = pre[..., None] * g + lam
+    ds0 = g
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(r[:, :, 0])
+    for c in range(nc):
+        t0, t1 = span[c]
+        bounds, s = [], states[c]
+        for z0 in range(t0, t1, sub):
+            bounds.append(s)
+            for t in range(z0, min(t1, z0 + sub)):
+                s = step(s, t)
+        g = ends[c]
+        for zi in reversed(range(len(bounds))):
+            z0 = t0 + zi * sub
+            hist, s = [], bounds[zi]
+            for t in range(z0, min(t1, z0 + sub)):
+                hist.append(s)
+                s = step(s, t)
+            for x in reversed(range(len(hist))):
+                t = z0 + x
+                rt, kt, vt, wt, dyt = (a[:, :, t] for a in (r, k, v, w, dy))
+                vdy = (vt * dyt).sum(-1, keepdim=True)
+                dr[:, :, t] = torch.einsum("bhkv,bhv->bhk", hist[x], dyt) + uf * kt * vdy
+                dk[:, :, t] = rt * uf * vdy + torch.einsum("bhkv,bhv->bhk", g, vt)
+                dv[:, :, t] = (rt * uf * kt).sum(-1, keepdim=True) * dyt \
+                    + torch.einsum("bhkv,bhk->bhv", g, kt)
+                dw[:, :, t] = (g * hist[x]).sum(-1)
+                du = du + rt * kt * vdy
+                g = g * wt[..., None] + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du.sum(0), ds0
+
+
+WKV_CHUNKED_CASES = {
+    # name: (B, H, T, hd, kind, chunk L): T off the chunk and sub-chunk grids
+    "ragged-t150-l64": (1, 2, 150, 8, "plain", 64),
+    "t-not-divided-l16": (2, 2, 37, 8, "plain", 16),
+    "strong-decays-l16": (1, 3, 50, 16, "strong", 16),
+    "w0-l16": (1, 2, 41, 8, "w0", 16),
+    "one-step": (1, 2, 1, 8, "plain", 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WKV_CHUNKED_CASES))
+def test_chunk_parallel_wkv_backward_matches_jax_grad_and_plain(case):
+    """The chunk-parallel backward, non-zero s0 and dS_T, against jax.vjp
+    of rwkv6_scan_ref and against rwkv6_backward_plain, each gradient
+    within 1e-4 max(1, max |want|)."""
+    B, H, T, hd, kind, L = WKV_CHUNKED_CASES[case]
+    inputs, cot = _wkv_arrays(B, H, T, hd, seed=T + hd + L, kind=kind)
+    want = _wkv_vjp(inputs, cot)
+    args = [torch.from_numpy(x) for x in (*inputs, *cot)]
+    got = _wkv_backward_chunked(*args, L=L)
+    plain = twkv.rwkv6_backward_plain(*args)
+    for name, g, w, p in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want, plain):
+        _within(g.numpy(), w, WKV_RTOL, f"{name} vs jax.vjp")
+        _within(g.numpy(), p.numpy(), WKV_RTOL, f"{name} vs the plain backward")
+
+
+@settings(database=None, derandomize=True, max_examples=5, deadline=None)
+@given(T=st.integers(1, 40), L=st.sampled_from([8, 16]), sub=st.sampled_from([2, 4]),
+       kind=st.sampled_from(["plain", "strong", "w0"]))
+def test_chunk_parallel_wkv_backward_property(T, L, sub, kind):
+    """Any T, chunk and sub-chunk length: the chunk-parallel backward is the
+    plain backward's."""
+    inputs, cot = _wkv_arrays(1, 2, T, 8, seed=T * 3 + L, kind=kind)
+    args = [torch.from_numpy(x) for x in (*inputs, *cot)]
+    for name, g, p in zip(("dr", "dk", "dv", "dw", "du", "ds0"),
+                          _wkv_backward_chunked(*args, L=L, sub=sub),
+                          twkv.rwkv6_backward_plain(*args)):
+        _within(g.numpy(), p.numpy(), WKV_RTOL, name)
+
+
 BWD_REFUSED = {
     "flash-float16": lambda: tfa.flash_attention_backward_cuda(
         *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.float16)),
     "flash-hd-past-256": lambda: tfa.flash_attention_backward_cuda(
-        *_halves((1, 8, 2, 264), (1, 8, 1, 264), torch.bfloat16)),
+        *_halves((1, 8, 2, 264), (1, 8, 1, 264), torch.bfloat16),
+        lse=torch.zeros(1, 2, 8)),
     "flash-group-of-17": lambda: tfa.flash_attention_backward_cuda(
-        *_halves((1, 8, 17, 32), (1, 8, 1, 32), torch.bfloat16)),
+        *_halves((1, 8, 17, 32), (1, 8, 1, 32), torch.bfloat16),
+        lse=torch.zeros(1, 17, 8)),
     "flash-dout-shape": lambda: tfa.flash_attention_backward_cuda(
         *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.float32)[:4],
         torch.zeros(1, 8, 2, 16)),
@@ -232,6 +437,19 @@ BWD_REFUSED = {
     "wkv-hd-128": lambda: twkv.rwkv6_backward_cuda(*_wkv_torch(1, 1, 4, 128)),
     "wkv-float64": lambda: twkv.rwkv6_backward_cuda(
         *(t.double() for t in _wkv_torch(1, 1, 4, 16))),
+    "flash-lse-with-float32": lambda: tfa.flash_attention_backward_cuda(
+        *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.float32), lse=torch.zeros(1, 2, 8)),
+    "flash-lse-shape": lambda: tfa.flash_attention_backward_cuda(
+        *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.bfloat16), lse=torch.zeros(1, 2, 9)),
+    "flash-forward-lse-with-float32": lambda: tfa.flash_attention_cuda(
+        *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.float32)[:3], return_lse=True),
+    "wkv-states-shape": lambda: twkv.rwkv6_backward_cuda(
+        *_wkv_torch(1, 1, 130, 16), states=torch.zeros(1, 1, 2, 16, 16)),
+    # the forward's outputs are required, never recomputed
+    "flash-bf16-without-lse": lambda: tfa.flash_attention_backward_cuda(
+        *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.bfloat16)),
+    "wkv-two-chunks-without-states": lambda: twkv.rwkv6_backward_cuda(
+        *_wkv_torch(1, 1, 65, 16)),
 }
 
 
@@ -285,6 +503,15 @@ CUDA_ATTN_BWD = {
     "hd120-fp32": (1, 130, 4, 1, 120, True, 0, torch.float32),
     "noncausal-bf16": (1, 512, 4, 4, 128, False, 0, torch.bfloat16),
     "hd32-window64-fp32": (2, 256, 4, 2, 32, True, 64, torch.float32),
+    # G = 16, hd 64 / 120 / 128 / 256, S off the 64-row tiles, window edges
+    # inside a tile
+    "g16-hd64-bf16": (1, 200, 16, 1, 64, True, 0, torch.bfloat16),
+    "g16-hd120-window50-bf16": (1, 130, 16, 1, 120, True, 50, torch.bfloat16),
+    "g16-hd128-s333-bf16": (1, 333, 32, 2, 128, True, 0, torch.bfloat16),
+    "g16-hd256-window77-bf16": (1, 333, 32, 2, 256, True, 77, torch.bfloat16),
+    "g5-hd64-bf16": (1, 257, 10, 2, 64, True, 0, torch.bfloat16),
+    "hd256-window100-s1000-bf16": (1, 1000, 4, 2, 256, True, 100, torch.bfloat16),
+    "g16-hd256-window77-fp32": (1, 333, 32, 2, 256, True, 77, torch.float32),
 }
 
 
@@ -297,12 +524,18 @@ def test_cuda_flash_backward_matches_plain(case):
     q, k, v, dout = (torch.from_numpy(_rand(rng, *shape)).to("cuda", dtype)
                      for shape in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd),
                                    (B, S, Hq, hd)))
-    out = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    bf16 = dtype == torch.bfloat16
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        return_lse=True) if bf16 \
+        else (tfa.flash_attention_cuda(q, k, v, causal=causal, window=window), None)
+    if bf16:
+        want_lse = tfa.attention_lse_plain(q, k, causal=causal, window=window)
+        assert float((lse - want_lse).abs().max()) <= 2e-5 * max(1.0, float(
+            want_lse.abs().max())), "the forward's L"
     before = (tfa.launches_bwd, tfa.launches_bwd_bf16)
     got = tfa.flash_attention_backward_cuda(q, k, v, out, dout, causal=causal,
-                                            window=window)
+                                            window=window, lse=lse)
     torch.cuda.synchronize()
-    bf16 = dtype == torch.bfloat16
     assert (tfa.launches_bwd, tfa.launches_bwd_bf16) == (before[0] + (not bf16),
                                                          before[1] + bf16)
     want = tfa.attention_backward_plain(q.float(), k.float(), v.float(), out.float(),
@@ -338,6 +571,42 @@ def test_cuda_flash_backward_through_the_function():
 
 
 @pytest.mark.cuda
+def test_cuda_bf16_functions_hand_their_saved_outputs_to_the_backward_kernels():
+    """bf16 attention and the wkv through their Functions on the card: one
+    forward launch and one backward launch each (the backward takes the L
+    and the chunk states its forward stored; no forward runs again), and
+    the gradients of the kernels' own forward outputs."""
+    _need_cuda()
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(_rand(rng, *shape)).to("cuda", torch.bfloat16)
+               for shape in ((1, 300, 4, 64), (1, 300, 2, 64), (1, 300, 2, 64)))
+    k.requires_grad_()
+    before = (tfa.launches_bf16, tfa.launches_bwd_bf16)
+    out = tops.attention(q, k, v, causal=True, window=100)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.launches_bf16, tfa.launches_bwd_bf16) == (before[0] + 1, before[1] + 1)
+    lse = tfa.flash_attention_cuda(q, k.detach(), v, causal=True, window=100,
+                                   return_lse=True)[1]
+    want = tfa.flash_attention_backward_cuda(q, k.detach(), v, out.detach(),
+                                             torch.ones_like(out), causal=True,
+                                             window=100, lse=lse)[1]
+    assert torch.equal(k.grad, want)
+    inputs, (dy, _) = _wkv_arrays(1, 3, 200, 64, seed=4)
+    leaves = [torch.from_numpy(x).cuda().requires_grad_() for x in inputs]
+    before = (twkv.launches, twkv.launches_bwd)
+    y, _ = tops.rwkv6_wkv(*leaves)
+    y.backward(torch.from_numpy(dy).cuda())
+    torch.cuda.synchronize()
+    assert (twkv.launches, twkv.launches_bwd) == (before[0] + 1, before[1] + 1)
+    want = twkv.rwkv6_backward_plain(*(t.detach() for t in leaves),
+                                     torch.from_numpy(dy).cuda(),
+                                     torch.zeros_like(leaves[5]))
+    for name, t, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), leaves, want):
+        _within(t.grad.cpu().numpy(), w.cpu().numpy(), WKV_RTOL, name)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_backward_strided_inputs_and_noncontiguous_dout(dtype):
     """q, k, v read through their strides (views of one fused (B, S, Hq +
@@ -349,10 +618,14 @@ def test_cuda_flash_backward_strided_inputs_and_noncontiguous_dout(dtype):
     fused = torch.from_numpy(_rand(rng, B, S, Hq + 2 * Hkv, hd)).to("cuda", dtype)
     q, k, v = fused[:, :, :Hq], fused[:, :, Hq:Hq + Hkv], fused[:, :, Hq + Hkv:]
     dout = torch.from_numpy(_rand(rng, B, Hq, S, hd)).to("cuda", dtype).transpose(1, 2)
-    out = tfa.flash_attention_cuda(q, k, v, causal=True, window=50)
-    got = tfa.flash_attention_backward_cuda(q, k, v, out, dout, causal=True, window=50)
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=True, window=50, return_lse=True) \
+        if dtype == torch.bfloat16 \
+        else (tfa.flash_attention_cuda(q, k, v, causal=True, window=50), None)
+    got = tfa.flash_attention_backward_cuda(q, k, v, out, dout, causal=True, window=50,
+                                            lse=lse)
     want = tfa.flash_attention_backward_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                             out, dout.contiguous(), causal=True, window=50)
+                                             out, dout.contiguous(), causal=True, window=50,
+                                             lse=lse)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -366,6 +639,13 @@ CUDA_WKV_BWD = {
     "w0": (1, 4, 200, 64, "w0"),
     "hd32": (1, 3, 77, 32, "plain"),
     "hd16": (1, 2, 130, 16, "strong"),
+    # either side of one chunk (64 steps), and the main length at each hd
+    "t63": (2, 40, 63, 64, "plain"),
+    "t64": (2, 40, 64, 64, "plain"),
+    "t65": (2, 40, 65, 64, "strong"),
+    "t4096-hd16": (1, 8, 4096, 16, "strong"),
+    "t4096-hd32": (1, 8, 4096, 32, "plain"),
+    "t65-hd32": (2, 3, 65, 32, "w0"),
 }
 
 
@@ -376,10 +656,16 @@ def test_cuda_wkv_backward_matches_plain(case):
     B, H, T, hd, kind = CUDA_WKV_BWD[case]
     inputs, cot = _wkv_arrays(B, H, T, hd, seed=T, kind=kind)
     args = [torch.from_numpy(x).cuda() for x in (*inputs, *cot)]
+    states = twkv.rwkv6_cuda(*args[:6], return_states=True)[2]
+    assert (states is None) == (T < twkv.CHUNK)
     before = twkv.launches_bwd
-    got = twkv.rwkv6_backward_cuda(*args)
+    got = twkv.rwkv6_backward_cuda(*args, states=states)
     torch.cuda.synchronize()
     assert twkv.launches_bwd == before + 1
+    if T > twkv.CHUNK:                                # never recomputed
+        with pytest.raises(ValueError, match="chunk states"):
+            twkv.rwkv6_backward_cuda(*args)
+        assert twkv.launches_bwd == before + 1
     want = twkv.rwkv6_backward_plain(*args)
     for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
         _within(g.cpu().numpy(), w.cpu().numpy(), WKV_RTOL, name)
