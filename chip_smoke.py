@@ -43,13 +43,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      limit;
    * the RWKV6 wkv recurrence, at the LM path's (2, 40, 4096, 64) (the
      chunked form), with the model's strong decays w = exp(-exp(x)), at a
-     ragged T = 1000, at T = 1 (the recurrent kernel, also timed there:
-     the decode shape (2, 40, 1, 64)), two halves and a split at 1001
-     against the whole, and w = 0 (atol 1e-4; w = 0 must leave exactly
-     the last k v^T);
-   * the flash backward (three launches counted as one: bf16 in
-     `csrc/flash_attention_bwd_sm90.cu` on wgmma with the forward's L,
-     float32 in `csrc/flash_attention_bwd.cu`) at the LM path's
+     ragged T = 1000, at T = 1, 16 and 63 (the recurrent kernel, also
+     timed at the decode shape (2, 40, 1, 64) and at a prompt's length,
+     (2, 40, 16, 64), beside the launch floors), two halves and a split at
+     1001 against the whole, and w = 0 (atol 1e-4; w = 0 must leave
+     exactly the last k v^T);
+   * the flash backward (three launches counted as one, each dtype with
+     the L its forward wrote: bf16 in `csrc/flash_attention_bwd_sm90.cu` on
+     wgmma, float32 in `csrc/flash_attention_bwd.cu` on mma.sync in
+     3xTF32) at the LM path's
      (2, 4096, 8 / 4, 256), window 1024 and causal global, in bf16 and
      float32, and at ragged (1, 1000, 4, 2, 64), G = 8 with window 100,
      hd 120, non-causal hd 128, G = 16, G = 5, hd 128 with window 100 and
@@ -58,7 +60,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the float32 plain backward of the same inputs (FLASH_RTOL_BF16 |want|
      + FLASH_BWD_ATOL_BF16 max |want|); the forward's L against the plain
      log-sum-exp; timed beside its bound, the plain backward and SDPA's
-     backward (band mask and, causal, `is_causal`), and the bf16 forward
+     backward (band mask and, causal, `is_causal`), and both forwards
      timed with and without writing L;
    * the wkv backward (`csrc/rwkv6_scan_bwd.cu`, chunk-parallel in time
      from the states the forward stores) at (2, 40, 4096, 64) with the
@@ -2016,8 +2018,7 @@ def flash_phase(dev) -> tuple[dict, dict]:
                     qd, kd, vd, causal=True, window=window), None, 5, flush),
                 # the train path's call: the same kernel also writing L
                 "kernel_lse_us": median_us(lambda _: fa.flash_attention_cuda(
-                    qd, kd, vd, causal=True, window=window, return_lse=True), None, 10, flush)
-                if dt == "bf16" else None,
+                    qd, kd, vd, causal=True, window=window, return_lse=True), None, 10, flush),
                 "library_us": median_us(band_sdpa, None, 10, flush),
                 "library_call": "F.scaled_dot_product_attention(band mask, enable_gqa=True)",
                 "library_backend": sdpa_backend(band_sdpa),
@@ -2061,11 +2062,13 @@ def wkv_err(got, want, what: str) -> float:
     return err
 
 
-def wkv_phase(dev) -> tuple[dict, dict]:
+def wkv_phase(dev, floors: dict) -> tuple[dict, dict]:
     """The wkv kernels against their plain version at the LM path's shape
-    (chunked), with strong decays, at a ragged T = 1000, at T = 1
-    (recurrent), in two halves and split at 1001 (off every chunk boundary)
-    against the whole, and at w = 0; times at the main-path shape."""
+    (chunked), with strong decays, at a ragged T = 1000, at T = 1, 16 and
+    63 (recurrent), in two halves and split at 1001 (off every chunk
+    boundary) against the whole, and at w = 0; times at the main-path
+    shape, and the recurrent kernel's at decode (T = 1) and the 16-token
+    prompt's length (T = 16) beside the launch floors of this run."""
     rng = np.random.default_rng(SEED + 7)
     B, H, T, hd = LM_BATCH, 40, LM_SEQ, 64                 # rwkv6-3b's heads
     main = wkv_inputs(rng, B, H, T, hd, dev)
@@ -2074,6 +2077,12 @@ def wkv_phase(dev) -> tuple[dict, dict]:
     one = wkv_inputs(rng, B, H, 1, hd, dev)
     checks["T = 1 (2, 40, 1, 64)"] = wkv_err(wk.rwkv6_cuda(*one), wk.rwkv6_plain(*one),
                                              "T = 1")
+    prompt = wkv_inputs(rng, B, H, PROMPT, hd, dev)
+    checks[f"T = {PROMPT} (2, 40, {PROMPT}, 64)"] = wkv_err(
+        wk.rwkv6_cuda(*prompt), wk.rwkv6_plain(*prompt), f"T = {PROMPT}")
+    short = wkv_inputs(rng, B, H, wk.CHUNK - 1, hd, dev, strong=True)
+    checks[f"T = {wk.CHUNK - 1} (2, 40, {wk.CHUNK - 1}, 64) strong decays"] = wkv_err(
+        wk.rwkv6_cuda(*short), wk.rwkv6_plain(*short), f"T = {wk.CHUNK - 1}")
     r, k, v, w, u, s0 = main
     h = T // 2
     y1, s1 = wk.rwkv6_cuda(r[:, :, :h], k[:, :, :h], v[:, :, :h], w[:, :, :h], u, s0)
@@ -2113,37 +2122,38 @@ def wkv_phase(dev) -> tuple[dict, dict]:
            "library_us": None,
            "bound_us": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "flop": n_ops}
-    # the decode shape, T = 1: the recurrent kernel, once a layer a token
-    n_bytes = sum(t.numel() for t in one) * 4 + (B * H * hd + B * H * hd * hd) * 4
-    n_ops = B * H * (WKV_FLOPS_PER_STATE * hd * hd + WKV_FLOPS_PER_CHANNEL * hd)
-    bound, bound_by = bound_us(n_bytes, n_ops)
-    row["decode"] = {"shape": [B, H, 1, hd], "dtype": "float32",
-                     "kernel_us": median_us(lambda _: wk.rwkv6_cuda(*one), None, 200, flush),
-                     "plain_us": median_us(lambda _: wk.rwkv6_plain(*one), None, 50, flush),
-                     "library_us": None, "bound_us": bound, "bound_by": bound_by,
-                     "bytes": n_bytes, "flop": n_ops}
+    # the recurrent kernel: at the decode shape (T = 1, once a layer a
+    # token) and at a prompt's length, beside this run's floors
+    for key, args in (("decode", one), ("t16", prompt)):
+        steps = args[0].shape[2]
+        n_bytes = (sum(t.numel() for t in args) + B * H * steps * hd + B * H * hd * hd) * 4
+        n_ops = B * H * steps * (WKV_FLOPS_PER_STATE * hd * hd + WKV_FLOPS_PER_CHANNEL * hd)
+        bound, bound_by = bound_us(n_bytes, n_ops)
+        row[key] = {"shape": [B, H, steps, hd], "dtype": "float32",
+                    "kernel_us": median_us(lambda _: wk.rwkv6_cuda(*args), None, 200, flush),
+                    "plain_us": median_us(lambda _: wk.rwkv6_plain(*args), None, 50, flush),
+                    "library_us": None, "bound_us": bound, "bound_by": bound_by,
+                    "bytes": n_bytes, "flop": n_ops,
+                    "launch_floor_us": floors["empty_us"],
+                    "round_trip_floor_us": floors["round_trip_us"]}
     return row, checks
 
 
 def check_flash_bwd(q, k, v, dout, causal: bool, window: int, what: str) -> dict:
     """The backward kernel against the plain backward on the same inputs
-    (the forward kernel's output O for both; bf16 also takes the forward's
-    L, held first against the plain log-sum-exp in log2 units within
-    FLASH_TOL_F32 max(1, max |L|)): float32 within FLASH_BWD_RTOL_F32
-    max |want|; bf16 per element against the float32 plain backward,
-    FLASH_RTOL_BF16 |want| + FLASH_BWD_ATOL_BF16 max |want|."""
+    (the forward kernel's output O for both, and the kernel takes the L
+    its forward wrote, held first against the plain log-sum-exp in log2
+    units within FLASH_TOL_F32 max(1, max |L|)): float32 within
+    FLASH_BWD_RTOL_F32 max |want|; bf16 per element against the float32
+    plain backward, FLASH_RTOL_BF16 |want| + FLASH_BWD_ATOL_BF16 max |want|."""
     bf16 = q.dtype == torch.bfloat16
-    lse_err = None
-    if bf16:
-        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                           return_lse=True)
-        want_lse = fa.attention_lse_plain(q, k, causal=causal, window=window)
-        lse_err = float((lse - want_lse).abs().max())
-        if not lse_err <= FLASH_TOL_F32 * max(1.0, float(want_lse.abs().max())):
-            raise AssertionError(f"flash forward L on {what}: max abs error {lse_err}")
-        del want_lse
-    else:
-        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window), None
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    want_lse = fa.attention_lse_plain(q, k, causal=causal, window=window)
+    lse_err = float((lse - want_lse).abs().max())
+    if not lse_err <= FLASH_TOL_F32 * max(1.0, float(want_lse.abs().max())):
+        raise AssertionError(f"flash forward L on {what}: max abs error {lse_err}")
+    del want_lse
     got = fa.flash_attention_backward_cuda(q, k, v, out, dout, causal=causal, window=window,
                                            lse=lse)
     want = fa.attention_backward_plain(q.float(), k.float(), v.float(), out.float(),
@@ -2229,11 +2239,9 @@ def flash_bwd_phase(dev) -> tuple[dict, dict]:
                      else TF32_OPS_PER_S / TF32_PRODUCTS_PER_FP32)
         rows[dt] = []
         for window in (1024, 0):
-            # the train path's call: bf16 takes the L its forward wrote
-            out, lse = (fa.flash_attention_cuda(qd, kd, vd, causal=True, window=window,
-                                                return_lse=True) if dt == "bf16" else
-                        (fa.flash_attention_cuda(qd, kd, vd, causal=True, window=window),
-                         None))
+            # the train path's call: the backward takes the L its forward wrote
+            out, lse = fa.flash_attention_cuda(qd, kd, vd, causal=True, window=window,
+                                               return_lse=True)
             band = pos[None, :] <= pos[:, None]
             if window:
                 band &= pos[:, None] - pos[None, :] < window
@@ -2603,7 +2611,7 @@ def main() -> int:
     res["agg"] = cluster_agg_phase(dev)
     res["pe"] = pearson_phase(dev)
     res["flash"] = flash_phase(dev)
-    res["wkv"] = wkv_phase(dev)
+    res["wkv"] = wkv_phase(dev, res["floors"])
     res["flash_bwd"] = flash_bwd_phase(dev)
     res["wkv_bwd"] = wkv_bwd_phase(dev)
     res["table2_shapes"] = table2_kernel_phase(dev)
@@ -2757,7 +2765,8 @@ def kernel_entries(res: dict) -> list[dict]:
                             "plain_ms": us_to_ms(wkv_row["decode"], "plain_us"),
                             "bound_ms": us_to_ms(wkv_row["decode"], "bound_us"),
                             "bound_by": wkv_row["decode"]["bound_by"],
-                            "library_ms": None, "row": wkv_row["decode"]}),
+                            "library_ms": None, "row": wkv_row["decode"],
+                            "t16": wkv_row["t16"]}),
         flash_bwd("bf16", "lm_train",
                   {"rtol": FLASH_RTOL_BF16, "atol_of_max": FLASH_BWD_ATOL_BF16,
                    "against": "float32 plain backward, per element"}),

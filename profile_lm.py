@@ -56,11 +56,11 @@ CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
 BATCH, SEQ = 2, 4096
 PROMPT, DECODE_STEPS = 16, 8
 TRAIN_LR = 1e-3
-# the backward kernels: bf16 flash (delta, dK / dV, dQ of
-# csrc/flash_attention_bwd_sm90.cu), float32 flash (csrc/flash_attention_bwd.cu
-# adds prep), and the wkv's one chunk-parallel kernel
-GROUPS = (("flash_attention backward kernels", ("prep_kernel<", "delta_kernel",
-                                                "dkdv_kernel<", "dq_kernel<")),
+# the backward kernels: flash (delta, dK / dV, dQ of
+# csrc/flash_attention_bwd_sm90.cu for bf16 and csrc/flash_attention_bwd.cu
+# for float32), and the wkv's one chunk-parallel kernel
+GROUPS = (("flash_attention backward kernels", ("delta_kernel", "dkdv_kernel<",
+                                                "dq_kernel<")),
           ("rwkv6 wkv backward kernels", ("bwd_chunk_kernel<",)),
           ("flash_attention kernels", ("flash_kernel", "flash_sm90_kernel")),
           ("rwkv6 wkv kernels", ("wkv_kernel", "wkv_chunk_kernel")),

@@ -14,7 +14,10 @@
 // with the running (max, sum, accumulator) of the Pallas kernel, in the
 // same order: m' = max(m, max_k s), p = exp(s - m'), l = l e^(m - m') + sum p,
 // acc = acc e^(m - m') + p V, m starting at the masked value (here in log2
-// units: scores are scaled by log2 e and exponentiated with exp2).
+// units: scores are scaled by log2 e and exponentiated with exp2).  Given an
+// `lse` buffer it also writes each row's log-sum-exp L = m + log2(l), in
+// those units, float32 (B, Hq, S): the backward (csrc/flash_attention_bwd.cu)
+// takes it instead of recomputing it.
 //
 // Precision: 3xTF32.  The tensor cores take float32 operands as TF32 (10
 // mantissa bits), 2^-11 relative per product: one such product puts about
@@ -83,6 +86,7 @@ struct Args {
   const float* k;
   const float* v;
   float* out;
+  float* lse;                               // (B, Hq, S) L = m + log2(l) a row, or null
   int S, Hq, Hkv, hd, qt, causal, window;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float scale;
@@ -339,7 +343,10 @@ flash_kernel(const Args a) {
   for (int x = 0; x < 2; ++x) {
     const int r = row0 + g + 8 * x;
     if (r >= nrows || qpos[x] >= a.S) continue;
-    const float den = fmaxf(l[x] + red[2 * kRows + (half ^ 1) * kRows + r], 1e-30f);
+    const float l_row = l[x] + red[2 * kRows + (half ^ 1) * kRows + r];
+    const float den = fmaxf(l_row, 1e-30f);
+    if (a.lse != nullptr && half == 0 && tg == 0)
+      a.lse[((long long)b * a.Hq + hk * G + r % G) * a.S + qpos[x]] = m[x] + log2f(l_row);
     float* dst = a.out + (((long long)b * a.S + qpos[x]) * a.Hq + hk * G + r % G) * a.hd;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -366,13 +373,14 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 // q (B, S, Hq, hd), k and v (B, S, Hkv, hd) float32, each with unit stride
 // over hd, the given element strides over (b, s, h), and every row starting
 // on 16 bytes (hd, the strides times 4 and the pointers multiples of 16);
-// out (B, S, Hq, hd) contiguous float32.  Launches on `stream` and returns
+// out (B, S, Hq, hd) contiguous float32; lse null or (B, Hq, S) float32,
+// written with each row's L.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int S, int Hq, int Hkv,
     int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal, int window,
-    float scale, void* stream) {
+    float scale, void* lse, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 16 || hd <= 0 ||
       hd % 4 != 0 || hd > 256 || B > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
@@ -381,6 +389,7 @@ extern "C" int flash_attention_launch(
   a.k = static_cast<const float*>(k);
   a.v = static_cast<const float*>(v);
   a.out = static_cast<float*>(out);
+  a.lse = static_cast<float*>(lse);
   a.S = S;
   a.Hq = Hq;
   a.Hkv = Hkv;

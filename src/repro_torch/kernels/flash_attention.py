@@ -19,15 +19,16 @@ into two TF32 terms, so the tensor cores keep float32 accuracy).
 
 The gradient (the reference differentiates its jnp attention; there is no
 Pallas backward) is :class:`FlashAttentionFn`: its forward saves q, k, v and
-the output (and, for bf16 CUDA tensors, each row's log-sum-exp L, which the
+the output (and, for CUDA tensors, each row's log-sum-exp L, which the
 forward kernel writes), and its backward gives dq, dk, dv from them and dO
 — :func:`attention_backward_plain` for CPU tensors (scores materialised in
-float32), :func:`flash_attention_backward_cuda` for CUDA tensors: bf16 goes
-to ``csrc/flash_attention_bwd_sm90.cu`` (dO . O, then dK / dV per kv tile
-summed over the query heads of its group inside the block, then dQ per
-query tile, every product on wgmma with P and dS in two bf16 terms),
-float32 to ``csrc/flash_attention_bwd.cu`` (L and dO . O, dK / dV, dQ in
-float32 CUDA-core FMAs); neither uses atomics.
+float32), :func:`flash_attention_backward_cuda` for CUDA tensors, both
+dtypes in three launches (dO . O, then dK / dV per kv tile summed over the
+query heads of its group inside the block, then dQ per query tile) with the
+forward's L: bf16 goes to ``csrc/flash_attention_bwd_sm90.cu`` (every
+product on wgmma, P and dS in two bf16 terms), float32 to
+``csrc/flash_attention_bwd.cu`` (every product on mma.sync in 3xTF32, P
+and dS split like the inputs); neither uses atomics.
 ``repro_torch.kernels.ops.attention`` goes through the Function
 on both devices: plain forward and plain backward for CPU tensors, kernel
 forward and kernel backward for CUDA tensors, which launch or raise; there
@@ -47,18 +48,16 @@ MAX_HEAD_DIM = 256
 MAX_GROUP = 16            # query heads per kv head: the kernels' rows a block
 # each input dtype's kernel: its source, launch function and argument types
 # (q, k, v, out; B, S, Hq, Hkv, hd; the nine strides; causal, window, scale;
-# for bf16 the lse buffer or null; stream)
+# the lse buffer or null; stream)
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
-         + [ctypes.c_int, ctypes.c_int, ctypes.c_float])
-_KERNELS = {torch.float32: ("flash_attention.cu", "flash_attention_launch",
-                            _ARGS + [ctypes.c_void_p]),
+         + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 2)
+_KERNELS = {torch.float32: ("flash_attention.cu", "flash_attention_launch", _ARGS),
             torch.bfloat16: ("flash_attention_sm90.cu", "flash_attention_sm90_launch",
-                             _ARGS + [ctypes.c_void_p] * 2)}
-# the backward kernels, float32 csrc/flash_attention_bwd.cu (q, k, v, out,
-# dout, dq, dk, dv, lse and delta scratch) and bf16
-# csrc/flash_attention_bwd_sm90.cu (q, k, v, out, dout, the forward's lse,
-# dq, dk, dv, delta scratch), then both B, S, Hq, Hkv, hd; q, k, v's nine
-# strides; causal, window, scale, stream
+                             _ARGS)}
+# the backward kernels, float32 csrc/flash_attention_bwd.cu and bf16
+# csrc/flash_attention_bwd_sm90.cu: q, k, v, out, dout, the forward's lse,
+# dq, dk, dv, delta scratch; B, S, Hq, Hkv, hd; q, k, v's nine strides;
+# causal, window, scale, stream
 _BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _BWD_KERNELS = {
@@ -128,7 +127,7 @@ def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True
                         window: int = 0) -> torch.Tensor:
     """Each query row's log-sum-exp of the scaled, masked scores of
     :func:`attention_plain`, in log2 units, float32 (B, Hq, S): the plain
-    version of the L that the bf16 forward kernel writes for its backward
+    version of the L that the forward kernels write for their backward
     (``flash_attention_cuda(..., return_lse=True)``)."""
     B, Sq, Hq, _ = q.shape
     lse = torch.logsumexp(_masked_scores(q, k, causal, window), dim=-1)
@@ -207,9 +206,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(B, S, Hq, hd) attention on a CUDA device by the hand-written kernel
     of the tensors' dtype (bf16: wgmma; float32: 3xTF32 mma.sync), on the
     current stream; the result is (B, S, Hq, hd) contiguous in q's dtype.
-    With ``return_lse`` (bf16 only) it returns (out, lse): each row's
-    log-sum-exp of the scaled scores in log2 units, float32 (B, Hq, S),
-    which the bf16 backward kernel takes; without, the kernel writes no L.
+    With ``return_lse`` it returns (out, lse): each row's log-sum-exp of
+    the scaled scores in log2 units, float32 (B, Hq, S), which the backward
+    kernel of the same dtype takes; without, the kernel writes no L.
     q, k and v are read through their strides (unit stride over hd and rows
     on 16 bytes required: the kernels copy 16 bytes or TMA boxes).  Raises
     on anything the kernels do not take (whatever the device), on tensors
@@ -217,8 +216,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     gradient itself: :class:`FlashAttentionFn` does."""
     global launches, launches_bf16
     bf16 = q.dtype == torch.bfloat16
-    if return_lse and not bf16:
-        raise TypeError("flash_attention_cuda writes L (return_lse) for bf16 inputs only")
     _check_cuda(q, k, v, "flash_attention_cuda")
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
@@ -229,12 +226,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return (out, lse) if return_lse else out
     pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    extra = (None if lse is None else lse.data_ptr(),) if bf16 else ()
     launch = _launcher(_KERNELS, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(*pointers, B, S, Hq, Hkv, hd, *strides, int(causal), int(window),
-                     1.0 / (hd ** 0.5), *extra, stream)
+                     1.0 / (hd ** 0.5), None if lse is None else lse.data_ptr(), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     if bf16:
@@ -251,11 +247,11 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dq, dk, dv of the attention on a CUDA device by the hand-written
     backward kernel of the inputs' dtype, on the current stream: three
-    launches, counted as one.  bf16: ``csrc/flash_attention_bwd_sm90.cu``
-    (wgmma, float32 sums) with the forward's per-row L (``lse``, float32
-    (B, Hq, S), from ``flash_attention_cuda(..., return_lse=True)``),
-    which it requires.  float32: ``csrc/flash_attention_bwd.cu``
-    (CUDA-core FMAs), which computes L itself and takes no ``lse``.
+    launches, counted as one, with the forward's per-row L (``lse``,
+    float32 (B, Hq, S), from ``flash_attention_cuda(..., return_lse=True)``),
+    which both dtypes require: no launch recomputes it.  bf16:
+    ``csrc/flash_attention_bwd_sm90.cu`` (wgmma, float32 sums); float32:
+    ``csrc/flash_attention_bwd.cu`` (mma.sync in 3xTF32, float32 sums).
     q, k, v are read through their strides under the forward's checks;
     ``out`` (the forward's output) and ``dout`` are made contiguous here
     when they are not (a copy; the kernel reads them as (B, S, Hq, hd)
@@ -270,19 +266,16 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                          f"match q {tuple(q.shape)} {q.dtype}")
     bf16 = q.dtype == torch.bfloat16
     B, S, Hq, hd = q.shape
-    if (lse is None) == bf16 or (bf16 and (lse.shape != (B, Hq, S)
-                                           or lse.dtype != torch.float32
-                                           or not lse.is_contiguous())):
+    if lse is None or lse.shape != (B, Hq, S) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
         got = None if lse is None else f"{tuple(lse.shape)} {lse.dtype}"
-        raise ValueError("flash_attention_backward_cuda takes the forward's lse for, "
-                         f"and only for, bf16 inputs: float32 contiguous ({B}, {Hq}, "
-                         f"{S}); got {got} for {q.dtype}")
+        raise ValueError("flash_attention_backward_cuda takes the forward's lse: "
+                         f"float32 contiguous ({B}, {Hq}, {S}); got {got}")
     _check_cuda(q, k, v, "flash_attention_backward_cuda")
-    if any(t.device != q.device for t in (out, dout)) \
-            or (lse is not None and lse.device != q.device):
+    if any(t.device != q.device for t in (out, dout, lse)):
         raise ValueError("flash_attention_backward_cuda needs CUDA tensors on one "
                          f"device, got q on {q.device}, out on {out.device}, dout on "
-                         f"{dout.device}" + ("" if lse is None else f", lse on {lse.device}"))
+                         f"{dout.device}, lse on {lse.device}")
     out, dout = out.contiguous(), dout.contiguous()
     Hkv = k.shape[2]
     dq = torch.empty_like(out)
@@ -290,13 +283,9 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     dv = torch.empty_like(dk)
     if dq.numel() == 0:
         return dq, dk, dv
-    # per (b, query head, row): Delta = dO . O, and (float32) the log-sum-exp
-    # of the scaled scores in log2 units
+    # per (b, query head, row): Delta = dO . O
     delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    if bf16:
-        pointers = (q, k, v, out, dout, lse, dq, dk, dv, delta)
-    else:
-        pointers = (q, k, v, out, dout, dq, dk, dv, torch.empty_like(delta), delta)
+    pointers = (q, k, v, out, dout, lse, dq, dk, dv, delta)
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     launch = _launcher(_BWD_KERNELS, q.dtype)
     with torch.cuda.device(q.device):
@@ -316,8 +305,9 @@ class FlashAttentionFn(torch.autograd.Function):
     """Differentiable attention: forward and backward on the tensors'
     device — plain versions for CPU tensors, the kernels for CUDA tensors
     (never one for the other).  The forward saves q, k, v and its output,
-    and hands the same output to whichever backward runs; on bf16 CUDA
-    tensors that need a gradient it also saves the L its kernel writes."""
+    and hands the same output to whichever backward runs; on CUDA tensors
+    that need a gradient it also saves the L its kernel writes, which the
+    backward kernel takes."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
@@ -325,7 +315,7 @@ class FlashAttentionFn(torch.autograd.Function):
         if q.device.type == "cpu":
             out = attention_plain(q, k, v, causal=causal, window=window)
         elif q.device.type == "cuda":
-            if q.dtype == torch.bfloat16 and any(ctx.needs_input_grad[:3]):
+            if any(ctx.needs_input_grad[:3]):
                 out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                                 return_lse=True)
             else:

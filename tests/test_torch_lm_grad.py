@@ -13,7 +13,10 @@ Tolerances, with their reasons:
   * `torch.autograd.gradcheck` of both Functions in float64 at tiny shapes
     (its own finite-difference tolerances);
   * on the card (`cuda` marker, skipped without one), each backward kernel
-    against its plain version: float32 inputs within 1e-4 max |want|;
+    against its plain version: float32 inputs within 1e-4 max |want|
+    (1e-4 max(1, max |want|) below 16 rows, where dq and dk are near
+    zero: at S = 1 both are zero exactly and the kernel's are rounding
+    noise);
     bf16 inputs element by element against the float32 plain backward of
     the same inputs (the same bf16 output O), |got - want| <= 2^-8 |want| +
     1e-3 max |want| (the kernel sums in float32 and rounds once to bf16;
@@ -25,11 +28,14 @@ The Functions run on the CPU as on the card: plain forward and plain
 backward for CPU tensors, so these tests exercise the same saved tensors,
 GQA sums, dtypes and `None` gradients the card runs.
 
-The arithmetic of the two Hopper backward kernels is settled here too, in
+The arithmetic of the Hopper backward kernels is settled here too, in
 PyTorch on the CPU: the bf16 flash backward's rounding (P and dS enter the
 tensor cores as bf16: one term breaks the card's per-element limit, two
-terms hold it, so `csrc/flash_attention_bwd_sm90.cu` uses two), the plain
-L its forward writes (`attention_lse_plain`) against `jax.nn.logsumexp`
+terms hold it, so `csrc/flash_attention_bwd_sm90.cu` uses two), the float32
+flash backward's 3xTF32 products (`csrc/flash_attention_bwd.cu`: all five
+products in three TF32 terms hold 1e-4 of max |want| against `jax.vjp`,
+one term does not), the plain L the forwards write
+(`attention_lse_plain`) against `jax.nn.logsumexp`
 of the reference's scores, and the chunk-parallel wkv backward of
 `csrc/rwkv6_scan_bwd.cu` (chunk states, dS handed back chunk to chunk,
 each chunk walked in sub-chunks) against `jax.vjp` and the plain
@@ -294,6 +300,89 @@ def test_two_bf16_terms_of_p_and_ds_hold_the_card_limit_and_one_does_not(shape, 
     assert share[2] <= 1.0 < share[1], share
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero:
+    cvt.rna.tf32.f32): add half of the dropped 13 bits, then mask them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_rz(x):
+    """x cut to TF32 (rounded toward zero): what the tensor cores read of a
+    float32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, terms, lo=_tf32_rz):
+    """a @ b with TF32 operands and float32 sums: one term (hi hi', hi =
+    tf32(x) to nearest) or three (hi hi' + hi lo' + lo hi', lo = x - hi
+    rounded to TF32 by ``lo``: cut, as csrc/flash_attention_bwd.cu does, or
+    to nearest, as csrc/flash_attention.cu does)."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if terms == 3:
+        out = out + ah @ lo(b - bh) + lo(a - ah) @ bh
+    return out
+
+
+def _attention_backward_tf32(q, k, v, dout, *, causal, window, terms):
+    """The float32 kernels' arithmetic, every product of TF32 operands in
+    ``terms`` terms with float32 sums: the forward (csrc/flash_attention.cu,
+    lo to nearest) gives O = (P V) / l and L = m + log2(l) in log2 units
+    from S = Q K^T; the backward (csrc/flash_attention_bwd.cu, lo cut) S
+    again, P = 2^(S scale log2(e) - L),
+    dP = dO V^T, Delta = dO . O, dS = P (dP - Delta), dV = P^T dO,
+    dK = dS^T Q scale, dQ = dS K scale (P and dS split like the inputs)."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qh, doh = (t.permute(0, 2, 1, 3) for t in (q, dout))                 # (B, Hq, S, hd)
+    kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(G, dim=1) for t in (k, v))
+    scale = 1.0 / hd ** 0.5
+    pos = torch.arange(S)
+    ok = pos[None, :] <= pos[:, None] if causal else torch.ones(S, S, dtype=torch.bool)
+    if window > 0:
+        ok &= pos[:, None] - pos[None, :] < window
+    s = _mm_tf32(qh, kh.transpose(-1, -2), terms, lo=_tf32) * (scale * tfa.LOG2E)
+    m = s.masked_fill(~ok, -torch.inf).amax(-1, keepdim=True)
+    p = torch.where(ok, torch.exp2(s - m), 0.0)
+    lsum = p.sum(-1, keepdim=True)
+    o = _mm_tf32(p, vh, terms, lo=_tf32) / lsum
+    lse = m + torch.log2(lsum)
+    s = _mm_tf32(qh, kh.transpose(-1, -2), terms) * (scale * tfa.LOG2E)
+    p = torch.where(ok, torch.exp2(s - lse), 0.0)
+    ds = p * (_mm_tf32(doh, vh.transpose(-1, -2), terms) - (doh * o).sum(-1, keepdim=True))
+    dv = _mm_tf32(p.transpose(-1, -2), doh, terms)
+    dk = _mm_tf32(ds.transpose(-1, -2), qh, terms) * scale
+    dq = _mm_tf32(ds, kh, terms) * scale
+    dk, dv = (t.reshape(B, Hkv, G, S, hd).sum(2) for t in (dk, dv))
+    return [t.permute(0, 2, 1, 3) for t in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("shape,causal,window", [((1, 512, 4, 2, 256), True, 128),
+                                                 ((1, 300, 8, 2, 120), True, 0)])
+def test_three_tf32_terms_hold_the_float32_backward_limit_and_one_does_not(shape, causal,
+                                                                           window):
+    """Full-mantissa float32 inputs: with every one of the five products in
+    three TF32 terms each gradient stays within chip_smoke.py's float32
+    limit (1e-4 of max |want|) of jax.vjp of attention_ref; one TF32 term a
+    product does not (why csrc/flash_attention_bwd.cu splits every operand,
+    P and dS too)."""
+    B, S, Hq, Hkv, hd = shape
+    rng = np.random.default_rng(S + hd + 2)
+    q, k, v, dout = (_rand(rng, B, S, Hq, hd), _rand(rng, B, S, Hkv, hd),
+                     _rand(rng, B, S, Hkv, hd), _rand(rng, B, S, Hq, hd))
+    want = _attn_vjp(q, k, v, dout, causal, window)
+    share = {}
+    for terms in (1, 3):
+        got = _attention_backward_tf32(*(torch.from_numpy(x) for x in (q, k, v, dout)),
+                                       causal=causal, window=window, terms=terms)
+        share[terms] = max(float(np.abs(g.numpy().astype(np.float64) - w).max())
+                           / (CARD_F32_RTOL * float(np.abs(w).max()))
+                           for g, w in zip(got, want))
+    assert share[3] <= 1.0 < share[1], share
+
+
 @pytest.mark.parametrize("case", ["causal-g2-hd32", "window8-g4-hd120", "noncausal-g2-hd120",
                                   "ragged-causal-g2-hd32"])
 def test_attention_lse_plain_matches_jax_logsumexp(case):
@@ -423,7 +512,7 @@ def test_chunk_parallel_wkv_backward_property(T, L, sub, kind):
 
 BWD_REFUSED = {
     "flash-float16": lambda: tfa.flash_attention_backward_cuda(
-        *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.float16)),
+        *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.float16), lse=torch.zeros(1, 2, 8)),
     "flash-hd-past-256": lambda: tfa.flash_attention_backward_cuda(
         *_halves((1, 8, 2, 264), (1, 8, 1, 264), torch.bfloat16),
         lse=torch.zeros(1, 2, 8)),
@@ -437,17 +526,17 @@ BWD_REFUSED = {
     "wkv-hd-128": lambda: twkv.rwkv6_backward_cuda(*_wkv_torch(1, 1, 4, 128)),
     "wkv-float64": lambda: twkv.rwkv6_backward_cuda(
         *(t.double() for t in _wkv_torch(1, 1, 4, 16))),
-    "flash-lse-with-float32": lambda: tfa.flash_attention_backward_cuda(
-        *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.float32), lse=torch.zeros(1, 2, 8)),
+    "flash-float32-lse-shape": lambda: tfa.flash_attention_backward_cuda(
+        *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.float32), lse=torch.zeros(1, 2, 9)),
     "flash-lse-shape": lambda: tfa.flash_attention_backward_cuda(
         *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.bfloat16), lse=torch.zeros(1, 2, 9)),
-    "flash-forward-lse-with-float32": lambda: tfa.flash_attention_cuda(
-        *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.float32)[:3], return_lse=True),
     "wkv-states-shape": lambda: twkv.rwkv6_backward_cuda(
         *_wkv_torch(1, 1, 130, 16), states=torch.zeros(1, 1, 2, 16, 16)),
     # the forward's outputs are required, never recomputed
     "flash-bf16-without-lse": lambda: tfa.flash_attention_backward_cuda(
         *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.bfloat16)),
+    "flash-float32-without-lse": lambda: tfa.flash_attention_backward_cuda(
+        *_halves((1, 8, 2, 32), (1, 8, 1, 32), torch.float32)),
     "wkv-two-chunks-without-states": lambda: twkv.rwkv6_backward_cuda(
         *_wkv_torch(1, 1, 65, 16)),
 }
@@ -478,7 +567,7 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(case):
 def test_backward_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.flash_attention_backward_cuda(*_halves((1, 8, 2, 32), (1, 8, 1, 32),
-                                                   torch.float32))
+                                                   torch.float32), lse=torch.zeros(1, 2, 8))
     with pytest.raises(ValueError, match="CUDA tensors"):
         twkv.rwkv6_backward_cuda(*_wkv_torch(1, 1, 4, 16))
 
@@ -526,12 +615,10 @@ def test_cuda_flash_backward_matches_plain(case):
                                    (B, S, Hq, hd)))
     bf16 = dtype == torch.bfloat16
     out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                        return_lse=True) if bf16 \
-        else (tfa.flash_attention_cuda(q, k, v, causal=causal, window=window), None)
-    if bf16:
-        want_lse = tfa.attention_lse_plain(q, k, causal=causal, window=window)
-        assert float((lse - want_lse).abs().max()) <= 2e-5 * max(1.0, float(
-            want_lse.abs().max())), "the forward's L"
+                                        return_lse=True)
+    want_lse = tfa.attention_lse_plain(q, k, causal=causal, window=window)
+    assert float((lse - want_lse).abs().max()) <= 2e-5 * max(1.0, float(
+        want_lse.abs().max())), "the forward's L"
     before = (tfa.launches_bwd, tfa.launches_bwd_bf16)
     got = tfa.flash_attention_backward_cuda(q, k, v, out, dout, causal=causal,
                                             window=window, lse=lse)
@@ -547,6 +634,25 @@ def test_cuda_flash_backward_matches_plain(case):
         limit = (CARD_BF16_RTOL * w.abs() + CARD_BF16_ATOL * top) if bf16 \
             else torch.full_like(w, CARD_F32_RTOL * top)
         assert bool((diff <= limit).all()), f"d{name}: max abs error {float(diff.max())}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("S", [1, 2, 7, 15])
+def test_cuda_float32_flash_backward_at_a_few_rows(S, hd, causal):
+    """The float32 backward below one 16-row tile, L from the forward, each
+    gradient within 1e-4 max(1, max |want|) of the plain backward."""
+    _need_cuda()
+    rng = np.random.default_rng(S * hd)
+    q, k, v, dout = (torch.from_numpy(_rand(rng, *shape)).cuda()
+                     for shape in ((1, S, 2, hd), (1, S, 1, hd), (1, S, 1, hd),
+                                   (1, S, 2, hd)))
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    got = tfa.flash_attention_backward_cuda(q, k, v, out, dout, causal=causal, lse=lse)
+    want = tfa.attention_backward_plain(q, k, v, out, dout, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        _within(g.cpu().numpy(), w.cpu().numpy(), CARD_F32_RTOL, f"d{name}")
 
 
 @pytest.mark.cuda
@@ -607,6 +713,33 @@ def test_cuda_bf16_functions_hand_their_saved_outputs_to_the_backward_kernels():
 
 
 @pytest.mark.cuda
+def test_cuda_float32_function_hands_its_forward_l_to_the_backward_kernel():
+    """float32 attention through FlashAttentionFn on the card: one forward
+    launch (which writes L) and one backward launch, whose gradients are
+    the kernel's on the forward's own L and output, bit for bit, and the
+    plain backward's within the float32 limit."""
+    _need_cuda()
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.from_numpy(_rand(rng, *shape)).cuda()
+               for shape in ((1, 300, 4, 64), (1, 300, 2, 64), (1, 300, 2, 64)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (tfa.launches, tfa.launches_bwd)
+    out = tops.attention(*leaves, causal=True, window=100)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.launches_bwd) == (before[0] + 1, before[1] + 1)
+    out2, lse = tfa.flash_attention_cuda(q, k, v, causal=True, window=100, return_lse=True)
+    assert torch.equal(out2, out.detach())
+    got = tfa.flash_attention_backward_cuda(q, k, v, out2, torch.ones_like(out2), causal=True,
+                                            window=100, lse=lse)
+    want = tfa.attention_backward_plain(q, k, v, out2, torch.ones_like(out2), causal=True,
+                                        window=100)
+    for name, leaf, g, w in zip("qkv", leaves, got, want):
+        assert torch.equal(leaf.grad, g), f"d{name}"
+        assert float((g - w).abs().max()) <= CARD_F32_RTOL * float(w.abs().max()), f"d{name}"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_backward_strided_inputs_and_noncontiguous_dout(dtype):
     """q, k, v read through their strides (views of one fused (B, S, Hq +
@@ -618,9 +751,7 @@ def test_cuda_flash_backward_strided_inputs_and_noncontiguous_dout(dtype):
     fused = torch.from_numpy(_rand(rng, B, S, Hq + 2 * Hkv, hd)).to("cuda", dtype)
     q, k, v = fused[:, :, :Hq], fused[:, :, Hq:Hq + Hkv], fused[:, :, Hq + Hkv:]
     dout = torch.from_numpy(_rand(rng, B, Hq, S, hd)).to("cuda", dtype).transpose(1, 2)
-    out, lse = tfa.flash_attention_cuda(q, k, v, causal=True, window=50, return_lse=True) \
-        if dtype == torch.bfloat16 \
-        else (tfa.flash_attention_cuda(q, k, v, causal=True, window=50), None)
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=True, window=50, return_lse=True)
     got = tfa.flash_attention_backward_cuda(q, k, v, out, dout, causal=True, window=50,
                                             lse=lse)
     want = tfa.flash_attention_backward_cuda(q.contiguous(), k.contiguous(), v.contiguous(),

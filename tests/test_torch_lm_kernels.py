@@ -25,7 +25,10 @@ LM path's (2, 4096, 8 / 4, 256) with windows 1024 and 0 (float32 on
 full-mantissa inputs) and at the edge cases (ragged S, non-causal, G = 8
 and 5, head_dim 32, 120 and 128, windows); the wkv kernels (chunked for
 T >= 64, recurrent below) at the LM shape, ragged T, strong decays, a
-split off the chunk boundaries and w = 0; and a q that requires grad
+split off the chunk boundaries and w = 0, the recurrent kernel at T = 1,
+16 and 63 for every head dim (rows on and off the 16-byte grid), four
+T = 1 steps against one T = 4 call, and w = 0 at T = 1; and a q that
+requires grad
 goes through `FlashAttentionFn` to the backward kernel, whose q.grad must
 match the plain backward (`tests/test_torch_lm_grad.py` holds both backward
 kernels at their shapes).  What the kernels do not take, the wrappers
@@ -535,3 +538,56 @@ def test_cuda_wkv_zero_decay_leaves_the_last_kv():
     _, sT = twkv.rwkv6_cuda(*args)
     last = args[1][:, :, -1, :, None] * args[2][:, :, -1, None, :]
     assert torch.equal(sT, last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 16, 63])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+def test_cuda_recurrent_wkv_matches_plain(T, hd):
+    """The recurrent kernel (T < CHUNK: decode and short prefills) at every
+    head dim, on contiguous inputs and on rows that start 4 bytes off the
+    16-byte grid."""
+    _need_cuda()
+    args = _torch(*_wkv_inputs(2, 5, T, hd, seed=T * hd), device="cuda")
+    want = twkv.rwkv6_plain(*args)
+    before = twkv.launches
+    got = twkv.rwkv6_cuda(*args)
+    shifted = []
+    for x in args[:4]:
+        buf = torch.zeros(*x.shape[:3], hd + 1, device="cuda")
+        buf[..., 1:] = x
+        shifted.append(buf[..., 1:])
+    got_shifted = twkv.rwkv6_cuda(*shifted, *args[4:])
+    torch.cuda.synchronize()
+    assert twkv.launches == before + 2
+    for pair in (got, got_shifted):
+        for a, b in zip(pair, want):
+            assert float((a - b).abs().max()) <= WKV_ATOL
+
+
+@pytest.mark.cuda
+def test_cuda_recurrent_wkv_steps_carry_the_state():
+    """Four T = 1 calls, each taking the state the last one returned, give
+    one T = 4 call's outputs and state."""
+    _need_cuda()
+    r, k, v, w, u, s0 = _torch(*_wkv_inputs(2, 40, 4, 64, seed=3), device="cuda")
+    y, sT = twkv.rwkv6_cuda(r, k, v, w, u, s0)
+    state, ys = s0, []
+    for t in range(4):
+        step = (x[:, :, t:t + 1] for x in (r, k, v, w))
+        y_t, state = twkv.rwkv6_cuda(*step, u, state)
+        ys.append(y_t)
+    torch.cuda.synchronize()
+    assert float((torch.cat(ys, 2) - y).abs().max()) <= WKV_ATOL
+    assert float((state - sT).abs().max()) <= WKV_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [8, 64, 128])
+def test_cuda_recurrent_wkv_zero_decay_leaves_exactly_the_last_kv(hd):
+    """w = 0 at T = 1: the state forgets s0 and is exactly k v^T."""
+    _need_cuda()
+    args = list(_torch(*_wkv_inputs(2, 3, 1, hd, seed=hd), device="cuda"))
+    args[3].zero_()
+    _, sT = twkv.rwkv6_cuda(*args)
+    assert torch.equal(sT, args[1][:, :, -1, :, None] * args[2][:, :, -1, None, :])
