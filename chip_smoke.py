@@ -40,7 +40,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      float32 inputs (which one TF32 product would not hold); then both at
      ragged (1, 1000, 4, 2, 64), non-causal, G = 8 with window 100,
      head_dim 32 with window 64, 128 and 120, and G = 5, each at its own
-     limit;
+     limit; the bf16 kernel also at the attention layers of jamba (2,
+     4096, 64 / 8, 128), grok (2, 4096, 48 / 8, 128) and llama4 (2, 4096,
+     40 / 8, 128, window 8192), where G = 6 and 5 leave the last of a
+     block's 128 rows empty, each timed beside its bound, the plain
+     version and `is_causal` SDPA;
    * the RWKV6 wkv recurrence, at the LM path's (2, 40, 4096, 64) (the
      chunked form), with the model's strong decays w = exp(-exp(x)), at a
      ragged T = 1000, at T = 1, 16 and 63 (the recurrent kernel, also
@@ -48,6 +52,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (2, 40, 16, 64), beside the launch floors), two halves and a split at
      1001 against the whole, and w = 0 (atol 1e-4; w = 0 must leave
      exactly the last k v^T);
+   * Mamba's selective scan (`csrc/selective_scan.cu`, no Pallas
+     counterpart: the reference's `lax.scan`) at jamba's prefill (2, 4096,
+     16384, 16) with the model's decays (dt from softplus around 0.01), x
+     in bf16 and in float32, strong decays (dt up to 5), split at 1001
+     against the whole, at a ragged S = 1000 and at decode's S = 1 from a
+     non-zero state, y and h_T within SCAN_RTOL max(1, max |want|); one
+     call must make one device launch (where torch.profiler records the
+     call: in this phase it often records nothing, which is reported and
+     does not stop the run); timed at the prefill and at decode
+     beside the launch floors, its bound the larger of its bytes, its
+     exponentials on the SFUs and its other flops;
    * the flash backward (three launches counted as one, each dtype with
      the L its forward wrote: bf16 in `csrc/flash_attention_bwd_sm90.cu` on
      wgmma, float32 in `csrc/flash_attention_bwd.cu` on mma.sync in
@@ -168,19 +183,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel's launch count is reset just before this phase and must be > 0
    after it.
 10. lm — the LM zoo's inference path at full width, depth cut: gemma3-4b
-   (6 layers: five SWA-1024 and one global) and rwkv6-3b (4 layers), bf16
-   weights from `init_params(seed)`.  Per configuration: `make_eval_step`
-   at B = 2, S = 4096 (loss, wall) and `greedy_generate` at B = 2, a
-   16-token prompt, 16 new tokens (wall per token), each with every
-   kernel's launch count reset just before and read just after (bf16
-   flash: 6 per gemma3 forward, 0 in decode; wkv: 4 per rwkv6 forward and
-   per decode step); `decode_step` over 32 tokens against `forward` on them
-   (relative max error <= DECODE_RTOL, the reference's contract); and the
-   same configuration in float32, one period, B = 1, S = 128, on the card
-   (kernels; the path `lm_fp32`, where the float32 flash kernel runs, its
-   counts read around the card's forward) against the host CPU (plain
-   versions) within CARD_CPU_RTOL.
-11. lm_train — the LM zoo's training path at the same widths and depths
+   (6 layers: five SWA-1024 and one global), rwkv6-3b (4 layers),
+   jamba-1.5-large-398b (4 layers: mamba + FFN, mamba + MoE, mamba + FFN,
+   attention + MoE), grok-1-314b (2 layers, MoE) and
+   llama4-maverick-400b-a17b (2 layers: dense, then MoE with a shared
+   expert, both window 8192), bf16 weights from `init_params(seed)`.  Per
+   configuration: `make_eval_step` at B = 2, S = 4096 (loss, wall, peak
+   memory) and `greedy_generate` at B = 2, a 16-token prompt, 16 new
+   tokens (wall per token), each with every kernel's launch count reset
+   just before and read just after (bf16 flash: one per attention layer a
+   forward, 0 in decode; wkv and the selective scan: one per rwkv / mamba
+   layer a forward and a decode step); `decode_step` over 32 tokens
+   against `forward` on them (relative max error <= DECODE_RTOL, the
+   reference's contract; 64 tokens are under every expert's 128-slot
+   floor, so the forward drops none); and the configuration in float32
+   at B = 1, S = 128 — one period at full width, or `reduced()` for the
+   Mamba and MoE ones — on the card (kernels; the path `lm_fp32`, where
+   the float32 flash kernel runs, its counts read around the card's
+   forward) against the host CPU (plain versions) within CARD_CPU_RTOL.
+11. lm_train — the LM zoo's training path for gemma3-4b and rwkv6-3b
+   at the same widths and depths
    (bf16, `remat` on as the full configs set it): LM_TRAIN_STEPS steps of
    `make_train_step` with AdamW at a constant LM_TRAIN_LR on one fixed
    (2, 4096) batch, every kernel's launch count reset just before and read
@@ -200,8 +222,9 @@ async, faults, resume, obs, paper, serve, lm_forward, lm_decode, lm_fp32,
 lm_train, lm_train_fp32; the three backward kernels' main paths are
 lm_train and lm_train_fp32),
 error, times, bound and the two launch floors (the fingerprint and
-cluster_agg entries with their `async_shape` row, rwkv6 with its
-`decode_shape` row), one JSON line each
+cluster_agg entries with their `async_shape` row, rwkv6 and
+selective_scan with their `decode_shape` row, bf16 flash with its
+`lm_hd128_shapes`), one JSON line each
 `{"train": {...}}`, `{"strategies": {...}}`, `{"async": {...}}`,
 `{"faults": {...}}`, `{"resume": {...}}`, `{"obs": {...}}`, `{"paper": {...}}`,
 `{"serve": {...}}`, `{"lm": {...}}`, `{"lm_train": {...}}`, and last
@@ -260,6 +283,7 @@ from repro_torch.kernels import fingerprint as fp  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import pearson as pe  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wk  # noqa: E402
+from repro_torch.kernels import selective_scan as sc  # noqa: E402
 from repro_torch.models import classifier as clf  # noqa: E402
 from repro_torch.models import decode as lmdec  # noqa: E402
 from repro_torch.models import lm as lmsteps  # noqa: E402
@@ -331,6 +355,31 @@ DECODE_RTOL = 2e-2
 # or indexing fault in a kernel moves logits by O(1)
 CARD_CPU_RTOL = 1e-3
 LM_CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
+# the Mamba and MoE configurations: eval and decode only (the selective scan
+# has no backward kernel yet, ROADMAP item 7e, and at full width these
+# models' weights and AdamW state do not fit one card), so lm_train loops
+# LM_CONFIGS alone.  jamba at 4 layers: mamba + FFN, mamba + MoE, mamba +
+# FFN, attention + MoE (45 GB of bf16 weights; one 8-layer period is 89 GB)
+LM_INFER_CONFIGS = (("jamba-1.5-large-398b", 4), ("grok-1-314b", 2),
+                    ("llama4-maverick-400b-a17b", 2))
+# the selective scan against its plain version, y and h_T: |got - want| <=
+# SCAN_RTOL max(1, max |want|) (float32 sums in another order; the kernel's
+# expf and torch.exp differ by an ulp or two)
+SCAN_RTOL = 1e-5
+# its exponentials, one a state a step, on the special-function units: 16 a
+# clock an SM, 132 SMs at the H100 SXM's 1.98 GHz boost clock (NVIDIA's H100
+# white paper); and its float32 flops a state a step beside the exp (dt A,
+# the FMA of h dA + (dt x) B and its product, the FMA of h C)
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+SCAN_FLOPS_PER_STATE = 6
+# jamba's Mamba prefill: (B, S, d_inner, d_state)
+SCAN_SHAPE = (2, 4096, 16384, 16)
+# the bf16 flash kernel at the attention layers of LM_INFER_CONFIGS, all at
+# head_dim 128: (B, S, Hq, Hkv, hd), window
+FLASH_LM_SHAPES = {"jamba (2, 4096, 64, 8, 128) G = 8": ((2, 4096, 64, 8, 128), 0),
+                   "grok (2, 4096, 48, 8, 128) G = 6": ((2, 4096, 48, 8, 128), 0),
+                   "llama4 (2, 4096, 40, 8, 128) G = 5 window 8192":
+                       ((2, 4096, 40, 8, 128), 8192)}
 # the flash kernels keep O, S and P in registers: a spill serialises them
 NO_SPILL_SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu")
 # the backward kernels' sources: their spills are printed and reported, not gated
@@ -422,7 +471,7 @@ KERNELS = {"fingerprint": (fp, "launches"), "cluster_agg": (ca, "launches"),
            "flash_attention_fp32": (fa, "launches"), "rwkv6": (wk, "launches"),
            "flash_attention_bwd_bf16": (fa, "launches_bwd_bf16"),
            "flash_attention_bwd_fp32": (fa, "launches_bwd"),
-           "rwkv6_bwd": (wk, "launches_bwd")}
+           "rwkv6_bwd": (wk, "launches_bwd"), "selective_scan": (sc, "launches")}
 
 
 def reset_launches() -> None:
@@ -2040,6 +2089,156 @@ def flash_phase(dev) -> tuple[dict, dict]:
     return rows, checks
 
 
+def flash_lm_phase(dev) -> dict:
+    """The bf16 flash kernel at the attention shapes of LM_INFER_CONFIGS
+    (head_dim 128; G = 8, 6 and 5, the last two not dividing the kernel's
+    128 rows a block), element by element against the float32 plain
+    version as in the main check; timed beside its bound, the plain
+    version and SDPA (`is_causal`: llama4's window 8192 covers S)."""
+    rng = np.random.default_rng(SEED + 10)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for what, ((B, S, Hq, Hkv, hd), window) in FLASH_LM_SHAPES.items():
+        q, k, v = qkv(rng, B, S, Hq, Hkv, hd, torch.bfloat16, dev)
+        check = check_flash(q, k, v, True, window, what)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def causal_sdpa(_):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        n_ops = 4 * hd * B * Hq * live_pairs(S, True, window)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / BF16_OPS_PER_S * 1e6
+        rows[what] = dict(
+            check, shape=[B, S, Hq, Hkv, hd], dtype="bfloat16", window=window,
+            kernel_us=median_us(lambda _: fa.flash_attention_cuda(
+                q, k, v, causal=True, window=window), None, 10, flush),
+            plain_us=median_us(lambda _: fa.attention_plain(
+                q, k, v, causal=True, window=window), None, 3, flush),
+            library_us=median_us(causal_sdpa, None, 10, flush),
+            library_call="F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+            library_backend=sdpa_backend(causal_sdpa),
+            bound_us=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", flop=n_ops)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def scan_inputs(gen, B: int, S: int, di: int, dev, *, strong: bool = False,
+                h0_scale: float = 0.0, x_dtype=torch.bfloat16):
+    """The scan's inputs as the Mamba mixer gives them: dt = softplus(z -
+    4.6) with z standard normal (around 0.01, the init's dt_bias), or with
+    ``strong`` uniform over (0, 5) (exp(dt A) down to exp(-80)); x standard
+    normal in ``x_dtype``; Bm and Cm column slices of one (B, S, 8 + 32)
+    projection; A = -exp(A_log) at the init's A_log (-1 .. -16 a channel);
+    D = 1; h0 ``h0_scale`` standard normal."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    dt = (torch.rand((B, S, di), generator=gen, device=dev) * 5.0 if strong
+          else torch.logaddexp(randn(B, S, di) - 4.6, torch.zeros((), device=dev)))
+    proj = randn(B, S, 8 + 32)
+    A = -torch.arange(1, 17, dtype=torch.float32, device=dev).expand(di, 16).contiguous()
+    return (dt, randn(B, S, di).to(x_dtype), proj[..., 8:24], proj[..., 24:], A,
+            torch.ones(di, device=dev), h0_scale * randn(B, di, 16))
+
+
+def scan_err(got, want, what: str) -> float:
+    """The larger of y's and h_T's max |got - want|, each of which must be
+    within SCAN_RTOL max(1, max |want|)."""
+    errs = []
+    for a, b in zip(got, want):
+        err, scale = float((a - b).abs().max()), max(1.0, float(b.abs().max()))
+        if not err <= SCAN_RTOL * scale:
+            raise AssertionError(f"selective scan kernel on {what}: max abs error "
+                                 f"{err} > {SCAN_RTOL} * {scale}")
+        errs.append(err)
+    return max(errs)
+
+
+def scan_bound_us(args) -> tuple[float, str, dict]:
+    """Least time for the scan on ``args``: each input read once and each
+    output written once over the memory rate, its exponentials over the
+    SFUs' rate, its other float32 flops over the CUDA cores' rate."""
+    dt, x, Bm, Cm, A, D, h0 = args
+    B, S, di = dt.shape
+    N = A.shape[1]
+    n_bytes = (dt.numel() * 4 + x.numel() * x.element_size() + 2 * B * S * N * 4
+               + (A.numel() + D.numel()) * 4 + 2 * h0.numel() * 4 + B * S * di * 4)
+    terms = {"bytes_us": n_bytes / HBM_BYTES_PER_S * 1e6,
+             "exp_us": B * S * di * N / SFU_OPS_PER_S * 1e6,
+             "flops_us": B * S * di * N * SCAN_FLOPS_PER_STATE / ALU32_OPS_PER_S * 1e6}
+    bound = max(terms.values())
+    return bound, ("bytes" if terms["bytes_us"] >= bound else "operations"), \
+        dict(terms, bytes=n_bytes, exps=B * S * di * N)
+
+
+def scan_phase(dev, floors: dict) -> tuple[dict, dict]:
+    """The selective-scan kernel against its plain version at jamba's
+    prefill SCAN_SHAPE (x in bf16 and in float32, the model's decays and
+    strong ones), split at 1001 against the whole, at a ragged S = 1000
+    and at decode's S = 1 from a non-zero state; one call must make one
+    device launch where the profiler records it; times at the prefill and
+    at decode beside this run's launch floors."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    B, S, di, _ = SCAN_SHAPE
+    main = scan_inputs(gen, B, S, di, dev)
+    full = sc.selective_scan_cuda(*main)
+    checks = {"main (2, 4096, 16384, 16)": scan_err(full, sc.selective_scan_plain(*main),
+                                                     "main")}
+    dt, x, Bm, Cm, A, D, h0 = main
+    y1, h1 = sc.selective_scan_cuda(dt[:, :1001], x[:, :1001], Bm[:, :1001],
+                                    Cm[:, :1001], A, D, h0)
+    y2, h2 = sc.selective_scan_cuda(dt[:, 1001:], x[:, 1001:], Bm[:, 1001:],
+                                    Cm[:, 1001:], A, D, h1)
+    checks["split at 1001 vs the whole"] = scan_err((torch.cat([y1, y2], 1), h2), full,
+                                                    "split at 1001")
+    del full, y1, y2
+    cases = {"main strong decays": dict(S=S, strong=True),
+             "main x float32": dict(S=S, x_dtype=torch.float32),
+             "ragged S = 1000 strong decays, h0": dict(S=1000, strong=True, h0_scale=1.0),
+             "decode S = 1, h0": dict(S=1, h0_scale=1.0)}
+    for what, kw in cases.items():
+        args = scan_inputs(gen, B, kw.pop("S"), di, dev, **kw)
+        checks[what] = scan_err(sc.selective_scan_cuda(*args),
+                                sc.selective_scan_plain(*args), what)
+    one = args                          # the last case: decode's S = 1
+    # one device launch a call, where torch.profiler records the call: in
+    # this phase captures on the card held the kernel without the marker
+    # launched before it, or nothing at all, eight times in a row (two runs),
+    # so an empty capture is reported and does not stop the run (the launch
+    # counter, which chip_smoke.py's paths read, counts in the wrapper)
+    try:
+        names = device_kernels(lambda _: sc.selective_scan_cuda(*one), marker=False)
+    except CaptureError as err:
+        print(f"selective_scan device launches not recorded: {err}", file=sys.stderr,
+              flush=True)
+        names = None
+    if names is not None and len(names) != 1:
+        raise AssertionError(f"selective_scan_cuda: one call made {len(names)} device "
+                             f"launches, expected 1: {names}")
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    bound, bound_by, terms = scan_bound_us(main)
+    row = {"shape": list(SCAN_SHAPE), "dtype": "x bfloat16, the rest float32",
+           "device_kernels_per_call": "not recorded" if names is None else 1,
+           "device_kernel": None if names is None else names[0],
+           "kernel_us": median_us(lambda _: sc.selective_scan_cuda(*main), None, 10, flush),
+           "plain_us": median_us(lambda _: sc.selective_scan_plain(*main), None, 2, flush),
+           "library_us": None, "bound_us": bound, "bound_by": bound_by,
+           "bound_terms": terms}
+    bound, bound_by, terms = scan_bound_us(one)
+    row["decode"] = {"shape": [B, 1, di, 16], "dtype": row["dtype"],
+                     "kernel_us": median_us(lambda _: sc.selective_scan_cuda(*one), None,
+                                            200, flush),
+                     "plain_us": median_us(lambda _: sc.selective_scan_plain(*one), None,
+                                           50, flush),
+                     "library_us": None, "bound_us": bound, "bound_by": bound_by,
+                     "bound_terms": terms, "launch_floor_us": floors["empty_us"],
+                     "round_trip_floor_us": floors["round_trip_us"]}
+    return row, checks
+
+
 def wkv_inputs(rng, B: int, H: int, T: int, hd: int, dev, strong: bool = False):
     """r, k, v standard normal; decays in (0.55, 0.95), or with ``strong``
     the model's w = exp(-exp(x)) with x over -6..3 (0.9975, the init's
@@ -2354,9 +2553,7 @@ def lm_train_config(cfg, dev) -> dict:
     opt = topt.adamw(LM_TRAIN_LR)
     step = lmsteps.make_train_step(cfg, opt)
     state = opt.init(params)
-    n_attn = sum(s.mixer == "attn" for s in cfg.pattern) * cfg.n_periods \
-        + sum(s.mixer == "attn" for s in cfg.remainder)
-    n_rwkv = cfg.n_layers - n_attn
+    n = mixer_counts(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     losses, walls = [], []
@@ -2373,10 +2570,11 @@ def lm_train_config(cfg, dev) -> dict:
         raise AssertionError(f"{cfg.name}: train losses {losses}")
     # with remat each period's forward runs again in the backward
     again = 2 if cfg.remat else 1
-    n = LM_TRAIN_STEPS
+    steps = LM_TRAIN_STEPS
     want = dict({k: 0 for k in KERNELS},
-                flash_attention_bf16=again * n_attn * n, flash_attention_bwd_bf16=n_attn * n,
-                rwkv6=again * n_rwkv * n, rwkv6_bwd=n_rwkv * n)
+                flash_attention_bf16=again * n["attn"] * steps,
+                flash_attention_bwd_bf16=n["attn"] * steps,
+                rwkv6=again * n["rwkv"] * steps, rwkv6_bwd=n["rwkv"] * steps)
     if launches != want:
         raise AssertionError(f"{cfg.name}: train launches {launches}, expected {want}")
     p50 = float(np.median(walls))
@@ -2384,7 +2582,7 @@ def lm_train_config(cfg, dev) -> dict:
     torch.cuda.empty_cache()
     return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
             "param_dtype": cfg.param_dtype, "n_params": n_params, "remat": cfg.remat,
-            "batch": LM_BATCH, "seq": LM_SEQ, "steps": n, "lr": LM_TRAIN_LR,
+            "batch": LM_BATCH, "seq": LM_SEQ, "steps": steps, "lr": LM_TRAIN_LR,
             "optimizer": "adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)",
             "losses": losses, "step_wall_s": walls, "step_wall_s_p50": p50,
             "tokens_per_s": LM_BATCH * LM_SEQ / p50, "peak_gb": peak_gb,
@@ -2424,11 +2622,11 @@ def train_card_vs_cpu(cfg, dev) -> dict:
             raise AssertionError(f"{cfg.name}: card vs CPU gradient leaf {i} "
                                  f"{tuple(b.shape)}: {err} of max(1, max |g|)")
         worst = max(worst, err)
-    n_attn = sum(s.mixer == "attn" for s in cfg32.pattern)
-    n_rwkv = cfg32.n_layers - n_attn
+    n = mixer_counts(cfg32)
     again = 2 if cfg32.remat else 1
-    want = dict({k: 0 for k in KERNELS}, flash_attention_fp32=again * n_attn,
-                flash_attention_bwd_fp32=n_attn, rwkv6=again * n_rwkv, rwkv6_bwd=n_rwkv)
+    want = dict({k: 0 for k in KERNELS}, flash_attention_fp32=again * n["attn"],
+                flash_attention_bwd_fp32=n["attn"], rwkv6=again * n["rwkv"],
+                rwkv6_bwd=n["rwkv"])
     if launches != want:
         raise AssertionError(f"{cfg.name}: float32 train step launches {launches}, "
                              f"expected {want}")
@@ -2462,7 +2660,8 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def decode_vs_forward(cfg, params, tokens) -> float:
-    """The logits of decode_step over the tokens against forward's."""
+    """The logits of decode_step over the tokens against forward's, over
+    the real vocabulary (the padded columns hold -1e30 in both)."""
     B, T = tokens.shape
     with torch.inference_mode():
         ref, _, _ = lmt.forward(cfg, params, tokens=tokens)
@@ -2471,36 +2670,52 @@ def decode_vs_forward(cfg, params, tokens) -> float:
         for i in range(T):
             logits, cache = lmdec.decode_step(cfg, params, cache, tokens[:, i:i + 1])
             outs.append(logits)
-    return rel_err(torch.cat(outs, dim=1), ref)
+    V = cfg.vocab_size
+    return rel_err(torch.cat(outs, dim=1)[..., :V], ref[..., :V])
+
+
+def mixer_counts(cfg) -> dict[str, int]:
+    """The configuration's layers by mixer (attn, mamba, rwkv)."""
+    specs = list(cfg.pattern) * cfg.n_periods + list(cfg.remainder)
+    return {m: sum(s.mixer == m for s in specs) for m in ("attn", "mamba", "rwkv")}
+
+
+def fp32_config(cfg):
+    """The float32 configuration of the card-vs-CPU check: one period at
+    full width, or ``reduced()`` for LM_INFER_CONFIGS (one jamba period in
+    float32 is 179 GB)."""
+    if any(cfg.name == name for name, _ in LM_INFER_CONFIGS):
+        return ARCHS[cfg.name].reduced()
+    return dataclasses.replace(cfg, param_dtype="float32", n_layers=len(cfg.pattern))
 
 
 def card_vs_cpu(cfg, dev) -> dict:
-    """The configuration in float32, one period, B = 1, S = 128: logits on
+    """``cfg`` (float32, from fp32_config) at B = 1, S = 128: logits on
     the card (kernels) against the host CPU (plain versions), same weights.
     The card's forward is the path ``lm_fp32``: every kernel's launch count
     is reset just before it and read just after."""
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32", n_layers=len(cfg.pattern))
-    p_dev = lmt.init_params(cfg32, seed=SEED + 1, device=dev)
+    p_dev = lmt.init_params(cfg, seed=SEED + 1, device=dev)
     p_cpu = tree_map(lambda t: t.cpu(), p_dev)
     gen = torch.Generator().manual_seed(SEED)
     toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
     t0 = time.perf_counter()
     with torch.inference_mode():
         reset_launches()
-        card = lmt.forward(cfg32, p_dev, tokens=toks.to(dev))[0]
+        card = lmt.forward(cfg, p_dev, tokens=toks.to(dev))[0]
         torch.cuda.synchronize()
         launches = read_launches()
-        cpu = lmt.forward(cfg32, p_cpu, tokens=toks)[0]
+        cpu = lmt.forward(cfg, p_cpu, tokens=toks)[0]
     err = rel_err(card, cpu)
     if not err <= CARD_CPU_RTOL:
         raise AssertionError(f"{cfg.name}: card vs CPU logits rel err {err} > {CARD_CPU_RTOL}")
-    n_attn = sum(s.mixer == "attn" for s in cfg32.pattern)
+    n = mixer_counts(cfg)
     want = {name: 0 for name in KERNELS}
-    want.update(flash_attention_fp32=n_attn, rwkv6=cfg32.n_layers - n_attn)
+    want.update(flash_attention_fp32=n["attn"], rwkv6=n["rwkv"], selective_scan=n["mamba"])
     if launches != want:
         raise AssertionError(f"{cfg.name}: float32 forward launches {launches}, "
                              f"expected {want}")
-    return {"n_layers": cfg32.n_layers, "shape": [1, 128], "rel_err": err,
+    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "reduced": cfg == ARCHS[cfg.name].reduced(), "shape": [1, 128], "rel_err": err,
             "tolerance": CARD_CPU_RTOL, "launches": launches,
             "wall_s": time.perf_counter() - t0}
 
@@ -2517,9 +2732,7 @@ def lm_config_run(cfg, dev) -> dict:
     params = lmt.init_params(cfg, seed=SEED, device=dev)
     n_params = sum(t.numel() for t in tree_leaves(params))
     batch = lm_batch(cfg, dev)
-    n_attn = sum(s.mixer == "attn" for s in cfg.pattern) * cfg.n_periods \
-        + sum(s.mixer == "attn" for s in cfg.remainder)
-    n_rwkv = cfg.n_layers - n_attn
+    n = mixer_counts(cfg)
 
     eval_step = lmsteps.make_eval_step(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2548,8 +2761,10 @@ def lm_config_run(cfg, dev) -> dict:
         raise AssertionError(f"{cfg.name}: greedy_generate gave {tuple(toks.shape)}")
 
     want_fwd = {name: 0 for name in KERNELS}
-    want_fwd.update(flash_attention_bf16=n_attn, rwkv6=n_rwkv)
-    want_dec = dict(want_fwd, flash_attention_bf16=0, rwkv6=n_rwkv * steps)
+    want_fwd.update(flash_attention_bf16=n["attn"], rwkv6=n["rwkv"],
+                    selective_scan=n["mamba"])
+    want_dec = dict(want_fwd, flash_attention_bf16=0, rwkv6=n["rwkv"] * steps,
+                    selective_scan=n["mamba"] * steps)
     if forward_launches != want_fwd or decode_launches != want_dec:
         raise AssertionError(f"{cfg.name}: launches forward {forward_launches} (want "
                              f"{want_fwd}), decode {decode_launches} (want {want_dec})")
@@ -2560,7 +2775,7 @@ def lm_config_run(cfg, dev) -> dict:
     del params
     torch.cuda.empty_cache()
     return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-            "param_dtype": cfg.param_dtype, "n_params": n_params,
+            "param_dtype": cfg.param_dtype, "n_params": n_params, "layers": n,
             "eval": {"batch": LM_BATCH, "seq": LM_SEQ, "loss": loss,
                      "loss_second_call": loss2, "wall_s_first": eval_cold_s,
                      "wall_s": eval_warm_s, "peak_gb": peak_gb,
@@ -2573,12 +2788,12 @@ def lm_config_run(cfg, dev) -> dict:
             "launches": {"lm_forward": forward_launches, "lm_decode": decode_launches},
             "decode_vs_forward": {"tokens": PARITY_TOKENS, "rel_err": parity,
                                   "tolerance": DECODE_RTOL},
-            "card_vs_cpu": card_vs_cpu(cfg, dev)}
+            "card_vs_cpu": card_vs_cpu(fp32_config(cfg), dev)}
 
 
 def lm_phase(dev) -> dict:
     return {name: lm_config_run(dataclasses.replace(ARCHS[name], n_layers=n), dev)
-            for name, n in LM_CONFIGS}
+            for name, n in LM_CONFIGS + LM_INFER_CONFIGS}
 
 
 def main() -> int:
@@ -2612,6 +2827,8 @@ def main() -> int:
     res["pe"] = pearson_phase(dev)
     res["flash"] = flash_phase(dev)
     res["wkv"] = wkv_phase(dev, res["floors"])
+    res["scan"] = scan_phase(dev, res["floors"])
+    res["flash_lm"] = flash_lm_phase(dev)
     res["flash_bwd"] = flash_bwd_phase(dev)
     res["wkv_bwd"] = wkv_bwd_phase(dev)
     res["table2_shapes"] = table2_kernel_phase(dev)
@@ -2680,9 +2897,10 @@ def kernel_entries(res: dict) -> list[dict]:
     pe_row, pe_err = res["pe"]
     flash_rows, flash_checks = res["flash"]
     wkv_row, wkv_checks = res["wkv"]
+    scan_row, scan_checks = res["scan"]
     cohort = shapes[2]                  # (100, 6570): the train path's rows
 
-    def flash(dt, source, main_path, tolerance):
+    def flash(dt, source, main_path, tolerance, **extra):
         checks = {w: c for w, c in flash_checks.items() if w.endswith(dt)}
         main = max(c["max_abs_err"] for w, c in checks.items() if w.startswith("main"))
         causal = flash_rows[dt][1]
@@ -2696,7 +2914,7 @@ def kernel_entries(res: dict) -> list[dict]:
                      library_causal_backend=causal.get("library_causal_backend"),
                      bound_cuda_cores_ms=us_to_ms(flash_rows[dt][0], "bound_cuda_cores_us"),
                      ms_writing_lse=us_to_ms(flash_rows[dt][0], "kernel_lse_us"),
-                     shapes=flash_rows[dt], checks=checks)
+                     shapes=flash_rows[dt], checks=checks, **extra)
 
     flash_bwd_rows, flash_bwd_checks = res["flash_bwd"]
     wkv_bwd_row, wkv_bwd_checks = res["wkv_bwd"]
@@ -2752,7 +2970,13 @@ def kernel_entries(res: dict) -> list[dict]:
               library_call="torch.corrcoef(protos)", paper_shapes=new["pearson"]),
         flash("bf16", "flash_attention_sm90.cu", "lm_forward",
               {"rtol": FLASH_RTOL_BF16, "atol": FLASH_TOL_F32,
-               "against": "float32 plain version, per element"}),
+               "against": "float32 plain version, per element"},
+              # the attention layers of jamba, grok and llama4 (head_dim 128)
+              lm_hd128_shapes={what: dict(row, ms=row["kernel_us"] / 1e3,
+                                          plain_ms=row["plain_us"] / 1e3,
+                                          bound_ms=row["bound_us"] / 1e3,
+                                          library_ms=row["library_us"] / 1e3)
+                               for what, row in res["flash_lm"].items()}),
         flash("fp32", "flash_attention.cu", "lm_fp32",
               {"rtol": 0.0, "atol": FLASH_TOL_F32, "against": "plain version"}),
         entry("rwkv6", "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:45",
@@ -2782,6 +3006,22 @@ def kernel_entries(res: dict) -> list[dict]:
                                     "reference differentiates its lax.scan",
               library_none_because="no one PyTorch call computes the wkv gradient",
               ptxas_spill_stores=spills["rwkv6_scan_bwd.cu"]),
+        entry("selective_scan", "selective_scan.cu", "src/repro/models/mamba.py:75",
+              "lm_forward", scan_row, scan_checks["main (2, 4096, 16384, 16)"],
+              {"atol_of_max_or_1": SCAN_RTOL, "against": "plain version"},
+              shape=list(SCAN_SHAPE), dtype=scan_row["dtype"], checks=scan_checks,
+              no_pallas_counterpart="the reference's lax.scan over time "
+                                    "(mamba.py:68-77) and its decode step (:103-106)",
+              library_none_because="no one PyTorch call computes the selective scan",
+              bound_terms=scan_row["bound_terms"],
+              device_kernels_per_call=scan_row["device_kernels_per_call"],
+              decode_shape={"launches_lm_decode": by_path["lm_decode"]["selective_scan"],
+                            "max_abs_err": scan_checks["decode S = 1, h0"],
+                            "ms": us_to_ms(scan_row["decode"], "kernel_us"),
+                            "plain_ms": us_to_ms(scan_row["decode"], "plain_us"),
+                            "bound_ms": us_to_ms(scan_row["decode"], "bound_us"),
+                            "bound_by": scan_row["decode"]["bound_by"],
+                            "library_ms": None, "row": scan_row["decode"]}),
     ]
 
 

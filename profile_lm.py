@@ -4,7 +4,8 @@
     python3 profile_lm.py
 
 For each configuration of `chip_smoke.py`'s lm phase — gemma3-4b cut to 6
-layers and rwkv6-3b cut to 4, full width, bf16 weights from
+layers, rwkv6-3b cut to 4, jamba-1.5-large-398b cut to 4, grok-1-314b
+and llama4-maverick-400b-a17b cut to 2, full width, bf16 weights from
 `init_params(seed)` — runs one unprofiled eval step and one unprofiled
 `greedy_generate` (start-up: cuBLAS handles, kernel loads), then profiles,
 with CPU and CUDA activities:
@@ -14,7 +15,9 @@ with CPU and CUDA activities:
 * ``decode``: DECODE_STEPS `decode_step` calls at B = 2 against a cache
   already holding PROMPT tokens (one token each, as `greedy_generate` runs
   them);
-* ``train``: one `make_train_step` call at B = 2, S = 4096 (AdamW at a
+* ``train`` (gemma3-4b and rwkv6-3b only: the Mamba scan has no backward
+  kernel yet, and the MoE models' weights and AdamW state do not fit one
+  card): one `make_train_step` call at B = 2, S = 4096 (AdamW at a
   constant TRAIN_LR; the forward, its recompute under remat, the backward
   through the flash / wkv backward kernels, the update), after one
   unprofiled step.
@@ -26,8 +29,12 @@ the summed device time, the device busy share (device time over wall; one
 stream, so nothing overlaps), the number of device activities, and the
 device time by group — the port's flash-attention kernels (bf16 tensor
 cores and float32), their backward kernels, the wkv kernels and their
-backward kernels, matrix products (cuBLAS), and the rest — and each of
-the port's own kernels by name (the backward's launches apart).
+backward kernels, the selective-scan kernel, the MoE dispatch (every
+kernel launched inside `moe_apply` other than its expert products:
+routing, top-k, the slot cumsum, the scatter and the weighted gather;
+`moe_apply` runs under a `record_function` range here, which the port's
+code does not open), matrix products (cuBLAS), and the rest — and each
+of the port's own kernels by name (the backward's launches apart).
 The profiler's own cost is in the wall time.  Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -52,7 +59,10 @@ from repro_torch.models import lm as lmsteps  # noqa: E402
 from repro_torch.models import transformer as lmt  # noqa: E402
 
 SEED = 0
-CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
+# (name, layers, whether the train path is profiled)
+CONFIGS = (("gemma3-4b", 6, True), ("rwkv6-3b", 4, True),
+           ("jamba-1.5-large-398b", 4, False), ("grok-1-314b", 2, False),
+           ("llama4-maverick-400b-a17b", 2, False))
 BATCH, SEQ = 2, 4096
 PROMPT, DECODE_STEPS = 16, 8
 TRAIN_LR = 1e-3
@@ -64,7 +74,9 @@ GROUPS = (("flash_attention backward kernels", ("delta_kernel", "dkdv_kernel<",
           ("rwkv6 wkv backward kernels", ("bwd_chunk_kernel<",)),
           ("flash_attention kernels", ("flash_kernel", "flash_sm90_kernel")),
           ("rwkv6 wkv kernels", ("wkv_kernel", "wkv_chunk_kernel")),
+          ("selective scan kernel", ("selective_scan_kernel",)),
           ("matmul (cuBLAS)", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "splitk")))
+MOE_RANGE, MOE_GROUP = "moe_apply", "MoE dispatch (routing, scatter, gather)"
 
 
 def group_of(name: str) -> str:
@@ -73,6 +85,41 @@ def group_of(name: str) -> str:
         if any(k in low for k in keys):
             return group
     return "other"
+
+
+def moe_ranged():
+    """``moe_apply`` under a ``record_function`` range, in the two modules
+    that call it, for the profiled run; undone by the returned function."""
+    from repro_torch.models import moe as lmmoe
+    plain = lmmoe.moe_apply
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function(MOE_RANGE):
+            return plain(*args, **kwargs)
+    for mod in (lmt, lmdec):
+        mod.moe_apply = ranged
+
+    def undo():
+        for mod in (lmt, lmdec):
+            mod.moe_apply = plain
+    return undo
+
+
+def range_device_ms(prof, name: str) -> dict[str, float]:
+    """Device ms by group of the kernels launched inside every ``name``
+    range (the kernels the profiler ties to the CPU ops under it)."""
+    out: dict[str, float] = {}
+
+    def walk(e):
+        for k in e.kernels:
+            g = group_of(k.name)
+            out[g] = out.get(g, 0.0) + k.duration / 1e3
+        for ch in e.cpu_children:
+            walk(ch)
+    for e in prof.events():
+        if e.name == name and e.device_type == DeviceType.CPU:
+            walk(e)
+    return out
 
 
 def profiled(fn, steps: int) -> dict:
@@ -86,13 +133,21 @@ def profiled(fn, steps: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    # the MoE range also shows on the device timeline (an annotation, not work)
+    device = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.key != MOE_RANGE),
                     key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in device) / 1e3
     groups: dict[str, float] = {}
     for e in device:
         g = group_of(e.key)
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / steps
+    # the MoE dispatch: what moe_apply launched outside cuBLAS, taken out of "other"
+    moe = range_device_ms(prof, MOE_RANGE)
+    dispatch = sum(ms for g, ms in moe.items() if g != "matmul (cuBLAS)") / steps
+    if moe:
+        groups[MOE_GROUP] = dispatch
+        groups["other"] = groups.get("other", 0.0) - dispatch
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": device_ms / steps,
             "device_busy_share": device_ms / wall_ms,
@@ -107,7 +162,7 @@ def profiled(fn, steps: int) -> dict:
                              if group_of(e.key) not in ("other", "matmul (cuBLAS)")]}
 
 
-def profile_config(name: str, n_layers: int, dev) -> dict:
+def profile_config(name: str, n_layers: int, train: bool, dev) -> dict:
     cfg = dataclasses.replace(ARCHS[name], n_layers=n_layers)
     params = lmt.init_params(cfg, seed=SEED, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -131,6 +186,10 @@ def profile_config(name: str, n_layers: int, dev) -> dict:
         state["pos"] = i + 1
     out["decode"] = profiled(one_token, DECODE_STEPS)
     del cache, state
+    if not train:
+        del params
+        torch.cuda.empty_cache()
+        return out
 
     opt = optim.adamw(TRAIN_LR)
     train = {"step": lmsteps.make_train_step(cfg, opt), "params": params,
@@ -158,13 +217,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     result = {}
-    for name, n_layers in CONFIGS:
-        result[name] = profile_config(name, n_layers, dev)
+    undo = moe_ranged()
+    for name, n_layers, train in CONFIGS:
+        result[name] = profile_config(name, n_layers, train, dev)
         for path, r in result[name].items():
             print(f"\n{name} {path}: wall {r['wall_ms_per_step']:.3f} ms/step, device "
                   f"{r['device_ms_per_step']:.3f} ms/step ({r['device_busy_share']:.1%} busy)")
             for e in r["top_device"]:
                 print(f"  {e['name'][:90]:<90} {e['calls']:>6.1f} {e['device_ms_per_step']:>9.3f}")
+    undo()
     print(json.dumps({"profile_lm": {"device": torch.cuda.get_device_name(0),
                                      "batch": BATCH, "seq": SEQ, "prompt": PROMPT,
                                      "configs": result}}), flush=True)

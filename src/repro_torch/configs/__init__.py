@@ -3,8 +3,8 @@
 Port of ``repro.configs``: the same configurations, field for field (each
 ``configs/<arch>.py`` is a copy of the reference's, as data), over the
 port's :class:`~repro_torch.models.transformer.ArchConfig`.  All ten
-construct; the families that need the Mamba mixer, MoE FFNs or an encoder
-raise ``NotImplementedError`` when run (``transformer.check_runnable``)."""
+construct; whisper, which needs an encoder and cross-attention, raises
+``NotImplementedError`` when run (``transformer.check_runnable``)."""
 from __future__ import annotations
 
 from repro_torch.configs import (

@@ -7,7 +7,10 @@ kernels have a wrapper: ``fingerprint``, ``pearson``, ``cluster_aggregate``,
 ``attention``, ``rwkv6_wkv``.  The last two are differentiable: they go
 through ``FlashAttentionFn`` / ``Rwkv6Fn`` on both devices, so a CPU tensor
 takes the plain forward and the plain backward, a CUDA tensor the forward
-kernel and the backward kernel.
+kernel and the backward kernel.  ``selective_scan`` (Mamba's recurrence, a
+``lax.scan`` in the reference) has a kernel with no backward yet: autograd
+runs through the plain version on CPU tensors, and on CUDA tensors a
+backward through ``SelectiveScanFn`` raises (ROADMAP item 7e).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from repro_torch.kernels.fingerprint import fingerprint_rows
 from repro_torch.kernels.flash_attention import FlashAttentionFn
 from repro_torch.kernels.pearson import pearson_rows
 from repro_torch.kernels.rwkv6_scan import Rwkv6Fn
+from repro_torch.kernels.selective_scan import SelectiveScanFn, selective_scan_plain
 
 
 def fingerprint(bits: torch.Tensor) -> torch.Tensor:
@@ -52,3 +56,16 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """RWKV6 wkv recurrence: r, k, v, w (B, H, T, hd), u (H, hd), s0
     (B, H, hd, hd) -> (y (B, H, T, hd), final state), differentiable."""
     return Rwkv6Fn.apply(r, k, v, w, u, s0)
+
+
+def selective_scan(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                   h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba's selective scan: dt (B, S, di) float32, x (B, S, di), Bm and
+    Cm (B, S, N) float32, A (di, N), D (di,), h0 (B, di, N) float32 ->
+    (y (B, S, di) float32 with the skip term x D, final state)."""
+    if dt.device.type == "cpu":
+        return selective_scan_plain(dt, x, Bm, Cm, A, D, h0)
+    if dt.device.type == "cuda":
+        return SelectiveScanFn.apply(dt, x, Bm, Cm, A, D, h0)
+    raise ValueError(f"selective_scan: no path for device {dt.device}")

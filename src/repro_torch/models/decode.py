@@ -7,15 +7,23 @@ kinds per mixer:
 
   attn  : k/v ring buffers — full layers allocate ``seq_len`` slots, sliding-
           window layers only ``window`` slots;
+  mamba : (conv, ssm) — the last d_conv - 1 inputs of the conv in the model
+          dtype and the float32 scan state, O(1) in sequence length; the
+          state is carried through ``repro_torch.kernels.ops.selective_scan``
+          at S = 1;
   rwkv  : (tm_x, cm_x, wkv) — O(1) in sequence length; the wkv state is
           carried through ``repro_torch.kernels.ops.rwkv6_wkv`` at T = 1.
 
+MoE FFNs route the step's B tokens at the reference's capacity for
+T = B: at least 128 slots an expert, so no choice is dropped while
+B * top_k <= 128.
+
 ``pos`` is a Python int.  Unlike the reference, whose arrays are immutable,
 :func:`decode_step` writes the new k/v rows into the ring buffers and the
-new RWKV states into their slots in place (a new buffer per token would copy
-the whole cache every step): the returned cache holds the same tensors as
-the one passed in, which is advanced with it.  Mamba and cross-attention
-caches raise ``NotImplementedError`` (ROADMAP queue 1 items 7c and 7d).
+new RWKV and Mamba states into their slots in place (a new buffer per token
+would copy the whole cache every step): the returned cache holds the same
+tensors as the one passed in, which is advanced with it.  Cross-attention
+caches raise ``NotImplementedError`` (ROADMAP queue 1 item 7d).
 """
 from __future__ import annotations
 
@@ -25,11 +33,12 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import rwkv as rk
 from repro_torch.models.layers import apply_rope, ffn_apply, norm, rms_norm
+from repro_torch.models.moe import moe_apply, moe_capacity
 from repro_torch.models.transformer import (
     NOT_PORTED_ENCODER,
-    NOT_PORTED_MAMBA_MOE,
     ArchConfig,
     LayerSpec,
     check_runnable,
@@ -49,6 +58,10 @@ def _layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, seq_len: int,
         shape = lead + (batch, s_c, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
+    if spec.mixer == "mamba":
+        st = mb.mamba_init_state(batch, cfg.mamba_d_inner, cfg.mamba_d_state,
+                                 cfg.mamba_d_conv, dt, device=device)
+        return {k: v.expand(lead + tuple(v.shape)).clone() for k, v in st.items()}
     if spec.mixer == "rwkv":
         st = rk.rwkv_init_state(batch, cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_dim,
                                 dt, device=device)
@@ -107,9 +120,12 @@ def _attn_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, c: dict,
 
 
 def _ffn_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor) -> torch.Tensor:
-    if spec.moe:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MAMBA_MOE}")
     x = norm(cfg.norm, h, p["norm2"])
+    if spec.moe:
+        cap = moe_capacity(x.shape[0] * x.shape[1], cfg.moe_top_k, cfg.n_experts,
+                           cfg.capacity_factor)
+        y, _ = moe_apply(cfg.activation, p["moe"], x, top_k=cfg.moe_top_k, capacity=cap)
+        return h + y
     return h + ffn_apply(cfg.activation, p["ffn"], x)
 
 
@@ -119,6 +135,13 @@ def _apply_layer_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, c: dict,
     if spec.mixer == "attn":
         h = _attn_decode(cfg, spec, p, c, h, pos)
         return _ffn_decode(cfg, spec, p, h)
+    if spec.mixer == "mamba":
+        x = norm(cfg.norm, h, p["norm1"])
+        y, st = mb.mamba_decode(p["mamba"], x, c, d_state=cfg.mamba_d_state,
+                                d_conv=cfg.mamba_d_conv, dt_rank=cfg.mamba_dt_rank)
+        for name in ("conv", "ssm"):
+            c[name].copy_(st[name])          # in place: see the module note
+        return _ffn_decode(cfg, spec, p, h + y)
     if spec.mixer == "rwkv":
         x = norm(cfg.norm, h, p["norm1"])
         y, tm_x, wkv = rk.time_mix_apply(
@@ -130,7 +153,7 @@ def _apply_layer_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, c: dict,
         for name, new in (("tm_x", tm_x), ("cm_x", cm_x), ("wkv", wkv)):
             c[name].copy_(new)               # in place: see the module note
         return h + y
-    raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MAMBA_MOE}")
+    raise ValueError(spec.mixer)
 
 
 def decode_step(cfg: ArchConfig, params: Pytree, cache: Pytree,

@@ -9,11 +9,14 @@ stacked over ``n_periods``, and ``params["rem_layers"]`` holds the layers
 left over when ``n_layers % len(pattern) != 0``.  The reference's
 ``lax.scan`` over periods is a Python loop that indexes the stack.
 
-Ported: attention (full, sliding-window, GQA, QK-norm, RoPE) and RWKV6
-mixers with dense FFNs — gemma3-4b, gemma-7b, h2o-danube-3-4b, minitron-8b,
-internvl2-2b's language backbone, rwkv6-3b.  Parameters of every family
-are built (shapes included), but the Mamba mixer and MoE FFNs (ROADMAP
-queue 1 item 7c) and cross-attention with its encoder (item 7d) raise
+Ported: attention (full, sliding-window, GQA, QK-norm, RoPE), Mamba and
+RWKV6 mixers with dense and MoE FFNs — gemma3-4b, gemma-7b,
+h2o-danube-3-4b, minitron-8b, internvl2-2b's language backbone, rwkv6-3b,
+jamba-1.5-large-398b, llama4-maverick-400b-a17b, grok-1-314b.  MoE layers
+take the reference's plain ``moe_apply`` whatever ``sharding_mode`` says
+(its expert-parallel variant waits for multi-GPU, ROADMAP queue 1 item 6).
+Parameters of every family are built (shapes included), but
+cross-attention with its encoder (whisper, item 7d) raises
 ``NotImplementedError`` when run.
 """
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import rwkv as rk
 from repro_torch.models.layers import (
     Init,
@@ -35,17 +39,15 @@ from repro_torch.models.layers import (
     ffn_apply,
     ffn_init,
     init_norm,
-    is_gated,
     norm,
     rms_norm,
     sinusoidal_positions,
 )
+from repro_torch.models.moe import moe_apply, moe_capacity, moe_init
 from repro_torch.utils.tree import tree_index
 
 Pytree = Any
 
-NOT_PORTED_MAMBA_MOE = ("the Mamba mixer and MoE FFNs are not ported yet "
-                        "(ROADMAP queue 1 item 7c)")
 NOT_PORTED_ENCODER = ("cross-attention, the encoder and the audio/vision "
                       "frontends are not ported yet (ROADMAP queue 1 item 7d)")
 
@@ -179,49 +181,13 @@ class ArchConfig:
 def check_runnable(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` (naming the ROADMAP item) if ``cfg``
     needs a part of the reference the port does not run yet."""
-    specs = cfg.pattern + cfg.remainder
-    if any(s.mixer == "mamba" or s.moe for s in specs):
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MAMBA_MOE}")
-    if cfg.encoder is not None or any(s.cross_attn for s in specs):
+    if cfg.encoder is not None or any(s.cross_attn for s in cfg.pattern):
         raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_ENCODER}")
 
 
 # --------------------------------------------------------------------------- #
 # Parameter construction
 # --------------------------------------------------------------------------- #
-
-def _mamba_init(init: Init, d_model: int, d_inner: int, d_state: int, d_conv: int,
-                dt_rank: int, dtype: torch.dtype) -> dict:
-    """Shapes and initial values of ``repro.models.mamba.mamba_init``."""
-    f32 = torch.float32
-    a_log = torch.log(torch.arange(1, d_state + 1, dtype=f32)).expand(d_inner, d_state)
-    return {
-        "in_proj": dense_init(init, d_model, 2 * d_inner, dtype),
-        "conv_w": init.normal((d_conv, d_inner), (1.0 / d_conv) ** 0.5, dtype),
-        "conv_b": init.full((d_inner,), 0.0, dtype),
-        "x_proj": dense_init(init, d_inner, dt_rank + 2 * d_state, dtype),
-        "dt_proj": dense_init(init, dt_rank, d_inner, dtype),
-        "dt_bias": init.full((d_inner,), -4.6, f32),
-        "A_log": a_log.to("meta" if init.generator is None else init.device).clone(),
-        "D": init.full((d_inner,), 1.0, f32),
-        "out_proj": dense_init(init, d_inner, d_model, dtype),
-    }
-
-
-def _moe_init(init: Init, act: str, d_model: int, d_ff: int, n_experts: int,
-              dtype: torch.dtype, shared_expert: bool) -> dict:
-    """Shapes and initial values of ``repro.models.moe.moe_init``."""
-    def experts(a, b):
-        return init.normal((n_experts, a, b), (1.0 / a) ** 0.5, dtype)
-    p = {"router": dense_init(init, d_model, n_experts, torch.float32),
-         "w_gate": experts(d_model, d_ff),
-         "w_down": experts(d_ff, d_model)}
-    if is_gated(act):
-        p["w_up"] = experts(d_model, d_ff)
-    if shared_expert:
-        p["shared"] = ffn_init(init, act, d_model, d_ff, dtype)
-    return p
-
 
 def _init_layer(cfg: ArchConfig, spec: LayerSpec, init: Init) -> dict:
     dt = cfg.dtype
@@ -244,8 +210,8 @@ def _init_layer(cfg: ArchConfig, spec: LayerSpec, init: Init) -> dict:
             p["oc"] = dense_init(init, cfg.n_heads * cfg.head_dim, D, dt)
     elif spec.mixer == "mamba":
         p["norm1"] = init_norm(init, cfg.norm, D, dt)
-        p["mamba"] = _mamba_init(init, D, cfg.mamba_d_inner, cfg.mamba_d_state,
-                                 cfg.mamba_d_conv, cfg.mamba_dt_rank, dt)
+        p["mamba"] = mb.mamba_init(init, D, cfg.mamba_d_inner, cfg.mamba_d_state,
+                                   cfg.mamba_d_conv, cfg.mamba_dt_rank, dt)
     elif spec.mixer == "rwkv":
         p["norm1"] = init_norm(init, cfg.norm, D, dt)
         p["time_mix"] = rk.rwkv_time_mix_init(
@@ -258,8 +224,8 @@ def _init_layer(cfg: ArchConfig, spec: LayerSpec, init: Init) -> dict:
 
     p["norm2"] = init_norm(init, cfg.norm, D, dt)
     if spec.moe:
-        p["moe"] = _moe_init(init, cfg.activation, D, cfg.moe_d_ff or cfg.d_ff,
-                             cfg.n_experts, dt, cfg.moe_shared_expert)
+        p["moe"] = moe_init(init, cfg.activation, D, cfg.moe_d_ff or cfg.d_ff,
+                            cfg.n_experts, dt, cfg.moe_shared_expert)
     else:
         p["ffn"] = ffn_init(init, cfg.activation, D, cfg.d_ff, dt)
     return p
@@ -360,9 +326,12 @@ def _attn_sublayer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
 
 def _ffn_sublayer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    if spec.moe:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MAMBA_MOE}")
     x = norm(cfg.norm, h, p["norm2"])
+    if spec.moe:
+        cap = moe_capacity(x.shape[0] * x.shape[1], cfg.moe_top_k, cfg.n_experts,
+                           cfg.capacity_factor)
+        y, aux = moe_apply(cfg.activation, p["moe"], x, top_k=cfg.moe_top_k, capacity=cap)
+        return h + y, aux
     return (h + ffn_apply(cfg.activation, p["ffn"], x),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
@@ -375,7 +344,10 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
         h = _attn_sublayer(cfg, spec, p, h, pos_ids)
         return _ffn_sublayer(cfg, spec, p, h)
     if spec.mixer == "mamba":
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MAMBA_MOE}")
+        x = norm(cfg.norm, h, p["norm1"])
+        h = h + mb.mamba_apply(p["mamba"], x, d_state=cfg.mamba_d_state,
+                               d_conv=cfg.mamba_d_conv, dt_rank=cfg.mamba_dt_rank)
+        return _ffn_sublayer(cfg, spec, p, h)
     if spec.mixer == "rwkv":
         B = h.shape[0]
         st = rk.rwkv_init_state(B, cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_dim,

@@ -5,8 +5,10 @@ reference, from the same carried parameters (`interop.lm_params_from_numpy`)
 and the same batches.
 
 On the CPU, at `reduced()` in float32, for gemma3-4b (sliding-window and
-global attention, GQA, QK-norm), h2o-danube-3-4b and rwkv6-3b (the wkv
-recurrence), against the reference's `jax.value_and_grad` step:
+global attention, GQA, QK-norm), h2o-danube-3-4b, rwkv6-3b (the wkv
+recurrence), jamba-1.5-large-398b (the Mamba scan, MoE with its aux loss),
+llama4-maverick-400b-a17b (top-1 MoE with a shared expert) and grok-1-314b
+(top-2 MoE), against the reference's `jax.value_and_grad` step:
   * the loss at rtol 1e-5 (the forward's tolerance in tests/test_torch_lm.py);
   * every gradient leaf within 1e-4 max(1, max |g_ref|) (float32 sums in
     another order through the whole backward);
@@ -39,7 +41,8 @@ from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
-TRAINED = ["gemma3-4b", "h2o-danube-3-4b", "rwkv6-3b"]
+TRAINED = ["gemma3-4b", "h2o-danube-3-4b", "rwkv6-3b", "jamba-1.5-large-398b",
+           "llama4-maverick-400b-a17b", "grok-1-314b"]
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 TRAJECTORY_RTOL = 1e-4
