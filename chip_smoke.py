@@ -6,10 +6,10 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. kernels — builds every CUDA source of the port (`nvcc`, sm_90a, one
-   process per source, all at once; both flash kernels must compile
-   without register spills; the backward kernels' spill counts are
-   printed and reported) and holds each kernel against its plain PyTorch
-   version on the card:
+   process per source, all at once; both flash kernels and the selective
+   scan must compile without register spills; the backward kernels' spill
+   counts are printed and reported) and holds each kernel against its
+   plain PyTorch version on the card:
    * the launch floors: an empty kernel, and one that moves 16 bytes
      (`csrc/launch_floor.cu`), under the same timer as every kernel;
    * fingerprint, bit for bit, at the serving bank (5, 6570), a commit
@@ -56,12 +56,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      counterpart: the reference's `lax.scan`) at jamba's prefill (2, 4096,
      16384, 16) with the model's decays (dt from softplus around 0.01), x
      in bf16 and in float32, strong decays (dt up to 5), split at 1001
-     against the whole, at a ragged S = 1000 and at decode's S = 1 from a
-     non-zero state, y and h_T within SCAN_RTOL max(1, max |want|); one
+     against the whole, at a ragged S = 1000, at decode's S = 1 from a
+     non-zero state and on both sides of the switch between the kernel's
+     decode and chunked forms (S = DECODE_MAX_S and DECODE_MAX_S + 1), y
+     and h_T within SCAN_RTOL max(1, max |want|); one
      call must make one device launch (where torch.profiler records the
      call: in this phase it often records nothing, which is reported and
      does not stop the run); timed at the prefill and at decode
-     beside the launch floors, its bound the larger of its bytes, its
+     beside the launch floors (decode also after a clean-L2 flush), its
+     bound the larger of its bytes, its
      exponentials on the SFUs and its other flops;
    * the flash backward (three launches counted as one, each dtype with
      the L its forward wrote: bf16 in `csrc/flash_attention_bwd_sm90.cu` on
@@ -380,8 +383,10 @@ FLASH_LM_SHAPES = {"jamba (2, 4096, 64, 8, 128) G = 8": ((2, 4096, 64, 8, 128), 
                    "grok (2, 4096, 48, 8, 128) G = 6": ((2, 4096, 48, 8, 128), 0),
                    "llama4 (2, 4096, 40, 8, 128) G = 5 window 8192":
                        ((2, 4096, 40, 8, 128), 8192)}
-# the flash kernels keep O, S and P in registers: a spill serialises them
-NO_SPILL_SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu")
+# the flash kernels keep O, S and P in registers: a spill serialises them;
+# the selective scan keeps its states in registers at 64 a thread (four
+# blocks an SM): a spill puts local-memory traffic in every step
+NO_SPILL_SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu", "selective_scan.cu")
 # the backward kernels' sources: their spills are printed and reported, not gated
 BACKWARD_SOURCES = ("flash_attention_bwd_sm90.cu", "flash_attention_bwd.cu",
                     "rwkv6_scan_bwd.cu")
@@ -493,9 +498,9 @@ def fingerprint_bound_us(m: int, n: int) -> tuple[float, str]:
 
 def check_no_spills() -> None:
     """Both flash kernels keep O, S and P in registers (241 of them at
-    head_dim 256 in the bf16 kernel): ptxas must compile every instance of
-    each without spilling, or their tensor-core products serialise on local
-    memory."""
+    head_dim 256 in the bf16 kernel), the selective scan its states at 64
+    a thread: ptxas must compile every instance of each without spilling,
+    or their products serialise on local memory."""
     for source in NO_SPILL_SOURCES:
         log = _build.library_path(source).with_suffix(".log").read_text()
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
@@ -2176,8 +2181,9 @@ def scan_bound_us(args) -> tuple[float, str, dict]:
 def scan_phase(dev, floors: dict) -> tuple[dict, dict]:
     """The selective-scan kernel against its plain version at jamba's
     prefill SCAN_SHAPE (x in bf16 and in float32, the model's decays and
-    strong ones), split at 1001 against the whole, at a ragged S = 1000
-    and at decode's S = 1 from a non-zero state; one call must make one
+    strong ones), split at 1001 against the whole, at a ragged S = 1000,
+    on both sides of the kernel's decode-form switch and at decode's S = 1
+    from a non-zero state; one call must make one
     device launch where the profiler records it; times at the prefill and
     at decode beside this run's launch floors."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -2197,6 +2203,12 @@ def scan_phase(dev, floors: dict) -> tuple[dict, dict]:
     cases = {"main strong decays": dict(S=S, strong=True),
              "main x float32": dict(S=S, x_dtype=torch.float32),
              "ragged S = 1000 strong decays, h0": dict(S=1000, strong=True, h0_scale=1.0),
+             # the last S of the kernel's decode form and the first of its
+             # chunked form
+             f"switch S = {sc.DECODE_MAX_S} decode form, h0":
+                 dict(S=sc.DECODE_MAX_S, strong=True, h0_scale=1.0),
+             f"switch S = {sc.DECODE_MAX_S + 1} chunked form, h0":
+                 dict(S=sc.DECODE_MAX_S + 1, strong=True, h0_scale=1.0),
              "decode S = 1, h0": dict(S=1, h0_scale=1.0)}
     for what, kw in cases.items():
         args = scan_inputs(gen, B, kw.pop("S"), di, dev, **kw)
@@ -2231,6 +2243,11 @@ def scan_phase(dev, floors: dict) -> tuple[dict, dict]:
     row["decode"] = {"shape": [B, 1, di, 16], "dtype": row["dtype"],
                      "kernel_us": median_us(lambda _: sc.selective_scan_cuda(*one), None,
                                             200, flush),
+                     # the same after the flush reads L2 rather than writes it:
+                     # the dirty lines the write leaves cost write-backs beside
+                     # the call's few MB
+                     "kernel_clean_l2_us": median_us(lambda _: sc.selective_scan_cuda(*one),
+                                                     None, 200, flush, clean_l2=True),
                      "plain_us": median_us(lambda _: sc.selective_scan_plain(*one), None,
                                            50, flush),
                      "library_us": None, "bound_us": bound, "bound_by": bound_by,
@@ -2971,6 +2988,7 @@ def kernel_entries(res: dict) -> list[dict]:
         flash("bf16", "flash_attention_sm90.cu", "lm_forward",
               {"rtol": FLASH_RTOL_BF16, "atol": FLASH_TOL_F32,
                "against": "float32 plain version, per element"},
+              ms_causal=us_to_ms(flash_rows["bf16"][1], "kernel_us"),
               # the attention layers of jamba, grok and llama4 (head_dim 128)
               lm_hd128_shapes={what: dict(row, ms=row["kernel_us"] / 1e3,
                                           plain_ms=row["plain_us"] / 1e3,
@@ -3018,6 +3036,7 @@ def kernel_entries(res: dict) -> list[dict]:
               decode_shape={"launches_lm_decode": by_path["lm_decode"]["selective_scan"],
                             "max_abs_err": scan_checks["decode S = 1, h0"],
                             "ms": us_to_ms(scan_row["decode"], "kernel_us"),
+                            "ms_clean_l2": us_to_ms(scan_row["decode"], "kernel_clean_l2_us"),
                             "plain_ms": us_to_ms(scan_row["decode"], "plain_us"),
                             "bound_ms": us_to_ms(scan_row["decode"], "bound_us"),
                             "bound_by": scan_row["decode"]["bound_by"],

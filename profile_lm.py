@@ -72,9 +72,11 @@ TRAIN_LR = 1e-3
 GROUPS = (("flash_attention backward kernels", ("delta_kernel", "dkdv_kernel<",
                                                 "dq_kernel<")),
           ("rwkv6 wkv backward kernels", ("bwd_chunk_kernel<",)),
-          ("flash_attention kernels", ("flash_kernel", "flash_sm90_kernel")),
+          ("flash_attention kernels", ("flash_kernel", "flash_sm90_kernel",
+                                       "flash_sm90_narrow_kernel")),
           ("rwkv6 wkv kernels", ("wkv_kernel", "wkv_chunk_kernel")),
-          ("selective scan kernel", ("selective_scan_kernel",)),
+          # csrc/selective_scan.cu's chunked and decode forms
+          ("selective scan kernel", ("scan_chunked_kernel", "scan_decode_kernel")),
           ("matmul (cuBLAS)", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "splitk")))
 MOE_RANGE, MOE_GROUP = "moe_apply", "MoE dispatch (routing, scatter, gather)"
 

@@ -69,6 +69,11 @@
 //     168, spilled and serialised their wgmmas.  8 warps get up to 255.
 //   * The CTAs with the most kv tiles (the last query blocks, causal) start
 //     first.
+// That is flash_sm90_kernel, for hd 129 .. 256.  hd <= 128 takes
+// flash_sm90_narrow_kernel (below), the same layout of rows and the same
+// arithmetic with 128-key tiles, each warpgroup's softmax overlapped with
+// its own products instead of the ping-pong, and the scale folded into the
+// exponent's FFMA.
 // q, k and v are read through their strides (multiples of 16 bytes, as TMA
 // requires; the wrapper checks); out (B, S, Hq, hd) is contiguous.  Given
 // an `lse` buffer, the epilogue also writes each row's log-sum-exp L = m +
@@ -102,6 +107,10 @@ constexpr float kMasked = kNegInf * kLog2e;  // a masked score, in log2 units
 constexpr uint32_t kRowBytes = 128;
 constexpr uint32_t kQBox = kRows * kRowBytes;   // 64 head dims of the 128 query rows
 constexpr uint32_t kKvBox = kKeys * kRowBytes;  // 64 head dims of a kv tile
+// hd <= 128 (flash_sm90_narrow_kernel): wider kv tiles, a deeper ring
+constexpr int kNarrowKeys = 128;
+constexpr int kNarrowStages = 2;
+constexpr uint32_t kKvBoxN = kNarrowKeys * kRowBytes;
 
 struct Params {
   __nv_bfloat16* out;
@@ -206,6 +215,24 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "   \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
+#define WGMMA_D64(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+  "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+  "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define WGMMA_D64_LIST \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
 // d += A B, m64n64k16, A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
@@ -234,6 +261,59 @@ __device__ __forceinline__ float ex2(float x) {
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// query rows past G * P are never copied: zero them for the products
+template <int NCH>
+__device__ __forceinline__ void zero_padded_rows(unsigned char* q, int nrows, int tid) {
+  for (int i = nrows * (kRowBytes / 4) + tid; i < kRows * (kRowBytes / 4); i += kThreads)
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) reinterpret_cast<uint32_t*>(q + c * kQBox)[i] = 0u;
+}
+
+// The epilogue of both kernels, for this thread's rows r0 and r0 + 8 (at
+// positions pos0, pos1; running max m in log2 units, its share l of the
+// row sum): the row sums over the 4 lanes of a row, L = m + log2(l) into
+// `lse` when given, and out = O / max(l, 1e-30) in bf16, by a quotient an
+// element or (kReciprocal) by O times one reciprocal a row, within an ulp
+// of float32 (the quotient's slow path costs a call an element).  o(j, e)
+// is element e of the accumulator's column block j: head dims 8 j + kc and
+// 8 j + kc + 1 of row r0 (e = 0, 1) and of row r0 + 8 (e = 2, 3).
+template <int NCH, bool kReciprocal, typename Acc>
+__device__ __forceinline__ void write_rows(const Params& a, const Acc& o, float m0, float m1,
+                                           float l0, float l1, int r0, int pos0, int pos1,
+                                           int kc, int b, int hk, int nrows) {
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int G = a.G;
+  if (a.lse != nullptr && kc == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half, pos = half ? pos1 : pos0;
+      if (r < nrows && pos < a.S)
+        a.lse[((long long)b * a.Hq + hk * G + r % G) * a.S + pos] =
+            half ? m1 + log2f(l1) : m0 + log2f(l0);
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half, pos = half ? pos1 : pos0;
+    if (r >= nrows || pos >= a.S) continue;
+    const float den = fmaxf(half ? l1 : l0, 1e-30f), inv = 1.f / den;
+    __nv_bfloat16* orow =
+        a.out + (((long long)b * a.S + pos) * a.Hq + hk * G + r % G) * a.hd;
+#pragma unroll
+    for (int j = 0; j < 8 * NCH; ++j) {
+      const int d = 8 * j + kc;
+      const float x = o(j, 2 * half), y = o(j, 2 * half + 1);
+      if (d < a.hd)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            kReciprocal ? __floats2bfloat162_rn(x * inv, y * inv)
+                        : __floats2bfloat162_rn(x / den, y / den);
+    }
+  }
 }
 
 template <int NCH>
@@ -271,10 +351,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       tma_load_4d(sv + (st * NCH + c) * kKvBox, &tv, v_full(st), c * kChunk, hk, t * kKeys, b);
   };
 
-  // query rows past G * P are never copied: zero them for the products
-  for (int i = nrows * (kRowBytes / 4) + tid; i < kRows * (kRowBytes / 4); i += kThreads)
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) reinterpret_cast<uint32_t*>(smem + L::q + c * kQBox)[i] = 0u;
+  zero_padded_rows<NCH>(smem + L::q, nrows, tid);
   if (tid == 0) {
     mbar_init(sbar, 1);
     for (int st = 0; st < kStages; ++st) {
@@ -419,38 +496,317 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       load_tile(t + kStages, st);
   }
 
-  // the row sums over the 4 lanes of a row; out = O / max(l, 1e-30)
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
-  if (a.lse != nullptr && kc == 0) {
+  // column block j of O: 8 blocks a chunk of 64 head dims
+  write_rows<NCH, false>(
+      a, [&](int j, int e) { return o[j / 8][4 * (j % 8) + e]; }, m0, m1, l0, l1, r0,
+      pos0, pos1, kc, b, hk, nrows);
+}
+
+// -- head_dim <= 128 ------------------------------------------------------ //
+// d += A B, m64n128k16, A and B K-major in shared memory; scale_d 0 ignores d
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D64_LIST
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D64(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A B, m64n128k16, A from registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D64_LIST
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WGMMA_D64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// until every committed group but the last has completed
+__device__ __forceinline__ void wgmma_wait_all_but_last() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// O += P V for one k-step of 16 keys: 64 NCH head dims in one instruction
+template <int NCH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[32 * NCH], const uint32_t* p, uint64_t dv) {
+  if constexpr (NCH == 2) wgmma_rs128(o, p, dv); else wgmma_rs(o, p, dv);
+}
+
+// The kernel for hd <= 128 (NCH = 1 or 2).  At these widths the tensor
+// cores do half the work a (q, k) pair that they do at hd 256, while the
+// softmax's work a pair stays, so it no longer hides behind the other
+// warpgroup's products alone.  What changes from flash_sm90_kernel:
+//   * kv tiles of kNarrowKeys = 128 keys in a ring of kNarrowStages = 2
+//     (160 KB of shared memory at hd 128): S is one m64n128k16 per 16 head
+//     dims, O += P V one m64n128k16 (hd 128) per 16 keys and term, half the
+//     instructions and barrier trips per flop.  (Three stages measured no
+//     faster: kernel_ablation.py.)
+//   * Each warpgroup overlaps its own softmax with its products (FA3's
+//     intra-warpgroup pipelining): it issues S_j = Q K_j^T, rescales O by
+//     tile j - 1's correction while that runs, and issues O += P_{j-1}
+//     V_{j-1}, as two commit groups; it waits for S_j alone, runs the
+//     softmax of tile j while P_{j-1} V_{j-1} still runs, then waits for
+//     that and makes P_j.  The registers of S_j (64), P_{j-1} in two bf16
+//     terms (64) and O (64) are live together.  The two warpgroups take no
+//     turns: with the overlap, the ping-pong measured no faster.
+//   * K and V stages are released apart, K_j once S_j is in and V_j once
+//     its product is, each warp counting itself: the last of the CTA's 8
+//     warps refills the stage, so a K copy is in flight about a tile
+//     sooner than with one release a stage.
+//   * Scores stay raw until the exponent: the row max is taken on q.k, the
+//     running max m in log2 units is max(m, max(q.k) scale log2(e)), and
+//     p = ex2(q.k scale log2(e) - m) is one FFMA and one MUFU.  Masked
+//     scores are -inf, so p = 0 there; a row that has seen no live key
+//     keeps m = -1e30 log2(e), l = 0 and O = 0, and the first live key's
+//     correction ex2(-1e30 log2(e) - m) = 0 leaves them so.
+//   * The first product of S_j starts from zero (scale-d 0): S needs no
+//     clearing.
+// S = Q K^T of a 128-key tile, issued (the caller commits): the first
+// product starts from zero
+template <int NCH>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows, uint32_t k_tile) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = half ? r1 : r0, pos = half ? pos1 : pos0;
-      if (r < nrows && pos < a.S)
-        a.lse[((long long)b * a.Hq + hk * G + r % G) * a.S + pos] =
-            half ? m1 + log2f(l1) : m0 + log2f(l0);
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss128(s, desc_sw128(q_rows + c * kQBox + kk * 32, 16),
+                  desc_sw128(k_tile + c * kKvBoxN + kk * 32, 16), c | kk);
+}
+
+// O += P V of a 128-key tile, P in two bf16 terms, issued (the caller commits)
+template <int NCH>
+__device__ __forceinline__ void issue_pv(float (&o)[32 * NCH], const uint32_t (&p_hi)[32],
+                                         const uint32_t (&p_lo)[32], uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kNarrowKeys / 16; ++kk) {
+    const uint64_t dv = desc_sw128(v_tile + kk * 16 * kRowBytes, kKvBoxN);
+    wgmma_pv<NCH>(o, p_hi + 4 * kk, dv);
+    wgmma_pv<NCH>(o, p_lo + 4 * kk, dv);
+  }
+}
+
+// a thread's two rows of the online softmax: running max (log2 units) and
+// its share of the row sums, the rows' positions, its first column
+struct Rows {
+  float m0, m1, l0, l1;
+  int pos0, pos1, kc;
+};
+
+// the online softmax of the tile at key k0 on s: mask where the tile
+// crosses an edge of the live band (q_lo .. q_hi the CTA's positions),
+// move the running max, p = ex2(s c - m) into s; returns the corrections
+// of the two rows
+__device__ __forceinline__ float2 online_softmax(float (&s)[64], Rows& r, const Params& a,
+                                                 int k0, int q_lo, int q_hi) {
+  const bool edge = k0 + kNarrowKeys > a.S || (a.causal && k0 + kNarrowKeys - 1 > q_lo) ||
+                    (a.window > 0 && q_hi - k0 >= a.window);
+  const float ninf = __int_as_float(0xff800000);   // -inf
+  float mx0 = ninf, mx1 = ninf;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (edge) {
+      const int kp = k0 + 8 * (i / 4) + r.kc + (i & 1);
+      const int pos = (i & 2) ? r.pos1 : r.pos0;
+      bool ok = kp < a.S;
+      if (a.causal) ok = ok && kp <= pos;
+      if (a.window > 0) ok = ok && pos - kp < a.window;
+      s[i] = ok ? s[i] : ninf;
+    }
+    if (i & 2) mx1 = fmaxf(mx1, s[i]); else mx0 = fmaxf(mx0, s[i]);
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float n0 = fmaxf(r.m0, mx0 * a.scale_log2), n1 = fmaxf(r.m1, mx1 * a.scale_log2);
+  const float2 corr = make_float2(ex2(r.m0 - n0), ex2(r.m1 - n1));
+  r.m0 = n0;
+  r.m1 = n1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float p = ex2(fmaf(s[i], a.scale_log2, (i & 2) ? -n1 : -n0));
+    s[i] = p;
+    if (i & 2) sum1 += p; else sum0 += p;
+  }
+  r.l0 = r.l0 * corr.x + sum0;
+  r.l1 = r.l1 * corr.y + sum1;
+  return corr;
+}
+
+// P as bf16 A fragments, high and low terms (see flash_sm90_kernel)
+__device__ __forceinline__ void make_p(const float (&s)[64], uint32_t (&p_hi)[32],
+                                       uint32_t (&p_lo)[32]) {
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(s[2 * q], s[2 * q + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    p_hi[q] = bf16x2_bits(h);
+    p_lo[q] = bf16x2_bits(__floats2bfloat162_rn(s[2 * q] - hf.x, s[2 * q + 1] - hf.y));
+  }
+}
+
+template <int NCH>
+struct NarrowSmem {
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t k = NCH * kQBox;
+  static constexpr uint32_t v = k + kNarrowStages * NCH * kKvBoxN;
+  static constexpr uint32_t bars = v + kNarrowStages * NCH * kKvBoxN;
+  static constexpr uint32_t done = bars + 8 * (1 + 2 * kNarrowStages);   // K, V counters
+  static constexpr uint32_t bytes = done + 8 * kNarrowStages + 1024;
+};
+
+template <int NCH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_sm90_narrow_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const Params a) {
+  using L = NarrowSmem<NCH>;
+  constexpr int kStg = kNarrowStages, kK = kNarrowKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sq = smem_u32(smem + L::q), sk = smem_u32(smem + L::k),
+                 sv = smem_u32(smem + L::v), sbar = smem_u32(smem + L::bars);
+  auto k_full = [&](int st) { return sbar + 8 * (1 + st); };
+  auto v_full = [&](int st) { return sbar + 8 * (1 + kStg + st); };
+  // warps done with each K and each V stage, counted across its uses
+  unsigned* k_done = reinterpret_cast<unsigned*>(smem + L::done);
+  unsigned* v_done = k_done + kStg;
+
+  const int G = a.G, nrows = a.G * a.P;
+  const int qb = a.nq - 1 - (int)blockIdx.x;      // most kv tiles first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int q_lo = qb * a.P;
+  const int q_hi = min(q_lo + a.P, a.S) - 1;
+  const int kv_lo = a.window > 0 ? max(0, q_lo - a.window + 1) : 0;
+  const int kv_hi = a.causal ? q_hi : a.S - 1;
+  const int t_lo = kv_lo / kK, t_hi = kv_hi / kK;
+  const int tid = threadIdx.x;
+
+  // K or V of kv tile t into stage st
+  auto load_k = [&](int t, int st) {
+    mbar_expect_tx(k_full(st), NCH * kKvBoxN);
+    for (int c = 0; c < NCH; ++c)
+      tma_load_4d(sk + (st * NCH + c) * kKvBoxN, &tk, k_full(st), c * kChunk, hk, t * kK, b);
+  };
+  auto load_v = [&](int t, int st) {
+    mbar_expect_tx(v_full(st), NCH * kKvBoxN);
+    for (int c = 0; c < NCH; ++c)
+      tma_load_4d(sv + (st * NCH + c) * kKvBoxN, &tv, v_full(st), c * kChunk, hk, t * kK, b);
+  };
+
+  zero_padded_rows<NCH>(smem + L::q, nrows, tid);
+  if (tid == 0) {
+    mbar_init(sbar, 1);
+    for (int st = 0; st < kStg; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      k_done[st] = v_done[st] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(sbar, NCH * nrows * kRowBytes);
+    for (int c = 0; c < NCH; ++c)
+      tma_load_4d(sq + c * kQBox, &tq, sbar, c * kChunk, hk * G, q_lo, b);
+    for (int t = t_lo; t <= min(t_hi, t_lo + kStg - 1); ++t) {
+      load_k(t, t - t_lo);
+      load_v(t, t - t_lo);
     }
   }
+
+  const int cw = tid / 128, ctid = tid % 128;
+  const int warp = ctid / 32, lane = ctid % 32;
+  const int r0 = cw * 64 + warp * 16 + lane / 4, r1 = r0 + 8;
+  const uint32_t q_rows = sq + cw * 64 * kRowBytes;
+  Rows rw{kMasked, kMasked, 0.f, 0.f, q_lo + r0 / G, q_lo + r1 / G, 2 * (lane % 4)};
+  const int pos0 = rw.pos0, pos1 = rw.pos1, kc = rw.kc;
+
+  float o[32 * NCH];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = half ? r1 : r0, pos = half ? pos1 : pos0;
-    if (r >= nrows || pos >= a.S) continue;
-    const float den = half ? den1 : den0;
-    __nv_bfloat16* orow =
-        a.out + (((long long)b * a.S + pos) * a.Hq + hk * G + r % G) * a.hd;
+  for (int i = 0; i < 32 * NCH; ++i) o[i] = 0.f;
+  float s[64];
+  uint32_t p_hi[32], p_lo[32];
+
+  // this warp is done with K (or V) of tile t in stage st: the last of the
+  // CTA's 8 warps to be refills the stage with tile t + kStg
+  auto release_k = [&](int t, int st) {
+    if (lane == 0 && (atomicAdd(k_done + st, 1u) & 7u) == 7u && t + kStg <= t_hi)
+      load_k(t + kStg, st);
+  };
+  auto release_v = [&](int t, int st) {
+    if (lane == 0 && (atomicAdd(v_done + st, 1u) & 7u) == 7u && t + kStg <= t_hi)
+      load_v(t + kStg, st);
+  };
+
+  mbar_wait(sbar, 0);
+  // the first tile: S alone
+  mbar_wait(k_full(0), 0);
+  fence_regs(s);
+  wgmma_fence();
+  issue_qk<NCH>(s, q_rows, sk);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+  release_k(t_lo, 0);
+  float2 corr = online_softmax(s, rw, a, t_lo * kK, q_lo, q_hi);
+  make_p(s, p_hi, p_lo);
+
+  // O is rescaled by tile t - 1's correction while S_t runs, then P_{t-1}
+  // V_{t-1} is issued; K_t is released once S_t is in, V_{t-1} once its
+  // product is
+  for (int t = t_lo + 1; t <= t_hi; ++t) {
+    const int it = t - t_lo, st = it % kStg, pst = (it - 1) % kStg;
+    mbar_wait(k_full(st), (it / kStg) & 1);
+    mbar_wait(v_full(pst), ((it - 1) / kStg) & 1);
+    fence_regs(s);
+    wgmma_fence();
+    issue_qk<NCH>(s, q_rows, sk + st * NCH * kKvBoxN);
+    wgmma_commit();
+    if (__any_sync(0xffffffffu, corr.x != 1.f || corr.y != 1.f)) {
 #pragma unroll
-    for (int c = 0; c < NCH; ++c)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int d = c * kChunk + 8 * j + kc;
-        if (d < a.hd)
-          *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
-              o[c][4 * j + 2 * half] / den, o[c][4 * j + 2 * half + 1] / den);
-      }
+      for (int i = 0; i < 32 * NCH; ++i) o[i] *= (i & 2) ? corr.y : corr.x;
+    }
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    fence_regs(o);
+    wgmma_fence();
+    issue_pv<NCH>(o, p_hi, p_lo, sv + pst * NCH * kKvBoxN);
+    wgmma_commit();
+    wgmma_wait_all_but_last();                  // S_t; P_{t-1} V_{t-1} may still run
+    fence_regs(s);
+    release_k(t, st);
+    corr = online_softmax(s, rw, a, t * kK, q_lo, q_hi);
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    release_v(t - 1, pst);
+    make_p(s, p_hi, p_lo);
   }
+  {
+    const int it = t_hi - t_lo, st = it % kStg;
+    mbar_wait(v_full(st), (it / kStg) & 1);
+#pragma unroll
+    for (int i = 0; i < 32 * NCH; ++i) o[i] *= (i & 2) ? corr.y : corr.x;
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    fence_regs(o);
+    wgmma_fence();
+    issue_pv<NCH>(o, p_hi, p_lo, sv + st * NCH * kKvBoxN);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+
+  write_rows<NCH, true>(
+      a, [&](int j, int e) { return o[4 * j + e]; }, rw.m0, rw.m1, rw.l0, rw.l1, r0, pos0,
+      pos1, kc, b, hk, nrows);
 }
 
 // cuTensorMapEncodeTiled of libcuda, found through the runtime (no -lcuda)
@@ -494,12 +850,21 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* base, int hd, int H, 
 template <int NCH>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            const Params& a, int B, cudaStream_t stream) {
-  const int bytes = (int)Smem<NCH>::bytes;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_sm90_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.nq, a.Hkv, B);
-  flash_sm90_kernel<NCH><<<grid, kThreads, bytes, stream>>>(tq, tk, tv, a);
+  cudaError_t err;
+  if constexpr (NCH <= 2) {      // hd <= 128: the narrow kernel
+    const int bytes = (int)NarrowSmem<NCH>::bytes;
+    err = cudaFuncSetAttribute(flash_sm90_narrow_kernel<NCH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_sm90_narrow_kernel<NCH><<<grid, kThreads, bytes, stream>>>(tq, tk, tv, a);
+  } else {
+    const int bytes = (int)Smem<NCH>::bytes;
+    err = cudaFuncSetAttribute(flash_sm90_kernel<NCH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_sm90_kernel<NCH><<<grid, kThreads, bytes, stream>>>(tq, tk, tv, a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -537,10 +902,11 @@ extern "C" int flash_attention_sm90_launch(
   a.window = window;
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
+  const int keys = hd <= 2 * kChunk ? kNarrowKeys : kKeys;   // a kv tile's keys
   alignas(64) CUtensorMap tq, tk, tv;
   if (!encode(enc, &tq, q, hd, Hq, S, B, q_sh, q_ss, q_sb, a.G, a.P) ||
-      !encode(enc, &tk, k, hd, Hkv, S, B, k_sh, k_ss, k_sb, 1, kKeys) ||
-      !encode(enc, &tv, v, hd, Hkv, S, B, v_sh, v_ss, v_sb, 1, kKeys))
+      !encode(enc, &tk, k, hd, Hkv, S, B, k_sh, k_ss, k_sb, 1, keys) ||
+      !encode(enc, &tv, v, hd, Hkv, S, B, v_sh, v_ss, v_sb, 1, keys))
     return (int)cudaErrorNotSupported;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((hd + kChunk - 1) / kChunk) {

@@ -14,114 +14,333 @@
 // (B, S, kN) float32, A (di, kN), D (di), h0 (B, di, kN) float32; it writes
 // y (B, S, di) float32 and h_T (B, di, kN) float32.
 //
-// Design.  The recurrence is elementwise over channels, so one thread owns
-// one (b, d) and keeps its kN states and its row of A in registers; a block
-// is kThreads consecutive channels of one b.  Time runs in chunks of kChunk
-// steps: the block stages the chunk's B_t and C_t (shared by all its
-// channels) in shared memory, and each thread loads its own dt and x for
-// the chunk into registers first (kChunk independent loads in flight, each
-// coalesced over the block's channels), then walks the steps.  y is written
-// once, coalesced; h0 and h_T are read and written once.
-//
 // Bound on the H100: operations.  At jamba's prefill (2, 4096, 16384, 16)
 // the function must read dt (537 MB) and x in bf16 (268 MB) and write y
 // (537 MB), 0.40 ms at 3.35 TB/s; its B S di kN = 2.1 G exponentials take
 // 0.51 ms of the SFUs (16 a clock an SM, 132 SMs at 1.98 GHz), beside
-// about 7 flops each on the CUDA cores (0.22 ms at 67 TFLOP/s).  This
-// simple design spends one exp per state a step, as the function does; it
-// has B di / kThreads blocks (256 at that shape), two a SM, which is
-// enough for an SFU-bound loop whose loads are batched a chunk at a time.
-// Decode (S = 1) moves only the state, 4.2 MB, below the launch floor.
+// about 6 flops each on the CUDA cores (0.19 ms at 67 TFLOP/s).  The walk
+// is serial in time and elementwise over channels; the design keeps the
+// SMs issuing math rather than waiting or computing addresses:
+//   * Four lanes a channel, kPer = 4 states a lane: a block is kChannels =
+//     64 channels of one b in 256 threads, so jamba's prefill is 512 blocks,
+//     four an SM at once (at most 64 registers a thread), 32 warps.  A
+//     lane keeps its 4 states and A[d][4g .. 4g + 3] log2(e) in registers.
+//     y_t is the 4 lanes' partial sums, reduced kLanes steps at a time by
+//     a reduce-scatter of shuffles (three a group, the same order on every
+//     run), after which lane g holds step g's y and stores it.
+//   * One SFU op an exponential: exp(dt A) = ex2.approx(dt (A log2 e)), one
+//     FMUL and one MUFU (the accurate expf is about eight more).
+//   * Time in chunks of kChunk steps staged in shared memory, a ring of
+//     kBufs buffers: dt, B_t and C_t go in by cp.async a chunk ahead of the
+//     walk (issued before it), x (bf16 has no 2-byte cp.async) through
+//     registers two chunks ahead; one __syncthreads a chunk.  (A ring of 4,
+//     copies three chunks ahead, measured no faster: kernel_ablation.py.)
+//     Steps past S are staged as zeros, which leave h as it is, so the walk
+//     has no branch a step.
+//   * Every address in the loop advances by a pointer step: indexing by
+//     t * stride costs about as many instructions in 64-bit address
+//     arithmetic (and kernel parameters reloaded under the 64-register
+//     budget) as the recurrence itself.
+//   * S <= kDecodeMaxS (decode: S = 1) takes another kernel, one instance
+//     per S, of the same layout with no shared memory and no barrier: every
+//     load of the call (A, h0, D, and each step's dt, x, B_t, C_t) is
+//     issued at once, then the walk, then the stores: one memory round
+//     trip.  The C entry point picks by S; either way one launch a call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kN = 16;        // d_state: the wrapper refuses any other
-constexpr int kThreads = 128;
-constexpr int kChunk = 32;
+constexpr int kN = 16;                      // d_state: the wrapper refuses any other
+constexpr int kLanes = 4;                   // lanes a channel
+constexpr int kPer = kN / kLanes;           // states a lane
+constexpr int kChannels = 64;               // channels a block
+constexpr int kThreads = kChannels * kLanes;
+constexpr int kBlocksPerSM = 4;             // blocks an SM at once (the register budget)
+constexpr int kChunk = 16;                  // steps a staged chunk
+constexpr int kBufs = 2;                    // chunks staged at once: the walk's and the next
+constexpr int kDecodeMaxS = 4;              // S up to this takes the decode form
+constexpr float kLog2e = 1.4426950408889634f;
+// each thread's share of a chunk's copies
+constexpr int kTileLoads = kChunk * kChannels / kThreads;   // dt, and x
+constexpr int kBcLoads = kChunk * 2 * kN / kThreads;        // B_t and C_t
+static_assert(kChunk * kChannels % kThreads == 0 && kChunk * 2 * kN % kThreads == 0 &&
+              kChunk % kLanes == 0 && kDecodeMaxS % kLanes == 0 && kPer % 4 == 0, "");
+
+struct Args {
+  const float *dt, *Bm, *Cm, *A, *D, *h0;
+  const void* x;
+  float *y, *hT;
+  int S, di;
+  long long dt_sb, dt_ss, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, y_sb, y_ss;
+};
 
 __device__ __forceinline__ float load_x(const float* p) { return *p; }
 __device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a 4-byte copy into shared memory that bypasses registers; zeros when !ok
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
+// this thread's place: channel cl of the block's kChannels and state group
+// g (states kPer g .. kPer g + kPer - 1); the lanes of a channel are
+// adjacent, so the y sum is a shuffle by kLanes / 2, ..., 1
+struct Lane {
+  int cl, g, d;
+  bool live;
+  __device__ Lane(int di) {
+    const int lane = threadIdx.x % 32;
+    cl = (threadIdx.x / 32) * (32 / kLanes) + lane / kLanes;
+    g = lane % kLanes;
+    d = blockIdx.x * kChannels + cl;
+    live = d < di;
+  }
+};
+
+// a lane's part of the walk: its states, its row of A in log2 units, and D
+// on lane 0 (0 on the others, so y_t's skip term is added once)
+struct Walker {
+  float h[kPer], a2[kPer], Dl;
+
+  __device__ __forceinline__ Walker(const Args& a, const Lane& ln, int b) {
+    const long long row = ln.live ? ln.d : 0;
+    const float4* av = reinterpret_cast<const float4*>(a.A + row * kN + kPer * ln.g);
+    const float4* hv = reinterpret_cast<const float4*>(
+        a.h0 + ((long long)b * a.di + row) * kN + kPer * ln.g);
+#pragma unroll
+    for (int i = 0; i < kPer / 4; ++i) {
+      const float4 x = av[i], y = hv[i];
+      a2[4 * i] = x.x * kLog2e; a2[4 * i + 1] = x.y * kLog2e;
+      a2[4 * i + 2] = x.z * kLog2e; a2[4 * i + 3] = x.w * kLog2e;
+      h[4 * i] = y.x; h[4 * i + 1] = y.y; h[4 * i + 2] = y.z; h[4 * i + 3] = y.w;
+    }
+    Dl = ln.g == 0 ? a.D[row] : 0.0f;
+  }
+
+  // one step: the states, and this lane's partial sum of y_t
+  __device__ __forceinline__ float step(float dt, float x, const float* bt, const float* ct) {
+    const float dx = dt * x;
+    float acc = x * Dl;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      h[k] = fmaf(h[k], ex2(dt * a2[k]), dx * bt[k]);
+      acc = fmaf(h[k], ct[k], acc);
+    }
+    return acc;
+  }
+
+  __device__ __forceinline__ void store(const Args& a, const Lane& ln, int b) const {
+    if (!ln.live) return;
+    float4* o = reinterpret_cast<float4*>(a.hT + ((long long)b * a.di + ln.d) * kN + kPer * ln.g);
+#pragma unroll
+    for (int i = 0; i < kPer / 4; ++i)
+      o[i] = make_float4(h[4 * i], h[4 * i + 1], h[4 * i + 2], h[4 * i + 3]);
+  }
+};
+
+// the partial sums v[i] of kLanes consecutive steps on each lane of a
+// channel: lane g comes back with step g's total (a reduce-scatter by
+// shuffles, halving the steps each round)
+__device__ __forceinline__ float lane_sums(float (&v)[kLanes], int g) {
+#pragma unroll
+  for (int m = kLanes / 2; m >= 1; m /= 2) {
+#pragma unroll
+    for (int i = 0; i < m; ++i) {
+      const bool upper = g & m;
+      const float keep = upper ? v[i + m] : v[i], send = upper ? v[i] : v[i + m];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+    }
+  }
+  return v[0];
+}
+
 template <typename XT>
-__global__ void __launch_bounds__(kThreads) selective_scan_kernel(
-    const float* __restrict__ dt, const XT* __restrict__ x,
-    const float* __restrict__ Bm, const float* __restrict__ Cm,
-    const float* __restrict__ A, const float* __restrict__ D,
-    const float* __restrict__ h0, float* __restrict__ y, float* __restrict__ hT,
-    int S, int di, long long dt_sb, long long dt_ss, long long x_sb, long long x_ss,
-    long long b_sb, long long b_ss, long long c_sb, long long c_ss,
-    long long y_sb, long long y_ss) {
-  __shared__ float sB[kChunk][kN];
-  __shared__ float sC[kChunk][kN];
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = d < di;
-  const int dd = live ? d : 0;        // dead lanes read channel 0, store nothing
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM) scan_chunked_kernel(const Args a) {
+  __shared__ float2 sdx[kBufs][kChunk][kChannels];       // (dt, x)
+  __shared__ float sbc[kBufs][kChunk][2 * kN];           // B_t, then C_t
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const Lane ln(a.di);
+  Walker w(a, ln, b);
+  const int nchunks = (a.S + kChunk - 1) / kChunk;
 
-  float a[kN], h[kN];
-  const float4* a4 = reinterpret_cast<const float4*>(A + (long long)dd * kN);
-  const float4* h4 = reinterpret_cast<const float4*>(h0 + ((long long)b * di + dd) * kN);
+  // Every address below advances by a pointer step: no index arithmetic
+  // in the loop.  The loader copies channel lc at steps ls + j kRowStep of
+  // a chunk (dt by cp.async, x through registers), and element (sb, k) of
+  // B_t | C_t at steps sb + j kBcStep.
+  constexpr int kRowStep = kThreads / kChannels, kBcStep = kThreads / (2 * kN);
+  const int lc = tid % kChannels, ls = tid / kChannels;
+  const bool lc_live = blockIdx.x * kChannels + lc < a.di;
+  const int sb = tid / (2 * kN), kb = tid % (2 * kN);
+  const long long bc_ss = kb < kN ? a.b_ss : a.c_ss;
+  const float* bc_src = (kb < kN ? a.Bm + b * a.b_sb + kb : a.Cm + b * a.c_sb + kb - kN) +
+                        sb * bc_ss;
+  const float* dt_src = a.dt + b * a.dt_sb + blockIdx.x * kChannels + lc + ls * a.dt_ss;
+  const XT* x_src =
+      static_cast<const XT*>(a.x) + b * a.x_sb + blockIdx.x * kChannels + lc + ls * a.x_ss;
+  // lane g stores y of step s0 + g of each group of kLanes steps
+  float* y_dst = a.y + b * a.y_sb + ln.d + ln.g * a.y_ss;
+  const long long dt_step = kRowStep * a.dt_ss, x_step = kRowStep * a.x_ss,
+                  bc_step = kBcStep * bc_ss, y_step = kLanes * a.y_ss;
+
+  // dt, B_t and C_t of chunk c (the next one in order) into its buffer by
+  // cp.async; steps past S are zeros: dt = 0 and B_t = 0 leave h as it is
+  // (h e^0 + 0), and such steps store nothing
+  auto copy = [&](int c) {
+    const int n = min(kChunk, a.S - c * kChunk), buf = c % kBufs;
+    const float* p = dt_src;
 #pragma unroll
-  for (int i = 0; i < kN / 4; ++i) {
-    const float4 av = a4[i], hv = h4[i];
-    a[4 * i] = av.x; a[4 * i + 1] = av.y; a[4 * i + 2] = av.z; a[4 * i + 3] = av.w;
-    h[4 * i] = hv.x; h[4 * i + 1] = hv.y; h[4 * i + 2] = hv.z; h[4 * i + 3] = hv.w;
+    for (int j = 0; j < kTileLoads; ++j, p += dt_step)
+      cp_async4(&sdx[buf][ls + j * kRowStep][lc].x, p, lc_live && ls + j * kRowStep < n);
+    p = bc_src;
+#pragma unroll
+    for (int j = 0; j < kBcLoads; ++j, p += bc_step)
+      cp_async4(&sbc[buf][sb + j * kBcStep][kb], p, sb + j * kBcStep < n);
+    dt_src += kChunk * a.dt_ss;
+    bc_src += kChunk * bc_ss;
+  };
+  // x of the next chunk in order (no 2-byte cp.async: through registers)
+  float xr[2][kTileLoads];
+  auto load_x_chunk = [&](float (&r)[kTileLoads], int c) {
+    const int n = min(kChunk, a.S - c * kChunk);
+    const XT* p = x_src;
+#pragma unroll
+    for (int j = 0; j < kTileLoads; ++j, p += x_step)
+      r[j] = lc_live && ls + j * kRowStep < n ? load_x(p) : 0.0f;
+    x_src += kChunk * a.x_ss;
+  };
+  auto stage_x = [&](const float (&r)[kTileLoads], int c) {
+#pragma unroll
+    for (int j = 0; j < kTileLoads; ++j) sdx[c % kBufs][ls + j * kRowStep][lc].y = r[j];
+  };
+
+  // dt, B, C run kBufs - 1 chunks ahead of the walk, x 2: chunk c's walk
+  // finds chunk c + 1 staged after it, copies c + kBufs - 1, and loads the
+  // x of c + 2 into the register set c % 2, staged after the walk of c + 1
+#pragma unroll
+  for (int c = 0; c < kBufs - 1; ++c) {
+    if (c < nchunks) copy(c);
+    cp_async_commit();
   }
-  const float Dd = D[dd];
+  load_x_chunk(xr[0], 0);
+  stage_x(xr[0], 0);
+  load_x_chunk(xr[1], 1);
+  cp_async_wait<kBufs - 2>();
+  __syncthreads();
 
-  const float* dt_b = dt + b * dt_sb + dd;
-  const XT* x_b = x + b * x_sb + dd;
-  const float* B_b = Bm + b * b_sb;
-  const float* C_b = Cm + b * c_sb;
-  float* y_b = y + b * y_sb + dd;
-
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    const int n = min(kChunk, S - t0);
-    __syncthreads();                  // the last chunk's B and C are read
-    for (int i = threadIdx.x; i < 2 * kChunk * kN; i += kThreads) {
-      const int s = (i / kN) % kChunk, k = i % kN;
-      const bool is_c = i >= kChunk * kN;
-      float v = 0.0f;
-      if (s < n) {
-        const long long t = t0 + s;
-        v = is_c ? C_b[t * c_ss + k] : B_b[t * b_ss + k];
-      }
-      (is_c ? sC : sB)[s][k] = v;
-    }
-    float dts[kChunk], xs[kChunk];
+  auto chunk = [&](int c, auto parity) {
+    constexpr int p = decltype(parity)::value;      // c % 2
+    const int buf = c % kBufs, t0 = c * kChunk;
+    // the buffer of c + kBufs - 1 was last read in the walk of c - 1
+    if (c + kBufs - 1 < nchunks) copy(c + kBufs - 1);
+    cp_async_commit();
+    if (c + 2 < nchunks) load_x_chunk(xr[p], c + 2);
+    const float2* dx_row = &sdx[buf][0][ln.cl];
+    const float4* bc_row = reinterpret_cast<const float4*>(&sbc[buf][0][kPer * ln.g]);
 #pragma unroll
-    for (int s = 0; s < kChunk; ++s) {
-      const long long t = t0 + s;
-      dts[s] = s < n ? dt_b[t * dt_ss] : 0.0f;
-      xs[s] = s < n ? load_x(x_b + t * x_ss) : 0.0f;
-    }
-    __syncthreads();
+    for (int s0 = 0; s0 < kChunk; s0 += kLanes) {
+      float v[kLanes];
 #pragma unroll
-    for (int s = 0; s < kChunk; ++s) {
-      if (s < n) {
-        const float dx = dts[s] * xs[s];
-        float acc = 0.0f;
+      for (int i = 0; i < kLanes; ++i) {
+        const float2 dx = dx_row[(s0 + i) * kChannels];
+        float bt[kPer], ct[kPer];
 #pragma unroll
-        for (int k = 0; k < kN; ++k) {
-          h[k] = h[k] * expf(dts[s] * a[k]) + dx * sB[s][k];
-          acc += h[k] * sC[s][k];
+        for (int q = 0; q < kPer / 4; ++q) {
+          const float4 bq = bc_row[(s0 + i) * (2 * kN / 4) + q];
+          const float4 cq = bc_row[(s0 + i) * (2 * kN / 4) + kN / 4 + q];
+          bt[4 * q] = bq.x; bt[4 * q + 1] = bq.y; bt[4 * q + 2] = bq.z; bt[4 * q + 3] = bq.w;
+          ct[4 * q] = cq.x; ct[4 * q + 1] = cq.y; ct[4 * q + 2] = cq.z; ct[4 * q + 3] = cq.w;
         }
-        if (live) y_b[(t0 + s) * y_ss] = acc + xs[s] * Dd;
+        v[i] = w.step(dx.x, dx.y, bt, ct);
       }
+      const float yt = lane_sums(v, ln.g);
+      if (ln.live && t0 + s0 + ln.g < a.S) *y_dst = yt;
+      y_dst += y_step;
+    }
+    // the buffer of c + 1 was last read in the walk of c + 1 - kBufs
+    if (c + 1 < nchunks) stage_x(xr[1 - p], c + 1);
+    cp_async_wait<kBufs - 2>();                     // c + 1's copies are in
+    __syncthreads();
+  };
+  for (int c = 0; c < nchunks; c += 2) {
+    chunk(c, Int<0>{});
+    if (c + 1 < nchunks) chunk(c + 1, Int<1>{});
+  }
+  w.store(a, ln, b);
+}
+
+// S = NS <= kDecodeMaxS: every load issued up front, no shared memory, no
+// barrier
+template <int NS, typename XT>
+__global__ void __launch_bounds__(kThreads) scan_decode_kernel(const Args a) {
+  // NS steps, padded with no-op steps to whole groups of kLanes (at least one)
+  constexpr int kSteps = NS == 0 ? kLanes : (NS + kLanes - 1) / kLanes * kLanes;
+  const int b = blockIdx.y;
+  const Lane ln(a.di);
+  const long long dd = ln.live ? ln.d : 0;     // dead lanes read channel 0, store nothing
+  const XT* x = static_cast<const XT*>(a.x);
+  Walker w(a, ln, b);
+  float dts[kSteps], xs[kSteps], bt[kSteps][kPer], ct[kSteps][kPer];
+#pragma unroll
+  for (int t = 0; t < kSteps; ++t) {
+    const bool ok = t < NS;                      // zeros past S: no-op steps
+    dts[t] = ok ? a.dt[b * a.dt_sb + t * a.dt_ss + dd] : 0.0f;
+    xs[t] = ok ? load_x(x + b * a.x_sb + t * a.x_ss + dd) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      bt[t][k] = ok ? a.Bm[b * a.b_sb + t * a.b_ss + kPer * ln.g + k] : 0.0f;
+      ct[t][k] = ok ? a.Cm[b * a.c_sb + t * a.c_ss + kPer * ln.g + k] : 0.0f;
     }
   }
-
-  if (live) {
-    float4* o4 = reinterpret_cast<float4*>(hT + ((long long)b * di + d) * kN);
 #pragma unroll
-    for (int i = 0; i < kN / 4; ++i)
-      o4[i] = make_float4(h[4 * i], h[4 * i + 1], h[4 * i + 2], h[4 * i + 3]);
+  for (int s0 = 0; s0 < kSteps; s0 += kLanes) {
+    float v[kLanes];
+#pragma unroll
+    for (int i = 0; i < kLanes; ++i) v[i] = w.step(dts[s0 + i], xs[s0 + i], bt[s0 + i], ct[s0 + i]);
+    const float yt = lane_sums(v, ln.g);
+    const int t = s0 + ln.g;
+    if (ln.live && t < NS) a.y[b * a.y_sb + t * a.y_ss + ln.d] = yt;
   }
+  w.store(a, ln, b);
+}
+
+template <typename XT>
+int launch(const Args& a, int B, cudaStream_t st) {
+  const dim3 grid((a.di + kChannels - 1) / kChannels, B);
+  switch (a.S) {
+    case 0: scan_decode_kernel<0, XT><<<grid, kThreads, 0, st>>>(a); break;
+    case 1: scan_decode_kernel<1, XT><<<grid, kThreads, 0, st>>>(a); break;
+    case 2: scan_decode_kernel<2, XT><<<grid, kThreads, 0, st>>>(a); break;
+    case 3: scan_decode_kernel<3, XT><<<grid, kThreads, 0, st>>>(a); break;
+    case 4: scan_decode_kernel<4, XT><<<grid, kThreads, 0, st>>>(a); break;
+    default: scan_chunked_kernel<XT><<<grid, kThreads, 0, st>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -129,8 +348,9 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(
 // dt, x: (B, S, di) with unit stride over di and the given element strides
 // over (b, t); x float32 or (x_bf16) bf16, the rest float32.  Bm, Cm: (B,
 // S, N) with unit stride over N; y (B, S, di) likewise (written).  A (di,
-// N), D (di), h0 and hT (B, di, N) contiguous.  N must be 16.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// N), D (di), h0 and hT (B, di, N) contiguous, A, h0 and hT on 16 bytes.
+// N must be 16.  Launches one kernel on `stream` (the decode form for S <=
+// 4, the chunked one above) and returns cudaGetLastError() (0 on success).
 extern "C" int selective_scan_launch(
     const void* dt, const void* x, const void* Bm, const void* Cm, const void* A,
     const void* D, const void* h0, void* y, void* hT, int B, int S, int di, int N,
@@ -139,23 +359,21 @@ extern "C" int selective_scan_launch(
     long long y_ss, void* stream) {
   if (N != kN || B <= 0 || B > 65535 || S < 0 || di <= 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((di + kThreads - 1) / kThreads, B);
+  Args a;
+  a.dt = static_cast<const float*>(dt);
+  a.x = x;
+  a.Bm = static_cast<const float*>(Bm);
+  a.Cm = static_cast<const float*>(Cm);
+  a.A = static_cast<const float*>(A);
+  a.D = static_cast<const float*>(D);
+  a.h0 = static_cast<const float*>(h0);
+  a.y = static_cast<float*>(y);
+  a.hT = static_cast<float*>(hT);
+  a.S = S;
+  a.di = di;
+  a.dt_sb = dt_sb; a.dt_ss = dt_ss; a.x_sb = x_sb; a.x_ss = x_ss;
+  a.b_sb = b_sb; a.b_ss = b_ss; a.c_sb = c_sb; a.c_ss = c_ss;
+  a.y_sb = y_sb; a.y_ss = y_ss;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* f_dt = static_cast<const float*>(dt);
-  const float* f_B = static_cast<const float*>(Bm);
-  const float* f_C = static_cast<const float*>(Cm);
-  const float* f_A = static_cast<const float*>(A);
-  const float* f_D = static_cast<const float*>(D);
-  const float* f_h0 = static_cast<const float*>(h0);
-  float* f_y = static_cast<float*>(y);
-  float* f_hT = static_cast<float*>(hT);
-  if (x_bf16)
-    selective_scan_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        f_dt, static_cast<const __nv_bfloat16*>(x), f_B, f_C, f_A, f_D, f_h0, f_y, f_hT,
-        S, di, dt_sb, dt_ss, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, y_sb, y_ss);
-  else
-    selective_scan_kernel<float><<<grid, kThreads, 0, st>>>(
-        f_dt, static_cast<const float*>(x), f_B, f_C, f_A, f_D, f_h0, f_y, f_hT,
-        S, di, dt_sb, dt_ss, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, y_sb, y_ss);
-  return (int)cudaGetLastError();
+  return x_bf16 ? launch<__nv_bfloat16>(a, B, st) : launch<float>(a, B, st);
 }

@@ -35,6 +35,10 @@ import torch
 from repro_torch.kernels import _build
 
 D_STATES = (16,)          # csrc/selective_scan.cu's instances (every config uses 16)
+# csrc/selective_scan.cu's kChunk (steps staged at a time) and kDecodeMaxS:
+# a call with S <= DECODE_MAX_S takes the kernel's decode form, longer ones
+# the chunked form (one launch either way)
+CHUNK, DECODE_MAX_S = 16, 4
 NO_BACKWARD = ("the selective-scan backward kernel is not written yet: Mamba "
                "training on the card is ROADMAP queue 1 item 7e")
 

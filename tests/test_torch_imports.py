@@ -1,6 +1,7 @@
 """The port stands alone: `repro_torch` imports neither `jax` nor anything
 of `repro` (checked in a fresh interpreter and by an AST scan, with
-`chip_smoke.py`, `profile_round.py` and `profile_lm.py`), and its entry
+`chip_smoke.py`, `profile_round.py`, `profile_lm.py` and
+`kernel_ablation.py`), and its entry
 points run on the card unless the caller asks for the CPU — without CUDA
 they raise instead of falling back."""
 import ast
@@ -71,7 +72,7 @@ def _imports(path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
                          + [ROOT / "chip_smoke.py", ROOT / "profile_round.py",
-                            ROOT / "profile_lm.py"],
+                            ROOT / "profile_lm.py", ROOT / "kernel_ablation.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     for name in _imports(path):

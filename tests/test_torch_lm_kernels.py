@@ -10,12 +10,14 @@ wkv 1e-4.  Covered: causal, sliding-window and non-causal attention, GQA
 groups of 1, 2, 4 and 8, head_dim 32, 64, 128 and 256, S off every block
 size; the model's two attention forms (`attend_full`, `attend_chunked`);
 wkv at T = 1, chunked composition (two halves == the whole), w = 0.  The
-arithmetic of the two Hopper designs is checked here too, in PyTorch: the
+arithmetic of three Hopper designs is checked here too, in PyTorch: the
 float32 flash kernel's 3xTF32 products hold 2e-5 where one TF32 product
-does not, and the wkv kernel's chunked form (chunks and sub-chunks, decays
-only multiplied) matches the plain version and the Pallas kernel at ragged
-T, w = 0 (exactly the last k v^T), strong decays and a split off every
-chunk boundary.
+does not; the bf16 kernel's hd <= 128 form (128-key tiles, the scale in
+the exponent's FMA, P in two bf16 terms) holds the card's per-element
+limit at G = 5, 6 and 8, causal and windowed; and the wkv kernel's
+chunked form (chunks and sub-chunks, decays only multiplied) matches the
+plain version and the Pallas kernel at ragged T, w = 0 (exactly the last
+k v^T), strong decays and a split off every chunk boundary.
 
 The CUDA kernels are held against the plain versions on the card (`cuda`
 marker; skipped without one): the float32 kernel at 2e-5, and the bf16
@@ -23,7 +25,8 @@ tensor-core kernel element by element against the float32 result of the
 same inputs, within one rounding to bfloat16 (2^-8 |want| + 2e-5), at the
 LM path's (2, 4096, 8 / 4, 256) with windows 1024 and 0 (float32 on
 full-mantissa inputs) and at the edge cases (ragged S, non-causal, G = 8
-and 5, head_dim 32, 120 and 128, windows); the wkv kernels (chunked for
+and 5, head_dim 32, 120 and 128, windows; the hd <= 128 kernel at G = 5,
+6 and 8, causal and windowed, S = 1000 off its tiles); the wkv kernels (chunked for
 T >= 64, recurrent below) at the LM shape, ragged T, strong decays, a
 split off the chunk boundaries and w = 0, the recurrent kernel at T = 1,
 16 and 63 for every head dim (rows on and off the 16-byte grid), four
@@ -261,6 +264,73 @@ def test_three_tf32_terms_hold_the_float32_tolerance_and_one_does_not(shape, win
     assert err[3] <= ATOL_F32 < err[1], err
 
 
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _flash_narrow_emulation(q, k, v, *, causal, window, keys=128, rows=128):
+    """csrc/flash_attention_sm90.cu's kernel for hd <= 128 on bf16 values
+    held in float32: a CTA per `rows` packed (position, head) rows (rows / G
+    positions), its live kv range in tiles of `keys` keys; S = q.k in
+    float32; masked scores -inf; the running max m in log2 units, moved to
+    max(m, max(S) scale log2 e) each tile and O, l rescaled by
+    exp2(m_old - m); p = exp2(S scale log2 e - m) with the exponent one
+    fused rounding; O += P_hi V + P_lo V (P in two bf16 terms); out =
+    bf16(O / max(l, 1e-30))."""
+    B, S, Hq, hd = q.shape
+    G = Hq // k.shape[2]
+    c = torch.tensor(tfa.LOG2E / hd ** 0.5, dtype=torch.float32)
+    qh = q.permute(0, 2, 1, 3)                                   # (B, Hq, S, hd)
+    kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(G, dim=1) for t in (k, v))
+    out = torch.empty(B, Hq, S, hd)
+    P = rows // G
+    for q_lo in range(0, S, P):
+        q_hi = min(q_lo + P, S) - 1
+        kv_lo = max(0, q_lo - window + 1) if window > 0 else 0
+        kv_hi = q_hi if causal else S - 1
+        pos = torch.arange(q_lo, q_hi + 1)[:, None]
+        qb = qh[:, :, q_lo:q_hi + 1]
+        m = torch.full(qb.shape[:3] + (1,), tfa.NEG_INF * tfa.LOG2E)
+        l = torch.zeros_like(m)
+        o = torch.zeros_like(qb)
+        for t in range(kv_lo // keys, kv_hi // keys + 1):
+            kp = torch.arange(t * keys, min(S, (t + 1) * keys))[None, :]
+            s = qb @ kh[:, :, kp[0]].transpose(-1, -2)
+            ok = torch.ones(pos.shape[0], kp.shape[1], dtype=torch.bool)
+            if causal:
+                ok &= kp <= pos
+            if window > 0:
+                ok &= pos - kp < window
+            s = s.masked_fill(~ok, float("-inf"))
+            n = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+            corr = torch.exp2(m - n)
+            p = torch.exp2((s.double() * c.double() - n.double()).float())
+            hi = _bf16(p)
+            lo = _bf16(p - hi)
+            vt = vh[:, :, kp[0]]
+            o = o * corr + hi @ vt + lo @ vt
+            l = l * corr + p.sum(-1, keepdim=True)
+            m = n
+        out[:, :, q_lo:q_hi + 1] = o / torch.clamp(l, min=1e-30)
+    return _bf16(out.permute(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("Hq,Hkv,window", [(10, 2, 0), (10, 2, 100), (12, 2, 0),
+                                           (12, 2, 100), (8, 1, 0), (8, 1, 100)])
+def test_flash_hd128_tile_order_holds_the_card_limit(Hq, Hkv, window):
+    """The hd <= 128 kernel's arithmetic (128-key tiles, scores in log2
+    units with the scale in the exponent's FMA, P in two bf16 terms, a
+    rescale whenever the max moves) on bf16 inputs at G = 5, 6 and 8,
+    causal and windowed, S off the tiles: every element within one bf16
+    rounding plus 2e-5 of the float32 plain version (chip_smoke.py's
+    per-element check)."""
+    q, k, v = (_bf16(t) for t in _torch(*_qkv(1, 300, Hq, Hkv, 128, seed=Hq + window)))
+    got = _flash_narrow_emulation(q, k, v, causal=True, window=window)
+    want = tfa.attention_plain(q, k, v, causal=True, window=window)
+    share = float(((got - want).abs() / (RTOL_BF16_ROUNDING * want.abs() + ATOL_F32)).max())
+    assert share <= 1.0, share
+
+
 def _wkv_chunked(r, k, v, w, u, s0, L, sub):
     """csrc/rwkv6_scan.cu's chunked form: T in chunks of L, each chunk in
     sub-chunks of ``sub`` steps; decays only ever multiplied, never divided,
@@ -446,6 +516,16 @@ CUDA_ATTN = {
     "hd128-bf16": (1, 384, 4, 2, 128, True, 0, torch.bfloat16),
     "hd120-bf16": (1, 130, 4, 1, 120, True, 0, torch.bfloat16),
     "gqa5-bf16": (1, 257, 10, 2, 64, True, 0, torch.bfloat16),
+    # the hd <= 128 kernel: G = 5, 6 and 8, causal and windowed, S off its
+    # 128-key tiles; hd 64 and 120 through the same kernel
+    "hd128-gqa5-S1000-bf16": (1, 1000, 10, 2, 128, True, 0, torch.bfloat16),
+    "hd128-gqa5-S1000-window300-bf16": (1, 1000, 10, 2, 128, True, 300, torch.bfloat16),
+    "hd128-gqa6-S1000-bf16": (1, 1000, 12, 2, 128, True, 0, torch.bfloat16),
+    "hd128-gqa6-S1000-window100-bf16": (2, 1000, 12, 2, 128, True, 100, torch.bfloat16),
+    "hd128-gqa8-S1000-bf16": (2, 1000, 16, 2, 128, True, 0, torch.bfloat16),
+    "hd128-gqa8-S1000-window300-bf16": (1, 1000, 8, 1, 128, True, 300, torch.bfloat16),
+    "hd64-gqa6-S1000-window300-bf16": (1, 1000, 12, 2, 64, True, 300, torch.bfloat16),
+    "hd120-gqa8-S1000-bf16": (1, 1000, 8, 1, 120, True, 0, torch.bfloat16),
 }
 
 

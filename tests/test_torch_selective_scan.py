@@ -10,16 +10,23 @@ another order), at S = 1, 37 and 130, with the model's decays (dt from
 softplus around 0.01), strong decays (dt up to 5: exp(dt A) down to
 exp(-80)), a non-zero h0 and x in bf16; two halves with the state carried
 equal the whole bit for bit; CPU tensors launch nothing and
-differentiate through the plain version.  What the kernel does not take,
+differentiate through the plain version.  The kernel's arithmetic (four
+lanes of four states, the shuffle order of y's sum, exp2 of dt (A log2 e))
+is emulated in PyTorch and held against the oracle at the same cases, and
+split on and off its chunks.  What the kernel does not take,
 `selective_scan_cuda` refuses before it looks at the device (a d_state
 outside D_STATES, dtypes, layouts, alignment), and it refuses CPU tensors.
 
 On the card (`cuda` marker, skipped without one): the kernel against the
-plain version within SCAN_RTOL at S = 1, 63, 64, 65 and 1000, d_inner on
-and off the block of 128 channels, strong decays, a non-zero h0, x in
-float32 and bf16, Bm and Cm as column slices of one projection; two halves
-against the whole; one launch a call; a backward through it raises
-naming ROADMAP item 7e."""
+plain version within SCAN_RTOL at S = 1, 4 and 5 (the two sides of the
+switch between its decode and chunked forms), 63, 64, 65 and 1000,
+d_inner on and off the block of 64 channels, strong decays, a non-zero h0,
+x in float32 and bf16, Bm and Cm as column slices of one projection; two
+halves against the whole, split on and off a chunk; one launch a call; a
+backward through it raises naming ROADMAP item 7e."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -128,6 +135,97 @@ def test_cpu_tensors_take_the_plain_version_and_differentiate():
     assert float(args[0].grad.abs().max()) > 0.0
 
 
+# --------------------------------------------------------------------------- #
+# The kernel's arithmetic, emulated on the CPU (test-only, on no path):
+# csrc/selective_scan.cu's four lanes a channel
+# --------------------------------------------------------------------------- #
+
+LOG2E = 1.4426950408889634
+LANES = 4                  # lanes a channel; N // LANES states each
+
+
+def _f32(x):
+    """A float64 result rounded once to float32: one fused operation."""
+    return x.to(torch.float32)
+
+
+def _scan_kernel_emulation(dt, x, Bm, Cm, A, D, h0):
+    """The kernel's arithmetic in float32: exp(dt A) as exp2(dt (A log2 e))
+    (A log2 e rounded once, then the product); h = fma(h, e, (dt x) B);
+    each lane's partial sum of h C over its 4 states by fmas in state
+    order, lane 0's starting from x D (the others from 0); y the shuffle
+    reduce-scatter's sum, (lanes 0 + 2) + (lanes 1 + 3).  Time is walked
+    as the kernel walks it: whole chunks of CHUNK steps (S > DECODE_MAX_S)
+    or whole groups of LANES steps (the decode form), the steps past S
+    staged as zeros and walked like the others, their y dropped."""
+    B, S, di = dt.shape
+    group = LANES if S <= tss.DECODE_MAX_S else tss.CHUNK
+    pad = max(group, -(-S // group) * group) - S
+
+    def staged(t):
+        return torch.cat([t.float(), t.new_zeros(B, pad, t.shape[-1]).float()], dim=1)
+
+    dt, xf, Bm, Cm = staged(dt), staged(x), staged(Bm), staged(Cm)
+    h = h0.float().clone()
+    A2 = A.float() * np.float32(LOG2E)
+    y = torch.empty(B, S + pad, di)
+    for t in range(S + pad):
+        dt_t, x_t = dt[:, t, :, None], xf[:, t, :, None]
+        e = torch.exp2(dt_t * A2)
+        h = _f32(h.double() * e.double() + ((dt_t * x_t) * Bm[:, t, None, :]).double())
+        part = torch.zeros(B, di, LANES)
+        part[..., 0] = x_t[..., 0] * D
+        lane_h = h.view(B, di, LANES, N // LANES)
+        lane_c = Cm[:, t, None, :].view(B, 1, LANES, N // LANES)
+        for k in range(N // LANES):
+            part = _f32(lane_h[..., k].double() * lane_c[..., k].double() + part.double())
+        y[:, t] = (part[..., 0] + part[..., 2]) + (part[..., 1] + part[..., 3])
+    return y[:, :S], h
+
+
+@pytest.mark.parametrize("case", sorted(CPU_CASES))
+def test_kernel_arithmetic_emulation_matches_float64_oracle(case):
+    """Four lanes of four states, the shuffle-order sum and exp2 of dt (A
+    log2 e) hold SCAN_RTOL against the float64 oracle, strong decays (down
+    to exp(-80) and below float32's range) and bf16 x included."""
+    kw = dict(CPU_CASES[case])
+    bf16 = kw.pop("x_dtype", None) == "bf16"
+    arrays = _inputs(seed=len(case), x_dtype="bf16" if bf16 else np.float32, **kw)
+    got = _scan_kernel_emulation(*_torch(arrays, x_dtype=torch.bfloat16 if bf16
+                                         else torch.float32))
+    _assert_close(got, _oracle(*arrays), case)
+
+
+@pytest.mark.parametrize("cut", [tss.CHUNK, tss.CHUNK + 5, tss.DECODE_MAX_S])
+def test_kernel_arithmetic_emulation_split_equals_the_whole(cut):
+    """Two calls with the state carried, split on a chunk boundary, off
+    one (each call then walks zero steps past its end), and where the first
+    call takes the decode form: the whole, bit for bit (the zero steps
+    leave the state as it was, and the state is all a call hands on)."""
+    dt, x, Bm, Cm, A, D, h0 = _torch(_inputs(2, 70, 24, 12, strong=True, h0_scale=1.0))
+    y, hT = _scan_kernel_emulation(dt, x, Bm, Cm, A, D, h0)
+    y1, h1 = _scan_kernel_emulation(dt[:, :cut], x[:, :cut], Bm[:, :cut], Cm[:, :cut],
+                                    A, D, h0)
+    y2, h2 = _scan_kernel_emulation(dt[:, cut:], x[:, cut:], Bm[:, cut:], Cm[:, cut:],
+                                    A, D, h1)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(h2, hT)
+
+
+def test_constants_match_the_kernel_source():
+    """CHUNK, DECODE_MAX_S and the emulation's LANES are the kernel's
+    kChunk, kDecodeMaxS and kLanes, and the C entry point launches a decode
+    instance for every S up to DECODE_MAX_S."""
+    src = (Path(tss.__file__).parent / "csrc" / "selective_scan.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert (const("kChunk"), const("kDecodeMaxS"), const("kLanes")) == \
+        (tss.CHUNK, tss.DECODE_MAX_S, LANES)
+    cases = [int(c) for c in re.findall(r"case (\d+): scan_decode_kernel<\1,", src)]
+    assert cases == list(range(tss.DECODE_MAX_S + 1))
+
+
 def _refused(kind):
     """Arguments the kernel does not take, on the CPU."""
     args = list(_torch(_inputs(1, 4, 32, 7)))
@@ -170,6 +268,11 @@ def _need_cuda():
 
 
 CUDA_CASES = {"S = 1 (2, 1, 384)": dict(B=2, S=1, di=384, h0_scale=1.0),
+              # the two sides of the switch between the decode and chunked forms
+              "S = 4 decode form, off the block (2, 4, 200)": dict(
+                  B=2, S=tss.DECODE_MAX_S, di=200, h0_scale=1.0),
+              "S = 5 chunked form, off the block (2, 5, 200)": dict(
+                  B=2, S=tss.DECODE_MAX_S + 1, di=200, h0_scale=1.0, strong=True),
               "S = 63 off the block (2, 63, 200)": dict(B=2, S=63, di=200),
               "S = 64 (1, 64, 256)": dict(B=1, S=64, di=256, h0_scale=1.0),
               "S = 65 (3, 65, 130)": dict(B=3, S=65, di=130),
@@ -200,6 +303,23 @@ def test_cuda_two_halves_match_the_whole():
     y1, h1 = tss.selective_scan_cuda(dt[:, :77], x[:, :77], Bm[:, :77], Cm[:, :77], A, D, h0)
     y2, h2 = tss.selective_scan_cuda(dt[:, 77:], x[:, 77:], Bm[:, 77:], Cm[:, 77:], A, D, h1)
     _assert_close((torch.cat([y1, y2], dim=1), h2), whole, "two halves")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [tss.CHUNK, tss.CHUNK + 13, tss.DECODE_MAX_S])
+def test_cuda_split_on_and_off_a_chunk_boundary(cut):
+    """Split on the chunk boundary, off it, and with a first call in the
+    decode form; d_inner 520, off the block of 64 channels."""
+    _need_cuda()
+    dt, x, Bm, Cm, A, D, h0 = _torch(_inputs(2, 300, 520, 13, strong=True, h0_scale=1.0),
+                                     device="cuda", x_dtype=torch.bfloat16)
+    whole = tss.selective_scan_cuda(dt, x, Bm, Cm, A, D, h0)
+    y1, h1 = tss.selective_scan_cuda(dt[:, :cut], x[:, :cut], Bm[:, :cut], Cm[:, :cut],
+                                     A, D, h0)
+    y2, h2 = tss.selective_scan_cuda(dt[:, cut:], x[:, cut:], Bm[:, cut:], Cm[:, cut:],
+                                     A, D, h1)
+    _assert_close((torch.cat([y1, y2], dim=1), h2), whole, f"split at {cut}")
+    _assert_close(whole, tss.selective_scan_plain(dt, x, Bm, Cm, A, D, h0), "whole")
 
 
 @pytest.mark.cuda
