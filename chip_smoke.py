@@ -87,6 +87,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      max |want|); timed as the train path calls it (states from the
      forward) and with the forward's states pass, and the wkv forward
      timed with and without storing the states;
+   * the selective scan's backward (`csrc/selective_scan_bwd.cu`: each
+     16-step chunk recomputed from the state the forward kernel stores
+     there, then walked backward; a second launch sums the per-block
+     partials of dB, dC, dA, dD in a fixed order) at jamba's (2, 4096,
+     16384, 16) with x bf16 and float32, the model's and strong decays and
+     non-zero h0 and dh_T, at S = 1000, 1, 4, 5 (either side of the
+     decode form), 15, 16, 17 (of one chunk) and 63, 64, 65: every
+     gradient within SCAN_BWD_RTOL max(1, max |want|) of the plain
+     backward, dx in bf16 per element against the float32 plain dx within
+     FLASH_RTOL_BF16 |want| more, two calls bit for bit; timed at the main
+     shape from the forward's states beside its bound (bytes, one
+     exponential a state a step, SCAN_BWD_FLOPS_PER_STATE flops) and the
+     plain backward, and the forward timed storing the states;
    * the shapes only the baselines' and the paper's paths give the
      kernels: the flat strategies' masked mean (cluster_agg at C = 1,
      zero-weight rows holding NaN) at (100, 6570) and at Table II's
@@ -205,24 +218,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the float32 flash kernel runs, its counts read around the card's
    forward) against the host CPU (plain versions) within CARD_CPU_RTOL.
 11. lm_train — the LM zoo's training path for gemma3-4b and rwkv6-3b
-   at the same widths and depths
-   (bf16, `remat` on as the full configs set it): LM_TRAIN_STEPS steps of
-   `make_train_step` with AdamW at a constant LM_TRAIN_LR on one fixed
-   (2, 4096) batch, every kernel's launch count reset just before and read
-   just after (a gemma3 step: the bf16 flash forward 12 times, 6 and 6
-   recomputed, and its backward 6 times; an rwkv6 step: the wkv forward 8
-   times and its backward 4 times); every loss finite and the last below
-   the first; step wall p50 (drained), tokens/s and peak memory.  Then one
-   float32 one-period step at (1, 128) on the card (the path
-   `lm_train_fp32`) against the host CPU from the same weights: the loss
-   within TRAIN_LOSS_RTOL, every gradient leaf within TRAIN_GRAD_RTOL
-   max(1, max |g_cpu|).
+   at the same widths and depths and jamba-1.5-large-398b at one layer
+   (mamba + dense SwiGLU FFN at d_model 8192, d_inner 16384;
+   LM_TRAIN_CONFIGS), bf16, `remat` on as the full configs set it:
+   LM_TRAIN_STEPS steps of `make_train_step` with AdamW at a constant
+   LM_TRAIN_LR on one fixed (2, 4096) batch, every kernel's launch count
+   reset just before and read just after (a gemma3 step: the bf16 flash
+   forward 12 times, 6 and 6 recomputed, and its backward 6 times; an
+   rwkv6 step: the wkv forward 8 times and its backward 4 times; a jamba
+   step: the scan forward and its backward once each, its one layer a
+   remainder of the 8-layer period, which remat does not wrap); every loss
+   finite and the last below the first; step wall p50 (drained), tokens/s
+   and peak memory.  Then one float32 step at (1, 128) on the card (the
+   path `lm_train_fp32`) against the host CPU from the same weights — one
+   period at full width, or `reduced()` for jamba, grok-1-314b and
+   llama4-maverick-400b-a17b (the last two only in this step: their MoE
+   and float32 flash backwards; jamba's period: 7 scan backwards, 4-expert
+   MoE, one flash backward) — the loss within TRAIN_LOSS_RTOL, every
+   gradient leaf within TRAIN_GRAD_RTOL max(1, max |g_cpu|), the launches
+   asserted.
 
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
 `{"kernels": [...]}` with each kernel's launches on its main path (and per
 path: train, train_fedavg, train_fedprox, train_fedproto, train_fedhkd,
 async, faults, resume, obs, paper, serve, lm_forward, lm_decode, lm_fp32,
-lm_train, lm_train_fp32; the three backward kernels' main paths are
+lm_train, lm_train_fp32; the four backward kernels' main paths are
 lm_train and lm_train_fp32),
 error, times, bound and the two launch floors (the fingerprint and
 cluster_agg entries with their `async_shape` row, rwkv6 and
@@ -358,13 +378,22 @@ DECODE_RTOL = 2e-2
 # or indexing fault in a kernel moves logits by O(1)
 CARD_CPU_RTOL = 1e-3
 LM_CONFIGS = (("gemma3-4b", 6), ("rwkv6-3b", 4))
-# the Mamba and MoE configurations: eval and decode only (the selective scan
-# has no backward kernel yet, ROADMAP item 7e, and at full width these
-# models' weights and AdamW state do not fit one card), so lm_train loops
-# LM_CONFIGS alone.  jamba at 4 layers: mamba + FFN, mamba + MoE, mamba +
-# FFN, attention + MoE (45 GB of bf16 weights; one 8-layer period is 89 GB)
+# the Mamba and MoE configurations in eval and decode.  jamba at 4 layers:
+# mamba + FFN, mamba + MoE, mamba + FFN, attention + MoE (45 GB of bf16
+# weights; one 8-layer period is 89 GB)
 LM_INFER_CONFIGS = (("jamba-1.5-large-398b", 4), ("grok-1-314b", 2),
                     ("llama4-maverick-400b-a17b", 2))
+# lm_train at full width: LM_CONFIGS and jamba at one layer (mamba + dense
+# SwiGLU FFN, 1.56 G parameters: bf16 weights and gradients and float32
+# AdamW moments about 19 GB; its MoE layer 1 would add 19 GB of weights and
+# 77 GB of moments, so the MoE models' training at full width waits for a
+# mesh, ROADMAP item 6).  One layer is below jamba's 8-layer period, so it
+# is a remainder layer, which neither the reference nor the port wraps in
+# remat: its scan runs once a step forward, once backward
+LM_TRAIN_CONFIGS = LM_CONFIGS + (("jamba-1.5-large-398b", 1),)
+# the float32 train step card vs CPU alone (at `reduced()`, fp32_config):
+# grok's and llama4's MoE and float32 flash backwards
+LM_TRAIN_FP32_ONLY = ("grok-1-314b", "llama4-maverick-400b-a17b")
 # the selective scan against its plain version, y and h_T: |got - want| <=
 # SCAN_RTOL max(1, max |want|) (float32 sums in another order; the kernel's
 # expf and torch.exp differ by an ulp or two)
@@ -377,6 +406,16 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 SCAN_FLOPS_PER_STATE = 6
 # jamba's Mamba prefill: (B, S, d_inner, d_state)
 SCAN_SHAPE = (2, 4096, 16384, 16)
+# the scan's backward kernel against its plain backward: every gradient
+# within SCAN_BWD_RTOL max(1, max |want|) (float32 sums of up to 16384
+# channels and 8192 steps in other orders), dx in bf16 per element within
+# FLASH_RTOL_BF16 |want| more (one rounding) against the float32 plain dx
+SCAN_BWD_RTOL = 1e-4
+# the gradient's float32 flops a state a step beside its one exponential:
+# the state recomputed (the FMA and the product (dt x) B), g carried (an
+# FMA and the product g a), g h_{t-1} a_t (2), dA, u and the sum over n of
+# ddt (an FMA each), dB's and dC's terms and sums (4)
+SCAN_BWD_FLOPS_PER_STATE = 18
 # the bf16 flash kernel at the attention layers of LM_INFER_CONFIGS, all at
 # head_dim 128: (B, S, Hq, Hkv, hd), window
 FLASH_LM_SHAPES = {"jamba (2, 4096, 64, 8, 128) G = 8": ((2, 4096, 64, 8, 128), 0),
@@ -389,7 +428,7 @@ FLASH_LM_SHAPES = {"jamba (2, 4096, 64, 8, 128) G = 8": ((2, 4096, 64, 8, 128), 
 NO_SPILL_SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu", "selective_scan.cu")
 # the backward kernels' sources: their spills are printed and reported, not gated
 BACKWARD_SOURCES = ("flash_attention_bwd_sm90.cu", "flash_attention_bwd.cu",
-                    "rwkv6_scan_bwd.cu")
+                    "rwkv6_scan_bwd.cu", "selective_scan_bwd.cu")
 # the flash backward against its plain version: float32 inputs within
 # FLASH_BWD_RTOL_F32 max |want| per gradient; bf16 inputs per element against
 # the float32 plain backward of the same inputs (the same bf16 output O),
@@ -476,7 +515,8 @@ KERNELS = {"fingerprint": (fp, "launches"), "cluster_agg": (ca, "launches"),
            "flash_attention_fp32": (fa, "launches"), "rwkv6": (wk, "launches"),
            "flash_attention_bwd_bf16": (fa, "launches_bwd_bf16"),
            "flash_attention_bwd_fp32": (fa, "launches_bwd"),
-           "rwkv6_bwd": (wk, "launches_bwd"), "selective_scan": (sc, "launches")}
+           "rwkv6_bwd": (wk, "launches_bwd"), "selective_scan": (sc, "launches"),
+           "selective_scan_bwd": (sc, "launches_bwd")}
 
 
 def reset_launches() -> None:
@@ -2236,6 +2276,9 @@ def scan_phase(dev, floors: dict) -> tuple[dict, dict]:
            "device_kernels_per_call": "not recorded" if names is None else 1,
            "device_kernel": None if names is None else names[0],
            "kernel_us": median_us(lambda _: sc.selective_scan_cuda(*main), None, 10, flush),
+           # as the train path calls it: storing the state each chunk starts from
+           "kernel_states_us": median_us(
+               lambda _: sc.selective_scan_cuda(*main, return_states=True), None, 10, flush),
            "plain_us": median_us(lambda _: sc.selective_scan_plain(*main), None, 2, flush),
            "library_us": None, "bound_us": bound, "bound_by": bound_by,
            "bound_terms": terms}
@@ -2560,6 +2603,116 @@ def wkv_bwd_phase(dev) -> tuple[dict, dict]:
     return row, checks
 
 
+def check_scan_bwd(args, what: str) -> dict:
+    """The scan's backward kernel against its plain backward: every
+    gradient within SCAN_BWD_RTOL max(1, max |want|), dx in bf16 per
+    element against the float32 plain dx within FLASH_RTOL_BF16 |want| +
+    that limit; the kernel walks from the states its forward stored, as on
+    the train path, and a second call gives the same bits."""
+    fwd, bwd = args[:7], args[7:]
+    states = sc.selective_scan_cuda(*fwd, return_states=True)[2]
+    got = sc.selective_scan_backward_cuda(*fwd, *bwd, states=states)
+    again = sc.selective_scan_backward_cuda(*fwd, *bwd, states=states)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"scan backward kernel on {what}: two calls differ")
+    del again, states
+    want = list(sc.selective_scan_backward_plain(*fwd, *bwd))
+    bf16 = fwd[1].dtype == torch.bfloat16
+    if bf16:
+        want[1] = sc.selective_scan_backward_plain(fwd[0], fwd[1].float(), *fwd[2:],
+                                                   *bwd)[1]
+    errs, shares = {}, {}
+    for name, g, w in zip(("ddt", "dx", "dBm", "dCm", "dA", "dD", "dh0"), got, want):
+        diff = (g.float() - w).abs()
+        errs[name] = float(diff.max())
+        limit = SCAN_BWD_RTOL * max(1.0, float(w.abs().max()))
+        if name == "dx" and bf16:
+            shares[name] = float((diff / (FLASH_RTOL_BF16 * w.abs() + limit)).max())
+        else:
+            shares[name] = errs[name] / limit
+        if not shares[name] <= 1.0:
+            raise AssertionError(f"scan backward kernel on {what}: {name} max abs error "
+                                 f"{errs[name]} is {shares[name]} of its limit")
+    return {"max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+            "max_share_of_limit": max(shares.values()),
+            "share_of_limit_by_grad": shares}
+
+
+def scan_bwd_phase(dev, floors: dict) -> tuple[dict, dict]:
+    """The scan's backward kernel against its plain backward at jamba's
+    prefill SCAN_SHAPE (x bf16 and float32, the model's decays and strong
+    ones, non-zero h0 and dh_T), at S = 1000, S = 1 and on both sides of
+    the decode form (4, 5), of one 16-step chunk (15, 16, 17) and of 64
+    steps (63, 64, 65); times at the main shape with the states from the
+    forward, as the train path has them, beside the plain backward."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    B, S, di, N = SCAN_SHAPE
+
+    def case(S, **kw):
+        args = scan_inputs(gen, B, S, di, dev, h0_scale=1.0, **kw)
+        return (*args, torch.randn((B, S, di), generator=gen, device=dev),
+                torch.randn((B, di, N), generator=gen, device=dev))
+    main = case(S)
+    checks = {"main (2, 4096, 16384, 16), h0 and dh_T": check_scan_bwd(main, "main")}
+    torch.cuda.empty_cache()
+    cases = {"main x float32": dict(S=S, x_dtype=torch.float32),
+             "main strong decays": dict(S=S, strong=True),
+             "ragged S = 1000 strong decays": dict(S=1000, strong=True),
+             "S = 1": dict(S=1)}
+    for s in (sc.DECODE_MAX_S, sc.DECODE_MAX_S + 1, sc.CHUNK - 1, sc.CHUNK, sc.CHUNK + 1,
+              63, 64, 65):
+        cases[f"S = {s} strong decays"] = dict(S=s, strong=True)
+    for what, kw in cases.items():
+        checks[what] = check_scan_bwd(case(**kw), what)
+        torch.cuda.empty_cache()
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    states = sc.selective_scan_cuda(*main[:7], return_states=True)[2]
+    x = main[1]
+    # read dt, x, dy, B, C, A, D, h0, dh_T once; write ddt, dx, dB, dC, dA,
+    # dD, dh0 once
+    seq = B * S * di
+    n_bytes = (seq * (4 + 2 * x.element_size() + 4 + 4) + 4 * B * S * N * 4
+               + (2 * di * N + 2 * di) * 4 + 3 * B * di * N * 4)
+    terms = {"bytes_us": n_bytes / HBM_BYTES_PER_S * 1e6,
+             "exp_us": seq * N / SFU_OPS_PER_S * 1e6,
+             "flops_us": seq * N * SCAN_BWD_FLOPS_PER_STATE / ALU32_OPS_PER_S * 1e6}
+    bound = max(terms.values())
+    row = {"shape": list(SCAN_SHAPE), "dtype": "x bfloat16, the rest float32",
+           "kernel_us": median_us(lambda _: sc.selective_scan_backward_cuda(
+               *main, states=states), None, 10, flush),
+           "plain_us": median_us(lambda _: sc.selective_scan_backward_plain(*main), None,
+                                 1, flush),
+           "library_us": None, "bound_us": bound,
+           "bound_by": "bytes" if terms["bytes_us"] >= bound else "operations",
+           "bound_terms": dict(terms, bytes=n_bytes, exps=seq * N),
+           "states_bytes": states.numel() * 4,
+           "launch_floor_us": floors["empty_us"],
+           "round_trip_floor_us": floors["round_trip_us"]}
+    del main, states
+    torch.cuda.empty_cache()
+    return row, checks
+
+
+def train_launches(cfg, steps: int, dtype: str) -> dict[str, int]:
+    """Each kernel's launches in ``steps`` train steps of ``cfg``: a
+    mixer's forward kernel once a layer (twice for a period's layers under
+    remat: the backward runs the period again), its backward kernel once."""
+    periods = list(cfg.pattern) * cfg.n_periods
+    again = 2 if cfg.remat else 1
+
+    def fwd(mixer):
+        return steps * (again * sum(s.mixer == mixer for s in periods)
+                        + sum(s.mixer == mixer for s in cfg.remainder))
+    n = mixer_counts(cfg)
+    return dict({k: 0 for k in KERNELS},
+                **{f"flash_attention_{dtype}": fwd("attn"),
+                   f"flash_attention_bwd_{dtype}": steps * n["attn"],
+                   "rwkv6": fwd("rwkv"), "rwkv6_bwd": steps * n["rwkv"],
+                   "selective_scan": fwd("mamba"),
+                   "selective_scan_bwd": steps * n["mamba"]})
+
+
 def lm_train_config(cfg, dev) -> dict:
     """LM_TRAIN_STEPS AdamW steps at a constant LM_TRAIN_LR on one fixed
     (LM_BATCH, LM_SEQ) batch, every kernel's launch count reset just before
@@ -2570,7 +2723,6 @@ def lm_train_config(cfg, dev) -> dict:
     opt = topt.adamw(LM_TRAIN_LR)
     step = lmsteps.make_train_step(cfg, opt)
     state = opt.init(params)
-    n = mixer_counts(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     losses, walls = [], []
@@ -2585,13 +2737,8 @@ def lm_train_config(cfg, dev) -> dict:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{cfg.name}: train losses {losses}")
-    # with remat each period's forward runs again in the backward
-    again = 2 if cfg.remat else 1
     steps = LM_TRAIN_STEPS
-    want = dict({k: 0 for k in KERNELS},
-                flash_attention_bf16=again * n["attn"] * steps,
-                flash_attention_bwd_bf16=n["attn"] * steps,
-                rwkv6=again * n["rwkv"] * steps, rwkv6_bwd=n["rwkv"] * steps)
+    want = train_launches(cfg, steps, "bf16")
     if launches != want:
         raise AssertionError(f"{cfg.name}: train launches {launches}, expected {want}")
     p50 = float(np.median(walls))
@@ -2599,6 +2746,7 @@ def lm_train_config(cfg, dev) -> dict:
     torch.cuda.empty_cache()
     return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
             "param_dtype": cfg.param_dtype, "n_params": n_params, "remat": cfg.remat,
+            "layers": mixer_counts(cfg), "remat_periods": cfg.n_periods if cfg.remat else 0,
             "batch": LM_BATCH, "seq": LM_SEQ, "steps": steps, "lr": LM_TRAIN_LR,
             "optimizer": "adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)",
             "losses": losses, "step_wall_s": walls, "step_wall_s_p50": p50,
@@ -2612,15 +2760,16 @@ def grad_recorder():
 
 
 def train_card_vs_cpu(cfg, dev) -> dict:
-    """The configuration in float32, one period, B = 1, S = 128: one train
+    """The configuration in float32 (fp32_config: one period at full width,
+    or ``reduced()`` for the Mamba and MoE ones), B = 1, S = 128: one train
     step's loss and gradients on the card (kernels) against the host CPU
     (plain versions), same weights; the card's step is the path
     ``lm_train_fp32``, its launch counts read around it."""
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32", n_layers=len(cfg.pattern))
+    cfg32 = fp32_config(cfg)
     p_dev = lmt.init_params(cfg32, seed=SEED + 1, device=dev)
     p_cpu = tree_map(lambda t: t.cpu(), p_dev)
     gen = torch.Generator().manual_seed(SEED)
-    toks = torch.randint(0, cfg.vocab_size, (1, 129), generator=gen)
+    toks = torch.randint(0, cfg32.vocab_size, (1, 129), generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     step = lmsteps.make_train_step(cfg32, grad_recorder())
     t0 = time.perf_counter()
@@ -2639,15 +2788,13 @@ def train_card_vs_cpu(cfg, dev) -> dict:
             raise AssertionError(f"{cfg.name}: card vs CPU gradient leaf {i} "
                                  f"{tuple(b.shape)}: {err} of max(1, max |g|)")
         worst = max(worst, err)
-    n = mixer_counts(cfg32)
-    again = 2 if cfg32.remat else 1
-    want = dict({k: 0 for k in KERNELS}, flash_attention_fp32=again * n["attn"],
-                flash_attention_bwd_fp32=n["attn"], rwkv6=again * n["rwkv"],
-                rwkv6_bwd=n["rwkv"])
+    want = train_launches(cfg32, 1, "fp32")
     if launches != want:
         raise AssertionError(f"{cfg.name}: float32 train step launches {launches}, "
                              f"expected {want}")
-    return {"n_layers": cfg32.n_layers, "shape": [1, 128], "remat": cfg32.remat,
+    return {"n_layers": cfg32.n_layers, "d_model": cfg32.d_model,
+            "reduced": cfg32 == ARCHS[cfg.name].reduced(), "layers": mixer_counts(cfg32),
+            "shape": [1, 128], "remat": cfg32.remat,
             "loss_card": float(loss_card), "loss_cpu": float(loss_cpu),
             "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
             "grad_err_of_max": worst, "grad_rtol": TRAIN_GRAD_RTOL,
@@ -2656,10 +2803,12 @@ def train_card_vs_cpu(cfg, dev) -> dict:
 
 def lm_train_phase(dev) -> dict:
     out = {}
-    for name, n in LM_CONFIGS:
+    for name, n in LM_TRAIN_CONFIGS:
         cfg = dataclasses.replace(ARCHS[name], n_layers=n)
         out[name] = lm_train_config(cfg, dev)
         out[name]["card_vs_cpu"] = train_card_vs_cpu(cfg, dev)
+    for name in LM_TRAIN_FP32_ONLY:
+        out[name] = {"card_vs_cpu": train_card_vs_cpu(ARCHS[name], dev)}
     return out
 
 
@@ -2848,6 +2997,7 @@ def main() -> int:
     res["flash_lm"] = flash_lm_phase(dev)
     res["flash_bwd"] = flash_bwd_phase(dev)
     res["wkv_bwd"] = wkv_bwd_phase(dev)
+    res["scan_bwd"] = scan_bwd_phase(dev, res["floors"])
     res["table2_shapes"] = table2_kernel_phase(dev)
     res["async_shapes"] = async_kernel_phase(dev)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2884,7 +3034,7 @@ def kernel_entries(res: dict) -> list[dict]:
                                     for run in res["lm"].values())
                           for name in KERNELS}
     by_path["lm_train"] = {name: sum(run["launches"][name]
-                                     for run in res["lm_train"].values())
+                                     for run in res["lm_train"].values() if "launches" in run)
                            for name in KERNELS}
     by_path["lm_train_fp32"] = {name: sum(run["card_vs_cpu"]["launches"][name]
                                           for run in res["lm_train"].values())
@@ -2915,6 +3065,7 @@ def kernel_entries(res: dict) -> list[dict]:
     flash_rows, flash_checks = res["flash"]
     wkv_row, wkv_checks = res["wkv"]
     scan_row, scan_checks = res["scan"]
+    scan_bwd_row, scan_bwd_checks = res["scan_bwd"]
     cohort = shapes[2]                  # (100, 6570): the train path's rows
 
     def flash(dt, source, main_path, tolerance, **extra):
@@ -3032,6 +3183,7 @@ def kernel_entries(res: dict) -> list[dict]:
                                     "(mamba.py:68-77) and its decode step (:103-106)",
               library_none_because="no one PyTorch call computes the selective scan",
               bound_terms=scan_row["bound_terms"],
+              ms_storing_states=us_to_ms(scan_row, "kernel_states_us"),
               device_kernels_per_call=scan_row["device_kernels_per_call"],
               decode_shape={"launches_lm_decode": by_path["lm_decode"]["selective_scan"],
                             "max_abs_err": scan_checks["decode S = 1, h0"],
@@ -3041,6 +3193,19 @@ def kernel_entries(res: dict) -> list[dict]:
                             "bound_ms": us_to_ms(scan_row["decode"], "bound_us"),
                             "bound_by": scan_row["decode"]["bound_by"],
                             "library_ms": None, "row": scan_row["decode"]}),
+        entry("selective_scan_bwd", "selective_scan_bwd.cu", "src/repro/models/mamba.py:75",
+              "lm_train", scan_bwd_row,
+              scan_bwd_checks["main (2, 4096, 16384, 16), h0 and dh_T"]["max_abs_err"],
+              {"atol_of_max_or_1": SCAN_BWD_RTOL,
+               "dx_bf16_rtol": FLASH_RTOL_BF16, "against": "plain backward"},
+              shape=list(SCAN_SHAPE), dtype=scan_bwd_row["dtype"], checks=scan_bwd_checks,
+              no_pallas_counterpart="the gradient of the reference's lax.scan "
+                                    "(mamba.py:68-77), which it differentiates by autodiff",
+              library_none_because="no one PyTorch call computes the selective scan's "
+                                   "gradient",
+              bound_terms=scan_bwd_row["bound_terms"],
+              states_bytes=scan_bwd_row["states_bytes"],
+              ptxas_spill_stores=spills["selective_scan_bwd.cu"]),
     ]
 
 

@@ -6,21 +6,23 @@
 For each configuration of `chip_smoke.py`'s lm phase — gemma3-4b cut to 6
 layers, rwkv6-3b cut to 4, jamba-1.5-large-398b cut to 4, grok-1-314b
 and llama4-maverick-400b-a17b cut to 2, full width, bf16 weights from
-`init_params(seed)` — runs one unprofiled eval step and one unprofiled
-`greedy_generate` (start-up: cuBLAS handles, kernel loads), then profiles,
-with CPU and CUDA activities:
+`init_params(seed)` — and for jamba-1.5-large-398b cut to 1 layer (the
+depth its lm_train phase trains: the train path alone), runs one
+unprofiled eval step and one unprofiled `greedy_generate` (start-up:
+cuBLAS handles, kernel loads), then profiles, with CPU and CUDA
+activities:
 
 * ``eval``: one `make_eval_step` call at B = 2, S = 4096 (the forward and
   the float32 log-softmax loss);
 * ``decode``: DECODE_STEPS `decode_step` calls at B = 2 against a cache
   already holding PROMPT tokens (one token each, as `greedy_generate` runs
   them);
-* ``train`` (gemma3-4b and rwkv6-3b only: the Mamba scan has no backward
-  kernel yet, and the MoE models' weights and AdamW state do not fit one
-  card): one `make_train_step` call at B = 2, S = 4096 (AdamW at a
-  constant TRAIN_LR; the forward, its recompute under remat, the backward
-  through the flash / wkv backward kernels, the update), after one
-  unprofiled step.
+* ``train`` (gemma3-4b, rwkv6-3b and jamba at one layer: the MoE models'
+  weights and AdamW state do not fit one card): one `make_train_step` call
+  at B = 2, S = 4096 (AdamW at a constant TRAIN_LR; the forward, its
+  recompute under remat, the backward through the flash / wkv /
+  selective-scan backward kernels, the update), after one unprofiled
+  step.
 
 Prints the card's name and power limit, per configuration and path the top
 device activities by device time, and one JSON line ``{"profile_lm":
@@ -29,7 +31,8 @@ the summed device time, the device busy share (device time over wall; one
 stream, so nothing overlaps), the number of device activities, and the
 device time by group — the port's flash-attention kernels (bf16 tensor
 cores and float32), their backward kernels, the wkv kernels and their
-backward kernels, the selective-scan kernel, the MoE dispatch (every
+backward kernels, the selective-scan kernel and its backward kernels, the
+MoE dispatch (every
 kernel launched inside `moe_apply` other than its expert products:
 routing, top-k, the slot cumsum, the scatter and the weighted gather;
 `moe_apply` runs under a `record_function` range here, which the port's
@@ -59,10 +62,12 @@ from repro_torch.models import lm as lmsteps  # noqa: E402
 from repro_torch.models import transformer as lmt  # noqa: E402
 
 SEED = 0
-# (name, layers, whether the train path is profiled)
-CONFIGS = (("gemma3-4b", 6, True), ("rwkv6-3b", 4, True),
-           ("jamba-1.5-large-398b", 4, False), ("grok-1-314b", 2, False),
-           ("llama4-maverick-400b-a17b", 2, False))
+# (name, layers, the paths profiled)
+ALL_PATHS, INFER_PATHS = ("eval", "decode", "train"), ("eval", "decode")
+CONFIGS = (("gemma3-4b", 6, ALL_PATHS), ("rwkv6-3b", 4, ALL_PATHS),
+           ("jamba-1.5-large-398b", 4, INFER_PATHS), ("grok-1-314b", 2, INFER_PATHS),
+           ("llama4-maverick-400b-a17b", 2, INFER_PATHS),
+           ("jamba-1.5-large-398b", 1, ("train",)))
 BATCH, SEQ = 2, 4096
 PROMPT, DECODE_STEPS = 16, 8
 TRAIN_LR = 1e-3
@@ -72,6 +77,9 @@ TRAIN_LR = 1e-3
 GROUPS = (("flash_attention backward kernels", ("delta_kernel", "dkdv_kernel<",
                                                 "dq_kernel<")),
           ("rwkv6 wkv backward kernels", ("bwd_chunk_kernel<",)),
+          # csrc/selective_scan_bwd.cu's walk and its fixed-order sum
+          ("selective scan backward kernels", ("scan_bwd_kernel<",
+                                               "scan_bwd_reduce_kernel")),
           ("flash_attention kernels", ("flash_kernel", "flash_sm90_kernel",
                                        "flash_sm90_narrow_kernel")),
           ("rwkv6 wkv kernels", ("wkv_kernel", "wkv_chunk_kernel")),
@@ -164,31 +172,34 @@ def profiled(fn, steps: int) -> dict:
                              if group_of(e.key) not in ("other", "matmul (cuBLAS)")]}
 
 
-def profile_config(name: str, n_layers: int, train: bool, dev) -> dict:
+def profile_config(name: str, n_layers: int, paths: tuple, dev) -> dict:
     cfg = dataclasses.replace(ARCHS[name], n_layers=n_layers)
     params = lmt.init_params(cfg, seed=SEED, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), generator=gen, device=dev)
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
-    eval_step = lmsteps.make_eval_step(cfg)
-    eval_step(params, batch)                                   # start-up
-    lmsteps.greedy_generate(cfg, params, tokens[:, :PROMPT], DECODE_STEPS,
-                            PROMPT + DECODE_STEPS)
-    out = {"eval": profiled(lambda: eval_step(params, batch), 1)}
+    out = {}
+    if "eval" in paths:
+        eval_step = lmsteps.make_eval_step(cfg)
+        eval_step(params, batch)                               # start-up
+        lmsteps.greedy_generate(cfg, params, tokens[:, :PROMPT], DECODE_STEPS,
+                                PROMPT + DECODE_STEPS)
+        out["eval"] = profiled(lambda: eval_step(params, batch), 1)
 
-    serve = lmsteps.make_serve_step(cfg)
-    cache = lmdec.init_cache(cfg, BATCH, PROMPT + DECODE_STEPS, device=dev)
-    for i in range(PROMPT):
-        _, cache = serve(params, cache, tokens[:, i:i + 1])
-    state = {"cache": cache, "pos": PROMPT}
+    if "decode" in paths:
+        serve = lmsteps.make_serve_step(cfg)
+        cache = lmdec.init_cache(cfg, BATCH, PROMPT + DECODE_STEPS, device=dev)
+        for i in range(PROMPT):
+            _, cache = serve(params, cache, tokens[:, i:i + 1])
+        state = {"cache": cache, "pos": PROMPT}
 
-    def one_token():
-        i = state["pos"]
-        _, state["cache"] = serve(params, state["cache"], tokens[:, i:i + 1])
-        state["pos"] = i + 1
-    out["decode"] = profiled(one_token, DECODE_STEPS)
-    del cache, state
-    if not train:
+        def one_token():
+            i = state["pos"]
+            _, state["cache"] = serve(params, state["cache"], tokens[:, i:i + 1])
+            state["pos"] = i + 1
+        out["decode"] = profiled(one_token, DECODE_STEPS)
+        del cache, state
+    if "train" not in paths:
         del params
         torch.cuda.empty_cache()
         return out
@@ -220,10 +231,12 @@ def main() -> int:
     torch.cuda.set_device(dev)
     result = {}
     undo = moe_ranged()
-    for name, n_layers, train in CONFIGS:
-        result[name] = profile_config(name, n_layers, train, dev)
-        for path, r in result[name].items():
-            print(f"\n{name} {path}: wall {r['wall_ms_per_step']:.3f} ms/step, device "
+    for name, n_layers, paths in CONFIGS:
+        # jamba's train path at one layer has a key of its own
+        key = name if "eval" in paths else f"{name} ({n_layers} layer)"
+        result[key] = profile_config(name, n_layers, paths, dev)
+        for path, r in result[key].items():
+            print(f"\n{key} {path}: wall {r['wall_ms_per_step']:.3f} ms/step, device "
                   f"{r['device_ms_per_step']:.3f} ms/step ({r['device_busy_share']:.1%} busy)")
             for e in r["top_device"]:
                 print(f"  {e['name'][:90]:<90} {e['calls']:>6.1f} {e['device_ms_per_step']:>9.3f}")

@@ -46,6 +46,11 @@
 //     load of the call (A, h0, D, and each step's dt, x, B_t, C_t) is
 //     issued at once, then the walk, then the stores: one memory round
 //     trip.  The C entry point picks by S; either way one launch a call.
+//   * For the gradient (csrc/selective_scan_bwd.cu), the chunked form can
+//     also store the state each chunk of kChunk steps starts from, states
+//     (B, ceil(S / kChunk), di, kN) float32 (537 MB at jamba's prefill): a
+//     separate instance (kStates), whose walk is the same arithmetic, so y
+//     and h_T are those of the call without states, bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,7 +77,7 @@ static_assert(kChunk * kChannels % kThreads == 0 && kChunk * 2 * kN % kThreads =
 struct Args {
   const float *dt, *Bm, *Cm, *A, *D, *h0;
   const void* x;
-  float *y, *hT;
+  float *y, *hT, *states;
   int S, di;
   long long dt_sb, dt_ss, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, y_sb, y_ss;
 };
@@ -155,6 +160,15 @@ struct Walker {
     return acc;
   }
 
+  // this lane's states into row ln.d of a (rows, kN) float32 array
+  __device__ __forceinline__ void store_row(float* base, const Lane& ln) const {
+    if (!ln.live) return;
+    float4* o = reinterpret_cast<float4*>(base + (long long)ln.d * kN + kPer * ln.g);
+#pragma unroll
+    for (int i = 0; i < kPer / 4; ++i)
+      o[i] = make_float4(h[4 * i], h[4 * i + 1], h[4 * i + 2], h[4 * i + 3]);
+  }
+
   __device__ __forceinline__ void store(const Args& a, const Lane& ln, int b) const {
     if (!ln.live) return;
     float4* o = reinterpret_cast<float4*>(a.hT + ((long long)b * a.di + ln.d) * kN + kPer * ln.g);
@@ -180,7 +194,7 @@ __device__ __forceinline__ float lane_sums(float (&v)[kLanes], int g) {
   return v[0];
 }
 
-template <typename XT>
+template <typename XT, bool kStates>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM) scan_chunked_kernel(const Args a) {
   __shared__ float2 sdx[kBufs][kChunk][kChannels];       // (dt, x)
   __shared__ float sbc[kBufs][kChunk][2 * kN];           // B_t, then C_t
@@ -256,6 +270,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) scan_chunked_kernel(co
   auto chunk = [&](int c, auto parity) {
     constexpr int p = decltype(parity)::value;      // c % 2
     const int buf = c % kBufs, t0 = c * kChunk;
+    // the state chunk c starts from, for the gradient
+    if constexpr (kStates) w.store_row(a.states + ((long long)b * nchunks + c) * a.di * kN, ln);
     // the buffer of c + kBufs - 1 was last read in the walk of c - 1
     if (c + kBufs - 1 < nchunks) copy(c + kBufs - 1);
     cp_async_commit();
@@ -332,13 +348,17 @@ __global__ void __launch_bounds__(kThreads) scan_decode_kernel(const Args a) {
 template <typename XT>
 int launch(const Args& a, int B, cudaStream_t st) {
   const dim3 grid((a.di + kChannels - 1) / kChannels, B);
+  if (a.states) {
+    scan_chunked_kernel<XT, true><<<grid, kThreads, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
   switch (a.S) {
     case 0: scan_decode_kernel<0, XT><<<grid, kThreads, 0, st>>>(a); break;
     case 1: scan_decode_kernel<1, XT><<<grid, kThreads, 0, st>>>(a); break;
     case 2: scan_decode_kernel<2, XT><<<grid, kThreads, 0, st>>>(a); break;
     case 3: scan_decode_kernel<3, XT><<<grid, kThreads, 0, st>>>(a); break;
     case 4: scan_decode_kernel<4, XT><<<grid, kThreads, 0, st>>>(a); break;
-    default: scan_chunked_kernel<XT><<<grid, kThreads, 0, st>>>(a);
+    default: scan_chunked_kernel<XT, false><<<grid, kThreads, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -349,15 +369,20 @@ int launch(const Args& a, int B, cudaStream_t st) {
 // over (b, t); x float32 or (x_bf16) bf16, the rest float32.  Bm, Cm: (B,
 // S, N) with unit stride over N; y (B, S, di) likewise (written).  A (di,
 // N), D (di), h0 and hT (B, di, N) contiguous, A, h0 and hT on 16 bytes.
-// N must be 16.  Launches one kernel on `stream` (the decode form for S <=
-// 4, the chunked one above) and returns cudaGetLastError() (0 on success).
+// N must be 16.  states: null, or (B, ceil(S / kChunk), di, N) float32
+// contiguous on 16 bytes, written with the state each chunk starts from
+// (S > kDecodeMaxS only).  Launches one kernel on `stream` (the decode form
+// for S <= 4 without states, else the chunked one above) and returns
+// cudaGetLastError() (0 on success).
 extern "C" int selective_scan_launch(
     const void* dt, const void* x, const void* Bm, const void* Cm, const void* A,
-    const void* D, const void* h0, void* y, void* hT, int B, int S, int di, int N,
+    const void* D, const void* h0, void* y, void* hT, void* states, int B, int S,
+    int di, int N,
     int x_bf16, long long dt_sb, long long dt_ss, long long x_sb, long long x_ss,
     long long b_sb, long long b_ss, long long c_sb, long long c_ss, long long y_sb,
     long long y_ss, void* stream) {
-  if (N != kN || B <= 0 || B > 65535 || S < 0 || di <= 0)
+  if (N != kN || B <= 0 || B > 65535 || S < 0 || di <= 0 ||
+      (states && S <= kDecodeMaxS))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.dt = static_cast<const float*>(dt);
@@ -369,6 +394,7 @@ extern "C" int selective_scan_launch(
   a.h0 = static_cast<const float*>(h0);
   a.y = static_cast<float*>(y);
   a.hT = static_cast<float*>(hT);
+  a.states = static_cast<float*>(states);
   a.S = S;
   a.di = di;
   a.dt_sb = dt_sb; a.dt_ss = dt_ss; a.x_sb = x_sb; a.x_ss = x_ss;

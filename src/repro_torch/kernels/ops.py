@@ -4,13 +4,12 @@ Counterpart of ``repro.kernels.ops``.  A wrapper takes the plain PyTorch
 version for a CPU tensor and launches its Hopper kernel for a CUDA tensor;
 it never falls back from one to the other.  All five of the reference's
 kernels have a wrapper: ``fingerprint``, ``pearson``, ``cluster_aggregate``,
-``attention``, ``rwkv6_wkv``.  The last two are differentiable: they go
-through ``FlashAttentionFn`` / ``Rwkv6Fn`` on both devices, so a CPU tensor
-takes the plain forward and the plain backward, a CUDA tensor the forward
-kernel and the backward kernel.  ``selective_scan`` (Mamba's recurrence, a
-``lax.scan`` in the reference) has a kernel with no backward yet: autograd
-runs through the plain version on CPU tensors, and on CUDA tensors a
-backward through ``SelectiveScanFn`` raises (ROADMAP item 7e).
+``attention``, ``rwkv6_wkv``; ``selective_scan`` (Mamba's recurrence, a
+``lax.scan`` in the reference) has one too.  The last three are
+differentiable: they go through ``FlashAttentionFn`` / ``Rwkv6Fn`` /
+``SelectiveScanFn`` on both devices, so a CPU tensor takes the plain
+forward and the plain backward, a CUDA tensor the forward kernel and the
+backward kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +20,7 @@ from repro_torch.kernels.fingerprint import fingerprint_rows
 from repro_torch.kernels.flash_attention import FlashAttentionFn
 from repro_torch.kernels.pearson import pearson_rows
 from repro_torch.kernels.rwkv6_scan import Rwkv6Fn
-from repro_torch.kernels.selective_scan import SelectiveScanFn, selective_scan_plain
+from repro_torch.kernels.selective_scan import SelectiveScanFn
 
 
 def fingerprint(bits: torch.Tensor) -> torch.Tensor:
@@ -63,9 +62,6 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
                    h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Mamba's selective scan: dt (B, S, di) float32, x (B, S, di), Bm and
     Cm (B, S, N) float32, A (di, N), D (di,), h0 (B, di, N) float32 ->
-    (y (B, S, di) float32 with the skip term x D, final state)."""
-    if dt.device.type == "cpu":
-        return selective_scan_plain(dt, x, Bm, Cm, A, D, h0)
-    if dt.device.type == "cuda":
-        return SelectiveScanFn.apply(dt, x, Bm, Cm, A, D, h0)
-    raise ValueError(f"selective_scan: no path for device {dt.device}")
+    (y (B, S, di) float32 with the skip term x D, final state),
+    differentiable."""
+    return SelectiveScanFn.apply(dt, x, Bm, Cm, A, D, h0)

@@ -3,7 +3,9 @@ reference's async driver, on the CPU.
 
 Bit for bit: the merge (`weighted_delta_mean` over flat (K, N) rows, one
 `cluster_mean_rows` call at C = 1) against the reference's per-leaf
-`weighted_delta_mean` on the same numpy inputs — random weights, all-zero
+`weighted_delta_mean` on the same numpy inputs, and against its numpy
+oracle (`masked_tree_sum_ref` over `max(tree_sum_ref(w), 1e-9)`, each
+operation one IEEE rounding in float32) — random weights, all-zero
 weights (an exact zero delta), NaN in zero-weight rows, -0.0 rows, K off a
 power of two; `BufferedAggregator.flush` (staleness, weights, delta) the
 same.  The staleness weight: equal at alpha = 0.5 for every staleness
@@ -27,6 +29,7 @@ import jax.numpy as jnp  # noqa: E402
 import repro.api as ref_api  # noqa: E402
 from repro.sim import ClientPopulation as JPopulation  # noqa: E402
 from repro.sim import SimulatedFederation as JSimulation  # noqa: E402
+from repro.kernels.ref import masked_tree_sum_ref, tree_sum_ref  # noqa: E402
 from repro.sim import async_agg as ref_agg  # noqa: E402
 from repro_torch.api import (  # noqa: E402
     AsyncSpec,
@@ -59,6 +62,15 @@ def _ref_merge(rows: np.ndarray, w: np.ndarray) -> np.ndarray:
         cols += size
     out = ref_agg.weighted_delta_mean(tree, jnp.asarray(w))
     return np.concatenate([np.asarray(out[name]).reshape(-1) for name in sorted(LEAVES)])
+
+
+def _oracle_merge(rows: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """The merge as ``weighted_delta_mean`` defines it, in numpy float32:
+    the where-guarded tree sum of the weighted rows over the tree sum of
+    the weights clamped at 1e-9 (every add, product and quotient one
+    correctly rounded float32 operation)."""
+    denom = np.maximum(tree_sum_ref(w), np.float32(1e-9))
+    return (masked_tree_sum_ref(rows, w) / denom).astype(np.float32)
 
 
 def _merge_case(kind: str, k: int = 16, seed: int = 0):
@@ -96,6 +108,15 @@ def test_merge_is_the_references_bit_for_bit(case):
     assert np.isfinite(got).all()
     if case == "all-zero-weights":
         assert not got.view(np.uint32).any()          # exact +0.0 everywhere
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+def test_merge_is_the_numpy_oracles_bit_for_bit(case):
+    kind = case if case in ("all-zero-weights", "nan-at-zero-weight",
+                            "negative-zero-rows", "staleness-weights") else "random"
+    rows, w = _merge_case(kind, k=MERGE_CASES[case], seed=len(case))
+    got = tagg.weighted_delta_mean(torch.from_numpy(rows), torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), _oracle_merge(rows, w).view(np.uint32))
 
 
 def test_staleness_weight_matches_reference():
@@ -227,19 +248,50 @@ def test_async_baseline_strategy_runs():
     assert m["chain_valid"] and m["ledger_conserved"]
 
 
+def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Float32 ulps between a and b, element by element (0 where both are
+    NaN)."""
+    ia, ib = (np.where(x.view(np.int32) < 0, np.int32(-2 ** 31) - x.view(np.int32),
+                       x.view(np.int32)).astype(np.int64) for x in (a, b))
+    return np.where(np.isnan(a) & np.isnan(b), 0, np.abs(ia - ib))
+
+
+# the merge cases on the card: every MERGE_CASES case, and the three cases
+# at the seed an earlier version of this test drew (where the reference's
+# XLA merge once came out an ulp off on the card's host)
+CUDA_MERGE_CASES = [(case, len(case)) for case in sorted(MERGE_CASES)] + \
+    [("random", 3), ("nan-at-zero-weight", 3), ("all-zero-weights", 3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "nan-at-zero-weight", "all-zero-weights"])
-def test_cuda_merge_is_the_references_bit_for_bit(case):
+@pytest.mark.parametrize("case,seed", CUDA_MERGE_CASES)
+def test_cuda_merge_is_the_references_bit_for_bit(case, seed):
+    """The kernel against the numpy oracle of the merge, bit for bit; then
+    against the reference's merge run through XLA on the host CPU within
+    one ulp.  XLA's CPU backend may contract a product ``w x`` into the
+    first add of the tree as one fused multiply-add where the host has FMA,
+    while the reference's definition rounds the product first: on one H100
+    machine's host its result differed from the oracle by one ulp in 3 and
+    5 of 23 elements, where the kernel agrees with the oracle in every bit.
+    The reference's own tree test meets the same one-ulp difference
+    (ROADMAP.md section 3).  Each case prints how far XLA is from the
+    oracle."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    rows, w = _merge_case(case, k=16, seed=3)
+    kind = case if case in ("all-zero-weights", "nan-at-zero-weight",
+                            "negative-zero-rows", "staleness-weights") else "random"
+    rows, w = _merge_case(kind, k=MERGE_CASES[case], seed=seed)
     before = ka.launches
     got = tagg.weighted_delta_mean(torch.from_numpy(rows).cuda(),
-                                   torch.from_numpy(w).cuda())
+                                   torch.from_numpy(w).cuda()).cpu().numpy()
     assert ka.launches == before + 1
-    want = _ref_merge(rows, w)
-    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
-                                  want.view(np.uint32))
+    oracle = _oracle_merge(rows, w)
+    xla = _ref_merge(rows, w)
+    ulps = _ulps(xla, oracle)
+    print(f"\nmerge {case} seed {seed}: XLA vs oracle differ in {int((ulps > 0).sum())} "
+          f"of {ulps.size} elements (at most {int(ulps.max())} ulp)")
+    np.testing.assert_array_equal(got.view(np.uint32), oracle.view(np.uint32))
+    assert int(_ulps(got, xla).max()) <= 1
 
 
 @pytest.mark.cuda

@@ -6,7 +6,8 @@ and the same batches.
 
 On the CPU, at `reduced()` in float32, for gemma3-4b (sliding-window and
 global attention, GQA, QK-norm), h2o-danube-3-4b, rwkv6-3b (the wkv
-recurrence), jamba-1.5-large-398b (the Mamba scan, MoE with its aux loss),
+recurrence), jamba-1.5-large-398b (the Mamba scan through `SelectiveScanFn`
+and its plain backward, MoE with its aux loss),
 llama4-maverick-400b-a17b (top-1 MoE with a shared expert) and grok-1-314b
 (top-2 MoE), against the reference's `jax.value_and_grad` step:
   * the loss at rtol 1e-5 (the forward's tolerance in tests/test_torch_lm.py);
@@ -14,7 +15,8 @@ llama4-maverick-400b-a17b (top-1 MoE with a shared expert) and grok-1-314b
     another order through the whole backward);
   * the losses of the next two of 3 AdamW + warm-up-cosine steps at rtol
     1e-4 (the parameters' small differences carried through the updates).
-`remat=True` against `remat=False` (torch.utils.checkpoint per period):
+`remat=True` against `remat=False` (torch.utils.checkpoint per period;
+jamba's period runs the selective scan's Function forward again):
 equal, bit for bit.  A checkpoint saved mid-training and restored continues
 to the uninterrupted run's losses, bit for bit (bf16 parameters).  The
 launcher, called in-process through `main(argv)`: the loss goes down and
@@ -113,7 +115,7 @@ def test_train_step_matches_reference(name):
 
 
 @pytest.mark.parametrize("name,n_layers", [("gemma3-4b", 6), ("h2o-danube-3-4b", 2),
-                                           ("rwkv6-3b", 3)])
+                                           ("rwkv6-3b", 3), ("jamba-1.5-large-398b", 8)])
 def test_remat_gives_the_same_gradients_bit_for_bit(name, n_layers):
     cfg = ARCHS[name].reduced(n_layers=n_layers)
     params = tt.init_params(cfg, seed=1, device="cpu")

@@ -11,7 +11,10 @@ with a gated and a plain activation, with and without a shared expert, at
 the automatic capacity and at `capacity=4`, where most choices are
 dropped: y and aux within 1e-5 of max |y|.  Mamba: `mamba_apply` and 8
 chained `mamba_decode` steps from a non-zero state, each step's output
-and the final conv and ssm states within 1e-5 of max |y| and max |h|.
+and the final conv and ssm states within 1e-5 of max |y| and max |h|;
+the gradients of `mamba_apply` (every parameter and the input; on the CPU
+autograd takes the scan's plain backward through `SelectiveScanFn`)
+against `jax.grad` of the reference's within 1e-5 of max(1, max |g|).
 The scan itself is held against a float64 oracle and on the card in
 `tests/test_torch_selective_scan.py`; the three configurations that use
 these modules run end to end in `tests/test_torch_lm.py` and
@@ -134,6 +137,31 @@ def test_mamba_apply_matches_reference(mamba_pair):
         got = tmb.mamba_apply(tp, _t(x), **kw).numpy()
     assert tss.launches == before            # CPU tensors: the plain scan
     _close(got, want, float(np.abs(want).max()), "mamba_apply")
+
+
+def test_mamba_apply_gradients_match_reference(mamba_pair):
+    """d/d(params, x) of sum(mamba_apply(p, x) * w) for a random w: the
+    port's autograd (the scan's plain backward, no launch) against
+    ``jax.grad`` of the reference's ``lax.scan``."""
+    jp, tp = mamba_pair
+    g = np.random.default_rng(7)
+    x = g.standard_normal((2, 40, D_MODEL)).astype(np.float32)
+    w = g.standard_normal((2, 40, D_MODEL)).astype(np.float32)
+    kw = dict(d_state=D_STATE, d_conv=D_CONV, dt_rank=DT_RANK)
+
+    def jloss(p, x):
+        return jnp.sum(jmb.mamba_apply(p, x, **kw) * jnp.asarray(w))
+    jgp, jgx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jp, jnp.asarray(x))
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in tp.items()}
+    tx = _t(x).requires_grad_(True)
+    before = (tss.launches, tss.launches_bwd)
+    (tmb.mamba_apply(leaves, tx, **kw) * _t(w)).sum().backward()
+    assert (tss.launches, tss.launches_bwd) == before
+    assert sorted(leaves) == sorted(jgp)
+    for name, got, want in [(k, leaves[k].grad, jgp[k]) for k in sorted(leaves)] + \
+            [("x", tx.grad, jgx)]:
+        want = np.asarray(want, np.float64)
+        _close(got.numpy(), want, max(1.0, float(np.abs(want).max())), f"d{name}")
 
 
 def test_mamba_decode_steps_match_reference(mamba_pair):

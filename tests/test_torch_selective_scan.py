@@ -17,18 +17,36 @@ split on and off its chunks.  What the kernel does not take,
 `selective_scan_cuda` refuses before it looks at the device (a d_state
 outside D_STATES, dtypes, layouts, alignment), and it refuses CPU tensors.
 
+The gradient on the CPU: `selective_scan_backward_plain` against torch
+autograd through `selective_scan_plain` in float64 within GRAD_RTOL_F64 of
+max(1, max |want|) (x in float32 and bf16, strong decays, non-zero h0 and
+dh_T, S = 1, 37 and 130, and a derandomized hypothesis case); two halves
+with the state carried give the gradients of the whole; `SelectiveScanFn`
+on CPU tensors returns exactly what the plain backward returns; the
+backward kernel's wrapper refuses what the kernel does not take, and CPU
+tensors, before it looks at the device.
+
 On the card (`cuda` marker, skipped without one): the kernel against the
 plain version within SCAN_RTOL at S = 1, 4 and 5 (the two sides of the
 switch between its decode and chunked forms), 63, 64, 65 and 1000,
 d_inner on and off the block of 64 channels, strong decays, a non-zero h0,
 x in float32 and bf16, Bm and Cm as column slices of one projection; two
-halves against the whole, split on and off a chunk; one launch a call; a
-backward through it raises naming ROADMAP item 7e."""
+halves against the whole, split on and off a chunk; one launch a call.
+The forward storing its chunk states gives y and h_T bit for bit; the
+backward kernel, from those states, against the plain backward within
+SCAN_BWD_RTOL of max(1, max |want|) (dx in bf16 per element within
+2^-8 |want| more), around the 16-step chunk and at S = 1, bit-identical on
+a second call; autograd through `ops.selective_scan` on CUDA tensors
+launches the forward once and the backward once, and under remat
+(`torch.utils.checkpoint`) the forward twice, with the same gradients
+and without holding the first run's states."""
 import re
 from pathlib import Path
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -38,6 +56,13 @@ from repro_torch.kernels import selective_scan as tss  # noqa: E402
 # float32 against the float64 oracle, and the kernel against the plain
 # version: |got - want| <= SCAN_RTOL max(1, max |want|), per output
 SCAN_RTOL = 1e-5
+# the plain backward against autograd through the plain forward, both in
+# float64: the same products summed in other orders
+GRAD_RTOL_F64 = 1e-10
+# the backward kernel against the plain backward in float32 (chip_smoke.py's
+# SCAN_BWD_RTOL), and dx in bf16 per element: one rounding, 2^-8 |want|
+SCAN_BWD_RTOL = 1e-4
+BF16_RTOL = 2.0 ** -8
 N = 16
 DT_RANK = 8
 
@@ -322,11 +347,264 @@ def test_cuda_split_on_and_off_a_chunk_boundary(cut):
     _assert_close(whole, tss.selective_scan_plain(dt, x, Bm, Cm, A, D, h0), "whole")
 
 
+def _cotangents(B, S, di, seed, *, dhT_scale=1.0):
+    g = np.random.default_rng(seed + 1000)
+    return g.standard_normal((B, S, di)), dhT_scale * g.standard_normal((B, di, N))
+
+
+def _grad_close(got, want, what, rtol):
+    names = ("ddt", "dx", "dBm", "dCm", "dA", "dD", "dh0")
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, name, g.shape, w.shape,
+                                                          g.dtype, w.dtype)
+        g, w = g.double().cpu(), w.double().cpu()
+        if w.numel():
+            err = float((g - w).abs().max())
+            assert err <= rtol * max(1.0, float(w.abs().max())), (what, name, err)
+
+
+def _autograd_plain(args, dy, dhT):
+    """The gradients of sum(y dy) + sum(h_T dh_T) by torch autograd through
+    selective_scan_plain, Bm and Cm as slices of one leaf as the model has
+    them."""
+    dt, x, Bm, Cm, A, D, h0 = args
+    proj = torch.cat([Bm, Cm], dim=-1).detach().requires_grad_(True)
+    leaves = [t.detach().requires_grad_(True) for t in (dt, x, A, D, h0)]
+    y, hT = tss.selective_scan_plain(leaves[0], leaves[1], proj[..., :N], proj[..., N:],
+                                     *leaves[2:])
+    ((y * dy).sum() + (hT * dhT).sum()).backward()
+    return (leaves[0].grad, leaves[1].grad, proj.grad[..., :N], proj.grad[..., N:],
+            leaves[2].grad, leaves[3].grad, leaves[4].grad)
+
+
+def _f64(arrays, x_dtype=torch.float64):
+    dt, x, Bm, Cm, A, D, h0 = (torch.from_numpy(a) for a in arrays)
+    return dt, x.to(x_dtype), Bm, Cm, A, D, h0
+
+
+GRAD_CASES = {"S = 1, h0 and dh_T": dict(B=2, S=1, di=32, h0_scale=1.0),
+              "S = 37, x float32": dict(B=2, S=37, di=24),
+              "S = 37, x bf16": dict(B=2, S=37, di=24, x_dtype="bf16"),
+              "S = 130, strong decays, h0 and dh_T": dict(B=1, S=130, di=16, strong=True,
+                                                          h0_scale=1.0),
+              "S = 64, dh_T 0": dict(B=2, S=64, di=20, h0_scale=1.0, dhT_scale=0.0)}
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_plain_backward_matches_autograd_in_float64(case):
+    kw = dict(GRAD_CASES[case])
+    bf16 = kw.pop("x_dtype", None) == "bf16"
+    dhT_scale = kw.pop("dhT_scale", 1.0)
+    arrays = _inputs(seed=len(case), x_dtype="bf16" if bf16 else np.float32, **kw)
+    args = _f64(arrays, torch.bfloat16 if bf16 else torch.float64)
+    dy, dhT = (torch.from_numpy(a) for a in _cotangents(kw["B"], kw["S"], kw["di"],
+                                                        len(case), dhT_scale=dhT_scale))
+    got = tss.selective_scan_backward_plain(*args, dy, dhT)
+    _grad_close(got, _autograd_plain(args, dy, dhT), case, GRAD_RTOL_F64)
+    assert got[1].dtype == (torch.bfloat16 if bf16 else torch.float64)
+
+
+@settings(database=None, derandomize=True, max_examples=12, deadline=None)
+@given(B=st.integers(1, 2), S=st.integers(1, 40), di=st.integers(1, 12),
+       strong=st.booleans(), seed=st.integers(0, 2 ** 16))
+def test_plain_backward_matches_autograd_hypothesis(B, S, di, strong, seed):
+    args = _f64(_inputs(B, S, di, seed, strong=strong, h0_scale=1.0))
+    dy, dhT = (torch.from_numpy(a) for a in _cotangents(B, S, di, seed))
+    got = tss.selective_scan_backward_plain(*args, dy, dhT)
+    _grad_close(got, _autograd_plain(args, dy, dhT), (B, S, di, strong, seed),
+                GRAD_RTOL_F64)
+
+
+@pytest.mark.parametrize("cut", [1, 16, 23])
+def test_plain_backward_two_halves_give_the_whole(cut):
+    """The second half's backward from dh_T, then the first half's from
+    the second's dh0: the per-step gradients and dh0 of the whole, dA and
+    dD the sums of the halves'."""
+    B, S, di = 2, 40, 16
+    args = _f64(_inputs(B, S, di, 21, strong=True, h0_scale=1.0))
+    dt, x, Bm, Cm, A, D, h0 = args
+    dy, dhT = (torch.from_numpy(a) for a in _cotangents(B, S, di, 21))
+    whole = tss.selective_scan_backward_plain(*args, dy, dhT)
+    _, h_mid = tss.selective_scan_plain(dt[:, :cut], x[:, :cut], Bm[:, :cut], Cm[:, :cut],
+                                        A, D, h0)
+    second = tss.selective_scan_backward_plain(dt[:, cut:], x[:, cut:], Bm[:, cut:],
+                                               Cm[:, cut:], A, D, h_mid, dy[:, cut:], dhT)
+    first = tss.selective_scan_backward_plain(dt[:, :cut], x[:, :cut], Bm[:, :cut],
+                                              Cm[:, :cut], A, D, h0, dy[:, :cut], second[6])
+    joined = [torch.cat([f, s], dim=1) for f, s in zip(first[:4], second[:4])]
+    joined += [first[4] + second[4], first[5] + second[5], first[6]]
+    _grad_close(joined, whole, f"split at {cut}", GRAD_RTOL_F64)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_function_on_cpu_returns_the_plain_backward(x_dtype):
+    """Autograd through ops.selective_scan on CPU tensors: the forward is
+    the plain version, the gradients exactly the plain backward's, no
+    launch."""
+    arrays = _inputs(2, 21, 24, 31, h0_scale=1.0,
+                     x_dtype="bf16" if x_dtype == torch.bfloat16 else np.float32)
+    args = _torch(arrays, x_dtype=x_dtype)
+    dy, dhT = (torch.from_numpy(a).float() for a in _cotangents(2, 21, 24, 31))
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    before = (tss.launches, tss.launches_bwd)
+    y, hT = tops.selective_scan(*leaves)
+    want_y, want_h = tss.selective_scan_plain(*args)
+    assert torch.equal(y, want_y) and torch.equal(hT, want_h)
+    ((y * dy).sum() + (hT * dhT).sum()).backward()
+    assert (tss.launches, tss.launches_bwd) == before
+    want = tss.selective_scan_backward_plain(*args, dy, dhT)
+    for t, w in zip(leaves, want):
+        assert t.grad.dtype == w.dtype and torch.equal(t.grad, w)
+
+
+def _refused_bwd(kind):
+    """Backward arguments the kernel does not take, on the CPU."""
+    if kind == "float64 dy":
+        args = _refused("CPU tensors")
+        return args + [torch.zeros(1, 4, 32, dtype=torch.float64), torch.zeros(1, 32, N)]
+    if kind == "dy of another shape":
+        return _refused("CPU tensors") + [torch.zeros(1, 5, 32), torch.zeros(1, 32, N)]
+    args = _refused(kind)
+    return args + [torch.zeros(args[0].shape), torch.zeros(args[6].shape)]
+
+
+@pytest.mark.parametrize("kind,error,match", [
+    ("d_state 8", ValueError, r"d_state in \(16,\)"),
+    ("float64 dt", TypeError, "float32"),
+    ("float16 x", TypeError, "bfloat16"),
+    ("float64 dy", TypeError, "cotangents"),
+    ("dy of another shape", ValueError, "do not fit"),
+    ("dt strided over di", ValueError, "unit stride"),
+    ("h0 off 16 bytes", ValueError, "16 bytes"),
+    ("CPU tensors", ValueError, "CUDA tensors"),
+])
+def test_cuda_backward_refuses_what_the_kernel_does_not_take(kind, error, match):
+    before = tss.launches_bwd
+    with pytest.raises(error, match=match):
+        tss.selective_scan_backward_cuda(*_refused_bwd(kind))
+    assert tss.launches_bwd == before
+
+
+def test_backward_chunk_matches_the_kernel_source():
+    """The backward walks the forward's states interval: CHUNK is the
+    kChunk of both sources."""
+    for source in ("selective_scan.cu", "selective_scan_bwd.cu"):
+        src = (Path(tss.__file__).parent / "csrc" / source).read_text()
+        assert int(re.search(r"constexpr int kChunk = (\d+);", src).group(1)) == tss.CHUNK
+
+
 @pytest.mark.cuda
-def test_cuda_backward_raises_naming_item_7e():
+@pytest.mark.parametrize("S", [5, 16, 17, 300])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_forward_storing_states_gives_the_same_bits(S, x_dtype):
     _need_cuda()
-    args = [t.clone().requires_grad_(True)
-            for t in _torch(_inputs(1, 8, 128, 9), device="cuda")]
-    y, _ = tops.selective_scan(*args)
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        y.sum().backward()
+    args = _torch(_inputs(2, S, 200, S, strong=True, h0_scale=1.0), device="cuda",
+                  x_dtype=x_dtype)
+    y, hT = tss.selective_scan_cuda(*args)
+    y2, h2, states = tss.selective_scan_cuda(*args, return_states=True)
+    assert torch.equal(y, y2) and torch.equal(hT, h2)
+    if S <= tss.CHUNK:
+        assert states is None
+    else:
+        assert states.shape == (2, -(-S // tss.CHUNK), 200, N)
+        assert torch.equal(states[:, 0], args[6])
+        _, h16 = tss.selective_scan_cuda(*(t[:, :tss.CHUNK] for t in args[:4]), *args[4:])
+        assert torch.equal(states[:, 1], h16)
+
+
+CUDA_GRAD_CASES = {"S = 1 (2, 1, 384), h0": dict(B=2, S=1, di=384, h0_scale=1.0),
+                   "S = 15 (2, 15, 200)": dict(B=2, S=15, di=200, h0_scale=1.0),
+                   "S = 16 (1, 16, 256)": dict(B=1, S=16, di=256),
+                   "S = 17 (3, 17, 130), strong": dict(B=3, S=17, di=130, strong=True,
+                                                        h0_scale=1.0),
+                   "S = 1000 (2, 1000, 1000)": dict(B=2, S=1000, di=1000, h0_scale=1.0),
+                   "strong decays (2, 300, 512)": dict(B=2, S=300, di=512, strong=True,
+                                                       h0_scale=1.0)}
+
+
+def _cuda_bwd_check(args, dy, dhT, what):
+    states = tss.selective_scan_cuda(*args, return_states=True)[2]
+    before = tss.launches_bwd
+    got = tss.selective_scan_backward_cuda(*args, dy, dhT, states=states)
+    again = tss.selective_scan_backward_cuda(*args, dy, dhT, states=states)
+    torch.cuda.synchronize()
+    assert tss.launches_bwd == before + 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a), what                 # the same bits on a second call
+    want = tss.selective_scan_backward_plain(*args, dy, dhT)
+    bf16 = args[1].dtype == torch.bfloat16
+    # dx in bf16 against the float32 plain backward of the same inputs
+    want_dx = tss.selective_scan_backward_plain(args[0], args[1].float(), *args[2:],
+                                                dy, dhT)[1] if bf16 else want[1]
+    _grad_close([g for i, g in enumerate(got) if i != 1],
+                [w for i, w in enumerate(want) if i != 1], what, SCAN_BWD_RTOL)
+    assert got[1].dtype == args[1].dtype
+    err = (got[1].float() - want_dx).abs()
+    limit = (BF16_RTOL if bf16 else 0.0) * want_dx.abs() \
+        + SCAN_BWD_RTOL * max(1.0, float(want_dx.abs().max()))
+    assert bool((err <= limit).all()), (what, "dx", float((err - limit).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_GRAD_CASES))
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_matches_plain(case, x_dtype):
+    _need_cuda()
+    kw = CUDA_GRAD_CASES[case]
+    args = _torch(_inputs(seed=len(case), **kw), device="cuda", x_dtype=x_dtype)
+    dy, dhT = (torch.from_numpy(a).float().cuda()
+               for a in _cotangents(kw["B"], kw["S"], kw["di"], len(case)))
+    _cuda_bwd_check(args, dy, dhT, case)
+
+
+@pytest.mark.cuda
+def test_cuda_remat_recomputes_the_same_states_and_drops_the_first():
+    """Under non-reentrant ``torch.utils.checkpoint`` (the model's remat)
+    the forward kernel runs twice and the backward once; the gradients
+    equal those without checkpoint bit for bit (the recompute stores the
+    same states), and the first run's states are not held until the
+    backward: after the forward, the checkpointed call holds less device
+    memory than the plain one, by the states' size within 10%."""
+    _need_cuda()
+    B, S, di = 2, 1024, 1024
+    args = _torch(_inputs(B, S, di, 17, h0_scale=1.0), device="cuda",
+                  x_dtype=torch.bfloat16)
+    states_bytes = B * -(-S // tss.CHUNK) * di * N * 4
+    grads, held = [], []
+    for remat in (False, True):
+        leaves = [t.detach().requires_grad_(True) for t in args]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        before = (tss.launches, tss.launches_bwd)
+        if remat:
+            y, hT = torch.utils.checkpoint.checkpoint(tops.selective_scan, *leaves,
+                                                      use_reentrant=False)
+        else:
+            y, hT = tops.selective_scan(*leaves)
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated() - base)
+        (y.square().sum() + hT.sum()).backward()
+        torch.cuda.synchronize()
+        assert (tss.launches - before[0], tss.launches_bwd - before[1]) == \
+            ((2 if remat else 1), 1)
+        grads.append([t.grad for t in leaves])
+        del y, hT, leaves
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    assert abs(held[0] - held[1] - states_bytes) <= 0.1 * states_bytes, (held, states_bytes)
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_launches_the_forward_and_backward_kernels():
+    _need_cuda()
+    args = _torch(_inputs(2, 100, 128, 9, h0_scale=1.0), device="cuda",
+                  x_dtype=torch.bfloat16)
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    before = (tss.launches, tss.launches_bwd)
+    y, hT = tops.selective_scan(*leaves)
+    (y.square().sum() + hT.sum()).backward()
+    torch.cuda.synchronize()
+    assert (tss.launches, tss.launches_bwd) == (before[0] + 1, before[1] + 1)
+    want = tss.selective_scan_backward_plain(*args, 2.0 * y.detach(), torch.ones_like(hT))
+    _grad_close([t.grad for t in leaves if t is not leaves[1]],
+                [w for i, w in enumerate(want) if i != 1], "autograd", SCAN_BWD_RTOL)
