@@ -88,18 +88,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      forward) and with the forward's states pass, and the wkv forward
      timed with and without storing the states;
    * the selective scan's backward (`csrc/selective_scan_bwd.cu`: each
-     16-step chunk recomputed from the state the forward kernel stores
-     there, then walked backward; a second launch sums the per-block
-     partials of dB, dC, dA, dD in a fixed order) at jamba's (2, 4096,
-     16384, 16) with x bf16 and float32, the model's and strong decays and
-     non-zero h0 and dh_T, at S = 1000, 1, 4, 5 (either side of the
-     decode form), 15, 16, 17 (of one chunk) and 63, 64, 65: every
+     8-step span's states and exponentials recomputed into registers from
+     the state the forward kernel stores there, then walked backward with
+     each exponential reused; a second launch sums the per-block partials
+     of dB, dC, dA, dD in a fixed order) at jamba's (2, 4096, 16384, 16)
+     with x bf16 and float32, the model's and strong decays and non-zero h0
+     and dh_T, at S = 1000, 1, 4, 5 (either side of the decode form), 15,
+     16, 17 (of the forward's 16-step chunk) and 63, 64, 65: every
      gradient within SCAN_BWD_RTOL max(1, max |want|) of the plain
      backward, dx in bf16 per element against the float32 plain dx within
      FLASH_RTOL_BF16 |want| more, two calls bit for bit; timed at the main
      shape from the forward's states beside its bound (bytes, one
      exponential a state a step, SCAN_BWD_FLOPS_PER_STATE flops) and the
-     plain backward, and the forward timed storing the states;
+     plain backward, and again with Bm / Cm as slices of the train path's
+     (B, S, TRAIN_DT_RANK + 32) projection (the same gradients, bit for
+     bit); the forward timed storing the states;
    * the shapes only the baselines' and the paper's paths give the
      kernels: the flat strategies' masked mean (cluster_agg at C = 1,
      zero-weight rows holding NaN) at (100, 6570) and at Table II's
@@ -406,6 +409,9 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 SCAN_FLOPS_PER_STATE = 6
 # jamba's Mamba prefill: (B, S, d_inner, d_state)
 SCAN_SHAPE = (2, 4096, 16384, 16)
+# jamba's dt_rank: the train path's Bm / Cm are column slices of a (B, S,
+# TRAIN_DT_RANK + 32) projection (models/mamba.py::_selective_terms)
+TRAIN_DT_RANK = ARCHS["jamba-1.5-large-398b"].mamba_dt_rank
 # the scan's backward kernel against its plain backward: every gradient
 # within SCAN_BWD_RTOL max(1, max |want|) (float32 sums of up to 16384
 # channels and 8192 steps in other orders), dx in bf16 per element within
@@ -424,11 +430,13 @@ FLASH_LM_SHAPES = {"jamba (2, 4096, 64, 8, 128) G = 8": ((2, 4096, 64, 8, 128), 
                        ((2, 4096, 40, 8, 128), 8192)}
 # the flash kernels keep O, S and P in registers: a spill serialises them;
 # the selective scan keeps its states in registers at 64 a thread (four
-# blocks an SM): a spill puts local-memory traffic in every step
-NO_SPILL_SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu", "selective_scan.cu")
-# the backward kernels' sources: their spills are printed and reported, not gated
+# blocks an SM), its backward a span's 8 states and exponentials at up to
+# 128: a spill puts local-memory traffic in every step
+NO_SPILL_SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu", "selective_scan.cu",
+                    "selective_scan_bwd.cu")
+# the other backward kernels' sources: their spills are printed and reported, not gated
 BACKWARD_SOURCES = ("flash_attention_bwd_sm90.cu", "flash_attention_bwd.cu",
-                    "rwkv6_scan_bwd.cu", "selective_scan_bwd.cu")
+                    "rwkv6_scan_bwd.cu")
 # the flash backward against its plain version: float32 inputs within
 # FLASH_BWD_RTOL_F32 max |want| per gradient; bf16 inputs per element against
 # the float32 plain backward of the same inputs (the same bf16 output O),
@@ -536,17 +544,21 @@ def fingerprint_bound_us(m: int, n: int) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_no_spills() -> None:
+def check_no_spills() -> dict:
     """Both flash kernels keep O, S and P in registers (241 of them at
     head_dim 256 in the bf16 kernel), the selective scan its states at 64
-    a thread: ptxas must compile every instance of each without spilling,
-    or their products serialise on local memory."""
+    a thread, its backward a span's states and exponentials: ptxas must
+    compile every instance of each without spilling, or their products
+    serialise on local memory.  Returns each source's spill stores per
+    instance (all 0)."""
+    out = {}
     for source in NO_SPILL_SOURCES:
         log = _build.library_path(source).with_suffix(".log").read_text()
-        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
-        if not spills or any(spills):
-            raise AssertionError(f"{source}: ptxas spill stores {spills}")
-        print(f"{source}: {len(spills)} instances, no spills", flush=True)
+        out[source] = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+        if not out[source] or any(out[source]):
+            raise AssertionError(f"{source}: ptxas spill stores {out[source]}")
+        print(f"{source}: {len(out[source])} instances, no spills", flush=True)
+    return out
 
 
 def report_spills() -> dict:
@@ -587,6 +599,30 @@ def median_us(fn, arg, reps: int, flush: torch.Tensor,
         times.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) * 1e3 for s, e in times]))
+
+
+def with_clocks(fn):
+    """``fn()``'s result, and the SM clock (MHz) and power draw (W) that
+    `nvidia-smi` sampled every 20 ms while it ran: min, median, max."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "20", "-i", "0"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.1)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    finally:
+        smi.terminate()
+        lines, _ = smi.communicate(timeout=30)
+    rows = [[float(v) for v in ln.split(",")] for ln in lines.splitlines()
+            if ln.count(",") == 1 and "N/A" not in ln]
+    summary = {}
+    for i, key in enumerate(("sm_clock_mhz", "power_w")):
+        vals = sorted(r[i] for r in rows)
+        summary[key] = ({"min": vals[0], "median": vals[len(vals) // 2], "max": vals[-1],
+                         "samples": len(vals)} if vals else None)
+    return out, summary
 
 
 def bound_us(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -2171,21 +2207,23 @@ def flash_lm_phase(dev) -> dict:
 
 
 def scan_inputs(gen, B: int, S: int, di: int, dev, *, strong: bool = False,
-                h0_scale: float = 0.0, x_dtype=torch.bfloat16):
+                h0_scale: float = 0.0, x_dtype=torch.bfloat16, dt_rank: int = 8):
     """The scan's inputs as the Mamba mixer gives them: dt = softplus(z -
     4.6) with z standard normal (around 0.01, the init's dt_bias), or with
     ``strong`` uniform over (0, 5) (exp(dt A) down to exp(-80)); x standard
-    normal in ``x_dtype``; Bm and Cm column slices of one (B, S, 8 + 32)
-    projection; A = -exp(A_log) at the init's A_log (-1 .. -16 a channel);
-    D = 1; h0 ``h0_scale`` standard normal."""
+    normal in ``x_dtype``; Bm and Cm column slices of one (B, S, dt_rank +
+    32) projection (the train path's layout at TRAIN_DT_RANK); A =
+    -exp(A_log) at the init's A_log (-1 .. -16 a channel); D = 1; h0
+    ``h0_scale`` standard normal."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
     dt = (torch.rand((B, S, di), generator=gen, device=dev) * 5.0 if strong
           else torch.logaddexp(randn(B, S, di) - 4.6, torch.zeros((), device=dev)))
-    proj = randn(B, S, 8 + 32)
+    proj = randn(B, S, dt_rank + 32)
     A = -torch.arange(1, 17, dtype=torch.float32, device=dev).expand(di, 16).contiguous()
-    return (dt, randn(B, S, di).to(x_dtype), proj[..., 8:24], proj[..., 24:], A,
-            torch.ones(di, device=dev), h0_scale * randn(B, di, 16))
+    return (dt, randn(B, S, di).to(x_dtype), proj[..., dt_rank:dt_rank + 16],
+            proj[..., dt_rank + 16:], A, torch.ones(di, device=dev),
+            h0_scale * randn(B, di, 16))
 
 
 def scan_err(got, want, what: str) -> float:
@@ -2616,11 +2654,26 @@ def check_scan_bwd(args, what: str) -> dict:
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"scan backward kernel on {what}: two calls differ")
     del again, states
+    return scan_bwd_shares(got, scan_bwd_want(args), what)
+
+
+def scan_bwd_want(args) -> list[torch.Tensor]:
+    """The plain backward's gradients of ``args`` (forward inputs, dy,
+    dh_T), dx in float32: for bf16 x, that of x's float32 copy."""
+    fwd, bwd = args[:7], args[7:]
     want = list(sc.selective_scan_backward_plain(*fwd, *bwd))
-    bf16 = fwd[1].dtype == torch.bfloat16
-    if bf16:
+    if fwd[1].dtype == torch.bfloat16:
         want[1] = sc.selective_scan_backward_plain(fwd[0], fwd[1].float(), *fwd[2:],
                                                    *bwd)[1]
+    return want
+
+
+def scan_bwd_shares(got, want, what: str) -> dict:
+    """Each gradient of ``got`` against ``want`` (scan_bwd_want) within
+    SCAN_BWD_RTOL max(1, max |want|), dx in bf16 (``got``'s dtype) per
+    element within FLASH_RTOL_BF16 |want| + that limit; raises on one
+    outside."""
+    bf16 = got[1].dtype == torch.bfloat16
     errs, shares = {}, {}
     for name, g, w in zip(("ddt", "dx", "dBm", "dCm", "dA", "dD", "dh0"), got, want):
         diff = (g.float() - w).abs()
@@ -2644,7 +2697,10 @@ def scan_bwd_phase(dev, floors: dict) -> tuple[dict, dict]:
     ones, non-zero h0 and dh_T), at S = 1000, S = 1 and on both sides of
     the decode form (4, 5), of one 16-step chunk (15, 16, 17) and of 64
     steps (63, 64, 65); times at the main shape with the states from the
-    forward, as the train path has them, beside the plain backward."""
+    forward, as the train path has them, beside the plain backward, and
+    again with Bm / Cm as slices of the train path's (B, S, TRAIN_DT_RANK +
+    32) projection (the same gradients bit for bit), sampling the SM clock
+    while the main shape is timed."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     B, S, di, N = SCAN_SHAPE
 
@@ -2669,6 +2725,13 @@ def scan_bwd_phase(dev, floors: dict) -> tuple[dict, dict]:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     states = sc.selective_scan_cuda(*main[:7], return_states=True)[2]
     x = main[1]
+    # the train path's layout: Bm / Cm slices of a (B, S, TRAIN_DT_RANK + 32)
+    # projection, the other inputs main's
+    proj = torch.randn((B, S, TRAIN_DT_RANK + 2 * N), generator=gen, device=dev)
+    proj[..., TRAIN_DT_RANK:TRAIN_DT_RANK + N] = main[2]
+    proj[..., TRAIN_DT_RANK + N:] = main[3]
+    train = (*main[:2], proj[..., TRAIN_DT_RANK:TRAIN_DT_RANK + N],
+             proj[..., TRAIN_DT_RANK + N:], *main[4:])
     # read dt, x, dy, B, C, A, D, h0, dh_T once; write ddt, dx, dB, dC, dA,
     # dD, dh0 once
     seq = B * S * di
@@ -2678,9 +2741,15 @@ def scan_bwd_phase(dev, floors: dict) -> tuple[dict, dict]:
              "exp_us": seq * N / SFU_OPS_PER_S * 1e6,
              "flops_us": seq * N * SCAN_BWD_FLOPS_PER_STATE / ALU32_OPS_PER_S * 1e6}
     bound = max(terms.values())
+    kernel_us, clocks = with_clocks(lambda: median_us(
+        lambda _: sc.selective_scan_backward_cuda(*main, states=states), None, 10, flush))
     row = {"shape": list(SCAN_SHAPE), "dtype": "x bfloat16, the rest float32",
-           "kernel_us": median_us(lambda _: sc.selective_scan_backward_cuda(
-               *main, states=states), None, 10, flush),
+           "kernel_us": kernel_us,
+           "clocks_while_timed": clocks,
+           "kernel_train_layout_us": median_us(lambda _: sc.selective_scan_backward_cuda(
+               *train, states=states), None, 10, flush),
+           "train_layout": f"Bm / Cm column slices of a (B, S, {TRAIN_DT_RANK} + 32) "
+                           "projection",
            "plain_us": median_us(lambda _: sc.selective_scan_backward_plain(*main), None,
                                  1, flush),
            "library_us": None, "bound_us": bound,
@@ -2689,7 +2758,11 @@ def scan_bwd_phase(dev, floors: dict) -> tuple[dict, dict]:
            "states_bytes": states.numel() * 4,
            "launch_floor_us": floors["empty_us"],
            "round_trip_floor_us": floors["round_trip_us"]}
-    del main, states
+    if not all(torch.equal(a, b) for a, b in zip(
+            sc.selective_scan_backward_cuda(*train, states=states),
+            sc.selective_scan_backward_cuda(*main, states=states))):
+        raise AssertionError("scan backward kernel: the train layout's gradients differ")
+    del main, train, proj, states
     torch.cuda.empty_cache()
     return row, checks
 
@@ -2981,9 +3054,9 @@ def main() -> int:
     print(f"built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
         print(log.read_text().strip(), flush=True)
-    check_no_spills()
+    gated = check_no_spills()
 
-    res: dict = {"backward_spills": report_spills()}
+    res: dict = {"backward_spills": dict(report_spills(), **gated)}
     t0 = time.perf_counter()
     res["floors"] = launch_floors_us(torch.empty(128 << 20, dtype=torch.uint8,
                                                  device=dev))
@@ -3205,6 +3278,9 @@ def kernel_entries(res: dict) -> list[dict]:
                                    "gradient",
               bound_terms=scan_bwd_row["bound_terms"],
               states_bytes=scan_bwd_row["states_bytes"],
+              ms_train_layout=us_to_ms(scan_bwd_row, "kernel_train_layout_us"),
+              clocks_while_timed=scan_bwd_row["clocks_while_timed"],
+              train_layout=scan_bwd_row["train_layout"],
               ptxas_spill_stores=spills["selective_scan_bwd.cu"]),
     ]
 

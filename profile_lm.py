@@ -38,7 +38,9 @@ routing, top-k, the slot cumsum, the scatter and the weighted gather;
 `moe_apply` runs under a `record_function` range here, which the port's
 code does not open), matrix products (cuBLAS), and the rest — and each
 of the port's own kernels by name (the backward's launches apart).
-The profiler's own cost is in the wall time.  Exits non-zero without CUDA.
+Each path also reports the SM clock and power draw that `nvidia-smi`
+sampled every 20 ms while it ran (`chip_smoke.with_clocks`).  The
+profiler's own cost is in the wall time.  Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import chip_smoke as cs  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.models import decode as lmdec  # noqa: E402
@@ -138,11 +141,13 @@ def profiled(fn, steps: int) -> dict:
     of the port's own kernels (every launch of its groups) by name."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        def run():
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        wall_ms, clocks = cs.with_clocks(run)
     # the MoE range also shows on the device timeline (an annotation, not work)
     device = sorted((e for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA and e.key != MOE_RANGE),
@@ -158,7 +163,7 @@ def profiled(fn, steps: int) -> dict:
     if moe:
         groups[MOE_GROUP] = dispatch
         groups["other"] = groups.get("other", 0.0) - dispatch
-    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps, "clocks": clocks,
             "device_ms_per_step": device_ms / steps,
             "device_busy_share": device_ms / wall_ms,
             "device_activities_per_step": sum(e.count for e in device) / steps,

@@ -47,10 +47,12 @@
 //     issued at once, then the walk, then the stores: one memory round
 //     trip.  The C entry point picks by S; either way one launch a call.
 //   * For the gradient (csrc/selective_scan_bwd.cu), the chunked form can
-//     also store the state each chunk of kChunk steps starts from, states
-//     (B, ceil(S / kChunk), di, kN) float32 (537 MB at jamba's prefill): a
-//     separate instance (kStates), whose walk is the same arithmetic, so y
-//     and h_T are those of the call without states, bit for bit.
+//     also store the state every kStatesEvery = 8 steps starts from, states
+//     (B, ceil(S / kStatesEvery), di, kN) float32 (1.07 GB at jamba's
+//     prefill): a separate instance (kStates), whose walk is the same
+//     arithmetic, so y and h_T are those of the call without states, bit
+//     for bit.  The backward holds a span of kStatesEvery steps' states and
+//     exponentials in registers, which 16 steps would not fit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,6 +67,7 @@ constexpr int kChannels = 64;               // channels a block
 constexpr int kThreads = kChannels * kLanes;
 constexpr int kBlocksPerSM = 4;             // blocks an SM at once (the register budget)
 constexpr int kChunk = 16;                  // steps a staged chunk
+constexpr int kStatesEvery = 8;             // the states interval (kStates)
 constexpr int kBufs = 2;                    // chunks staged at once: the walk's and the next
 constexpr int kDecodeMaxS = 4;              // S up to this takes the decode form
 constexpr float kLog2e = 1.4426950408889634f;
@@ -72,7 +75,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kTileLoads = kChunk * kChannels / kThreads;   // dt, and x
 constexpr int kBcLoads = kChunk * 2 * kN / kThreads;        // B_t and C_t
 static_assert(kChunk * kChannels % kThreads == 0 && kChunk * 2 * kN % kThreads == 0 &&
-              kChunk % kLanes == 0 && kDecodeMaxS % kLanes == 0 && kPer % 4 == 0, "");
+              kChunk % kLanes == 0 && kDecodeMaxS % kLanes == 0 && kPer % 4 == 0 &&
+              kChunk % kStatesEvery == 0 && kStatesEvery % kLanes == 0, "");
 
 struct Args {
   const float *dt, *Bm, *Cm, *A, *D, *h0;
@@ -202,6 +206,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) scan_chunked_kernel(co
   const Lane ln(a.di);
   Walker w(a, ln, b);
   const int nchunks = (a.S + kChunk - 1) / kChunk;
+  // the states rows: the state before step r kStatesEvery, r < nrows
+  float* const st_base =
+      kStates ? a.states + (long long)b * ((a.S + kStatesEvery - 1) / kStatesEvery) * a.di * kN
+              : nullptr;
 
   // Every address below advances by a pointer step: no index arithmetic
   // in the loop.  The loader copies channel lc at steps ls + j kRowStep of
@@ -271,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) scan_chunked_kernel(co
     constexpr int p = decltype(parity)::value;      // c % 2
     const int buf = c % kBufs, t0 = c * kChunk;
     // the state chunk c starts from, for the gradient
-    if constexpr (kStates) w.store_row(a.states + ((long long)b * nchunks + c) * a.di * kN, ln);
+    if constexpr (kStates) w.store_row(st_base + (long long)(t0 / kStatesEvery) * a.di * kN, ln);
     // the buffer of c + kBufs - 1 was last read in the walk of c - 1
     if (c + kBufs - 1 < nchunks) copy(c + kBufs - 1);
     cp_async_commit();
@@ -297,6 +305,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) scan_chunked_kernel(co
       const float yt = lane_sums(v, ln.g);
       if (ln.live && t0 + s0 + ln.g < a.S) *y_dst = yt;
       y_dst += y_step;
+      // the state a states row starts from, inside the chunk
+      const int t1 = s0 + kLanes;
+      if (kStates && t1 % kStatesEvery == 0 && t1 < kChunk && t0 + t1 < a.S)
+        w.store_row(st_base + (long long)((t0 + t1) / kStatesEvery) * a.di * kN, ln);
     }
     // the buffer of c + 1 was last read in the walk of c + 1 - kBufs
     if (c + 1 < nchunks) stage_x(xr[1 - p], c + 1);
@@ -369,9 +381,9 @@ int launch(const Args& a, int B, cudaStream_t st) {
 // over (b, t); x float32 or (x_bf16) bf16, the rest float32.  Bm, Cm: (B,
 // S, N) with unit stride over N; y (B, S, di) likewise (written).  A (di,
 // N), D (di), h0 and hT (B, di, N) contiguous, A, h0 and hT on 16 bytes.
-// N must be 16.  states: null, or (B, ceil(S / kChunk), di, N) float32
-// contiguous on 16 bytes, written with the state each chunk starts from
-// (S > kDecodeMaxS only).  Launches one kernel on `stream` (the decode form
+// N must be 16.  states: null, or (B, ceil(S / kStatesEvery), di, N)
+// float32 contiguous on 16 bytes, written with the state before every
+// kStatesEvery-th step (S > kDecodeMaxS only).  Launches one kernel on `stream` (the decode form
 // for S <= 4 without states, else the chunked one above) and returns
 // cudaGetLastError() (0 on success).
 extern "C" int selective_scan_launch(
@@ -403,3 +415,6 @@ extern "C" int selective_scan_launch(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return x_bf16 ? launch<__nv_bfloat16>(a, B, st) : launch<float>(a, B, st);
 }
+
+// the steps between two rows of states
+extern "C" int selective_scan_states_every() { return kStatesEvery; }

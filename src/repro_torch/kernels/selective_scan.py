@@ -34,10 +34,10 @@ from g = dh_T, with a_t = exp(dt_t A):
 ending with dh0 = g_0 a_0 (steps counted from 0).  For CPU tensors
 :func:`selective_scan_backward_plain` (every state of a forward pass kept),
 for CUDA tensors :func:`selective_scan_backward_cuda`
-(``csrc/selective_scan_bwd.cu``: each chunk of CHUNK steps recomputed from
-the state the forward kernel stores there, then walked backward; no
-atomics).  :class:`SelectiveScanFn` picks by where the tensors lie, forward
-and backward, and ``repro_torch.kernels.ops.selective_scan`` routes every
+(``csrc/selective_scan_bwd.cu``: each span of STATES_EVERY steps
+recomputed from the state the forward kernel stores there, then walked
+backward; no atomics).  :class:`SelectiveScanFn` picks by where the
+tensors lie, forward and backward, and ``repro_torch.kernels.ops.selective_scan`` routes every
 call through it; a CUDA tensor launches the kernels or raises, there is no
 fallback.
 """
@@ -53,9 +53,10 @@ D_STATES = (16,)          # csrc/selective_scan.cu's instances (every config use
 # csrc/selective_scan.cu's kChunk (steps staged at a time) and kDecodeMaxS:
 # a call with S <= DECODE_MAX_S takes the kernel's decode form, longer ones
 # the chunked form (one launch either way)
-# the chunk is also the interval at which the forward stores states for the
-# backward (csrc/selective_scan_bwd.cu's kChunk)
 CHUNK, DECODE_MAX_S = 16, 4
+# the interval at which the forward stores states for the backward, and the
+# span the backward walks from each (kStatesEvery of both sources)
+STATES_EVERY = 8
 
 # Launches since the last reset (set them to 0): of selective_scan_cuda, and
 # of selective_scan_backward_cuda (one call, its two launches, counts one).
@@ -176,12 +177,12 @@ def selective_scan_cuda(dt, x, Bm, Cm, A, D, h0, *, return_states: bool = False)
     contiguous, A and h0 starting on 16 bytes (the kernel reads their rows
     by 16-byte loads).  y comes back (B, S, di) float32 contiguous, h_T (B, di,
     N) float32.  With ``return_states`` it returns (y, h_T, states): the
-    state each chunk of CHUNK steps starts from, (B, ceil(S / CHUNK), di,
-    N) float32, which the backward kernel takes (None for S <= CHUNK, where
-    the backward walks from h0); y and h_T are those of the call without,
-    bit for bit.  Raises on a d_state the kernel was not built for (any not
-    in D_STATES), on wrong dtypes or layouts (all before it looks at the
-    device), on tensors not on one CUDA device, and if the launch is
+    state before every STATES_EVERY-th step, (B, ceil(S / STATES_EVERY),
+    di, N) float32, which the backward kernel takes (None for S <=
+    STATES_EVERY, where the backward walks from h0); y and h_T are those
+    of the call without, bit for bit.  Raises on a d_state the kernel was
+    not built for (any not in D_STATES), on wrong dtypes or layouts (all
+    before it looks at the device), on tensors not on one CUDA device, and if the launch is
     refused.  It computes no gradient itself: :class:`SelectiveScanFn`
     does."""
     global launches
@@ -192,8 +193,8 @@ def selective_scan_cuda(dt, x, Bm, Cm, A, D, h0, *, return_states: bool = False)
     y = torch.empty((B, S, di), dtype=torch.float32, device=dt.device)
     hT = torch.empty((B, di, N), dtype=torch.float32, device=dt.device)
     states = None
-    if return_states and S > CHUNK:
-        states = torch.empty((B, -(-S // CHUNK), di, N), dtype=torch.float32,
+    if return_states and S > STATES_EVERY:
+        states = torch.empty((B, -(-S // STATES_EVERY), di, N), dtype=torch.float32,
                              device=dt.device)
     if B == 0 or di == 0:
         return (y, hT, states) if return_states else (y, hT)
@@ -211,16 +212,19 @@ def selective_scan_cuda(dt, x, Bm, Cm, A, D, h0, *, return_states: bool = False)
 
 
 def _backward_kernel():
+    """The launcher and the channels a block of ``csrc/selective_scan_bwd.cu``."""
     lib = _build.load("selective_scan_bwd.cu")
     fn = lib.selective_scan_bwd_launch
     fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    if lib.selective_scan_bwd_chunk() != CHUNK:
-        raise RuntimeError(f"selective_scan_bwd.cu walks chunks of "
-                           f"{lib.selective_scan_bwd_chunk()} steps, the forward stores "
-                           f"states every {CHUNK}")
-    return fn
+    every = (lib.selective_scan_bwd_states_every(),
+             _build.load("selective_scan.cu").selective_scan_states_every())
+    if every != (STATES_EVERY, STATES_EVERY):
+        raise RuntimeError(f"selective_scan_bwd.cu walks spans of {every[0]} steps and "
+                           f"selective_scan.cu stores states every {every[1]}: both must "
+                           f"be STATES_EVERY = {STATES_EVERY}")
+    return fn, lib.selective_scan_bwd_block_channels()
 
 
 def selective_scan_backward_cuda(dt, x, Bm, Cm, A, D, h0, dy, dhT, *, states=None):
@@ -230,8 +234,8 @@ def selective_scan_backward_cuda(dt, x, Bm, Cm, A, D, h0, dy, dhT, *, states=Non
     fixed-order sum of its partials), on the current stream; one call
     counts one launch.  ``states`` is the forward's
     ``selective_scan_cuda(..., return_states=True)`` output, required for S
-    > CHUNK.  dt, x, Bm, Cm and dy are read through their strides (unit
-    stride over the last axis: dt, x, Bm, Cm must have it, dy is made
+    > STATES_EVERY.  dt, x, Bm, Cm and dy are read through their strides
+    (unit stride over the last axis: dt, x, Bm, Cm must have it, dy is made
     contiguous when it has not); A, D, h0 contiguous, A and h0 on 16 bytes;
     dhT made contiguous.  ddt (B, S, di) float32, dx in x's dtype, dBm and
     dCm (B, S, N), dA (di, N), dD (di,), dh0 (B, di, N), all contiguous
@@ -246,10 +250,10 @@ def selective_scan_backward_cuda(dt, x, Bm, Cm, A, D, h0, dy, dhT, *, states=Non
     _check_cuda("selective_scan_backward_cuda", dt, x, Bm, Cm, A, D, h0, (dy, dhT))
     B, S, di = dt.shape
     N = A.shape[1]
-    nc = -(-S // CHUNK)
+    nc = -(-S // STATES_EVERY)
     if nc > 1 and states is None:
-        raise ValueError(f"selective_scan_backward_cuda at S > {CHUNK} needs the "
-                         "forward's chunk states: selective_scan_cuda(..., "
+        raise ValueError(f"selective_scan_backward_cuda at S > {STATES_EVERY} needs the "
+                         "forward's states: selective_scan_cuda(..., "
                          "return_states=True)[2]")
     if states is not None and (states.shape != (B, nc, di, N)
                                or states.dtype != torch.float32
@@ -273,10 +277,11 @@ def selective_scan_backward_cuda(dt, x, Bm, Cm, A, D, h0, dy, dhT, *, states=Non
     dh0 = torch.empty((B, di, N), dtype=torch.float32, device=dev)
     # each channel block's dB_t | dC_t, and each b's dA and dD, summed by
     # the second launch in a fixed order
-    part_bc = torch.empty((-(-di // 64), B, S, 2 * N), dtype=torch.float32, device=dev)
+    fn, block_channels = _backward_kernel()
+    part_bc = torch.empty((-(-di // block_channels), B, S, 2 * N), dtype=torch.float32,
+                          device=dev)
     part_a = torch.empty((B, di, N), dtype=torch.float32, device=dev)
     part_d = torch.empty((B, di), dtype=torch.float32, device=dev)
-    fn = _backward_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in (dt, x, Bm, Cm, A, D, h0, dy, dhT)),
@@ -297,9 +302,9 @@ class SelectiveScanFn(torch.autograd.Function):
     CPU tensors, the kernels for CUDA tensors (never one for the other).
     The backward takes dy and dh_T (zeros when h_T is unused) and returns
     dh0 too, so a carried state differentiates.  On CUDA tensors that need
-    a gradient the forward kernel also stores the state each chunk of CHUNK
-    steps starts from, which the backward kernel walks from: (B, S / 16,
-    di, N) float32, 537 MB at jamba's (2, 4096, 16384, 16), held until the
+    a gradient the forward kernel also stores the state before every
+    STATES_EVERY-th step, which the backward kernel walks from: (B, S / 8,
+    di, N) float32, 1.07 GB at jamba's (2, 4096, 16384, 16), held until the
     backward.  Under remat (non-reentrant ``torch.utils.checkpoint``) the
     first run's states are dropped with its other saved tensors, and the
     period's recompute stores them again for its own backward."""

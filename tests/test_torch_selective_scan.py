@@ -24,7 +24,14 @@ dh_T, S = 1, 37 and 130, and a derandomized hypothesis case); two halves
 with the state carried give the gradients of the whole; `SelectiveScanFn`
 on CPU tensors returns exactly what the plain backward returns; the
 backward kernel's wrapper refuses what the kernel does not take, and CPU
-tensors, before it looks at the device.
+tensors, before it looks at the device.  The backward kernel's arithmetic
+(spans of STATES_EVERY steps recomputed from the stored states, the
+lanes' slot orders, the select-free sums over each warp's 8 channels, the
+fixed-order block and b sums) is emulated in PyTorch and held against
+autograd in float64 within SCAN_BWD_RTOL (strong decays, bf16 x, h0 and
+dh_T, d_inner off the block of 64, a derandomized hypothesis case), and
+two halves with the state carried give the whole's per-step gradients
+and dh0 bit for bit.
 
 On the card (`cuda` marker, skipped without one): the kernel against the
 plain version within SCAN_RTOL at S = 1, 4 and 5 (the two sides of the
@@ -32,11 +39,12 @@ switch between its decode and chunked forms), 63, 64, 65 and 1000,
 d_inner on and off the block of 64 channels, strong decays, a non-zero h0,
 x in float32 and bf16, Bm and Cm as column slices of one projection; two
 halves against the whole, split on and off a chunk; one launch a call.
-The forward storing its chunk states gives y and h_T bit for bit; the
-backward kernel, from those states, against the plain backward within
-SCAN_BWD_RTOL of max(1, max |want|) (dx in bf16 per element within
-2^-8 |want| more), around the 16-step chunk and at S = 1, bit-identical on
-a second call; autograd through `ops.selective_scan` on CUDA tensors
+The forward storing the state every STATES_EVERY steps gives y and h_T
+bit for bit, and each stored row is the state a call of that many steps
+ends in; the backward kernel, from those states, against the plain
+backward within SCAN_BWD_RTOL of max(1, max |want|) (dx in bf16 per
+element within 2^-8 |want| more), around the 8-step span and the 16-step
+chunk and at S = 1, bit-identical on a second call; autograd through `ops.selective_scan` on CUDA tensors
 launches the forward once and the backward once, and under remat
 (`torch.utils.checkpoint`) the forward twice, with the same gradients
 and without holding the first run's states."""
@@ -457,6 +465,183 @@ def test_function_on_cpu_returns_the_plain_backward(x_dtype):
         assert t.grad.dtype == w.dtype and torch.equal(t.grad, w)
 
 
+# --------------------------------------------------------------------------- #
+# The backward kernel's arithmetic, emulated on the CPU (test-only, on no
+# path): csrc/selective_scan_bwd.cu
+# --------------------------------------------------------------------------- #
+
+LN2 = 0.6931471805599453
+BWD_CHANNELS = 64          # channels a block; 8 warps of 8 channels
+
+
+def _channel_sums(terms):
+    """Per-step sums over d_inner of (B, di, N) terms in the kernel's fixed
+    order: each warp's 8 channels by the tree ((c0 + c4) + (c2 + c6)) + ((c1
+    + c5) + (c3 + c7)) of its select-free reduce-scatter, the block's 8
+    warps in order, then the blocks in order (the second launch); the
+    channels past d_inner, up to a whole block, contribute zeros."""
+    B, di, n = terms.shape
+    pad = -(-di // BWD_CHANNELS) * BWD_CHANNELS - di
+    t = torch.cat([terms, terms.new_zeros(B, pad, n)], dim=1).view(B, -1, 8, 8, n)
+    c = [t[:, :, :, i] for i in range(8)]
+    warps = ((c[0] + c[4]) + (c[2] + c[6])) + ((c[1] + c[5]) + (c[3] + c[7]))
+    blocks = warps[:, :, 0]
+    for w in range(1, 8):
+        blocks = blocks + warps[:, :, w]
+    tot = blocks[:, 0]
+    for k in range(1, blocks.shape[1]):
+        tot = tot + blocks[:, k]
+    return tot
+
+
+def _scan_bwd_kernel_emulation(dt, x, Bm, Cm, A, D, h0, dy, dhT):
+    """The backward kernel's arithmetic in float32, (ddt, dx, dBm, dCm, dA,
+    dD, dh0): every state and exp2(dt (A log2 e)) recomputed as the forward
+    computes them (the walk's exponential is the same ex2 of the same
+    product, so one value serves both); the walk g = fma(dy, C, g), u by fmas over the
+    lane's slots in its slot order (slot k of lane group j holding state
+    4 j + (k ^ p), p = (channel mod 8) >> 1), dB's term g dt x, then g *= a,
+    g a h_{t-1} into dA by an fma with dt and into q (in units of ln 2) by
+    an fma with A log2 e; the 4 lanes' u and q summed (0 + 2) + (1 + 3);
+    ddt = fma(u, x, q ln 2), dx = fma(u, dt, dy D); dB and dC summed over
+    channels by _channel_sums; dA and dD each lane's steps in order, then b
+    in order.  Time is walked in whole spans of STATES_EVERY steps, the
+    steps past S staged as zeros and walked like the others."""
+    B, S, di = dt.shape
+    pad = -(-S // tss.STATES_EVERY) * tss.STATES_EVERY - S
+
+    def staged(t):
+        return torch.cat([t.float(), t.new_zeros(B, pad, t.shape[-1]).float()], dim=1)
+
+    dt, xf, Bm, Cm, dy = (staged(t) for t in (dt, x, Bm, Cm, dy))
+    A2 = A.float() * np.float32(LOG2E)
+    p = (torch.arange(di) % 8) // 2
+    k = torch.arange(N) % LANES
+    order = (torch.arange(N) - k)[None] + (k[None] ^ p[:, None])        # (di, N)
+
+    def slots(t):                         # (B, di, N) in each channel's slot order
+        return t.expand(B, di, N).gather(-1, order.expand(B, di, N)).view(B, di, LANES, -1)
+
+    def fma(a, b, c):
+        return _f32(a.double() * b.double() + c.double())
+
+    hs, es = [h0.float().clone()], []
+    for t in range(S + pad):
+        e = torch.exp2(dt[:, t, :, None] * A2)
+        hs.append(fma(hs[-1], e, (dt[:, t] * xf[:, t])[..., None] * Bm[:, t, None, :]))
+        es.append(e)
+    g = dhT.float().clone()
+    dA = torch.zeros(B, di, N)
+    dD = torch.zeros(B, di)
+    ddt, dx = torch.zeros(B, S + pad, di), torch.zeros(B, S + pad, di)
+    dB, dC = torch.zeros(B, S + pad, N), torch.zeros(B, S + pad, N)
+    a2s = slots(A2[None])
+    for t in reversed(range(S + pad)):
+        dt_t, x_t, dy_t = dt[:, t], xf[:, t], dy[:, t]
+        g = fma(dy_t[..., None], Cm[:, t, None, :], g)
+        gs, bs = slots(g), slots(Bm[:, t, None, :])
+        u = torch.zeros(B, di, LANES)
+        for j in range(N // LANES):
+            u = fma(gs[..., j], bs[..., j], u)
+        dB[:, t] = _channel_sums(g * (dt_t * x_t)[..., None])
+        dC[:, t] = _channel_sums(dy_t[..., None] * hs[t + 1])
+        g = g * es[t]
+        gh = g * hs[t]
+        dA = fma(gh, dt_t[..., None], dA)
+        q = torch.zeros(B, di, LANES)
+        ghs = slots(gh)
+        for j in range(N // LANES):
+            q = fma(ghs[..., j], a2s[..., j], q)
+        dD = fma(dy_t, x_t, dD)
+        u = (u[..., 0] + u[..., 2]) + (u[..., 1] + u[..., 3])
+        q = (q[..., 0] + q[..., 2]) + (q[..., 1] + q[..., 3])
+        ddt[:, t] = fma(u, x_t, q * np.float32(LN2))
+        dx[:, t] = fma(u, dt_t, dy_t * D.float())
+    dA_tot, dD_tot = dA[0], dD[0]
+    for b in range(1, B):
+        dA_tot, dD_tot = dA_tot + dA[b], dD_tot + dD[b]
+    return (ddt[:, :S], dx[:, :S].to(x.dtype), dB[:, :S], dC[:, :S], dA_tot, dD_tot, g)
+
+
+EMU_BWD_CASES = {"S = 1, h0 and dh_T": dict(B=2, S=1, di=32, h0_scale=1.0),
+                 "S = 37, x float32, two blocks": dict(B=2, S=37, di=70),
+                 "S = 37, x bf16": dict(B=2, S=37, di=24, x_dtype="bf16"),
+                 "S = 130, strong decays, h0 and dh_T": dict(B=1, S=130, di=16, strong=True,
+                                                             h0_scale=1.0),
+                 "S = 45, strong decays, bf16 x, h0, three blocks": dict(
+                     B=2, S=45, di=130, strong=True, h0_scale=1.0, x_dtype="bf16"),
+                 "S = 64, dh_T 0": dict(B=2, S=64, di=20, h0_scale=1.0, dhT_scale=0.0)}
+
+
+def _emulation_vs_oracle(arrays, cot, bf16, what):
+    """The backward emulation on float32 inputs against autograd through
+    the plain forward in float64: every gradient within SCAN_BWD_RTOL
+    max(1, max |want|), dx in bf16 per element within BF16_RTOL |want|
+    more."""
+    dy, dhT = (torch.from_numpy(a) for a in cot)
+    got = _scan_bwd_kernel_emulation(*_torch(arrays, x_dtype=torch.bfloat16 if bf16
+                                             else torch.float32), dy.float(), dhT.float())
+    want = _autograd_plain(_f64(arrays), dy, dhT)
+    _grad_close([g.double() for i, g in enumerate(got) if i != 1],
+                [w for i, w in enumerate(want) if i != 1], what, SCAN_BWD_RTOL)
+    assert got[1].dtype == (torch.bfloat16 if bf16 else torch.float32)
+    err = (got[1].double() - want[1]).abs()
+    limit = (BF16_RTOL if bf16 else 0.0) * want[1].abs() \
+        + SCAN_BWD_RTOL * max(1.0, float(want[1].abs().max()))
+    assert bool((err <= limit).all()), (what, "dx", float((err - limit).max()))
+
+
+@pytest.mark.parametrize("case", sorted(EMU_BWD_CASES))
+def test_backward_kernel_emulation_matches_float64_autograd(case):
+    """The recompute and the walk, the slot orders and select-free channel
+    sums, the fixed-order block and b sums: within
+    SCAN_BWD_RTOL of the float64 gradients, strong decays (exp(dt A) below
+    float32's range), bf16 x, non-zero h0 and dh_T, d_inner off the block
+    of 64 channels, S on and off the span of STATES_EVERY steps."""
+    kw = dict(EMU_BWD_CASES[case])
+    bf16 = kw.pop("x_dtype", None) == "bf16"
+    dhT_scale = kw.pop("dhT_scale", 1.0)
+    arrays = _inputs(seed=len(case), x_dtype="bf16" if bf16 else np.float32, **kw)
+    cot = _cotangents(kw["B"], kw["S"], kw["di"], len(case), dhT_scale=dhT_scale)
+    _emulation_vs_oracle(arrays, cot, bf16, case)
+
+
+@settings(database=None, derandomize=True, max_examples=8, deadline=None)
+@given(B=st.integers(1, 2), S=st.integers(1, 30), di=st.integers(1, 80),
+       strong=st.booleans(), bf16=st.booleans(), seed=st.integers(0, 2 ** 16))
+def test_backward_kernel_emulation_hypothesis(B, S, di, strong, bf16, seed):
+    arrays = _inputs(B, S, di, seed, strong=strong, h0_scale=1.0,
+                     x_dtype="bf16" if bf16 else np.float32)
+    _emulation_vs_oracle(arrays, _cotangents(B, S, di, seed), bf16,
+                         (B, S, di, strong, bf16, seed))
+
+
+@pytest.mark.parametrize("cut", [1, tss.STATES_EVERY, 13])
+def test_backward_kernel_emulation_two_halves_give_the_whole(cut):
+    """The second half's backward from dh_T and the state the forward
+    emulation reaches at the cut, then the first half's from the second's
+    dh0: the per-step gradients and dh0 of the whole bit for bit (a span's
+    arithmetic does not depend on where spans start; zero steps leave h
+    and g as they are), dA and dD the sums of the halves' within
+    SCAN_BWD_RTOL."""
+    B, S, di = 2, 40, 70
+    dt, x, Bm, Cm, A, D, h0 = _torch(_inputs(B, S, di, 21, strong=True, h0_scale=1.0),
+                                     x_dtype=torch.bfloat16)
+    dy, dhT = (torch.from_numpy(a).float() for a in _cotangents(B, S, di, 21))
+    whole = _scan_bwd_kernel_emulation(dt, x, Bm, Cm, A, D, h0, dy, dhT)
+    _, h_mid = _scan_kernel_emulation(dt[:, :cut], x[:, :cut], Bm[:, :cut], Cm[:, :cut],
+                                      A, D, h0)
+    second = _scan_bwd_kernel_emulation(dt[:, cut:], x[:, cut:], Bm[:, cut:], Cm[:, cut:],
+                                        A, D, h_mid, dy[:, cut:], dhT)
+    first = _scan_bwd_kernel_emulation(dt[:, :cut], x[:, :cut], Bm[:, :cut], Cm[:, :cut],
+                                       A, D, h0, dy[:, :cut], second[6])
+    for i in range(4):
+        assert torch.equal(torch.cat([first[i], second[i]], dim=1), whole[i]), i
+    assert torch.equal(first[6], whole[6])
+    _grad_close([first[4] + second[4], first[5] + second[5]], whole[4:6],
+                f"split at {cut}", SCAN_BWD_RTOL)
+
+
 def _refused_bwd(kind):
     """Backward arguments the kernel does not take, on the CPU."""
     if kind == "float64 dy":
@@ -486,15 +671,23 @@ def test_cuda_backward_refuses_what_the_kernel_does_not_take(kind, error, match)
 
 
 def test_backward_chunk_matches_the_kernel_source():
-    """The backward walks the forward's states interval: CHUNK is the
-    kChunk of both sources."""
+    """The backward walks spans of the forward's states interval:
+    STATES_EVERY is the kStatesEvery of both sources; the emulation's
+    lanes, channels a block and warps a block are the backward's."""
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
     for source in ("selective_scan.cu", "selective_scan_bwd.cu"):
         src = (Path(tss.__file__).parent / "csrc" / source).read_text()
-        assert int(re.search(r"constexpr int kChunk = (\d+);", src).group(1)) == tss.CHUNK
+        assert const(src, "kStatesEvery") == tss.STATES_EVERY
+    src = (Path(tss.__file__).parent / "csrc" / "selective_scan_bwd.cu").read_text()
+    assert (const(src, "kLanes"), const(src, "kChannels"), const(src, "kPerms")) == \
+        (LANES, BWD_CHANNELS, LANES)
+    assert "kThreads = kChannels * kLanes" in src and "kWarps = kThreads / 32" in src
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [5, 16, 17, 300])
+@pytest.mark.parametrize("S", [5, 8, 9, 16, 17, 300])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_cuda_forward_storing_states_gives_the_same_bits(S, x_dtype):
     _need_cuda()
@@ -503,16 +696,21 @@ def test_cuda_forward_storing_states_gives_the_same_bits(S, x_dtype):
     y, hT = tss.selective_scan_cuda(*args)
     y2, h2, states = tss.selective_scan_cuda(*args, return_states=True)
     assert torch.equal(y, y2) and torch.equal(hT, h2)
-    if S <= tss.CHUNK:
+    if S <= tss.STATES_EVERY:
         assert states is None
     else:
-        assert states.shape == (2, -(-S // tss.CHUNK), 200, N)
+        every = tss.STATES_EVERY
+        assert states.shape == (2, -(-S // every), 200, N)
         assert torch.equal(states[:, 0], args[6])
-        _, h16 = tss.selective_scan_cuda(*(t[:, :tss.CHUNK] for t in args[:4]), *args[4:])
-        assert torch.equal(states[:, 1], h16)
+        for r in range(1, states.shape[1]):
+            _, h_r = tss.selective_scan_cuda(*(t[:, :r * every] for t in args[:4]), *args[4:])
+            assert torch.equal(states[:, r], h_r), r
 
 
 CUDA_GRAD_CASES = {"S = 1 (2, 1, 384), h0": dict(B=2, S=1, di=384, h0_scale=1.0),
+                   "S = 8 (2, 8, 200)": dict(B=2, S=8, di=200, h0_scale=1.0),
+                   "S = 9 (2, 9, 70), strong": dict(B=2, S=9, di=70, strong=True,
+                                                     h0_scale=1.0),
                    "S = 15 (2, 15, 200)": dict(B=2, S=15, di=200, h0_scale=1.0),
                    "S = 16 (1, 16, 256)": dict(B=1, S=16, di=256),
                    "S = 17 (3, 17, 130), strong": dict(B=3, S=17, di=130, strong=True,
@@ -569,7 +767,7 @@ def test_cuda_remat_recomputes_the_same_states_and_drops_the_first():
     B, S, di = 2, 1024, 1024
     args = _torch(_inputs(B, S, di, 17, h0_scale=1.0), device="cuda",
                   x_dtype=torch.bfloat16)
-    states_bytes = B * -(-S // tss.CHUNK) * di * N * 4
+    states_bytes = B * -(-S // tss.STATES_EVERY) * di * N * 4
     grads, held = [], []
     for remat in (False, True):
         leaves = [t.detach().requires_grad_(True) for t in args]
