@@ -44,7 +44,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      4096, 64 / 8, 128), grok (2, 4096, 48 / 8, 128) and llama4 (2, 4096,
      40 / 8, 128, window 8192), where G = 6 and 5 leave the last of a
      block's 128 rows empty, each timed beside its bound, the plain
-     version and `is_causal` SDPA;
+     version and `is_causal` SDPA; and at Sq != Sk (keys 0..Sk-1 against
+     queries 0..Sq-1, the decoder's cross-attention): the bf16 kernel at
+     whisper-large-v3's encoder self-attention (16, 1500, 20 / 20, 64),
+     cross-attention (16, 448 x 1500) and causal decoder self-attention
+     (16, 448), the float32 kernel at the cross shape, both at Sq = 1 x
+     1500, ragged 37 x 300 and 300 x 37 (causal, and with window 100,
+     where rows have no live key), and the bf16 kernel at hd 128 and 256
+     with G = 4, each at its limit above and its L against the plain
+     log-sum-exp; the three whisper shapes timed beside their bound, the
+     plain version and SDPA (no mask, or `is_causal`);
    * the RWKV6 wkv recurrence, at the LM path's (2, 40, 4096, 64) (the
      chunked form), with the model's strong decays w = exp(-exp(x)), at a
      ragged T = 1000, at T = 1, 16 and 63 (the recurrent kernel, also
@@ -220,6 +229,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    Mamba and MoE ones — on the card (kernels; the path `lm_fp32`, where
    the float32 flash kernel runs, its counts read around the card's
    forward) against the host CPU (plain versions) within CARD_CPU_RTOL.
+   Then whisper-large-v3 at its full 32 + 32 layers (`whisper_run`): eval
+   at (16, 448) with (16, 1500, 1280) bf16 frames (loss, wall, tokens/s,
+   peak memory), `warm_cache` (the encoder once, every layer's cross K/V),
+   16 + 16 tokens of `decode_step`, launches asserted (bf16 flash 96 a
+   forward: 32 encoder, 32 decoder and 32 cross; 32 in `warm_cache`; 0 a
+   decode step), decode vs forward within DECODE_RTOL, and `reduced()` in
+   float32 card vs CPU (4 float32 flash launches: 2 encoder, 1 self, 1
+   cross).
 11. lm_train — the LM zoo's training path for gemma3-4b and rwkv6-3b
    at the same widths and depths and jamba-1.5-large-398b at one layer
    (mamba + dense SwiGLU FFN at d_model 8192, d_inner 16384;
@@ -244,13 +261,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
 `{"kernels": [...]}` with each kernel's launches on its main path (and per
 path: train, train_fedavg, train_fedprox, train_fedproto, train_fedhkd,
-async, faults, resume, obs, paper, serve, lm_forward, lm_decode, lm_fp32,
-lm_train, lm_train_fp32; the four backward kernels' main paths are
-lm_train and lm_train_fp32),
+async, faults, resume, obs, paper, serve, lm_forward, lm_decode,
+lm_warm_cache, lm_fp32, lm_train, lm_train_fp32; the four backward
+kernels' main paths are lm_train and lm_train_fp32),
 error, times, bound and the two launch floors (the fingerprint and
 cluster_agg entries with their `async_shape` row, rwkv6 and
 selective_scan with their `decode_shape` row, bf16 flash with its
-`lm_hd128_shapes`), one JSON line each
+`lm_hd128_shapes` and `whisper_shapes`, both flash entries with their Sq
+!= Sk checks), one JSON line each
 `{"train": {...}}`, `{"strategies": {...}}`, `{"async": {...}}`,
 `{"faults": {...}}`, `{"resume": {...}}`, `{"obs": {...}}`, `{"paper": {...}}`,
 `{"serve": {...}}`, `{"lm": {...}}`, `{"lm_train": {...}}`, and last
@@ -428,6 +446,40 @@ FLASH_LM_SHAPES = {"jamba (2, 4096, 64, 8, 128) G = 8": ((2, 4096, 64, 8, 128), 
                    "grok (2, 4096, 48, 8, 128) G = 6": ((2, 4096, 48, 8, 128), 0),
                    "llama4 (2, 4096, 40, 8, 128) G = 5 window 8192":
                        ((2, 4096, 40, 8, 128), 8192)}
+# whisper-large-v3's attention at the lm phase's (WHISPER_BATCH,
+# WHISPER_TOKENS) over 1500 frames, bf16, head_dim 64: (B, Sq, Sk, Hq, Hkv,
+# hd), causal.  The encoder's and the cross-attention's keys outnumber the
+# decoder's queries: Sq != Sk
+FLASH_WHISPER_SHAPES = {
+    "whisper encoder self (16, 1500, 20 / 20, 64)": ((16, 1500, 1500, 20, 20, 64), False),
+    "whisper cross (16, 448 x 1500, 20 / 20, 64)": ((16, 448, 1500, 20, 20, 64), False),
+    "whisper decoder self (16, 448, 20 / 20, 64) causal": ((16, 448, 448, 20, 20, 64),
+                                                           True)}
+# both kernels at Sq != Sk off whisper's shapes: (B, Sq, Sk, Hq, Hkv, hd),
+# causal, window, the dtypes checked.  Sk = 1500 = 11 x 128 + 92 and 37 / 300
+# leave kv tiles part-empty; at 300 x 37 with window 100 the rows from 136
+# on have no live key (the plain version's mean of v); hd 128 and 256 are
+# the narrow kernel at two 64-wide chunks and the wide template
+FLASH_CROSS_CASES = {
+    "Sq = 1 x Sk = 1500 (2, 20 / 20, 64)": ((2, 1, 1500, 20, 20, 64), False, 0,
+                                           ("bf16", "fp32")),
+    "ragged (1, 37 x 300, 4 / 4, 64) non-causal": ((1, 37, 300, 4, 4, 64), False, 0,
+                                                   ("bf16", "fp32")),
+    "(1, 300 x 37, 4 / 4, 64) causal": ((1, 300, 37, 4, 4, 64), True, 0, ("bf16",)),
+    "(1, 300 x 37, 4 / 4, 64) causal window 100": ((1, 300, 37, 4, 4, 64), True, 100,
+                                                   ("bf16", "fp32")),
+    "hd 128 G = 4 (1, 200 x 700, 8 / 2, 128)": ((1, 200, 700, 8, 2, 128), False, 0,
+                                                ("bf16",)),
+    "hd 256 G = 4 (1, 200 x 700, 8 / 2, 256) causal": ((1, 200, 700, 8, 2, 256), True, 0,
+                                                       ("bf16",)),
+    "hd 256 (1, 500 x 130, 4 / 1, 256) window 100": ((1, 500, 130, 4, 1, 256), True, 100,
+                                                     ("bf16",)),
+}
+# whisper-large-v3 in the lm phase at 32 + 32 layers, no cut: teams
+# transcribing 30-second segments (1500 frames of the stub frontend, bf16)
+# in batches of 16, the decoder at its 448 positions
+WHISPER = "whisper-large-v3"
+WHISPER_BATCH, WHISPER_TOKENS = 16, 448
 # the flash kernels keep O, S and P in registers: a spill serialises them;
 # the selective scan keeps its states in registers at 64 a thread (four
 # blocks an SM), its backward a span's 8 states and exponentials at up to
@@ -2031,11 +2083,13 @@ def serve_phase(dev) -> dict:
             "serve_path_wall_s": wall_s}
 
 
-def qkv(rng, B: int, S: int, Hq: int, Hkv: int, hd: int, dtype, dev):
-    """q (B, S, Hq, hd), k and v (B, S, Hkv, hd), standard normal."""
+def qkv(rng, B: int, S: int, Hq: int, Hkv: int, hd: int, dtype, dev, Sk: int | None = None):
+    """q (B, S, Hq, hd), k and v (B, Sk, Hkv, hd) (Sk = S unless given),
+    standard normal."""
+    Sk = S if Sk is None else Sk
     return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                  .to(dev, dtype)
-                 for shape in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+                 for shape in ((B, S, Hq, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)))
 
 
 def check_flash(q, k, v, causal: bool, window: int, what: str) -> dict:
@@ -2057,12 +2111,35 @@ def check_flash(q, k, v, causal: bool, window: int, what: str) -> dict:
             "rtol": rtol, "atol": FLASH_TOL_F32}
 
 
-def live_pairs(S: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask keeps for one (batch, head)."""
+def live_pairs(S: int, causal: bool, window: int, Sk: int | None = None) -> int:
+    """(query, key) pairs the mask keeps for one (batch, head): queries
+    0..S-1 against keys 0..Sk-1 (Sk = S unless given)."""
+    Sk = S if Sk is None else Sk
     q = np.arange(S)
     lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(S, dtype=np.int64)
-    hi = q if causal else np.full(S, S - 1)
-    return int((hi - lo + 1).sum())
+    hi = np.minimum(q, Sk - 1) if causal else np.full(S, Sk - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def check_flash_lse(q, k, v, causal: bool, window: int, what: str) -> dict:
+    """check_flash, then the L the kernel writes with ``return_lse`` against
+    the plain log-sum-exp: within FLASH_TOL_F32 max(1, max |L|) over the
+    rows with a live key, and within FLASH_TOL_F32 |L| where the mask
+    empties a row (its L is then the masked score, -1e30 log2(e))."""
+    out = check_flash(q, k, v, causal, window, what)
+    _, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
+    want = fa.attention_lse_plain(q, k, causal=causal, window=window)
+    live = want > 0.5 * fa.NEG_INF * fa.LOG2E
+    err = float((lse - want)[live].abs().max())
+    dead = int((~live).sum())
+    dead_err = float(((lse - want)[~live] / want[~live]).abs().max()) if dead else 0.0
+    top = max(1.0, float(want[live].abs().max()))
+    if not (err <= FLASH_TOL_F32 * top and dead_err <= FLASH_TOL_F32):
+        raise AssertionError(f"flash forward L on {what}: max abs error {err} (limit "
+                             f"{FLASH_TOL_F32 * top}), {dead} rows without a live key "
+                             f"at rel err {dead_err}")
+    return dict(out, lse_max_abs_err=err, lse_rows_without_live_key=dead,
+                lse_rel_err_without_live_key=dead_err)
 
 
 def sdpa_backend(fn, marker: bool = True) -> dict:
@@ -2167,6 +2244,53 @@ def flash_phase(dev) -> tuple[dict, dict]:
                     "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
                 row["library_causal_backend"] = sdpa_backend(causal_sdpa)
             rows[dt].append(row)
+    return rows, checks
+
+
+def flash_whisper_phase(dev) -> tuple[dict, dict]:
+    """Both flash kernels at Sq != Sk (the decoder's cross-attention over
+    the encoder's frames): the bf16 kernel at whisper-large-v3's three
+    attention shapes (FLASH_WHISPER_SHAPES), the float32 kernel at the
+    cross shape, and both at FLASH_CROSS_CASES, each held against the plain
+    version per element as check_flash does and its L against the plain
+    log-sum-exp (check_flash_lse); the three whisper shapes timed beside
+    their bound, the plain version and SDPA (no mask, or `is_causal`)."""
+    rng = np.random.default_rng(SEED + 11)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows, checks = {}, {}
+    for what, ((B, Sq, Sk, Hq, Hkv, hd), causal) in FLASH_WHISPER_SHAPES.items():
+        q, k, v = qkv(rng, B, Sq, Hq, Hkv, hd, torch.bfloat16, dev, Sk=Sk)
+        check = checks[f"{what} bf16"] = check_flash_lse(q, k, v, causal, 0, what)
+        if Sq != Sk:
+            checks[f"{what} fp32"] = check_flash_lse(
+                *(t.float() for t in (q, k, v)), causal, 0, f"{what} fp32")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa(_):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        n_ops = 4 * hd * B * Hq * live_pairs(Sq, causal, 0, Sk)     # q.k and p.v
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / BF16_OPS_PER_S * 1e6
+        rows[what] = dict(
+            check, shape=[B, Sq, Sk, Hq, Hkv, hd], dtype="bfloat16", causal=causal,
+            kernel_us=median_us(lambda _: fa.flash_attention_cuda(
+                q, k, v, causal=causal), None, 20, flush),
+            plain_us=median_us(lambda _: fa.attention_plain(
+                q, k, v, causal=causal), None, 3, flush),
+            library_us=median_us(sdpa, None, 20, flush),
+            library_call=f"F.scaled_dot_product_attention(is_causal={causal})",
+            library_backend=sdpa_backend(sdpa),
+            bound_us=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", flop=n_ops,
+            bytes=n_bytes)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    for what, (shape, causal, window, dtypes) in FLASH_CROSS_CASES.items():
+        B, Sq, Sk, Hq, Hkv, hd = shape
+        args = qkv(rng, B, Sq, Hq, Hkv, hd, torch.float32, dev, Sk=Sk)
+        for dt in dtypes:
+            typed = args if dt == "fp32" else tuple(t.to(torch.bfloat16) for t in args)
+            checks[f"{what} {dt}"] = check_flash_lse(*typed, causal, window, f"{what} {dt}")
     return rows, checks
 
 
@@ -2898,13 +3022,16 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def decode_vs_forward(cfg, params, tokens) -> float:
+def decode_vs_forward(cfg, params, tokens, enc_embeds=None) -> float:
     """The logits of decode_step over the tokens against forward's, over
-    the real vocabulary (the padded columns hold -1e30 in both)."""
+    the real vocabulary (the padded columns hold -1e30 in both); with frame
+    embeddings, after warm_cache filled the cross K/V from them."""
     B, T = tokens.shape
     with torch.inference_mode():
-        ref, _, _ = lmt.forward(cfg, params, tokens=tokens)
-        cache = lmdec.init_cache(cfg, B, T, device=tokens.device)
+        ref, _, _ = lmt.forward(cfg, params, tokens=tokens, enc_embeds=enc_embeds)
+        cache = lmdec.warm_cache(cfg, params,
+                                 lmdec.init_cache(cfg, B, T, device=tokens.device),
+                                 enc_embeds=enc_embeds)
         outs = []
         for i in range(T):
             logits, cache = lmdec.decode_step(cfg, params, cache, tokens[:, i:i + 1])
@@ -2914,16 +3041,38 @@ def decode_vs_forward(cfg, params, tokens) -> float:
 
 
 def mixer_counts(cfg) -> dict[str, int]:
-    """The configuration's layers by mixer (attn, mamba, rwkv)."""
+    """The configuration's layers by mixer (attn, mamba, rwkv), its
+    decoder layers with cross-attention, and its encoder's layers."""
     specs = list(cfg.pattern) * cfg.n_periods + list(cfg.remainder)
-    return {m: sum(s.mixer == m for s in specs) for m in ("attn", "mamba", "rwkv")}
+    n = {m: sum(s.mixer == m for s in specs) for m in ("attn", "mamba", "rwkv")}
+    n["cross"] = sum(s.cross_attn for s in specs)
+    n["encoder"] = 0 if cfg.encoder is None else cfg.encoder.n_layers
+    return n
+
+
+def flash_per_forward(n: dict[str, int]) -> int:
+    """Flash launches of a forward with frames (mixer_counts ``n``): one a
+    self-attention layer, a cross-attention block and an encoder layer."""
+    return n["attn"] + n["cross"] + n["encoder"]
+
+
+def frames_for(cfg, B: int, gen: torch.Generator) -> torch.Tensor | None:
+    """Frame embeddings (B, n_frames, d_model) of the stub frontend, standard
+    normal in the weights' dtype, from ``gen`` on its device; None without
+    an encoder."""
+    if cfg.encoder is None:
+        return None
+    x = torch.randn((B, cfg.encoder.n_frames, cfg.d_model), generator=gen,
+                    device=gen.device)
+    return x.to(cfg.dtype)
 
 
 def fp32_config(cfg):
     """The float32 configuration of the card-vs-CPU check: one period at
     full width, or ``reduced()`` for LM_INFER_CONFIGS (one jamba period in
-    float32 is 179 GB)."""
-    if any(cfg.name == name for name, _ in LM_INFER_CONFIGS):
+    float32 is 179 GB) and whisper (its 32 encoder layers; ``reduced()``
+    gives the encoder head_dim 128 and the decoder 32)."""
+    if cfg.name == WHISPER or any(cfg.name == name for name, _ in LM_INFER_CONFIGS):
         return ARCHS[cfg.name].reduced()
     return dataclasses.replace(cfg, param_dtype="float32", n_layers=len(cfg.pattern))
 
@@ -2937,19 +3086,22 @@ def card_vs_cpu(cfg, dev) -> dict:
     p_cpu = tree_map(lambda t: t.cpu(), p_dev)
     gen = torch.Generator().manual_seed(SEED)
     toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
+    frames = frames_for(cfg, 1, gen)
     t0 = time.perf_counter()
     with torch.inference_mode():
         reset_launches()
-        card = lmt.forward(cfg, p_dev, tokens=toks.to(dev))[0]
+        card = lmt.forward(cfg, p_dev, tokens=toks.to(dev),
+                           enc_embeds=None if frames is None else frames.to(dev))[0]
         torch.cuda.synchronize()
         launches = read_launches()
-        cpu = lmt.forward(cfg, p_cpu, tokens=toks)[0]
+        cpu = lmt.forward(cfg, p_cpu, tokens=toks, enc_embeds=frames)[0]
     err = rel_err(card, cpu)
     if not err <= CARD_CPU_RTOL:
         raise AssertionError(f"{cfg.name}: card vs CPU logits rel err {err} > {CARD_CPU_RTOL}")
     n = mixer_counts(cfg)
     want = {name: 0 for name in KERNELS}
-    want.update(flash_attention_fp32=n["attn"], rwkv6=n["rwkv"], selective_scan=n["mamba"])
+    want.update(flash_attention_fp32=flash_per_forward(n), rwkv6=n["rwkv"],
+                selective_scan=n["mamba"])
     if launches != want:
         raise AssertionError(f"{cfg.name}: float32 forward launches {launches}, "
                              f"expected {want}")
@@ -3030,9 +3182,105 @@ def lm_config_run(cfg, dev) -> dict:
             "card_vs_cpu": card_vs_cpu(fp32_config(cfg), dev)}
 
 
+def whisper_run(dev) -> dict:
+    """whisper-large-v3 at its full depth and width (32 encoder and 32
+    decoder layers, d_model 1280, 20 heads of 64), bf16 weights from
+    `init_params(seed)`, bf16 frames from a seed: `make_eval_step` at
+    (WHISPER_BATCH, WHISPER_TOKENS) with 1500 frames (loss, wall, tokens/s,
+    peak memory); `init_cache`, `warm_cache` (the encoder once and every
+    layer's cross K/V, timed), then PROMPT prompt tokens and NEW_TOKENS
+    greedy ones through `decode_step` (wall a step); each with every
+    kernel's launch count reset just before and read just after (bf16 flash:
+    32 encoder + 32 decoder + 32 cross a forward, 32 in warm_cache, 0 a
+    decode step); decode_vs_forward over PARITY_TOKENS tokens; and the
+    float32 `reduced()` configuration against the CPU (card_vs_cpu)."""
+    cfg = ARCHS[WHISPER]
+    params = lmt.init_params(cfg, seed=SEED, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    stream = make_token_stream(cfg.vocab_size, 4 * WHISPER_BATCH * (WHISPER_TOKENS + 1),
+                               seed=SEED)
+    x, y = next(batch_stream(stream, WHISPER_BATCH, WHISPER_TOKENS, 1, seed=SEED))
+    frames = frames_for(cfg, WHISPER_BATCH, torch.Generator(device=dev).manual_seed(SEED))
+    batch = {"tokens": torch.from_numpy(x).long().to(dev),
+             "labels": torch.from_numpy(y).long().to(dev), "enc_embeds": frames}
+    n = mixer_counts(cfg)
+
+    eval_step = lmsteps.make_eval_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    loss, eval_cold_s = timed(lambda: eval_step(params, batch))
+    forward_launches = read_launches()
+    loss2, eval_warm_s = timed(lambda: eval_step(params, batch))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    loss, loss2 = float(loss), float(loss2)
+    if not (np.isfinite(loss) and loss > 0.0):
+        raise AssertionError(f"{cfg.name}: eval loss {loss}")
+
+    steps = PROMPT + NEW_TOKENS - 1
+    with torch.inference_mode():
+        cache = lmdec.init_cache(cfg, WHISPER_BATCH, PROMPT + NEW_TOKENS, device=dev)
+        reset_launches()
+        cache, warm_s = timed(lambda: lmdec.warm_cache(cfg, params, cache,
+                                                       enc_embeds=frames))
+        warm_launches = read_launches()
+        cache_gb = sum(t.numel() * t.element_size() for c in cache["layers"]
+                       for name, t in c.items() if name in ("kc", "vc")) / 1e9
+        tok, out = batch["tokens"][:, :1], [batch["tokens"][:, :1]]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = lmdec.decode_step(cfg, params, cache, tok)
+            tok = (batch["tokens"][:, i + 1:i + 2] if i + 1 < PROMPT
+                   else torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1))
+            out.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode_launches = read_launches()
+        toks = torch.cat(out, dim=1)
+    del cache
+    if toks.shape != (WHISPER_BATCH, PROMPT + NEW_TOKENS) \
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: decoding gave {tuple(toks.shape)}")
+
+    want_fwd = {name: 0 for name in KERNELS}
+    want_fwd["flash_attention_bf16"] = flash_per_forward(n)
+    want_warm = dict(want_fwd, flash_attention_bf16=n["encoder"])
+    want_dec = dict(want_fwd, flash_attention_bf16=0)
+    if (forward_launches, warm_launches, decode_launches) != (want_fwd, want_warm, want_dec):
+        raise AssertionError(f"{cfg.name}: launches forward {forward_launches} (want "
+                             f"{want_fwd}), warm_cache {warm_launches} (want {want_warm}), "
+                             f"decode {decode_launches} (want {want_dec})")
+
+    parity = decode_vs_forward(cfg, params, batch["tokens"][:, :PARITY_TOKENS], frames)
+    if not parity <= DECODE_RTOL:
+        raise AssertionError(f"{cfg.name}: decode vs forward rel err {parity} > {DECODE_RTOL}")
+    del params, batch, frames
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "encoder_layers": cfg.encoder.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size, "param_dtype": cfg.param_dtype,
+            "n_params": n_params, "layers": n, "frames": cfg.encoder.n_frames,
+            "frame_dtype": "bfloat16",
+            "eval": {"batch": WHISPER_BATCH, "seq": WHISPER_TOKENS, "loss": loss,
+                     "loss_second_call": loss2, "wall_s_first": eval_cold_s,
+                     "wall_s": eval_warm_s, "peak_gb": peak_gb,
+                     "tokens_per_s": WHISPER_BATCH * WHISPER_TOKENS / eval_warm_s},
+            "warm_cache": {"wall_s": warm_s, "cross_kv_gb": cache_gb},
+            "generate": {"batch": WHISPER_BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
+                         "decode_steps": steps, "tokens": toks[:2].cpu().tolist(),
+                         "wall_s": decode_s, "ms_per_step": decode_s / steps * 1e3},
+            "launches": {"lm_forward": forward_launches, "lm_warm_cache": warm_launches,
+                         "lm_decode": decode_launches},
+            "decode_vs_forward": {"tokens": PARITY_TOKENS, "rel_err": parity,
+                                  "tolerance": DECODE_RTOL},
+            "card_vs_cpu": card_vs_cpu(fp32_config(cfg), dev)}
+
+
 def lm_phase(dev) -> dict:
-    return {name: lm_config_run(dataclasses.replace(ARCHS[name], n_layers=n), dev)
-            for name, n in LM_CONFIGS + LM_INFER_CONFIGS}
+    out = {name: lm_config_run(dataclasses.replace(ARCHS[name], n_layers=n), dev)
+           for name, n in LM_CONFIGS + LM_INFER_CONFIGS}
+    out[WHISPER] = whisper_run(dev)
+    return out
 
 
 def main() -> int:
@@ -3068,6 +3316,7 @@ def main() -> int:
     res["wkv"] = wkv_phase(dev, res["floors"])
     res["scan"] = scan_phase(dev, res["floors"])
     res["flash_lm"] = flash_lm_phase(dev)
+    res["flash_whisper"] = flash_whisper_phase(dev)
     res["flash_bwd"] = flash_bwd_phase(dev)
     res["wkv_bwd"] = wkv_bwd_phase(dev)
     res["scan_bwd"] = scan_bwd_phase(dev, res["floors"])
@@ -3099,8 +3348,8 @@ def kernel_entries(res: dict) -> list[dict]:
     by_path["paper"] = res["paper"]["launches"]
     for path in ("async", "faults", "resume", "obs"):
         by_path[path] = res[path]["launches"]
-    for path in ("lm_forward", "lm_decode"):
-        by_path[path] = {name: sum(run["launches"][path][name]
+    for path in ("lm_forward", "lm_decode", "lm_warm_cache"):
+        by_path[path] = {name: sum(run["launches"].get(path, {}).get(name, 0)
                                    for run in res["lm"].values())
                          for name in KERNELS}
     by_path["lm_fp32"] = {name: sum(run["card_vs_cpu"]["launches"][name]
@@ -3141,8 +3390,11 @@ def kernel_entries(res: dict) -> list[dict]:
     scan_bwd_row, scan_bwd_checks = res["scan_bwd"]
     cohort = shapes[2]                  # (100, 6570): the train path's rows
 
+    whisper_rows, whisper_checks = res["flash_whisper"]
+
     def flash(dt, source, main_path, tolerance, **extra):
-        checks = {w: c for w, c in flash_checks.items() if w.endswith(dt)}
+        checks = {w: c for w, c in {**flash_checks, **whisper_checks}.items()
+                  if w.endswith(dt)}
         main = max(c["max_abs_err"] for w, c in checks.items() if w.startswith("main"))
         causal = flash_rows[dt][1]
         # the main-path row is window 1024: five of gemma3's six layers
@@ -3218,7 +3470,15 @@ def kernel_entries(res: dict) -> list[dict]:
                                           plain_ms=row["plain_us"] / 1e3,
                                           bound_ms=row["bound_us"] / 1e3,
                                           library_ms=row["library_us"] / 1e3)
-                               for what, row in res["flash_lm"].items()}),
+                               for what, row in res["flash_lm"].items()},
+              # whisper-large-v3's three attention shapes (Sq != Sk in two),
+              # each launched 32 times a forward; warm_cache runs the encoder
+              whisper_shapes={what: dict(row, ms=row["kernel_us"] / 1e3,
+                                         plain_ms=row["plain_us"] / 1e3,
+                                         bound_ms=row["bound_us"] / 1e3,
+                                         library_ms=row["library_us"] / 1e3)
+                              for what, row in whisper_rows.items()},
+              whisper_launches=res["lm"][WHISPER]["launches"]),
         flash("fp32", "flash_attention.cu", "lm_fp32",
               {"rtol": 0.0, "atol": FLASH_TOL_F32, "against": "plain version"}),
         entry("rwkv6", "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:45",

@@ -6,17 +6,21 @@
 For each configuration of `chip_smoke.py`'s lm phase — gemma3-4b cut to 6
 layers, rwkv6-3b cut to 4, jamba-1.5-large-398b cut to 4, grok-1-314b
 and llama4-maverick-400b-a17b cut to 2, full width, bf16 weights from
-`init_params(seed)` — and for jamba-1.5-large-398b cut to 1 layer (the
-depth its lm_train phase trains: the train path alone), runs one
+`init_params(seed)` — for jamba-1.5-large-398b cut to 1 layer (the
+depth its lm_train phase trains: the train path alone), and for
+whisper-large-v3 at its full 32 + 32 layers (at chip_smoke's WHISPER_BATCH
+x WHISPER_TOKENS, with (16, 1500, 1280) bf16 frames from a seed), runs one
 unprofiled eval step and one unprofiled `greedy_generate` (start-up:
 cuBLAS handles, kernel loads), then profiles, with CPU and CUDA
 activities:
 
 * ``eval``: one `make_eval_step` call at B = 2, S = 4096 (the forward and
-  the float32 log-softmax loss);
-* ``decode``: DECODE_STEPS `decode_step` calls at B = 2 against a cache
-  already holding PROMPT tokens (one token each, as `greedy_generate` runs
-  them);
+  the float32 log-softmax loss), whisper's at (16, 448) with its frames;
+* ``warm_cache`` (whisper): one `decode.warm_cache` call (the encoder and
+  every layer's cross K/V);
+* ``decode``: DECODE_STEPS `decode_step` calls at B = 2 (whisper: 16)
+  against a cache already holding PROMPT tokens (one token each, as
+  `greedy_generate` runs them; whisper's cache warmed first);
 * ``train`` (gemma3-4b, rwkv6-3b and jamba at one layer: the MoE models'
   weights and AdamW state do not fit one card): one `make_train_step` call
   at B = 2, S = 4096 (AdamW at a constant TRAIN_LR; the forward, its
@@ -70,7 +74,8 @@ ALL_PATHS, INFER_PATHS = ("eval", "decode", "train"), ("eval", "decode")
 CONFIGS = (("gemma3-4b", 6, ALL_PATHS), ("rwkv6-3b", 4, ALL_PATHS),
            ("jamba-1.5-large-398b", 4, INFER_PATHS), ("grok-1-314b", 2, INFER_PATHS),
            ("llama4-maverick-400b-a17b", 2, INFER_PATHS),
-           ("jamba-1.5-large-398b", 1, ("train",)))
+           ("jamba-1.5-large-398b", 1, ("train",)),
+           (cs.WHISPER, 32, ("eval", "warm_cache", "decode")))
 BATCH, SEQ = 2, 4096
 PROMPT, DECODE_STEPS = 16, 8
 TRAIN_LR = 1e-3
@@ -181,8 +186,12 @@ def profile_config(name: str, n_layers: int, paths: tuple, dev) -> dict:
     cfg = dataclasses.replace(ARCHS[name], n_layers=n_layers)
     params = lmt.init_params(cfg, seed=SEED, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), generator=gen, device=dev)
+    B, T = (cs.WHISPER_BATCH, cs.WHISPER_TOKENS) if cfg.encoder else (BATCH, SEQ)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen, device=dev)
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    frames = cs.frames_for(cfg, B, gen)
+    if frames is not None:
+        batch["enc_embeds"] = frames
     out = {}
     if "eval" in paths:
         eval_step = lmsteps.make_eval_step(cfg)
@@ -191,9 +200,18 @@ def profile_config(name: str, n_layers: int, paths: tuple, dev) -> dict:
                                 PROMPT + DECODE_STEPS)
         out["eval"] = profiled(lambda: eval_step(params, batch), 1)
 
+    if "warm_cache" in paths:
+        cache = lmdec.init_cache(cfg, B, PROMPT + DECODE_STEPS, device=dev)
+        with torch.inference_mode():
+            out["warm_cache"] = profiled(
+                lambda: lmdec.warm_cache(cfg, params, cache, enc_embeds=frames), 1)
+        del cache
+
     if "decode" in paths:
         serve = lmsteps.make_serve_step(cfg)
-        cache = lmdec.init_cache(cfg, BATCH, PROMPT + DECODE_STEPS, device=dev)
+        cache = lmdec.init_cache(cfg, B, PROMPT + DECODE_STEPS, device=dev)
+        with torch.inference_mode():
+            cache = lmdec.warm_cache(cfg, params, cache, enc_embeds=frames)
         for i in range(PROMPT):
             _, cache = serve(params, cache, tokens[:, i:i + 1])
         state = {"cache": cache, "pos": PROMPT}

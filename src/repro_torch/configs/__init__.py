@@ -3,8 +3,8 @@
 Port of ``repro.configs``: the same configurations, field for field (each
 ``configs/<arch>.py`` is a copy of the reference's, as data), over the
 port's :class:`~repro_torch.models.transformer.ArchConfig`.  All ten
-construct; whisper, which needs an encoder and cross-attention, raises
-``NotImplementedError`` when run (``transformer.check_runnable``)."""
+construct and run; whisper's encoder takes the stub frontend's frame
+embeddings (``forward(..., enc_embeds=...)``, ``decode.warm_cache``)."""
 from __future__ import annotations
 
 from repro_torch.configs import (

@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas TPU kernel `flash_attention` / `_flash_kernel` in
 // src/repro/kernels/flash_attention.py for float32 inputs (bf16 inputs go
-// to csrc/flash_attention_sm90.cu).  For q (B, S, Hq, hd), k and v
-// (B, S, Hkv, hd), query head h reading kv head h / (Hq / Hkv):
+// to csrc/flash_attention_sm90.cu).  For q (B, Sq, Hq, hd), k and v
+// (B, Sk, Hkv, hd), query head h reading kv head h / (Hq / Hkv), positions
+// 0 .. Sq - 1 against 0 .. Sk - 1:
 //
 //     s[q, k]  = (q_q . k_k) / sqrt(hd)            masked to -1e30 unless
 //                                                  k <= q (causal) and
@@ -16,8 +17,14 @@
 // acc = acc e^(m - m') + p V, m starting at the masked value (here in log2
 // units: scores are scaled by log2 e and exponentiated with exp2).  Given an
 // `lse` buffer it also writes each row's log-sum-exp L = m + log2(l), in
-// those units, float32 (B, Hq, S): the backward (csrc/flash_attention_bwd.cu)
+// those units, float32 (B, Hq, Sq): the backward (csrc/flash_attention_bwd.cu)
 // takes it instead of recomputing it.
+//
+// Sq != Sk is the decoder's cross-attention over the encoder's frames.  A
+// row whose mask drops every key (a window that closes before position
+// Sk - 1, so only where Sq > Sk) is the softmax of Sk equal scores -1e30,
+// the mean of v, as in the plain version: a block holding such a row walks
+// every kv tile.
 //
 // Precision: 3xTF32.  The tensor cores take float32 operands as TF32 (10
 // mantissa bits), 2^-11 relative per product: one such product puts about
@@ -54,11 +61,12 @@
 // behind a 64-thread named barrier; each warp keeps the row sums of its own
 // keys, added up once at the end.  At D = 256: 64 registers of O, 16 of S.
 //
-// Keys past S and head dimensions past hd are zero-filled by the copies and
-// masked, so S need not be a multiple of any tile and hd is padded to the
-// instance D in {32, 64, 128, 256}.  q, k and v are read in the model's
-// (B, S, H, hd) layout through their strides: no transposes; every row must
-// start on 16 bytes (the wrapper checks).  At D = 256 the block's shared
+// Keys past Sk and head dimensions past hd are zero-filled by the copies and
+// masked out of the softmax (p = 0: their score is -inf, below the running
+// max's start), so neither length need be a multiple of a tile and hd is
+// padded to the instance D in {32, 64, 128, 256}.  q, k and v are read
+// in the model's (B, S, H, hd) layout through their strides: no
+// transposes; every row must start on 16 bytes (the wrapper checks).  At D = 256 the block's shared
 // memory is 221 KB, dynamic, raised with cudaFuncSetAttribute per launch.
 //
 // Bound on the H100: operations.  At the LM path's (2, 4096, 8 / 4, 256)
@@ -86,8 +94,8 @@ struct Args {
   const float* k;
   const float* v;
   float* out;
-  float* lse;                               // (B, Hq, S) L = m + log2(l) a row, or null
-  int S, Hq, Hkv, hd, qt, causal, window;
+  float* lse;                               // (B, Hq, Sq) L = m + log2(l) a row, or null
+  int Sq, Sk, Hq, Hkv, hd, qt, causal, window;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float scale;
 };
@@ -177,16 +185,18 @@ flash_kernel(const Args a) {
   const int G = a.Hq / a.Hkv;
   const int b = blockIdx.z, hk = blockIdx.y;
   const int q_lo = (gridDim.x - 1 - blockIdx.x) * a.qt;   // longest rows first
-  const int q_hi = min(q_lo + a.qt, a.S) - 1;
+  const int q_hi = min(q_lo + a.qt, a.Sq) - 1;
   const int nrows = a.qt * G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tg = lane & 3;
   const int pair = warp & 3, half = warp >> 2;
   const int row0 = pair * 16;               // the pair's 16 rows
 
-  // live kv range of the block's positions [q_lo, q_hi]
-  const int kv_lo = a.window > 0 ? max(0, q_lo - a.window + 1) : 0;
-  const int kv_hi = a.causal ? q_hi : a.S - 1;
+  // live kv range of the block's positions [q_lo, q_hi]; every tile where
+  // a row has no live key (its last row is the first to have none)
+  const bool dead = a.window > 0 && q_hi - a.window + 1 > a.Sk - 1;
+  const int kv_lo = a.window > 0 && !dead ? max(0, q_lo - a.window + 1) : 0;
+  const int kv_hi = a.causal && !dead ? min(q_hi, a.Sk - 1) : a.Sk - 1;
   const int t_lo = kv_lo / kKeys, t_hi = kv_hi / kKeys;
 
   // row r of the block: position q_lo + r / G, query head hk * G + r % G;
@@ -194,19 +204,19 @@ flash_kernel(const Args a) {
   for (int e = tid; e < kRows * DC; e += kThreads) {
     const int r = e / DC, d = (e - r * DC) * 4;
     const int qp = q_lo + r / G;
-    const bool live = r < nrows && qp < a.S && d < a.hd;
+    const bool live = r < nrows && qp < a.Sq && d < a.hd;
     const float* src = live ? a.q + b * a.q_sb + qp * a.q_ss +
                                   (long long)(hk * G + r % G) * a.q_sh + d
                             : a.q;
     cp_async16(Qs + r * L::QS + d, src, live ? 16 : 0);
   }
-  // tile t of k or v (keys t * kKeys ..) into dst, zero-filled past S and hd
+  // tile t of k or v (keys t * kKeys ..) into dst, zero-filled past Sk and hd
   auto copy_tile = [&](float* dst, int stride, const float* x, long long sb, long long ss,
                        long long sh, int t) {
     for (int e = tid; e < kKeys * DC; e += kThreads) {
       const int j = e / DC, d = (e - j * DC) * 4;
       const int kp = t * kKeys + j;
-      const bool live = kp < a.S && d < a.hd;
+      const bool live = kp < a.Sk && d < a.hd;
       const float* src = live ? x + b * sb + kp * ss + hk * sh + d : x;
       cp_async16(dst + j * stride + d, src, live ? 16 : 0);
     }
@@ -228,6 +238,7 @@ flash_kernel(const Args a) {
 #pragma unroll
     for (int x = 0; x < 4; ++x) o[n][x] = 0.f;
   const float scale2 = a.scale * kLog2e;
+  const float ninf = __int_as_float(0xff800000);   // -inf
   const float* q_g = Qs + (row0 + g) * L::QS + 2 * tg;
   const float* p_g = Ps + (row0 + g) * L::PS + 2 * tg;
 
@@ -259,7 +270,8 @@ flash_kernel(const Args a) {
     if (t < t_hi) copy_tile(Ks, L::QS, a.k, a.k_sb, a.k_ss, a.k_sh, t + 1);
     else cp_async_commit();                 // an empty group keeps the count
 
-    // mask, scale to log2 units, and the pair's row maxima
+    // mask, scale to log2 units, and the pair's row maxima: a masked key
+    // scores -1e30, a key past Sk -inf (p = 0 even in a row with no live key)
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < 4; ++n)
@@ -267,10 +279,10 @@ flash_kernel(const Args a) {
       for (int x = 0; x < 4; ++x) {
         const int kp = t * kKeys + half * 32 + n * 8 + 2 * tg + (x & 1);
         const int qp = qpos[x >> 1];
-        bool ok = kp < a.S;
+        bool ok = kp < a.Sk;
         if (a.causal) ok = ok && kp <= qp;
         if (a.window > 0) ok = ok && qp - kp < a.window;
-        s[n][x] = ok ? s[n][x] * scale2 : kNegInf;
+        s[n][x] = ok ? s[n][x] * scale2 : kp < a.Sk ? kNegInf : ninf;
         mx[x >> 1] = fmaxf(mx[x >> 1], s[n][x]);
       }
 #pragma unroll
@@ -342,12 +354,12 @@ flash_kernel(const Args a) {
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     const int r = row0 + g + 8 * x;
-    if (r >= nrows || qpos[x] >= a.S) continue;
+    if (r >= nrows || qpos[x] >= a.Sq) continue;
     const float l_row = l[x] + red[2 * kRows + (half ^ 1) * kRows + r];
     const float den = fmaxf(l_row, 1e-30f);
     if (a.lse != nullptr && half == 0 && tg == 0)
-      a.lse[((long long)b * a.Hq + hk * G + r % G) * a.S + qpos[x]] = m[x] + log2f(l_row);
-    float* dst = a.out + (((long long)b * a.S + qpos[x]) * a.Hq + hk * G + r % G) * a.hd;
+      a.lse[((long long)b * a.Hq + hk * G + r % G) * a.Sq + qpos[x]] = m[x] + log2f(l_row);
+    float* dst = a.out + (((long long)b * a.Sq + qpos[x]) * a.Hq + hk * G + r % G) * a.hd;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int d = half * (D / 2) + n * 8 + 2 * tg;
@@ -363,25 +375,25 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem<D>::bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.S + a.qt - 1) / a.qt, a.Hkv, B);
+  const dim3 grid((a.Sq + a.qt - 1) / a.qt, a.Hkv, B);
   flash_kernel<D><<<grid, kThreads, Smem<D>::bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, S, Hq, hd), k and v (B, S, Hkv, hd) float32, each with unit stride
+// q (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd) float32, each with unit stride
 // over hd, the given element strides over (b, s, h), and every row starting
 // on 16 bytes (hd, the strides times 4 and the pointers multiples of 16);
-// out (B, S, Hq, hd) contiguous float32; lse null or (B, Hq, S) float32,
+// out (B, Sq, Hq, hd) contiguous float32; lse null or (B, Hq, Sq) float32,
 // written with each row's L.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int S, int Hq, int Hkv,
-    int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int Hq,
+    int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal, int window,
     float scale, void* lse, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 16 || hd <= 0 ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 16 || hd <= 0 ||
       hd % 4 != 0 || hd > 256 || B > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -390,7 +402,8 @@ extern "C" int flash_attention_launch(
   a.v = static_cast<const float*>(v);
   a.out = static_cast<float*>(out);
   a.lse = static_cast<float*>(lse);
-  a.S = S;
+  a.Sq = Sq;
+  a.Sk = Sk;
   a.Hq = Hq;
   a.Hkv = Hkv;
   a.hd = hd;

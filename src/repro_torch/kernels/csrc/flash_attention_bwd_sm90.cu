@@ -752,6 +752,15 @@ extern "C" int flash_attention_bwd_sm90_launch(
       hd % 8 != 0 || hd > 4 * kChunk || B > 65535 || Hkv > 65535 ||
       (long long)B * Hq * S > 2147483647LL)
     return (int)cudaErrorInvalidValue;
+  // the tensor maps are encoded by libcuda's cuTensorMapEncodeTiled, which
+  // needs a current context; a thread that made no runtime call yet (the
+  // autograd engine's device thread) may have none, and the encoder then
+  // returns CUDA_ERROR_INVALID_CONTEXT: bind the current device's primary
+  // context
+  int device;
+  cudaError_t bound = cudaGetDevice(&device);
+  if (bound == cudaSuccess) bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return (int)bound;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   Params a;

@@ -4,8 +4,9 @@
 // Replaces the Pallas TPU kernel `flash_attention` / `_flash_kernel` in
 // src/repro/kernels/flash_attention.py for bf16 inputs (float32 inputs keep
 // csrc/flash_attention.cu: the tensor cores would take them as TF32).  For
-// q (B, S, Hq, hd), k and v (B, S, Hkv, hd), query head h reading kv head
-// h / (Hq / Hkv), the same function as the Pallas kernel:
+// q (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd), query head h reading kv head
+// h / (Hq / Hkv), positions 0 .. Sq - 1 against 0 .. Sk - 1, the same
+// function as the Pallas kernel:
 //
 //     s[q, k]  = (q_q . k_k) / sqrt(hd), in float32   masked to -1e30 unless
 //                                                    k <= q (causal) and
@@ -18,6 +19,13 @@
 // in float32, so both products are the reference's float32 products up to
 // the order of the sums.
 //
+// Sq != Sk is the decoder's cross-attention over the encoder's frames (Sq
+// decoder tokens, Sk = 1500 at whisper's width).  Keys past Sk score -inf
+// (p = 0).  A row whose mask drops every key (a window that closes before
+// position Sk - 1, so only where Sq > Sk) is the softmax of Sk equal scores
+// -1e30, the mean of v, as in the plain version: a CTA holding such a row
+// walks every kv tile, and its L is -1e30 log2(e).
+//
 // Design.  A CTA of two warpgroups owns kRows = 128 query rows: row r is
 // (position q_lo + r / G, query head hk * G + r % G), so every kv tile it
 // stages serves all G heads of kv head hk.  Each warpgroup owns 64 rows and
@@ -25,16 +33,17 @@
 // thread 0 copies Q and the first two kv tiles, and afterwards the
 // warpgroup that is second to finish with a stage refills it, so neither
 // waits for the other.
-//   * Q: one TMA box per 64 head dims over (hd, Hq, S, B), box (64, G,
+//   * Q: one TMA box per 64 head dims over (hd, Hq, Sq, B), box (64, G,
 //     128 / G, 1): it lands the rows in exactly the order above.  Where G
 //     does not divide 128 (G = 5, 6, ...), the last rows are zeroed once and
 //     never stored.
 //   * K and V: tiles of 64 keys, one TMA box per 64 head dims over
-//     (hd, Hkv, S, B), in a ring of two stages with a full barrier each for
+//     (hd, Hkv, Sk, B), in a ring of two stages with a full barrier each for
 //     K and for V.
 //     The copies use 128-byte swizzle (each box row is 64 bf16 = 128 bytes),
 //     the layout wgmma reads without bank conflicts.  TMA's zero fill covers
-//     keys past S and head dims past hd (hd = 120, or below 64).
+//     keys past Sk, query rows past Sq and head dims past hd (hd = 120, or
+//     below 64).
 //   * S = Q K^T: wgmma m64n64k16 with both operands K-major in shared memory
 //     (descriptors advanced 32 bytes a k-step inside the swizzled rows), then
 //     scaled in float32 (by 1/sqrt(hd) log2(e), below).
@@ -46,7 +55,7 @@
 //     reference (wiped by the first live key's correction, ex2(-1e30) = 0).  A warp whose 16 rows
 //     all kept their max skips rescaling O (a multiply by 1.0, exact).
 //     Tiles wholly inside the live band are not masked per element; only
-//     those crossing the diagonal, the window edge or S are.  Dead tiles
+//     those crossing the diagonal, the window edge or Sk are.  Dead tiles
 //     are never loaded: the CTA loops over its live kv range only.
 //   * O += P V: wgmma m64n64k16 with P from registers (the S fragment of 16
 //     keys is exactly the A fragment of a k-step) and V MN-major from shared
@@ -75,9 +84,9 @@
 // its own products instead of the ping-pong, and the scale folded into the
 // exponent's FFMA.
 // q, k and v are read through their strides (multiples of 16 bytes, as TMA
-// requires; the wrapper checks); out (B, S, Hq, hd) is contiguous.  Given
+// requires; the wrapper checks); out (B, Sq, Hq, hd) is contiguous.  Given
 // an `lse` buffer, the epilogue also writes each row's log-sum-exp L = m +
-// log2(l) of the scaled scores in log2 units, float32 (B, Hq, S), which the
+// log2(l) of the scaled scores in log2 units, float32 (B, Hq, Sq), which the
 // backward (csrc/flash_attention_bwd_sm90.cu) takes instead of recomputing
 // it; the inference path passes null and writes nothing more.
 //
@@ -114,8 +123,8 @@ constexpr uint32_t kKvBoxN = kNarrowKeys * kRowBytes;
 
 struct Params {
   __nv_bfloat16* out;
-  float* lse;         // (B, Hq, S) L = m + log2(l) a row, or null
-  int S, Hq, Hkv, hd, G, P, nq, causal, window;
+  float* lse;         // (B, Hq, Sq) L = m + log2(l) a row, or null
+  int Sq, Sk, Hq, Hkv, hd, G, P, nq, causal, window;
   float scale;
   float scale_log2;   // scale * log2(e)
 };
@@ -131,6 +140,21 @@ struct Smem {
   static constexpr uint32_t done = bars + 8 * (1 + 2 * kStages);   // per-stage counters
   static constexpr uint32_t bytes = done + 4 * kStages + 1024;     // + alignment
 };
+
+// whether the row at position pos has no live key: its window closes
+// before the keys reach it (only where Sq > Sk)
+__device__ __forceinline__ bool dead_row(const Params& a, int pos) {
+  return a.window > 0 && pos - a.window + 1 > a.Sk - 1;
+}
+
+// the CTA's kv tiles of kk keys for its positions q_lo .. q_hi: the live
+// range, or every tile where its last row has no live key
+__device__ __forceinline__ int2 kv_tiles(const Params& a, int q_lo, int q_hi, int kk) {
+  const bool dead = dead_row(a, q_hi);
+  const int kv_lo = a.window > 0 && !dead ? max(0, q_lo - a.window + 1) : 0;
+  const int kv_hi = a.causal && !dead ? min(q_hi, a.Sk - 1) : a.Sk - 1;
+  return make_int2(kv_lo / kk, kv_hi / kk);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -292,18 +316,18 @@ __device__ __forceinline__ void write_rows(const Params& a, const Acc& o, float 
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = r0 + 8 * half, pos = half ? pos1 : pos0;
-      if (r < nrows && pos < a.S)
-        a.lse[((long long)b * a.Hq + hk * G + r % G) * a.S + pos] =
+      if (r < nrows && pos < a.Sq)
+        a.lse[((long long)b * a.Hq + hk * G + r % G) * a.Sq + pos] =
             half ? m1 + log2f(l1) : m0 + log2f(l0);
     }
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half, pos = half ? pos1 : pos0;
-    if (r >= nrows || pos >= a.S) continue;
+    if (r >= nrows || pos >= a.Sq) continue;
     const float den = fmaxf(half ? l1 : l0, 1e-30f), inv = 1.f / den;
     __nv_bfloat16* orow =
-        a.out + (((long long)b * a.S + pos) * a.Hq + hk * G + r % G) * a.hd;
+        a.out + (((long long)b * a.Sq + pos) * a.Hq + hk * G + r % G) * a.hd;
 #pragma unroll
     for (int j = 0; j < 8 * NCH; ++j) {
       const int d = 8 * j + kc;
@@ -335,10 +359,9 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   const int qb = a.nq - 1 - (int)blockIdx.x;      // most kv tiles first
   const int hk = blockIdx.y, b = blockIdx.z;
   const int q_lo = qb * a.P;
-  const int q_hi = min(q_lo + a.P, a.S) - 1;
-  const int kv_lo = a.window > 0 ? max(0, q_lo - a.window + 1) : 0;
-  const int kv_hi = a.causal ? q_hi : a.S - 1;
-  const int t_lo = kv_lo / kKeys, t_hi = kv_hi / kKeys;
+  const int q_hi = min(q_lo + a.P, a.Sq) - 1;
+  const int2 tiles = kv_tiles(a, q_lo, q_hi, kKeys);
+  const int t_lo = tiles.x, t_hi = tiles.y;
   const int tid = threadIdx.x;
 
   // kv tile t into stage st
@@ -415,8 +438,9 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     wgmma_wait_all();
     fence_regs(s);
 
-    // scale, mask where the tile crosses an edge of the live band, row max
-    const bool edge = k0 + kKeys > a.S || (a.causal && k0 + kKeys - 1 > q_lo) ||
+    // scale, mask where the tile crosses an edge of the live band (a masked
+    // key scores kMasked, one past Sk -inf), row max
+    const bool edge = k0 + kKeys > a.Sk || (a.causal && k0 + kKeys - 1 > q_lo) ||
                       (a.window > 0 && q_hi - k0 >= a.window);
     float mx0 = m0, mx1 = m1;
 #pragma unroll
@@ -425,10 +449,10 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       if (edge) {
         const int kp = k0 + 8 * (i / 4) + kc + (i & 1);
         const int pos = (i & 2) ? pos1 : pos0;
-        bool ok = kp < a.S;
+        bool ok = kp < a.Sk;
         if (a.causal) ok = ok && kp <= pos;
         if (a.window > 0) ok = ok && pos - kp < a.window;
-        x = ok ? x : kMasked;
+        x = ok ? x : kp < a.Sk ? kMasked : __int_as_float(0xff800000);
       }
       s[i] = x;
       if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
@@ -561,7 +585,10 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[32 * NCH], const uint32_t* p
 //     p = ex2(q.k scale log2(e) - m) is one FFMA and one MUFU.  Masked
 //     scores are -inf, so p = 0 there; a row that has seen no live key
 //     keeps m = -1e30 log2(e), l = 0 and O = 0, and the first live key's
-//     correction ex2(-1e30 log2(e) - m) = 0 leaves them so.
+//     correction ex2(-1e30 log2(e) - m) = 0 leaves them so.  A row with no
+//     live key at all (dead_row) scores 0 on every key below Sk instead:
+//     p = 1 there, the plain version's mean of v, and its L is written as
+//     -1e30 log2(e).
 //   * The first product of S_j starts from zero (scale-d 0): S needs no
 //     clearing.
 // S = Q K^T of a 128-key tile, issued (the caller commits): the first
@@ -601,7 +628,7 @@ struct Rows {
 // of the two rows
 __device__ __forceinline__ float2 online_softmax(float (&s)[64], Rows& r, const Params& a,
                                                  int k0, int q_lo, int q_hi) {
-  const bool edge = k0 + kNarrowKeys > a.S || (a.causal && k0 + kNarrowKeys - 1 > q_lo) ||
+  const bool edge = k0 + kNarrowKeys > a.Sk || (a.causal && k0 + kNarrowKeys - 1 > q_lo) ||
                     (a.window > 0 && q_hi - k0 >= a.window);
   const float ninf = __int_as_float(0xff800000);   // -inf
   float mx0 = ninf, mx1 = ninf;
@@ -610,10 +637,10 @@ __device__ __forceinline__ float2 online_softmax(float (&s)[64], Rows& r, const 
     if (edge) {
       const int kp = k0 + 8 * (i / 4) + r.kc + (i & 1);
       const int pos = (i & 2) ? r.pos1 : r.pos0;
-      bool ok = kp < a.S;
+      bool ok = kp < a.Sk;
       if (a.causal) ok = ok && kp <= pos;
       if (a.window > 0) ok = ok && pos - kp < a.window;
-      s[i] = ok ? s[i] : ninf;
+      s[i] = ok ? s[i] : kp < a.Sk && dead_row(a, pos) ? 0.f : ninf;
     }
     if (i & 2) mx1 = fmaxf(mx1, s[i]); else mx0 = fmaxf(mx0, s[i]);
   }
@@ -680,10 +707,9 @@ flash_sm90_narrow_kernel(const __grid_constant__ CUtensorMap tq,
   const int qb = a.nq - 1 - (int)blockIdx.x;      // most kv tiles first
   const int hk = blockIdx.y, b = blockIdx.z;
   const int q_lo = qb * a.P;
-  const int q_hi = min(q_lo + a.P, a.S) - 1;
-  const int kv_lo = a.window > 0 ? max(0, q_lo - a.window + 1) : 0;
-  const int kv_hi = a.causal ? q_hi : a.S - 1;
-  const int t_lo = kv_lo / kK, t_hi = kv_hi / kK;
+  const int q_hi = min(q_lo + a.P, a.Sq) - 1;
+  const int2 tiles = kv_tiles(a, q_lo, q_hi, kK);
+  const int t_lo = tiles.x, t_hi = tiles.y;
   const int tid = threadIdx.x;
 
   // K or V of kv tile t into stage st
@@ -804,9 +830,10 @@ flash_sm90_narrow_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(o);
   }
 
+  // a row with no live key scored 0 on its keys: its L is the masked value's
   write_rows<NCH, true>(
-      a, [&](int j, int e) { return o[4 * j + e]; }, rw.m0, rw.m1, rw.l0, rw.l1, r0, pos0,
-      pos1, kc, b, hk, nrows);
+      a, [&](int j, int e) { return o[4 * j + e]; }, dead_row(a, pos0) ? kMasked : rw.m0,
+      dead_row(a, pos1) ? kMasked : rw.m1, rw.l0, rw.l1, r0, pos0, pos1, kc, b, hk, nrows);
 }
 
 // cuTensorMapEncodeTiled of libcuda, found through the runtime (no -lcuda)
@@ -870,43 +897,54 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 
 }  // namespace
 
-// q (B, S, Hq, hd), k and v (B, S, Hkv, hd) bfloat16, each with unit stride
-// over hd and the given element strides over (b, s, h), every stride times 2
-// and every pointer a multiple of 16 bytes; hd a multiple of 8 up to 256,
-// Hq / Hkv <= 16; out (B, S, Hq, hd) contiguous bfloat16; lse null or
-// (B, Hq, S) float32, written with each row's L.  Launches on
+// q (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd) bfloat16, each with unit
+// stride over hd and the given element strides over (b, s, h), every stride
+// times 2 and every pointer a multiple of 16 bytes; hd a multiple of 8 up to
+// 256, Hq / Hkv <= 16; out (B, Sq, Hq, hd) contiguous bfloat16; lse null or
+// (B, Hq, Sq) float32, written with each row's L.  Launches on
 // `stream` and returns cudaGetLastError() (0 on success), cudaErrorInvalidValue
 // for a shape it does not take, or cudaErrorNotSupported if libcuda's
 // tensor-map encoder is missing or refuses a map.
 extern "C" int flash_attention_sm90_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int S, int Hq, int Hkv,
-    int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal, int window,
-    float scale, void* lse, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup || hd <= 0 ||
+    const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int Hq,
+    int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal,
+    int window, float scale, void* lse, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup ||
+      hd <= 0 ||
       hd % 8 != 0 || hd > 4 * kChunk || B > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
+  // the tensor maps are encoded by libcuda's cuTensorMapEncodeTiled, which
+  // needs a current context; a thread that made no runtime call yet (the
+  // autograd engine's device thread) may have none, and the encoder then
+  // returns CUDA_ERROR_INVALID_CONTEXT: bind the current device's primary
+  // context
+  int device;
+  cudaError_t bound = cudaGetDevice(&device);
+  if (bound == cudaSuccess) bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return (int)bound;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   Params a;
   a.out = static_cast<__nv_bfloat16*>(out);
   a.lse = static_cast<float*>(lse);
-  a.S = S;
+  a.Sq = Sq;
+  a.Sk = Sk;
   a.Hq = Hq;
   a.Hkv = Hkv;
   a.hd = hd;
   a.G = Hq / Hkv;
   a.P = kRows / a.G;
-  a.nq = (S + a.P - 1) / a.P;
+  a.nq = (Sq + a.P - 1) / a.P;
   a.causal = causal;
   a.window = window;
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
   const int keys = hd <= 2 * kChunk ? kNarrowKeys : kKeys;   // a kv tile's keys
   alignas(64) CUtensorMap tq, tk, tv;
-  if (!encode(enc, &tq, q, hd, Hq, S, B, q_sh, q_ss, q_sb, a.G, a.P) ||
-      !encode(enc, &tk, k, hd, Hkv, S, B, k_sh, k_ss, k_sb, 1, keys) ||
-      !encode(enc, &tv, v, hd, Hkv, S, B, v_sh, v_ss, v_sb, 1, keys))
+  if (!encode(enc, &tq, q, hd, Hq, Sq, B, q_sh, q_ss, q_sb, a.G, a.P) ||
+      !encode(enc, &tk, k, hd, Hkv, Sk, B, k_sh, k_ss, k_sb, 1, keys) ||
+      !encode(enc, &tv, v, hd, Hkv, Sk, B, v_sh, v_ss, v_sb, 1, keys))
     return (int)cudaErrorNotSupported;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((hd + kChunk - 1) / kChunk) {

@@ -1,18 +1,22 @@
-"""Causal / sliding-window GQA attention: plain PyTorch version + Hopper
-kernel.
+"""Causal / sliding-window / full GQA attention: plain PyTorch version +
+Hopper kernel.
 
 Port of ``repro.kernels.flash_attention`` (``flash_attention``, the Pallas
 online-softmax kernel) with the semantics of its oracle
-``repro.kernels.ref.attention_ref``.  For q (B, S, Hq, hd) and k, v
-(B, S, Hkv, hd), query head h reads kv head ``h // (Hq // Hkv)``:
+``repro.kernels.ref.attention_ref``, and of the reference's
+``repro.models.attention.attend_full`` where the lengths differ.  For q
+(B, Sq, Hq, hd) and k, v (B, Sk, Hkv, hd), query head h reads kv head
+``h // (Hq // Hkv)``, positions 0..Sq-1 against 0..Sk-1:
 
     s[q, k]  = q_q . k_k / sqrt(hd), set to NEG_INF = -1e30 unless
                k <= q (causal) and q - k < window (window > 0)
     out[q]   = softmax_k(s[q, :]) @ v          (fp32 inside, q's dtype out)
 
+(a row the mask empties is the softmax of Sk equal scores: the mean of v).
+Sq != Sk is the decoder's cross-attention over the encoder's frames.
 :func:`attention_plain` follows ``attention_ref`` (materialises the scores);
 :func:`flash_attention_cuda` launches a hand-written kernel on the tensors'
-strides, with no transposes and any S, chosen by the tensors' dtype: bf16
+strides, with no transposes and any Sq, Sk, chosen by the tensors' dtype: bf16
 goes to ``csrc/flash_attention_sm90.cu`` (TMA, wgmma), float32 to
 ``csrc/flash_attention.cu`` (mma.sync in 3xTF32: each float32 operand split
 into two TF32 terms, so the tensor cores keep float32 accuracy).
@@ -47,9 +51,9 @@ LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 256
 MAX_GROUP = 16            # query heads per kv head: the kernels' rows a block
 # each input dtype's kernel: its source, launch function and argument types
-# (q, k, v, out; B, S, Hq, Hkv, hd; the nine strides; causal, window, scale;
-# the lse buffer or null; stream)
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+# (q, k, v, out; B, Sq, Sk, Hq, Hkv, hd; the nine strides; causal, window,
+# scale; the lse buffer or null; stream)
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
          + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 2)
 _KERNELS = {torch.float32: ("flash_attention.cu", "flash_attention_launch", _ARGS),
             torch.bfloat16: ("flash_attention_sm90.cu", "flash_attention_sm90_launch",
@@ -85,9 +89,9 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"attention takes q (B, S, Hq, hd) and k, v (B, S, Hkv, hd), "
+        raise ValueError(f"attention takes q (B, Sq, Hq, hd) and k, v (B, Sk, Hkv, hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, S, Hq, hd = q.shape
+    B, _, Hq, hd = q.shape
     if k.shape[0] != B or k.shape[3] != hd or Hq % k.shape[2]:
         raise ValueError(f"attention: k, v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)} (Hq must be a multiple of Hkv)")
@@ -96,7 +100,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int
                    ) -> torch.Tensor:
     """The scaled scores (B, Hkv, G, Sq, Sk) in float32 (float64 on float64
-    inputs), NEG_INF where the mask drops a pair; positions 0..S-1."""
+    inputs), NEG_INF where the mask drops a pair; positions 0..Sq-1 against
+    0..Sk-1."""
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     qg = _wide(q.reshape(B, Sq, Hkv, Hq // Hkv, hd)) / (hd ** 0.5)
@@ -115,7 +120,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Naive softmax attention with GQA, in plain PyTorch on the tensors'
     own device (``ref.attention_ref``: the reference for the kernel, and the
-    CPU path).  Sq and Sk may differ; positions are 0..S-1 on both."""
+    CPU path).  Sq and Sk may differ; positions are 0..Sq-1 against
+    0..Sk-1, as the reference's ``attend_full`` defaults them."""
     _check(q, k, v)
     B, Sq, Hq, hd = q.shape
     p = torch.softmax(_masked_scores(q, k, causal, window), dim=-1)
@@ -126,7 +132,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
     """Each query row's log-sum-exp of the scaled, masked scores of
-    :func:`attention_plain`, in log2 units, float32 (B, Hq, S): the plain
+    :func:`attention_plain`, in log2 units, float32 (B, Hq, Sq): the plain
     version of the L that the forward kernels write for their backward
     (``flash_attention_cuda(..., return_lse=True)``)."""
     B, Sq, Hq, _ = q.shape
@@ -175,17 +181,18 @@ def _launcher(kernels: dict, dtype: torch.dtype):
 
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> None:
-    """What both kernels (forward and backward) take; raises on anything
-    else, whatever the device, and then on tensors not on one CUDA device."""
+    """What the kernels (forward and backward) take, at any Sq and Sk;
+    raises on anything else, whatever the device, and then on tensors not
+    on one CUDA device."""
     _check(q, k, v)
     tensors = (q, k, v)
     if q.dtype not in _KERNELS or any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"{what} takes float32 or bfloat16 q, k, v of one dtype, "
                         f"got {[t.dtype for t in tensors]}")
-    S, Hq, hd = q.shape[1:]
-    Hkv = k.shape[2]
-    if k.shape[1] != S:
-        raise ValueError(f"{what} needs Sq == Sk, got {S} and {k.shape[1]}")
+    Sq, Hq, hd = q.shape[1:]
+    Sk, Hkv = k.shape[1:3]
+    if Sk == 0 and Sq > 0:
+        raise ValueError(f"{what} needs at least one key, got Sk = 0")
     if hd > MAX_HEAD_DIM or Hq // Hkv > MAX_GROUP:
         raise ValueError(f"{what} takes hd <= {MAX_HEAD_DIM} and at most {MAX_GROUP} "
                          f"query heads per kv head, got hd={hd}, G={Hq // Hkv}")
@@ -203,12 +210,13 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) ->
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
                          return_lse: bool = False):
-    """(B, S, Hq, hd) attention on a CUDA device by the hand-written kernel
-    of the tensors' dtype (bf16: wgmma; float32: 3xTF32 mma.sync), on the
-    current stream; the result is (B, S, Hq, hd) contiguous in q's dtype.
-    With ``return_lse`` it returns (out, lse): each row's log-sum-exp of
-    the scaled scores in log2 units, float32 (B, Hq, S), which the backward
-    kernel of the same dtype takes; without, the kernel writes no L.
+    """Attention of q (B, Sq, Hq, hd) over k, v (B, Sk, Hkv, hd) on a CUDA
+    device by the hand-written kernel of the tensors' dtype (bf16: wgmma;
+    float32: 3xTF32 mma.sync), on the current stream; the result is
+    (B, Sq, Hq, hd) contiguous in q's dtype.  With ``return_lse`` it
+    returns (out, lse): each row's log-sum-exp of the scaled scores in log2
+    units, float32 (B, Hq, Sq), which the backward kernel of the same dtype
+    takes (at Sq == Sk); without, the kernel writes no L.
     q, k and v are read through their strides (unit stride over hd and rows
     on 16 bytes required: the kernels copy 16 bytes or TMA boxes).  Raises
     on anything the kernels do not take (whatever the device), on tensors
@@ -217,10 +225,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches, launches_bf16
     bf16 = q.dtype == torch.bfloat16
     _check_cuda(q, k, v, "flash_attention_cuda")
-    B, S, Hq, hd = q.shape
-    Hkv = k.shape[2]
-    out = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) \
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1:3]
+    out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     if out.numel() == 0:
         return (out, lse) if return_lse else out
@@ -229,7 +237,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch = _launcher(_KERNELS, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(*pointers, B, S, Hq, Hkv, hd, *strides, int(causal), int(window),
+        err = launch(*pointers, B, Sq, Sk, Hq, Hkv, hd, *strides, int(causal), int(window),
                      1.0 / (hd ** 0.5), None if lse is None else lse.data_ptr(), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
@@ -256,9 +264,16 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     ``out`` (the forward's output) and ``dout`` are made contiguous here
     when they are not (a copy; the kernel reads them as (B, S, Hq, hd)
     rows).  dq comes back (B, S, Hq, hd), dk and dv (B, S, Hkv, hd),
-    contiguous, in the inputs' dtype.  Raises where the forward raises and
-    if a launch is refused."""
+    contiguous, in the inputs' dtype.  Raises where the forward raises, at
+    Sk != Sq (``NotImplementedError``: ROADMAP queue 1 item 7f), and if a
+    launch is refused."""
     global launches_bwd, launches_bwd_bf16
+    _check(q, k, v)
+    if k.shape[1] != q.shape[1]:
+        raise NotImplementedError(
+            f"flash_attention_backward_cuda needs Sq == Sk, got {q.shape[1]} and "
+            f"{k.shape[1]}: the backward kernels at Sk != Sq (cross-attention, "
+            "whisper training on the card) are ROADMAP queue 1 item 7f")
     if out.shape != q.shape or dout.shape != q.shape \
             or any(t.dtype != q.dtype for t in (out, dout)):
         raise ValueError(f"flash_attention_backward_cuda: out {tuple(out.shape)} "

@@ -44,8 +44,10 @@ def cluster_aggregate(rows: torch.Tensor, labels: torch.Tensor,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Flash attention (causal / sliding-window, GQA): q (B, S, Hq, hd),
-    k and v (B, S, Hkv, hd) -> (B, S, Hq, hd), differentiable."""
+    """Flash attention (causal / sliding-window / full, GQA): q (B, Sq, Hq,
+    hd), k and v (B, Sk, Hkv, hd) -> (B, Sq, Hq, hd), positions 0..Sq-1
+    against 0..Sk-1; differentiable (on the card at Sq == Sk only: the
+    backward kernels at Sk != Sq are ROADMAP queue 1 item 7f)."""
     return FlashAttentionFn.apply(q, k, v, causal, window)
 
 

@@ -1,8 +1,8 @@
 """GQA attention: full, chunked online-softmax, and single-token decode
 against a KV cache.
 
-Port of ``repro.models.attention``.  Shapes: q (B, S, Hq, hd), k/v
-(B, S, Hkv, hd), Hq = G * Hkv.
+Port of ``repro.models.attention``.  Shapes: q (B, Sq, Hq, hd), k/v
+(B, Sk, Hkv, hd), Hq = G * Hkv; Sq != Sk in the decoder's cross-attention.
 
 :func:`attend_full` and :func:`attend_chunked` compute the same function.
 Both go through ``repro_torch.kernels.ops.attention``, the hand-written
@@ -39,8 +39,9 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
 
 def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Attention over materialised Sq x Sk scores (CPU); the flash kernel on
-    CUDA.  Positions are 0..S-1 on both sides."""
+    """Attention of q (B, Sq, Hq, hd) over k, v (B, Sk, Hkv, hd):
+    materialised Sq x Sk scores on the CPU, the flash kernel on CUDA.
+    Positions are 0..Sq-1 against 0..Sk-1 (the reference's defaults)."""
     return ops.attention(q, k, v, causal=causal, window=window)
 
 

@@ -12,7 +12,9 @@ kinds per mixer:
           state is carried through ``repro_torch.kernels.ops.selective_scan``
           at S = 1;
   rwkv  : (tm_x, cm_x, wkv) — O(1) in sequence length; the wkv state is
-          carried through ``repro_torch.kernels.ops.rwkv6_wkv`` at T = 1.
+          carried through ``repro_torch.kernels.ops.rwkv6_wkv`` at T = 1;
+  cross : the encoder's K/V (kc, vc: n_frames slots), filled once by
+          :func:`warm_cache`; every decode step attends over all of them.
 
 MoE FFNs route the step's B tokens at the reference's capacity for
 T = B: at least 128 slots an expert, so no choice is dropped while
@@ -21,9 +23,9 @@ B * top_k <= 128.
 ``pos`` is a Python int.  Unlike the reference, whose arrays are immutable,
 :func:`decode_step` writes the new k/v rows into the ring buffers and the
 new RWKV and Mamba states into their slots in place (a new buffer per token
-would copy the whole cache every step): the returned cache holds the same
-tensors as the one passed in, which is advanced with it.  Cross-attention
-caches raise ``NotImplementedError`` (ROADMAP queue 1 item 7d).
+would copy the whole cache every step), and :func:`warm_cache` the
+encoder's K/V likewise: the returned cache holds the same tensors as the
+one passed in, which is advanced with it.
 """
 from __future__ import annotations
 
@@ -35,14 +37,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import rwkv as rk
-from repro_torch.models.layers import apply_rope, ffn_apply, norm, rms_norm
+from repro_torch.models.layers import apply_rope, ffn_apply, matmul, norm, rms_norm
 from repro_torch.models.moe import moe_apply, moe_capacity
 from repro_torch.models.transformer import (
-    NOT_PORTED_ENCODER,
     ArchConfig,
     LayerSpec,
-    check_runnable,
     embed_tokens,
+    encode,
     unembed,
 )
 from repro_torch.utils.tree import tree_index
@@ -56,8 +57,13 @@ def _layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, seq_len: int,
     if spec.mixer == "attn":
         s_c = min(spec.window, seq_len) if spec.window > 0 else seq_len
         shape = lead + (batch, s_c, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+        c = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+        if spec.cross_attn:
+            shape = lead + (batch, cfg.encoder.n_frames, cfg.n_kv_heads, cfg.head_dim)
+            c["kc"] = torch.zeros(shape, dtype=dt, device=device)
+            c["vc"] = torch.zeros(shape, dtype=dt, device=device)
+        return c
     if spec.mixer == "mamba":
         st = mb.mamba_init_state(batch, cfg.mamba_d_inner, cfg.mamba_d_state,
                                  cfg.mamba_d_conv, dt, device=device)
@@ -72,7 +78,6 @@ def _layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, seq_len: int,
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None) -> Pytree:
     """A zero cache for ``batch`` sequences of up to ``seq_len`` tokens on
     ``device`` (the card unless the caller asks for the CPU)."""
-    check_runnable(cfg)
     device = resolve_device(device)
     cache: dict = {"pos": 0}
     if cfg.n_periods > 0:
@@ -85,11 +90,41 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None) -> Pytree
 
 def warm_cache(cfg: ArchConfig, params: Pytree, cache: Pytree,
                enc_embeds: torch.Tensor | None = None, pos: int = 0) -> Pytree:
-    """Set the decode position (e.g. after an external prefill).  Filling
-    cross-attention K/V from an encoder raises: not ported yet."""
-    if enc_embeds is not None or cfg.encoder is not None:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_ENCODER}")
-    return dict(cache, pos=int(pos))
+    """Set the decode position (e.g. after an external prefill) and, for an
+    encoder-decoder configuration given frame embeddings ``enc_embeds``
+    (B, n_frames, D), run the encoder once and fill each cross-attention
+    layer's kc / vc with its projections of the encoder's output.  They are
+    written into the cache's tensors in place (the module note) where those
+    have their shape and dtype; otherwise (another frame count, or float32
+    frames into a bf16 model) the entry takes new tensors, as the
+    reference's entry takes the new arrays."""
+    cache = dict(cache, pos=int(pos))
+    if cfg.encoder is None or enc_embeds is None:
+        return cache
+    enc_out = encode(cfg, params, enc_embeds)
+    if cfg.n_periods > 0:
+        for i, spec in enumerate(cfg.pattern):
+            if spec.cross_attn:
+                for j in range(cfg.n_periods):
+                    _fill_cross(cfg, tree_index(params["layers"][i], j),
+                                cache["layers"][i], enc_out, j)
+    for i, spec in enumerate(cfg.remainder):
+        if spec.cross_attn:
+            _fill_cross(cfg, params["rem_layers"][i], cache["rem"][i], enc_out, None)
+    return cache
+
+
+def _fill_cross(cfg: ArchConfig, p: dict, c: dict, enc_out: torch.Tensor,
+                j: int | None) -> None:
+    """One layer's kc / vc from the encoder's output into cache entry ``c``
+    (at period ``j`` of its stack, or unstacked where ``j`` is None)."""
+    B, Se = enc_out.shape[:2]
+    for name in ("kc", "vc"):
+        x = matmul(enc_out, p[name]).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+        shape = x.shape if j is None else c[name].shape[:1] + x.shape
+        if c[name].shape != shape or c[name].dtype != x.dtype:
+            c[name] = torch.empty(shape, dtype=x.dtype, device=x.device)
+        (c[name] if j is None else c[name][j]).copy_(x)
 
 
 # --------------------------------------------------------------------------- #
@@ -116,7 +151,15 @@ def _attn_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, c: dict,
     c["k"][:, slot] = k[:, 0]                 # in place: see the module note
     c["v"][:, slot] = v[:, 0]
     out = attn.attend_decode(q, c["k"], c["v"], pos, window=spec.window)
-    return h + out.reshape(B, 1, -1) @ p["o"]
+    h = h + out.reshape(B, 1, -1) @ p["o"]
+
+    if spec.cross_attn:
+        # every one of the encoder's frames is live: pos = Se - 1
+        xc = norm(cfg.norm, h, p["norm_c"])
+        qc = (xc @ p["qc"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        co = attn.attend_decode(qc, c["kc"], c["vc"], c["kc"].shape[1] - 1)
+        h = h + co.reshape(B, 1, -1) @ p["oc"]
+    return h
 
 
 def _ffn_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -159,7 +202,6 @@ def _apply_layer_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, c: dict,
 def decode_step(cfg: ArchConfig, params: Pytree, cache: Pytree,
                 token: torch.Tensor) -> tuple[torch.Tensor, Pytree]:
     """One decode step. token (B, 1) integer -> (logits (B, 1, V), new cache)."""
-    check_runnable(cfg)
     pos = int(cache["pos"])
     h = embed_tokens(cfg, params, token)
     if cfg.abs_pos:

@@ -89,11 +89,21 @@ def is_gated(kind: str) -> bool:
     return kind in ("swiglu", "geglu")
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with jnp's type promotion: operands of two float dtypes are
+    both cast to the wider one first (float32 frames into a bf16 model),
+    where PyTorch's ``@`` would raise."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def ffn_apply(act: str, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Dense FFN. Params: w_gate (D,F) [+ w_up (D,F) if gated], w_down (F,D)."""
-    gate = x @ p["w_gate"]
-    up = x @ p["w_up"] if is_gated(act) else None
-    return activation(act, gate, up) @ p["w_down"]
+    gate = matmul(x, p["w_gate"])
+    up = matmul(x, p["w_up"]) if is_gated(act) else None
+    return matmul(activation(act, gate, up), p["w_down"])
 
 
 def ffn_init(init: Init, act: str, d_model: int, d_ff: int, dtype: torch.dtype) -> dict:

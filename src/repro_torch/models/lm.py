@@ -7,7 +7,13 @@ differentiate through their backward kernels on the card), then
 ``opt.update`` under ``torch.no_grad()``.  ``make_eval_step`` is the
 forward-only loss the reference lowers for its ``prefill`` shape;
 ``make_serve_step`` and ``greedy_generate`` are its serving loop; those
-three run under ``torch.inference_mode()``.
+three run under ``torch.inference_mode()``.  Every configuration of
+``configs/`` runs; whisper-large-v3 takes its frame embeddings as the
+batch's ``enc_embeds`` (B, n_frames, d_model), and its serving loop is
+``decode.init_cache`` -> ``decode.warm_cache(..., enc_embeds=...)`` ->
+``decode_step`` (``greedy_generate`` keeps the reference's signature, which
+takes no frames).  On the card whisper trains only once the flash backward
+kernels take Sk != Sq (ROADMAP queue 1 item 7f).
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ AUX_WEIGHT = 0.01  # MoE load-balance coefficient
 
 def lm_loss(cfg: ArchConfig, params: Pytree, batch: dict) -> torch.Tensor:
     """Next-token cross-entropy (+ MoE aux).  ``batch`` carries ``labels``
-    and one of ``tokens`` / ``embeds``."""
+    and one of ``tokens`` / ``embeds`` (+ ``enc_embeds`` for an
+    encoder-decoder configuration)."""
     logits, _, aux = forward(cfg, params, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"),
                              enc_embeds=batch.get("enc_embeds"))

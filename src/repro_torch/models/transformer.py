@@ -9,15 +9,20 @@ stacked over ``n_periods``, and ``params["rem_layers"]`` holds the layers
 left over when ``n_layers % len(pattern) != 0``.  The reference's
 ``lax.scan`` over periods is a Python loop that indexes the stack.
 
-Ported: attention (full, sliding-window, GQA, QK-norm, RoPE), Mamba and
-RWKV6 mixers with dense and MoE FFNs — gemma3-4b, gemma-7b,
-h2o-danube-3-4b, minitron-8b, internvl2-2b's language backbone, rwkv6-3b,
-jamba-1.5-large-398b, llama4-maverick-400b-a17b, grok-1-314b.  MoE layers
+Every configuration of ``configs/`` runs: attention (full, sliding-window,
+GQA, QK-norm, RoPE), Mamba and RWKV6 mixers with dense and MoE FFNs —
+gemma3-4b, gemma-7b, h2o-danube-3-4b, minitron-8b, internvl2-2b's language
+backbone, rwkv6-3b, jamba-1.5-large-398b, llama4-maverick-400b-a17b,
+grok-1-314b — and whisper-large-v3's encoder-decoder: :func:`encode` over
+the stub frontend's frame embeddings (the caller passes ``enc_embeds``
+(B, n_frames, d_model); there is no mel or conv frontend, nor in the
+reference) and the decoder's cross-attention over its output.  MoE layers
 take the reference's plain ``moe_apply`` whatever ``sharding_mode`` says
 (its expert-parallel variant waits for multi-GPU, ROADMAP queue 1 item 6).
-Parameters of every family are built (shapes included), but
-cross-attention with its encoder (whisper, item 7d) raises
-``NotImplementedError`` when run.
+
+Products follow jnp's type promotion (:func:`~repro_torch.models.layers.
+matmul`): float32 frames into a bf16 model run the encoder in float32, as
+the reference does, where ``@`` in PyTorch would raise.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.models.layers import (
     ffn_apply,
     ffn_init,
     init_norm,
+    matmul,
     norm,
     rms_norm,
     sinusoidal_positions,
@@ -47,9 +53,6 @@ from repro_torch.models.moe import moe_apply, moe_capacity, moe_init
 from repro_torch.utils.tree import tree_index
 
 Pytree = Any
-
-NOT_PORTED_ENCODER = ("cross-attention, the encoder and the audio/vision "
-                      "frontends are not ported yet (ROADMAP queue 1 item 7d)")
 
 
 @dataclass(frozen=True)
@@ -60,6 +63,10 @@ class LayerSpec:
     moe: bool = False
     causal: bool = True
     cross_attn: bool = False     # decoder cross-attention (whisper)
+
+
+# the encoder's layers: non-causal self-attention without rope
+ENCODER_LAYER = LayerSpec(mixer="attn", rope=False, causal=False)
 
 
 @dataclass(frozen=True)
@@ -178,13 +185,6 @@ class ArchConfig:
         return dataclasses.replace(self, **changes)
 
 
-def check_runnable(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` (naming the ROADMAP item) if ``cfg``
-    needs a part of the reference the port does not run yet."""
-    if cfg.encoder is not None or any(s.cross_attn for s in cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_ENCODER}")
-
-
 # --------------------------------------------------------------------------- #
 # Parameter construction
 # --------------------------------------------------------------------------- #
@@ -254,11 +254,10 @@ def _init_tree(cfg: ArchConfig, init: Init) -> Pytree:
                                    for _ in range(cfg.n_periods)])
     params["rem_layers"] = [_init_layer(cfg, spec, init) for spec in cfg.remainder]
     if cfg.encoder is not None:
-        enc = cfg.encoder
-        enc_spec = LayerSpec(mixer="attn", rope=False, causal=False)
         ecfg = _encoder_cfg(cfg)
         params["encoder"] = {
-            "layers": [_init_layer(ecfg, enc_spec, init) for _ in range(enc.n_layers)],
+            "layers": [_init_layer(ecfg, ENCODER_LAYER, init)
+                       for _ in range(cfg.encoder.n_layers)],
             "final_norm": init_norm(init, "layernorm", cfg.d_model, dt),
         }
     return params
@@ -303,12 +302,12 @@ def param_shapes(cfg: ArchConfig) -> Pytree:
 # --------------------------------------------------------------------------- #
 
 def _attn_sublayer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
-                   pos_ids: torch.Tensor) -> torch.Tensor:
+                   pos_ids: torch.Tensor, enc_out: torch.Tensor | None) -> torch.Tensor:
     B, S, D = h.shape
     x = norm(cfg.norm, h, p["norm1"])
-    q = (x @ p["q"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["k"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["v"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = matmul(x, p["q"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = matmul(x, p["k"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = matmul(x, p["v"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm and "q_norm" in p:
         q = rms_norm(q, p["q_norm"]["scale"])
         k = rms_norm(k, p["k_norm"]["scale"])
@@ -321,7 +320,27 @@ def _attn_sublayer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
         out = attn.attend_chunked(q, k, v, causal=spec.causal, window=spec.window)
     else:
         out = attn.attend_full(q, k, v, causal=spec.causal, window=spec.window)
-    return h + out.reshape(B, S, -1) @ p["o"]
+    h = h + matmul(out.reshape(B, S, -1), p["o"])
+
+    if spec.cross_attn and enc_out is not None:
+        xc = norm(cfg.norm, h, p["norm_c"])
+        Se = enc_out.shape[1]
+        qc = matmul(xc, p["qc"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        kc = matmul(enc_out, p["kc"]).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+        vc = matmul(enc_out, p["vc"]).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+        h = h + matmul(cross_attend(qc, kc, vc).reshape(B, S, -1), p["oc"])
+    return h
+
+
+def cross_attend(qc: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor) -> torch.Tensor:
+    """The decoder's queries (B, S, Hq, hd) over the encoder's keys and
+    values (B, Se, Hkv, hd), non-causal: ``attend_full(qc, kc, vc,
+    causal=False)``, in the promoted dtype of the two (the kernels take one
+    dtype; float32 frames into a bf16 model give float32 kc, vc) and
+    returned in qc's dtype, as the reference's ``attend_full`` returns it."""
+    dt = torch.promote_types(qc.dtype, kc.dtype)
+    out = attn.attend_full(qc.to(dt), kc.to(dt), vc.to(dt), causal=False)
+    return out.to(qc.dtype)
 
 
 def _ffn_sublayer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor
@@ -337,11 +356,10 @@ def _ffn_sublayer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor
 
 
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
-                 pos_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    if spec.cross_attn:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_ENCODER}")
+                 pos_ids: torch.Tensor, enc_out: torch.Tensor | None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     if spec.mixer == "attn":
-        h = _attn_sublayer(cfg, spec, p, h, pos_ids)
+        h = _attn_sublayer(cfg, spec, p, h, pos_ids, enc_out)
         return _ffn_sublayer(cfg, spec, p, h)
     if spec.mixer == "mamba":
         x = norm(cfg.norm, h, p["norm1"])
@@ -363,17 +381,21 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
 
 
 def backbone(cfg: ArchConfig, params: Pytree, h: torch.Tensor,
-             pos_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Apply all layers to hidden states h (B, S, D). Returns (h, moe_aux).
+             pos_ids: torch.Tensor, enc_out: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply all layers to hidden states h (B, S, D), with the encoder's
+    output ``enc_out`` (B, Se, D) for cross-attention layers (skipped where
+    it is None, as in the reference). Returns (h, moe_aux).
 
     With ``cfg.remat`` and grad enabled each period's layers run under
     ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
     ``period_body`` in ``jax.checkpoint``: the backward runs the period's
     forward again (its kernels launch twice).  The remainder layers are not
     wrapped, nor are they in the reference."""
-    def period_body(j, h, aux):
+    def period_body(j, h, aux, enc_out):
         for i, spec in enumerate(cfg.pattern):
-            h, a = _apply_layer(cfg, spec, tree_index(params["layers"][i], j), h, pos_ids)
+            h, a = _apply_layer(cfg, spec, tree_index(params["layers"][i], j), h, pos_ids,
+                                enc_out)
             aux = aux + a
         return h, aux
 
@@ -381,13 +403,32 @@ def backbone(cfg: ArchConfig, params: Pytree, h: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j in range(cfg.n_periods):
         if remat:
-            h, aux = checkpoint(period_body, j, h, aux, use_reentrant=False)
+            h, aux = checkpoint(period_body, j, h, aux, enc_out, use_reentrant=False)
         else:
-            h, aux = period_body(j, h, aux)
+            h, aux = period_body(j, h, aux, enc_out)
     for i, spec in enumerate(cfg.remainder):
-        h, a = _apply_layer(cfg, spec, params["rem_layers"][i], h, pos_ids)
+        h, a = _apply_layer(cfg, spec, params["rem_layers"][i], h, pos_ids, enc_out)
         aux = aux + a
     return h, aux
+
+
+def encode(cfg: ArchConfig, params: Pytree, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over the stub frontend's frame embeddings
+    (B, n_frames, D): sinusoidal positions added in the frames' own dtype,
+    then per layer non-causal self-attention without rope and a GELU FFN
+    (``_encoder_cfg``), then a final LayerNorm.  Returns (B, n_frames, D)
+    in the frames' dtype promoted with the weights'."""
+    if cfg.encoder is None:
+        raise ValueError(f"{cfg.name} has no encoder")
+    B, S = enc_embeds.shape[:2]
+    pos = sinusoidal_positions(S, cfg.d_model, device=enc_embeds.device)
+    h = enc_embeds + pos.to(enc_embeds.dtype)[None]
+    ecfg = _encoder_cfg(cfg)
+    pos_ids = torch.arange(S, device=h.device)[None].expand(B, S)
+    for lp in params["encoder"]["layers"]:
+        h = _attn_sublayer(ecfg, ENCODER_LAYER, lp, h, pos_ids, None)
+        h, _ = _ffn_sublayer(ecfg, ENCODER_LAYER, lp, h)
+    return norm("layernorm", h, params["encoder"]["final_norm"])
 
 
 def embed_tokens(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor) -> torch.Tensor:
@@ -402,10 +443,10 @@ def embed_tokens(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor) -> torch
 def forward(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor | None = None,
             embeds: torch.Tensor | None = None, enc_embeds: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full forward: returns (logits (B,S,V), final hidden (B,S,D), moe_aux)."""
-    check_runnable(cfg)
-    if enc_embeds is not None:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_ENCODER}")
+    """Full forward: returns (logits (B,S,V), final hidden (B,S,D), moe_aux).
+    For an encoder-decoder configuration given ``enc_embeds`` (B, n_frames,
+    D) the encoder runs first and the decoder's cross-attention reads its
+    output; without an encoder they are ignored, as in the reference."""
     if embeds is None:
         if tokens is None:
             raise ValueError("forward needs tokens or embeds")
@@ -416,7 +457,10 @@ def forward(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor | None = None,
     pos_ids = torch.arange(S, device=h.device)[None].expand(B, S)
     if cfg.abs_pos:
         h = h + sinusoidal_positions(S, cfg.d_model, device=h.device).to(h.dtype)[None]
-    h, aux = backbone(cfg, params, h, pos_ids)
+    enc_out = None
+    if cfg.encoder is not None and enc_embeds is not None:
+        enc_out = encode(cfg, params, enc_embeds)
+    h, aux = backbone(cfg, params, h, pos_ids, enc_out)
     h = norm(cfg.norm, h, params["final_norm"])
     return unembed(cfg, params, h), h, aux
 

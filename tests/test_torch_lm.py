@@ -6,19 +6,24 @@ reference, with the reference's parameters carried across
 On the CPU, at `reduced()` in float32: `forward` logits within 1e-4 of the
 largest logit and `lm_loss` within 1e-5 relative, for gemma3-4b, gemma-7b,
 h2o-danube-3-4b, minitron-8b and rwkv6-3b (the two orders of float32 sums
-differ in the last bits), and for jamba-1.5-large-398b (Mamba, MoE),
+differ in the last bits), for jamba-1.5-large-398b (Mamba, MoE),
 llama4-maverick-400b-a17b (MoE with a shared expert) and grok-1-314b
-(MoE); gemma3 also at S = 2048 (the reference's
-`attend_chunked`) and at n_layers = 8 (remainder layers).  In bfloat16 the
-two frameworks round at other places: logits within 3e-2 of the largest
-and the loss within 1e-3 relative; the embedding scale is bit for bit (the
-scalar rounds to bf16 first).  `decode_step` against `forward` at the
-reference's contract (2e-2 relative, ring buffers wrapping 3x), the
-Mamba and MoE configurations included;
-`greedy_generate` per-step logits within 1e-4 and tokens equal wherever the
-top-2 margin exceeds that.  `ARCHS` equal the reference's field by field;
-`param_shapes` of every full config equal `param_specs`; the encoder
-family (whisper) raises `NotImplementedError` naming its item."""
+(MoE), and for whisper-large-v3 with frame embeddings (its encoder at
+head_dim 128, the decoder's cross-attention over 16 frames); gemma3 also at
+S = 2048 (the reference's `attend_chunked`) and at n_layers = 8 (remainder
+layers), whisper also without frames (no cross-attention, as in the
+reference).  In bfloat16 the two frameworks round at other places: logits
+within 3e-2 of the largest and the loss within 1e-3 relative, whisper
+also with float32 frames into bf16 weights (jnp's promotion: the encoder
+and the cross K/V in float32); the embedding scale is bit for bit (the
+scalar rounds to bf16 first).  `transformer.encode` and `warm_cache`'s
+cross K/V against the reference's within 1e-4 of their largest.
+`decode_step` against `forward` at the reference's contract (2e-2
+relative, ring buffers wrapping 3x), the Mamba, MoE and whisper
+configurations included; `greedy_generate` per-step logits within 1e-4 and
+tokens equal wherever the top-2 margin exceeds that.  `ARCHS` equal the
+reference's field by field; `param_shapes` of every full config equal
+`param_specs`; every configuration runs."""
 import dataclasses
 
 import jax
@@ -43,12 +48,11 @@ from repro_torch.kernels import rwkv6_scan as twkv  # noqa: E402
 from repro_torch.models import decode as tdecode  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
-from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 RUNNABLE = ["gemma3-4b", "gemma-7b", "h2o-danube-3-4b", "minitron-8b", "rwkv6-3b",
-            "jamba-1.5-large-398b", "llama4-maverick-400b-a17b", "grok-1-314b"]
-NOT_RUNNABLE = {"whisper-large-v3": "7d"}
+            "jamba-1.5-large-398b", "llama4-maverick-400b-a17b", "grok-1-314b",
+            "whisper-large-v3"]
 LOGIT_RTOL_F32 = 1e-4       # of the largest |logit|
 LOSS_RTOL_F32 = 1e-5
 LOGIT_RTOL_BF16 = 3e-2
@@ -68,16 +72,37 @@ def _tokens(cfg, B, S, seed):
                                                 ).astype(np.int32)
 
 
-def _compare_forward(name, B, S, logit_rtol, loss_rtol, **overrides):
+def _frames(cfg, B, seed, dtype=None):
+    """Frame embeddings (B, n_frames, d_model) for an encoder-decoder
+    configuration, drawn in float32 and given as a (jnp, torch) pair in
+    ``dtype`` (default: the weights'); (None, None) for the others."""
+    if cfg.encoder is None:
+        return None, None
+    x = np.random.default_rng(seed).standard_normal(
+        (B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    dtype = dtype or cfg.param_dtype
+    return jnp.asarray(x).astype(dtype), torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _compare_forward(name, B, S, logit_rtol, loss_rtol, frames=True, frame_dtype=None,
+                     **overrides):
+    """Logits and loss of the port against the reference's, the frame
+    embeddings (``frame_dtype``, default the weights') passed to an
+    encoder-decoder configuration unless ``frames`` is False."""
     jc, tc, jp, tp = _pair(name, **overrides)
     toks, labels = _tokens(jc, B, S, 0), _tokens(jc, B, S, 1)
-    jlogits, _, _ = jax.jit(lambda p: jt.forward(jc, p, tokens=jnp.asarray(toks)))(jp)
-    jloss = float(jax.jit(lambda p: jlm.lm_loss(
-        jc, p, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}))(jp))
+    jf, tf = _frames(jc, B, 5, frame_dtype) if frames else (None, None)
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
     tbatch = {"tokens": torch.from_numpy(toks).long(),
               "labels": torch.from_numpy(labels).long()}
+    if jf is not None:
+        jbatch["enc_embeds"], tbatch["enc_embeds"] = jf, tf
+    jlogits, _, _ = jax.jit(lambda p: jt.forward(
+        jc, p, tokens=jbatch["tokens"], enc_embeds=jbatch.get("enc_embeds")))(jp)
+    jloss = float(jax.jit(lambda p: jlm.lm_loss(jc, p, jbatch))(jp))
     with torch.inference_mode():
-        tlogits, _, _ = tt.forward(tc, tp, tokens=tbatch["tokens"])
+        tlogits, _, _ = tt.forward(tc, tp, tokens=tbatch["tokens"],
+                                   enc_embeds=tbatch.get("enc_embeds"))
     tloss = float(tlm.make_eval_step(tc)(tp, tbatch))
     want = np.asarray(jlogits, np.float32)
     got = tlogits.float().numpy()
@@ -93,7 +118,8 @@ def test_forward_and_loss_match_reference(name):
 
 
 @pytest.mark.parametrize("case", ["chunked-S2048", "remainder-layers", "bf16",
-                                  "rwkv-bf16"])
+                                  "rwkv-bf16", "whisper-bf16",
+                                  "whisper-bf16-float32-frames", "whisper-no-frames"])
 def test_forward_variants_match_reference(case):
     if case == "chunked-S2048":      # S >= 2048 takes attend_chunked in both
         _compare_forward("gemma3-4b", 1, 2048, LOGIT_RTOL_F32, LOSS_RTOL_F32)
@@ -102,9 +128,19 @@ def test_forward_variants_match_reference(case):
     elif case == "bf16":             # d_model 160: sqrt(160) is not a bf16 value
         _compare_forward("gemma3-4b", 2, 40, LOGIT_RTOL_BF16, LOSS_RTOL_BF16,
                          param_dtype="bfloat16", d_model=160)
-    else:
+    elif case == "rwkv-bf16":
         _compare_forward("rwkv6-3b", 2, 40, LOGIT_RTOL_BF16, LOSS_RTOL_BF16,
                          param_dtype="bfloat16")
+    elif case == "whisper-bf16":
+        _compare_forward("whisper-large-v3", 2, 40, LOGIT_RTOL_BF16, LOSS_RTOL_BF16,
+                         param_dtype="bfloat16")
+    elif case == "whisper-bf16-float32-frames":
+        # jnp promotes: the encoder and the cross K/V run in float32
+        _compare_forward("whisper-large-v3", 2, 40, LOGIT_RTOL_BF16, LOSS_RTOL_BF16,
+                         frame_dtype="float32", param_dtype="bfloat16")
+    else:                            # the decoder alone: cross-attention skipped
+        _compare_forward("whisper-large-v3", 2, 40, LOGIT_RTOL_F32, LOSS_RTOL_F32,
+                         frames=False)
 
 
 @pytest.mark.parametrize("d_model", [2560, 160, 256])
@@ -127,16 +163,19 @@ def test_embedding_scale_bit_exact_in_bf16(d_model):
 
 @pytest.mark.parametrize("name", ["gemma3-4b", "rwkv6-3b", "h2o-danube-3-4b",
                                   "jamba-1.5-large-398b", "grok-1-314b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b", "whisper-large-v3"])
 def test_decode_matches_forward(name):
     """The reference's contract: decode over S tokens == forward (windows of
-    8 at S = 24, so the ring buffers wrap 3x)."""
+    8 at S = 24, so the ring buffers wrap 3x; whisper's steps read the cross
+    K/V that `warm_cache` filled from the same frames)."""
     _, tc, _, tp = _pair(name)
     B, S = 2, 24
     toks = torch.from_numpy(_tokens(tc, B, S, 2)).long()
+    frames = _frames(tc, B, 5)[1]
     with torch.inference_mode():
-        ref, _, _ = tt.forward(tc, tp, tokens=toks)
-        cache = tdecode.init_cache(tc, B, S, device="cpu")
+        ref, _, _ = tt.forward(tc, tp, tokens=toks, enc_embeds=frames)
+        cache = tdecode.warm_cache(tc, tp, tdecode.init_cache(tc, B, S, device="cpu"),
+                                   enc_embeds=frames)
         outs = []
         for i in range(S):
             logits, cache = tdecode.decode_step(tc, tp, cache, toks[:, i:i + 1])
@@ -214,25 +253,70 @@ def test_param_shapes_equal_reference_specs(name):
     assert named(got) == want
 
 
-@pytest.mark.parametrize("name", sorted(NOT_RUNNABLE))
-def test_unported_families_raise_naming_their_item(name):
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_every_configuration_runs(name):
+    """Nothing refuses a configuration of `configs/`: at `reduced()`, from
+    `init_params`, the forward (with frames where there is an encoder) and
+    two decode steps after `warm_cache` give finite logits."""
     cfg = ARCHS[name].reduced()
-    item = f"item {NOT_RUNNABLE[name]}"
-    with pytest.raises(NotImplementedError, match=item):
-        tt.check_runnable(cfg)
-    params = tt.param_shapes(cfg)        # parameters build; running raises
-    assert params["embed"][0][1] == cfg.d_model
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=item):
-        tt.forward(cfg, {}, tokens=toks)
-    with pytest.raises(NotImplementedError, match=item):
-        tdecode.init_cache(cfg, 1, 4, device="cpu")
-    # training runs for a runnable config (item 7b); for these it raises
-    # naming their item when the step runs
-    assert callable(tlm.make_train_step(ARCHS["gemma3-4b"].reduced(), sgd(0.1)))
-    step = tlm.make_train_step(cfg, sgd(0.1))
-    with pytest.raises(NotImplementedError, match=item):
-        step({}, {"step": 0}, {"tokens": toks, "labels": toks})
+    params = tt.init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 1, 6, 4)).long()
+    frames = _frames(cfg, 1, 6)[1]
+    with torch.inference_mode():
+        logits, _, _ = tt.forward(cfg, params, tokens=toks, enc_embeds=frames)
+        cache = tdecode.warm_cache(cfg, params, tdecode.init_cache(cfg, 1, 6, device="cpu"),
+                                   enc_embeds=frames)
+        for i in range(2):
+            step, cache = tdecode.decode_step(cfg, params, cache, toks[:, i:i + 1])
+            assert torch.isfinite(step[..., :cfg.vocab_size]).all()
+    assert logits.shape == (1, 6, cfg.padded_vocab)
+    assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
+
+
+ENCODER_CASES = {"float32": ("float32", "float32"),
+                 "bf16-weights-float32-frames": ("bfloat16", "float32")}
+
+
+@pytest.mark.parametrize("case", sorted(ENCODER_CASES))
+def test_encode_matches_reference(case):
+    """whisper's encoder over the same frames, within 1e-4 of its largest
+    output; float32 frames into bf16 weights run in float32 in both."""
+    param_dtype, frame_dtype = ENCODER_CASES[case]
+    jc, tc, jp, tp = _pair("whisper-large-v3", param_dtype=param_dtype)
+    jf, tf = _frames(jc, 2, 7, frame_dtype)
+    want = np.asarray(jax.jit(lambda p: jt.encode(jc, p, jf))(jp))
+    with torch.inference_mode():
+        got = tt.encode(tc, tp, tf)
+    assert got.shape == want.shape == (2, jc.encoder.n_frames, jc.d_model)
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype) == frame_dtype
+    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert err <= LOGIT_RTOL_F32, f"encoder output rel err {err}"
+
+
+@pytest.mark.parametrize("case", sorted(ENCODER_CASES))
+def test_warm_cache_matches_reference(case):
+    """Each cross-attention layer's kc / vc after `warm_cache`, against the
+    reference's, within 1e-4 of their largest; written into the cache's own
+    tensors where their dtype fits, a float32 entry for float32 frames into
+    bf16 weights (the reference's promoted arrays)."""
+    param_dtype, frame_dtype = ENCODER_CASES[case]
+    jc, tc, jp, tp = _pair("whisper-large-v3", param_dtype=param_dtype, n_layers=3)
+    jf, tf = _frames(jc, 2, 8, frame_dtype)
+    jcache = jdecode.warm_cache(jc, jp, jdecode.init_cache(jc, 2, 8), enc_embeds=jf, pos=3)
+    tcache = tdecode.init_cache(tc, 2, 8, device="cpu")
+    before = tcache["layers"][0]["kc"]
+    with torch.inference_mode():
+        got = tdecode.warm_cache(tc, tp, tcache, enc_embeds=tf, pos=3)
+    assert got["pos"] == 3 and tc.n_periods == 3
+    for name in ("kc", "vc"):
+        want = np.asarray(jcache["layers"][0][name])
+        t = got["layers"][0][name]
+        assert t.shape == want.shape == (3, 2, jc.encoder.n_frames, jc.n_kv_heads,
+                                         jc.head_dim)
+        assert str(t.dtype).removeprefix("torch.") == str(want.dtype) == frame_dtype
+        err = np.abs(t.numpy() - want).max() / np.abs(want).max()
+        assert err <= LOGIT_RTOL_F32, f"{name} rel err {err}"
+    assert (got["layers"][0]["kc"] is before) == (param_dtype == frame_dtype)
 
 
 def test_lm_params_carry_across_bit_for_bit_in_bf16():
@@ -252,6 +336,23 @@ def test_lm_params_carry_across_bit_for_bit_in_bf16():
         else:
             np.testing.assert_array_equal(g.numpy(), w)
     assert n_bf16 > 20
+
+
+def test_lm_params_carry_the_encoder_bit_for_bit():
+    """whisper's tree: `params["encoder"]` (a list of layer dicts and its
+    final LayerNorm) and the decoder's cross-attention weights cross in
+    the reference's leaf order, bf16 bit for bit."""
+    jc = JARCHS["whisper-large-v3"].reduced(param_dtype="bfloat16", n_layers=2)
+    jp = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(9)))
+    tp = lm_params_from_numpy(jp, "cpu")
+    assert isinstance(tp["encoder"]["layers"], list) and len(tp["encoder"]["layers"]) == 2
+    assert set(tp["encoder"]["final_norm"]) == {"scale", "bias"}
+    assert {"qc", "kc", "vc", "oc", "norm_c"} <= set(tp["layers"][0])
+    want, got = jax.tree.leaves(jp), tree_leaves(tp)
+    assert len(want) == len(got)
+    for w, g in zip(want, got):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.bfloat16
+        np.testing.assert_array_equal(g.view(torch.int16).numpy(), w.view(np.int16))
 
 
 def test_init_params_tree_matches_param_shapes():

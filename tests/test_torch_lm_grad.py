@@ -24,6 +24,11 @@ Tolerances, with their reasons:
     in the last bits, which dS = P (dP - Delta) magnifies where dP and
     Delta nearly cancel); wkv within 1e-4 max(1, max |want|).
 
+At Sq != Sk (the decoder's cross-attention, whose gradient the card
+takes once ROADMAP item 7f lands) the plain backward and `FlashAttentionFn`
+on CPU tensors hold the same 2e-5 against `jax.vjp` of the reference's
+`repro.models.attention.attend_full`.
+
 The Functions run on the CPU as on the card: plain forward and plain
 backward for CPU tensors, so these tests exercise the same saved tensors,
 GQA sums, dtypes and `None` gradients the card runs.
@@ -52,6 +57,7 @@ from hypothesis import strategies as st
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jref  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as twkv  # noqa: E402
@@ -119,6 +125,46 @@ def test_attention_backward_plain_and_function_match_jax_grad(case):
         assert p.shape == f.shape == w.shape and p.dtype == torch.float32
         _within(p.numpy(), w, ATTN_RTOL, f"plain d{name}")
         assert torch.equal(p, f), f"the Function's d{name} is the plain backward's"
+
+
+CROSS_CASES = {
+    # name: (B, Sq, Sk, Hq, Hkv, hd, causal, window)
+    "longer-keys-noncausal-g1": (2, 9, 30, 2, 2, 32, False, 0),
+    "longer-keys-causal-g4": (1, 9, 30, 8, 2, 32, True, 0),
+    "shorter-keys-noncausal-g4": (1, 30, 9, 4, 1, 64, False, 0),
+    "shorter-keys-causal-g1": (2, 30, 9, 2, 2, 32, True, 0),
+    "shorter-keys-window5-g4": (1, 30, 9, 8, 2, 32, True, 5),
+}
+
+
+@functools.partial(jax.jit, static_argnums=(4, 5))
+def _attend_full_vjp(q, k, v, dout, causal, window):
+    _, vjp = jax.vjp(lambda a, b, c: jattn.attend_full(a, b, c, causal=causal,
+                                                       window=window), q, k, v)
+    return vjp(dout)
+
+
+@pytest.mark.parametrize("case", sorted(CROSS_CASES))
+def test_attention_backward_at_two_lengths_matches_jax_grad(case):
+    """dq (B, Sq, Hq, hd) and dk, dv (B, Sk, Hkv, hd) of the plain backward
+    and of `FlashAttentionFn` on CPU tensors, against `jax.vjp` of the
+    reference's `attend_full` (rows with no live key included)."""
+    B, Sq, Sk, Hq, Hkv, hd, causal, window = CROSS_CASES[case]
+    rng = np.random.default_rng(Sq * Sk + hd)
+    q, k, v, dout = (_rand(rng, B, Sq, Hq, hd), _rand(rng, B, Sk, Hkv, hd),
+                     _rand(rng, B, Sk, Hkv, hd), _rand(rng, B, Sq, Hq, hd))
+    want = [np.asarray(g) for g in _attend_full_vjp(q, k, v, dout, causal, window)]
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, dout))
+    out = tfa.attention_plain(tq, tk, tv, causal=causal, window=window)
+    plain = tfa.attention_backward_plain(tq, tk, tv, out, tdo, causal=causal,
+                                         window=window)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    fn = torch.autograd.grad(tops.attention(*leaves, causal=causal, window=window),
+                             leaves, tdo)
+    for name, pg, f, w in zip("qkv", plain, fn, want):
+        assert pg.shape == f.shape == w.shape
+        _within(pg.numpy(), w, ATTN_RTOL, f"plain d{name}")
+        assert torch.equal(pg, f), f"the Function's d{name} is the plain backward's"
 
 
 def test_attention_function_gives_none_for_inputs_without_grad_and_keeps_dtypes():

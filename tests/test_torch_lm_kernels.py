@@ -9,7 +9,10 @@ reference's own tolerances: attention 2e-5 in float32 and 3e-2 in bfloat16,
 wkv 1e-4.  Covered: causal, sliding-window and non-causal attention, GQA
 groups of 1, 2, 4 and 8, head_dim 32, 64, 128 and 256, S off every block
 size; the model's two attention forms (`attend_full`, `attend_chunked`);
-wkv at T = 1, chunked composition (two halves == the whole), w = 0.  The
+wkv at T = 1, chunked composition (two halves == the whole), w = 0; and
+queries and keys of two lengths (Sk > Sq, Sk < Sq, causal or not, a window
+that leaves rows with no live key, G = 1 and 4) against the reference's
+`attend_full`, through `attention_plain` and `FlashAttentionFn`.  The
 arithmetic of three Hopper designs is checked here too, in PyTorch: the
 float32 flash kernel's 3xTF32 products hold 2e-5 where one TF32 product
 does not; the bf16 kernel's hd <= 128 form (128-key tiles, the scale in
@@ -26,7 +29,10 @@ same inputs, within one rounding to bfloat16 (2^-8 |want| + 2e-5), at the
 LM path's (2, 4096, 8 / 4, 256) with windows 1024 and 0 (float32 on
 full-mantissa inputs) and at the edge cases (ragged S, non-causal, G = 8
 and 5, head_dim 32, 120 and 128, windows; the hd <= 128 kernel at G = 5,
-6 and 8, causal and windowed, S = 1000 off its tiles); the wkv kernels (chunked for
+6 and 8, causal and windowed, S = 1000 off its tiles; both kernels at Sk !=
+Sq: whisper's cross-attention (2, 448 x 1500, 20, 64), Sq = 1, ragged
+lengths causal, non-causal and windowed, hd 128 and 256, G = 4, their L
+against the plain log-sum-exp); the wkv kernels (chunked for
 T >= 64, recurrent below) at the LM shape, ragged T, strong decays, a
 split off the chunk boundaries and w = 0, the recurrent kernel at T = 1,
 16 and 63 for every head dim (rows on and off the 16-byte grid), four
@@ -34,9 +40,13 @@ T = 1 steps against one T = 4 call, and w = 0 at T = 1; and a q that
 requires grad
 goes through `FlashAttentionFn` to the backward kernel, whose q.grad must
 match the plain backward (`tests/test_torch_lm_grad.py` holds both backward
-kernels at their shapes).  What the kernels do not take, the wrappers
+kernels at their shapes); the bf16 forward and backward called first from
+a fresh thread (no current CUDA context: their TMA maps need one) give the
+main thread's bits.  What the kernels do not take, the wrappers
 refuse before they look at the device, so those refusals are tested here
 on the CPU."""
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -63,10 +73,12 @@ GRAD_RTOL_F32 = 1e-4
 GRAD_ATOL_BF16 = 1e-3
 
 
-def _qkv(B, S, Hq, Hkv, hd, seed=0):
+def _qkv(B, S, Hq, Hkv, hd, seed=0, Sk=None):
+    """q (B, S, Hq, hd), k and v (B, Sk, Hkv, hd) (Sk = S by default)."""
     rng = np.random.default_rng(seed)
+    Sk = S if Sk is None else Sk
     return tuple(rng.standard_normal(shape).astype(np.float32)
-                 for shape in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+                 for shape in ((B, S, Hq, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)))
 
 
 def _torch(*arrays, dtype=torch.float32, device="cpu"):
@@ -150,6 +162,34 @@ def test_model_attention_forms_match_reference(window):
     plain = _np(tfa.attention_plain(tq, tk, tv, causal=True, window=window))
     np.testing.assert_allclose(full, plain, rtol=0, atol=ATOL_F32)
     np.testing.assert_allclose(chunked, plain, rtol=0, atol=ATOL_F32)
+
+
+CROSS_CASES = {
+    # name: (B, Sq, Sk, Hq, Hkv, hd, causal, window)
+    "longer-keys-noncausal-g1": (2, 12, 40, 2, 2, 32, False, 0),
+    "longer-keys-causal-g4": (1, 12, 40, 8, 2, 32, True, 0),
+    "shorter-keys-noncausal-g4": (1, 40, 12, 4, 1, 64, False, 0),
+    "shorter-keys-causal-g1": (2, 40, 12, 2, 2, 32, True, 0),
+    # rows 17.. have no live key: the softmax of Sk equal scores, the mean of v
+    "shorter-keys-window6-g4": (1, 40, 12, 8, 2, 32, True, 6),
+    "one-query-g4-hd128": (2, 1, 37, 4, 1, 128, False, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CROSS_CASES))
+def test_attention_at_two_lengths_matches_attend_full(case):
+    """Sq != Sk (the decoder's cross-attention) through `attention_plain`
+    and `FlashAttentionFn` on CPU tensors, against the reference's
+    `attend_full` at its default positions, 0..Sq-1 against 0..Sk-1."""
+    B, Sq, Sk, Hq, Hkv, hd, causal, window = CROSS_CASES[case]
+    q, k, v = _qkv(B, Sq, Hq, Hkv, hd, seed=Sq * Sk, Sk=Sk)
+    want = np.asarray(jattn.attend_full(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                        causal=causal, window=window))
+    args = _torch(q, k, v)
+    for got in (tfa.attention_plain(*args, causal=causal, window=window),
+                tops.attention(*args, causal=causal, window=window)):
+        assert got.shape == (B, Sq, Hq, hd)
+        np.testing.assert_allclose(_np(got), want, rtol=0, atol=ATOL_F32)
 
 
 def test_attend_decode_matches_reference():
@@ -479,6 +519,22 @@ def test_wkv_wrapper_refuses_rows_off_16_bytes_in_the_chunked_form():
         twkv.rwkv6_cuda(r, k, v, w, u, s0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk", [(448, 1500), (1, 1500), (300, 37)])
+def test_flash_wrapper_takes_two_lengths_and_refuses_only_for_the_device(Sq, Sk, dtype):
+    """Sq != Sk passes every check of the forward's wrapper; on CPU tensors
+    only the device is refused.  The backward refuses Sq != Sk before it
+    looks at the device, naming ROADMAP item 7f."""
+    q, k, v = _torch(*_qkv(1, Sq, 4, 4, 64, Sk=Sk), dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_attention_cuda(q, k, v, causal=False)
+    lse = torch.zeros((1, 4, Sq))
+    with pytest.raises(NotImplementedError, match="item 7f"):
+        tfa.flash_attention_backward_cuda(q, k, v, q, q, causal=False, lse=lse)
+    with pytest.raises(ValueError, match="at least one key"):
+        tfa.flash_attention_cuda(q, k[:, :0], v[:, :0])
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     q, k, v = _torch(*_qkv(1, 8, 2, 1, 32))
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -563,6 +619,86 @@ def test_cuda_flash_matches_plain(case):
     limit = (RTOL_BF16_ROUNDING * want_dq.abs() + GRAD_ATOL_BF16 * top) if bf16 \
         else torch.full_like(want_dq, GRAD_RTOL_F32 * top)
     assert bool((diff <= limit).all()), f"q.grad: max abs error {float(diff.max())}"
+
+
+CUDA_CROSS = {
+    # name: (B, Sq, Sk, Hq, Hkv, hd, causal, window, dtype)
+    "whisper-cross-bf16": (2, 448, 1500, 20, 20, 64, False, 0, torch.bfloat16),
+    "whisper-cross-fp32": (2, 448, 1500, 20, 20, 64, False, 0, torch.float32),
+    "one-query-bf16": (2, 1, 1500, 20, 20, 64, False, 0, torch.bfloat16),
+    "one-query-fp32": (2, 1, 1500, 20, 20, 64, False, 0, torch.float32),
+    "37x300-noncausal-bf16": (1, 37, 300, 4, 4, 64, False, 0, torch.bfloat16),
+    "300x37-causal-bf16": (1, 300, 37, 4, 4, 64, True, 0, torch.bfloat16),
+    # rows 136.. have no live key: the mean of v, L at the masked value
+    "300x37-window100-bf16": (1, 300, 37, 4, 4, 64, True, 100, torch.bfloat16),
+    "300x37-window100-fp32": (1, 300, 37, 4, 4, 64, True, 100, torch.float32),
+    "hd128-g4-bf16": (1, 200, 700, 8, 2, 128, False, 0, torch.bfloat16),
+    "hd256-g4-causal-bf16": (1, 200, 700, 8, 2, 256, True, 0, torch.bfloat16),
+    "hd256-window100-bf16": (1, 500, 130, 4, 1, 256, True, 100, torch.bfloat16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_CROSS))
+def test_cuda_flash_at_two_lengths_matches_plain(case):
+    """Both forward kernels at Sq != Sk against the plain version, per
+    element at the limits of `test_cuda_flash_matches_plain`, one launch
+    each; L against the plain log-sum-exp within 2e-5 max(1, max |L|) over
+    the rows with a live key, and within 2e-5 |L| where the mask empties
+    a row (L is then -1e30 log2(e))."""
+    _need_cuda()
+    B, Sq, Sk, Hq, Hkv, hd, causal, window, dtype = CUDA_CROSS[case]
+    q, k, v = _torch(*_qkv(B, Sq, Hq, Hkv, hd, seed=Sq + Sk, Sk=Sk), dtype=dtype,
+                     device="cuda")
+    bf16 = dtype == torch.bfloat16
+    before = (tfa.launches, tfa.launches_bf16)
+    got, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        return_lse=True)
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.launches_bf16) == (before[0] + (not bf16), before[1] + bf16)
+    assert got.shape == (B, Sq, Hq, hd) and lse.shape == (B, Hq, Sq)
+    want = tfa.attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                               window=window)
+    rtol = RTOL_BF16_ROUNDING if bf16 else 0.0
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=ATOL_F32)
+    want_lse = tfa.attention_lse_plain(q.float(), k.float(), causal=causal, window=window)
+    live = want_lse > 0.5 * tfa.NEG_INF * tfa.LOG2E
+    top = max(1.0, float(want_lse[live].abs().max()))
+    np.testing.assert_allclose(_np(lse[live]), _np(want_lse[live]), rtol=0,
+                               atol=ATOL_F32 * top)
+    np.testing.assert_allclose(_np(lse[~live]), _np(want_lse[~live]), rtol=ATOL_F32)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_flash_launches_from_a_thread_without_a_context():
+    """The bf16 forward and backward encode TMA maps with libcuda's
+    cuTensorMapEncodeTiled, which needs a current CUDA context.  Called first from a thread
+    that has made no CUDA runtime call (as the autograd engine's device
+    thread may be, its buffers coming from the allocator's cache), both
+    must launch and give the main thread's bits: the launchers bind the
+    device's primary context (the maps were refused with
+    CUDA_ERROR_INVALID_CONTEXT, and the launch reported 801, before)."""
+    _need_cuda()
+    q, k, v = _torch(*_qkv(1, 257, 10, 2, 64, seed=5), dtype=torch.bfloat16, device="cuda")
+    out, lse = tfa.flash_attention_cuda(q, k, v, return_lse=True)
+    dout = torch.ones_like(out)
+    want = (out, *tfa.flash_attention_backward_cuda(q, k, v, out, dout, lse=lse))
+    torch.cuda.synchronize()
+    results = {}
+
+    def run():
+        try:
+            o, l = tfa.flash_attention_cuda(q, k, v, return_lse=True)
+            results["got"] = (o, *tfa.flash_attention_backward_cuda(q, k, v, o, dout, lse=l))
+            torch.cuda.synchronize()
+        except Exception as err:            # reported below, in the test's thread
+            results["error"] = err
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    assert "error" not in results, repr(results.get("error"))
+    for g, w in zip(results["got"], want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -8,15 +8,18 @@ On the CPU, at `reduced()` in float32, for gemma3-4b (sliding-window and
 global attention, GQA, QK-norm), h2o-danube-3-4b, rwkv6-3b (the wkv
 recurrence), jamba-1.5-large-398b (the Mamba scan through `SelectiveScanFn`
 and its plain backward, MoE with its aux loss),
-llama4-maverick-400b-a17b (top-1 MoE with a shared expert) and grok-1-314b
-(top-2 MoE), against the reference's `jax.value_and_grad` step:
+llama4-maverick-400b-a17b (top-1 MoE with a shared expert), grok-1-314b
+(top-2 MoE) and whisper-large-v3 (the encoder and the decoder's
+cross-attention, frame embeddings in the batch), against the reference's
+`jax.value_and_grad` step:
   * the loss at rtol 1e-5 (the forward's tolerance in tests/test_torch_lm.py);
   * every gradient leaf within 1e-4 max(1, max |g_ref|) (float32 sums in
     another order through the whole backward);
   * the losses of the next two of 3 AdamW + warm-up-cosine steps at rtol
     1e-4 (the parameters' small differences carried through the updates).
 `remat=True` against `remat=False` (torch.utils.checkpoint per period;
-jamba's period runs the selective scan's Function forward again):
+jamba's period runs the selective scan's Function forward again, whisper's
+takes the encoder's output through the checkpoint):
 equal, bit for bit.  A checkpoint saved mid-training and restored continues
 to the uninterrupted run's losses, bit for bit (bf16 parameters).  The
 launcher, called in-process through `main(argv)`: the loss goes down and
@@ -44,7 +47,7 @@ from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 TRAINED = ["gemma3-4b", "h2o-danube-3-4b", "rwkv6-3b", "jamba-1.5-large-398b",
-           "llama4-maverick-400b-a17b", "grok-1-314b"]
+           "llama4-maverick-400b-a17b", "grok-1-314b", "whisper-large-v3"]
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 TRAJECTORY_RTOL = 1e-4
@@ -59,14 +62,21 @@ def _pair(name, **overrides):
 
 
 def _batch(cfg, seed):
+    """Tokens, labels and, for an encoder-decoder configuration, float32
+    frame embeddings (B, n_frames, d_model) (else None)."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
-    return toks[:, :-1], toks[:, 1:]
+    frames = None if cfg.encoder is None else rng.standard_normal(
+        (B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    return toks[:, :-1], toks[:, 1:], frames
 
 
-def _batches(x, y):
-    return ({"tokens": jnp.asarray(x), "labels": jnp.asarray(y)},
-            {"tokens": torch.from_numpy(x).long(), "labels": torch.from_numpy(y).long()})
+def _batches(x, y, frames):
+    jb = {"tokens": jnp.asarray(x), "labels": jnp.asarray(y)}
+    tb = {"tokens": torch.from_numpy(x).long(), "labels": torch.from_numpy(y).long()}
+    if frames is not None:
+        jb["enc_embeds"], tb["enc_embeds"] = jnp.asarray(frames), torch.from_numpy(frames)
+    return jb, tb
 
 
 def _grad_recorder():
@@ -115,7 +125,8 @@ def test_train_step_matches_reference(name):
 
 
 @pytest.mark.parametrize("name,n_layers", [("gemma3-4b", 6), ("h2o-danube-3-4b", 2),
-                                           ("rwkv6-3b", 3), ("jamba-1.5-large-398b", 8)])
+                                           ("rwkv6-3b", 3), ("jamba-1.5-large-398b", 8),
+                                           ("whisper-large-v3", 3)])
 def test_remat_gives_the_same_gradients_bit_for_bit(name, n_layers):
     cfg = ARCHS[name].reduced(n_layers=n_layers)
     params = tt.init_params(cfg, seed=1, device="cpu")
