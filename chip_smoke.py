@@ -53,7 +53,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      where rows have no live key), and the bf16 kernel at hd 128 and 256
      with G = 4, each at its limit above and its L against the plain
      log-sum-exp; the three whisper shapes timed beside their bound, the
-     plain version and SDPA (no mask, or `is_causal`);
+     plain version and SDPA (no mask, or `is_causal`), each row with the
+     registers a thread and the CTAs an SM of the kernel that ran
+     (`sm90_occupancy`: hd <= 64 runs `flash_sm90_hd64_kernel`, which must
+     fit the two CTAs an SM it is laid out for; the hd-128 rows too);
    * the RWKV6 wkv recurrence, at the LM path's (2, 40, 4096, 64) (the
      chunked form), with the model's strong decays w = exp(-exp(x)), at a
      ragged T = 1000, at T = 1, 16 and 63 (the recurrent kernel, also
@@ -88,7 +91,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      + FLASH_BWD_ATOL_BF16 max |want|); the forward's L against the plain
      log-sum-exp; timed beside its bound, the plain backward and SDPA's
      backward (band mask and, causal, `is_causal`), and both forwards
-     timed with and without writing L;
+     timed with and without writing L; the bf16 kernel also at
+     whisper-large-v3's two attention shapes with Sq == Sk at hd 64 (the
+     encoder (16, 1500, 20 / 20) and the causal decoder (16, 448)), from
+     the L the hd-64 forward writes, checked and timed the same way;
    * the wkv backward (`csrc/rwkv6_scan_bwd.cu`, chunk-parallel in time
      from the states the forward stores) at (2, 40, 4096, 64) with the
      model's decays and a non-zero s0 and dS_T, at T = 1000, 1, 63, 64,
@@ -268,7 +274,8 @@ error, times, bound and the two launch floors (the fingerprint and
 cluster_agg entries with their `async_shape` row, rwkv6 and
 selective_scan with their `decode_shape` row, bf16 flash with its
 `lm_hd128_shapes` and `whisper_shapes`, both flash entries with their Sq
-!= Sk checks), one JSON line each
+!= Sk checks, the bf16 flash backward with its `whisper_shapes`), one JSON
+line each
 `{"train": {...}}`, `{"strategies": {...}}`, `{"async": {...}}`,
 `{"faults": {...}}`, `{"resume": {...}}`, `{"obs": {...}}`, `{"paper": {...}}`,
 `{"serve": {...}}`, `{"lm": {...}}`, `{"lm_train": {...}}`, and last
@@ -610,6 +617,31 @@ def check_no_spills() -> dict:
         if not out[source] or any(out[source]):
             raise AssertionError(f"{source}: ptxas spill stores {out[source]}")
         print(f"{source}: {len(out[source])} instances, no spills", flush=True)
+    return out
+
+
+def ptxas_entries(log: str) -> dict[str, dict]:
+    """Each kernel of a compiler log (``-Xptxas -v``): its registers a
+    thread and spill stores, by the kernel's name with its template
+    arguments (``flash_sm90_narrow_kernel<1>``; the mangled name where it
+    has none)."""
+    out = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        name = mangled
+        for m in re.finditer(r"(?=(\d+))", mangled):     # a length prefix at any digit
+            at = m.start() + len(m.group(1))
+            ident = mangled[at:at + int(m.group(1))]
+            rest = mangled[at + len(ident):]
+            if ident.endswith("kernel") and rest[:1] in ("I", "E"):
+                args = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+                name = ident + ("<" + ", ".join(re.findall(r"L[a-z](\d+)E", args.group(1)))
+                                + ">" if args else "")
+                break
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = re.search(r"(\d+) bytes spill stores", block)
+        out[name] = {"registers": int(regs.group(1)) if regs else None,
+                     "spill_stores": int(spills.group(1)) if spills else None}
     return out
 
 
@@ -2272,7 +2304,8 @@ def flash_whisper_phase(dev) -> tuple[dict, dict]:
         n_ops = 4 * hd * B * Hq * live_pairs(Sq, causal, 0, Sk)     # q.k and p.v
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / BF16_OPS_PER_S * 1e6
         rows[what] = dict(
-            check, shape=[B, Sq, Sk, Hq, Hkv, hd], dtype="bfloat16", causal=causal,
+            check, **fa.sm90_occupancy(hd), shape=[B, Sq, Sk, Hq, Hkv, hd], dtype="bfloat16",
+            causal=causal,
             kernel_us=median_us(lambda _: fa.flash_attention_cuda(
                 q, k, v, causal=causal), None, 20, flush),
             plain_us=median_us(lambda _: fa.attention_plain(
@@ -2315,7 +2348,8 @@ def flash_lm_phase(dev) -> dict:
         n_ops = 4 * hd * B * Hq * live_pairs(S, True, window)
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / BF16_OPS_PER_S * 1e6
         rows[what] = dict(
-            check, shape=[B, S, Hq, Hkv, hd], dtype="bfloat16", window=window,
+            check, **fa.sm90_occupancy(hd), shape=[B, S, Hq, Hkv, hd], dtype="bfloat16",
+            window=window,
             kernel_us=median_us(lambda _: fa.flash_attention_cuda(
                 q, k, v, causal=True, window=window), None, 10, flush),
             plain_us=median_us(lambda _: fa.attention_plain(
@@ -2630,7 +2664,10 @@ def flash_bwd_phase(dev) -> tuple[dict, dict]:
     """The flash backward kernel against its plain version at the LM path's
     (2, 4096, 8 / 4, 256), window 1024 and causal global, in bf16 and
     float32, and at the edge cases; times at the main shape, per dtype and
-    window, beside the bound, the plain backward and SDPA's backward."""
+    window, beside the bound, the plain backward and SDPA's backward.  The
+    bf16 kernel also at whisper-large-v3's two shapes with Sq == Sk at hd
+    64 (FLASH_WHISPER_SHAPES: the encoder, the causal decoder), checked and
+    timed the same way (`bf16_whisper`)."""
     rng = np.random.default_rng(SEED + 8)
     B, S, Hq, Hkv, hd = LM_BATCH, LM_SEQ, 8, 4, 256
     q, k, v = qkv(rng, B, S, Hq, Hkv, hd, torch.bfloat16, dev)
@@ -2698,6 +2735,36 @@ def flash_bwd_phase(dev) -> tuple[dict, dict]:
             rows[dt].append(row)
             del out, lse
             torch.cuda.empty_cache()
+    # whisper-large-v3's attention with Sq == Sk at hd 64 (the encoder; the
+    # decoder's causal self-attention), from the L the hd-64 forward writes
+    rows["bf16_whisper"] = {}
+    for what, ((B, Sq, Sk, Hq, Hkv, hd), causal) in FLASH_WHISPER_SHAPES.items():
+        if Sq != Sk:
+            continue
+        qd, kd, vd = qkv(rng, B, Sq, Hq, Hkv, hd, torch.bfloat16, dev)
+        dd = torch.from_numpy(rng.standard_normal((B, Sq, Hq, hd)).astype(np.float32)
+                              ).to(dev, torch.bfloat16)
+        check = checks[f"{what} bf16"] = check_flash_bwd(qd, kd, vd, dd, causal, 0, what)
+        out, lse = fa.flash_attention_cuda(qd, kd, vd, causal=causal, return_lse=True)
+        n_bytes = (4 * qd.numel() + 4 * kd.numel()) * qd.element_size()
+        n_ops = FLASH_BWD_FLOPS_PER_PAIR_HD * hd * B * Hq * live_pairs(Sq, causal, 0)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / BF16_OPS_PER_S * 1e6
+        library = sdpa_backward(qd, kd, vd, dd, is_causal=causal)
+        rows["bf16_whisper"][what] = dict(
+            check, shape=[B, Sq, Hq, Hkv, hd], dtype="bfloat16", causal=causal,
+            kernel_us=median_us(lambda _: fa.flash_attention_backward_cuda(
+                qd, kd, vd, out, dd, causal=causal, lse=lse), None, 10, flush),
+            plain_us=median_us(lambda _: fa.attention_backward_plain(
+                qd, kd, vd, out, dd, causal=causal), None, 2, flush),
+            library_us=median_us(library, None, 10, flush),
+            library_call=("torch.autograd.grad of F.scaled_dot_product_attention"
+                          f"(is_causal={causal})"),
+            library_backend=sdpa_backend(library, marker=False),
+            bound_us=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", flop=n_ops,
+            bytes=n_bytes)
+        del qd, kd, vd, dd, out, lse, library
+        torch.cuda.empty_cache()
     return rows, checks
 
 
@@ -3430,7 +3497,8 @@ def kernel_entries(res: dict) -> list[dict]:
                      library_causal_backend=causal.get("library_causal_backend"),
                      bound_cuda_cores_ms=us_to_ms(row, "bound_cuda_cores_us"),
                      ptxas_spill_stores=spills[source],
-                     shapes=flash_bwd_rows[dt], checks=checks)
+                     shapes=flash_bwd_rows[dt], checks=checks,
+                     whisper_shapes=flash_bwd_rows.get(f"{dt}_whisper"))
 
     # the shapes only the baselines' and the paper's paths give the kernels
     new = res["table2_shapes"]

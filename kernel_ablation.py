@@ -7,27 +7,36 @@ swapped in turn.
     python3 kernel_ablation.py [flash] [scan] [scan_bwd] [parity]
 
 The kernels are the bf16 flash forward at head_dim <= 128
-(`csrc/flash_attention_sm90.cu`, `flash_sm90_narrow_kernel`), Mamba's
-selective scan (`csrc/selective_scan.cu`) and its backward
-(`csrc/selective_scan_bwd.cu`).  Each variant is the committed source with
-one text substitution (ABLATIONS) that undoes one design step or tries one
-alternative, built with `nvcc` like the source itself into
-`build/ablation/` (each compiler log beside its library); the script
-refuses to run if a substitution no longer matches.  Variants marked
-`diagnostic` compute a wrong result on purpose (they show where the time
-goes) and are not checked; every other variant is held to the check its
-kernel is held to in `chip_smoke.py`, with its tolerances (flash per
-element within FLASH_RTOL_BF16 |want| + FLASH_TOL_F32 of the float32 plain
-version; the scan within SCAN_RTOL max(1, max |want|) of the plain
-version; its backward by `chip_smoke.scan_bwd_shares` against the plain
-backward).  Times are `chip_smoke.median_us` medians (CUDA events, each
-call after a 128 MiB write to flush L2), taken in turns (the source, each
-variant, then back in reverse order), at jamba's attention layer (2,
-4096, 64 / 8, 128) causal, at jamba's Mamba prefill (2, 4096, 16384, 16)
-and decode (2, 1, 16384, 16), and for the backward at the prefill with x
-in bf16, non-zero h0 and dh_T, from the forward's states, with Bm / Cm as
-slices of a narrow projection and of the train path's (TRAIN_DT_RANK +
-32 columns).
+(`csrc/flash_attention_sm90.cu`: `flash_sm90_hd64_kernel` for hd <= 64,
+`flash_sm90_narrow_kernel` for hd 65 .. 128), Mamba's selective scan
+(`csrc/selective_scan.cu`) and its backward (`csrc/selective_scan_bwd.cu`).
+Each variant is the committed source with one text substitution
+(ABLATIONS) that undoes one design step or tries one alternative, built
+with `nvcc` like the source itself into `build/ablation/` (each compiler
+log beside its library); the script refuses to run if a substitution no
+longer matches.  Variants marked `diagnostic` compute a wrong result on
+purpose (they show where the time goes) and are not checked; every other
+variant is held to the check its kernel is held to in `chip_smoke.py`,
+with its tolerances (flash per element within FLASH_RTOL_BF16 |want| +
+FLASH_TOL_F32 of the float32 plain version; the scan within SCAN_RTOL
+max(1, max |want|) of the plain version; its backward by
+`chip_smoke.scan_bwd_shares` against the plain backward).  Times are
+`chip_smoke.median_us` medians (CUDA events, each call after a 128 MiB
+write to flush L2), taken in turns (the source, each variant, then back in
+reverse order): flash at jamba's attention layer (2, 4096, 64 / 8, 128)
+causal and at whisper-large-v3's three (`chip_smoke.FLASH_WHISPER_SHAPES`:
+the encoder (16, 1500, 20 / 20, 64), the cross-attention 448 x 1500 and
+the causal decoder (16, 448), hd 64), each flash row with the registers a
+thread and the spill stores ptxas reports for every kernel instance of
+its library; the scan at jamba's Mamba prefill (2, 4096, 16384, 16) and
+decode (2, 1, 16384, 16), and its backward at the prefill with x in bf16,
+non-zero h0 and dh_T, from the forward's states, with Bm / Cm as slices
+of a narrow projection and of the train path's (TRAIN_DT_RANK + 32
+columns).  The flash variants of the hd-64 kernel: its earlier path (the
+narrow kernel at hd 64), one CTA an SM, each tile's S issued in turn,
+the idle warpgroup kept, one or four partial chains, 128-key tiles, no
+slack before the exponent reference moves; the diagnostic ones drop P's
+low term, the softmax or the exponentials.
 
 The parity witness runs `chip_smoke.py`'s decode-vs-forward check of
 jamba (4 layers at full width, its 32 tokens) on PARITY_SEEDS weight seeds
@@ -68,21 +77,83 @@ FLASH, SCAN, SCAN_BWD = ("flash_attention_sm90.cu", "selective_scan.cu",
 _TURNS = ('  auto my_turn = [&]() { asm volatile("bar.sync %0, 256;\\n" ::"r"(3 + cw) '
           ': "memory"); };\n  auto your_turn = [&]() { asm volatile("bar.arrive %0, '
           '256;\\n" ::"r"(4 - cw) : "memory"); };\n  if (cw == 1) your_turn();\n')
+# the hd-64 kernel's walk over its tiles: S_{t+1} issued behind P_t V_t,
+# and each tile in turn
+_LOOKAHEAD = """  issue_s(t_lo);
+  for (int t = t_lo; t < t_hi; ++t) {
+    tile(t);
+    issue_s(t + 1);                                // behind P_t V_t
+    wgmma_wait_all_but_last();                     // P_t V_t
+    fence_regs(o);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    release_v(t, (t - t_lo) % kStg);
+  }
+  tile(t_hi);
+  wgmma_wait_all();
+  fence_regs(o);
+"""
+_IN_ORDER = """  for (int t = t_lo; t <= t_hi; ++t) {
+    issue_s(t);
+    tile(t);
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    release_v(t, (t - t_lo) % kStg);
+  }
+"""
 # source -> {variant: (what it undoes, diagnostic, [(old, new), ...])}
 ABLATIONS = {
     FLASH: {
         "hd256_kernel": (
-            "the hd <= 128 design: the hd-256 kernel (64-key tiles, 2 stages, no "
-            "intra-warpgroup overlap) runs hd 128 as before", False,
-            [("if constexpr (NCH <= 2) {      // hd <= 128: the narrow kernel",
-              "if constexpr (NCH <= 0) {      // hd <= 128: the narrow kernel"),
-             ("const int keys = hd <= 2 * kChunk ? kNarrowKeys : kKeys;",
+            "the hd <= 128 designs: the hd-256 kernel (64-key tiles, 2 stages, no "
+            "intra-warpgroup overlap, the warpgroups taking turns) runs hd 64 and 128", False,
+            [("  if (kernel == 0 && nch == 1)\n"
+              "    return {(const void*)flash_sm90_hd64_kernel, (int)Hd64Smem<kHd64Keys>::bytes};",
+              "  if (kernel == 0 && nch == 1)\n"
+              "    return {(const void*)flash_sm90_kernel<1>, (int)Smem<1>::bytes};"),
+             ("    return {(const void*)flash_sm90_narrow_kernel<2>, (int)NarrowSmem<2>::bytes};",
+              "    return {(const void*)flash_sm90_kernel<2>, (int)Smem<2>::bytes};"),
+             ("const int keys = kernel == 0 ? kHd64Keys : kernel == 1 ? kNarrowKeys : kKeys;",
               "const int keys = kKeys;")]),
+        "narrow_kernel_at_hd64": (
+            "the hd-64 kernel: the narrow kernel at NCH = 1 runs hd <= 64 (one CTA an SM, "
+            "each warpgroup's softmax under its own products)", False,
+            [("    return {(const void*)flash_sm90_hd64_kernel, (int)Hd64Smem<kHd64Keys>::bytes};",
+              "    return {(const void*)flash_sm90_narrow_kernel<1>, (int)NarrowSmem<1>::bytes};"),
+             ("const int keys = kernel == 0 ? kHd64Keys : kernel == 1 ? kNarrowKeys : kKeys;",
+              "const int keys = kernel == 2 ? kKeys : kNarrowKeys;")]),
+        "one_cta_an_sm": (
+            "two CTAs an SM in the hd-64 kernel: one (each CTA asks for 120 KB more shared "
+            "memory)", False,
+            [("(int)Hd64Smem<kHd64Keys>::bytes}", "(int)Hd64Smem<kHd64Keys>::bytes + 120 * 1024}")]),
+        "in_order": (
+            "S_{t+1} issued behind P_t V_t (hd-64 kernel): each tile's S issued after the "
+            "previous tile's product is in",
+            False, [(_LOOKAHEAD, _IN_ORDER)]),
+        "idle_warpgroup_runs": (
+            "the early return of a warpgroup whose rows all lie past Sq (hd-64 kernel)", False,
+            [("  const int busy = q_lo + 64 / G <= q_hi ? 2 : 1;", "  const int busy = 2;")]),
+        "one_chain_sums": (
+            "two partial chains a row for the max and the sum (hd-64 kernel): one chain",
+            False, [("constexpr int kHd64Chains = 2;", "constexpr int kHd64Chains = 1;")]),
+        "four_chain_sums": (
+            "two partial chains a row for the max and the sum (hd-64 kernel): four",
+            False, [("constexpr int kHd64Chains = 2;", "constexpr int kHd64Chains = 4;")]),
+        "keys_128": ("64-key tiles in the hd-64 kernel: 128-key tiles", False,
+                     [("constexpr int kHd64Keys = 64;", "constexpr int kHd64Keys = 128;")]),
+        "no_slack": (
+            "the slack of 8 (log2 units) before a row's exponent reference moves (hd-64 "
+            "kernel): O and l rescaled whenever the row max grows", False,
+            [("constexpr float kHd64Slack = 8.f;", "constexpr float kHd64Slack = 0.f;")]),
         "stages_3": ("two stages: a ring of three", False,
                      [("constexpr int kNarrowStages = 2;", "constexpr int kNarrowStages = 3;")]),
         "ping_pong": (
-            "no turns: the two warpgroups take turns to start their products", False,
-            [("  uint32_t p_hi[32], p_lo[32];\n", "  uint32_t p_hi[32], p_lo[32];\n" + _TURNS),
+            "no turns in the narrow kernel: the two warpgroups take turns to start their "
+            "products", False,
+            [("  float s[64];\n  uint32_t p_hi[32], p_lo[32];\n",
+              "  float s[64];\n  uint32_t p_hi[32], p_lo[32];\n" + _TURNS),
              ("  issue_qk<NCH>(s, q_rows, sk);\n  wgmma_commit();\n",
               "  my_turn();\n  issue_qk<NCH>(s, q_rows, sk);\n  wgmma_commit();\n"
               "  your_turn();\n"),
@@ -96,13 +167,25 @@ ABLATIONS = {
               "    wgmma_commit();\n    if (cw == 0) your_turn();\n")]),
         "quotient_epilogue": (
             "one reciprocal a row in the epilogue: out = O / l per element", False,
-            [("write_rows<NCH, true>(", "write_rows<NCH, false>(")]),
+            [("write_rows<NCH, true>(", "write_rows<NCH, false>("),
+             ("write_rows<1, true>(", "write_rows<1, false>(")]),
         "one_p_term": ("P's low bf16 term (fails the per-element check)", True,
                        [("    wgmma_pv<NCH>(o, p_lo + 4 * kk, dv);\n", "")]),
-        "no_softmax": ("the softmax: its time beside the products'", True,
-                       [("  const bool edge = k0 + kNarrowKeys > a.S",
-                         "  if (k0 >= 0) return make_float2(1.f, 1.f);\n"
-                         "  const bool edge = k0 + kNarrowKeys > a.S")]),
+        "no_softmax": (
+            "the softmax: its time beside the products'", True,
+            [("float2 online_softmax(float (&s)[64], Rows& r, const Params& a,\n"
+              "                                                 int k0, int q_lo, int q_hi) {\n",
+              "float2 online_softmax(float (&s)[64], Rows& r, const Params& a,\n"
+              "                                                 int k0, int q_lo, int q_hi) {\n"
+              "  if (k0 >= 0) return make_float2(1.f, 1.f);\n"),
+             ("  constexpr int N = K / 2, C = kHd64Chains;\n",
+              "  constexpr int N = K / 2, C = kHd64Chains;\n"
+              "  if (k0 >= 0) return make_float2(1.f, 1.f);\n")]),
+        "no_exponentials": (
+            "the exponentials, each replaced by an FMA: the special-function units' "
+            "share", True,
+            [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+              "y = fmaf(x, 0.999f, 1.0f);")]),
     },
     SCAN: {
         "accurate_exp2": ("one MUFU an exponential: exp2f, not ex2.approx", False,
@@ -239,7 +322,10 @@ ABLATIONS[SCAN_BWD] = {
                            "    cp_async_wait_all();                    // chunk c - 1's copies "
                            "are in\n")]),
 }
-FLASH_SHAPE = (2, 4096, 64, 8, 128)        # jamba's attention layer, causal
+# jamba's attention layer and whisper-large-v3's three: (B, Sq, Sk, Hq, Hkv,
+# hd), causal
+FLASH_SHAPES = {"jamba (2, 4096, 64 / 8, 128) causal": ((2, 4096, 4096, 64, 8, 128), True),
+                **cs.FLASH_WHISPER_SHAPES}
 SCAN_SHAPES = {"prefill": (2, 4096, 16384), "decode": (2, 1, 16384)}
 # the parity witness: chip_smoke.py's jamba entry, weight seeds, and the
 # swaps (scan library, flash library, function in place of ops.selective_scan)
@@ -311,26 +397,40 @@ def in_turns(libs: dict, src: str, fn, reps: int, flush) -> dict[str, list[float
 
 
 def flash_rows(libs: dict, flush) -> dict:
+    """Each flash variant at FLASH_SHAPES: checked per element against the
+    float32 plain version unless diagnostic, timed in turns, with the
+    registers a thread and the spill stores ptxas reports for each of the
+    source's kernel instances."""
     rng = np.random.default_rng(0)
-    B, S, Hq, Hkv, hd = FLASH_SHAPE
-    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).cuda().bfloat16()
-               for sh in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
-    want = fa.attention_plain(q.float(), k.float(), v.float(), causal=True)
-    limit = cs.FLASH_RTOL_BF16 * want.abs() + cs.FLASH_TOL_F32
-    rows = {}
-    for name, lib in libs.items():
-        _build._libs[FLASH] = lib
-        got = fa.flash_attention_cuda(q, k, v, causal=True).float()
-        share = float(((got - want).abs() / limit).max())
-        diagnostic = name != "source" and ABLATIONS[FLASH][name][1]
-        if not diagnostic and not share <= 1.0:
-            raise AssertionError(f"flash variant {name}: an element is {share} of its limit")
-        rows[name] = {"share_of_limit": share}
-    times = in_turns(libs, FLASH, lambda: fa.flash_attention_cuda(q, k, v, causal=True), 10,
-                     flush)
-    for name, t in times.items():
-        rows[name]["us"] = t
+    rows = {name: {"ptxas": cs.ptxas_entries(_log(lib))} for name, lib in libs.items()}
+    for what, ((B, Sq, Sk, Hq, Hkv, hd), causal) in FLASH_SHAPES.items():
+        q, k, v = cs.qkv(rng, B, Sq, Hq, Hkv, hd, torch.bfloat16, "cuda", Sk=Sk)
+        want = fa.attention_plain(q.float(), k.float(), v.float(), causal=causal)
+        limit = cs.FLASH_RTOL_BF16 * want.abs() + cs.FLASH_TOL_F32
+        for name, lib in libs.items():
+            _build._libs[FLASH] = lib
+            print(f"flash {name} at {what}", file=sys.stderr, flush=True)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal).float()
+            torch.cuda.synchronize()
+            share = float(((got - want).abs() / limit).max())
+            diagnostic = name != "source" and ABLATIONS[FLASH][name][1]
+            if not diagnostic and not share <= 1.0:
+                raise AssertionError(f"flash variant {name} at {what}: an element is "
+                                     f"{share} of its limit")
+            rows[name].setdefault("share_of_limit", {})[what] = share
+        del want, limit, got
+        times = in_turns(libs, FLASH, lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
+                         10 if Sq >= 4096 else 20, flush)
+        for name, t in times.items():
+            rows[name].setdefault("us", {})[what] = t
+        del q, k, v
+        torch.cuda.empty_cache()
     return rows
+
+
+def _log(lib: ctypes.CDLL) -> str:
+    """The compiler log (``-Xptxas -v``) written beside a built library."""
+    return Path(lib._name).with_suffix(".log").read_text()
 
 
 def scan_rows(libs: dict, flush) -> dict:

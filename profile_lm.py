@@ -89,7 +89,7 @@ GROUPS = (("flash_attention backward kernels", ("delta_kernel", "dkdv_kernel<",
           ("selective scan backward kernels", ("scan_bwd_kernel<",
                                                "scan_bwd_reduce_kernel")),
           ("flash_attention kernels", ("flash_kernel", "flash_sm90_kernel",
-                                       "flash_sm90_narrow_kernel")),
+                                       "flash_sm90_narrow_kernel", "flash_sm90_hd64_kernel")),
           ("rwkv6 wkv kernels", ("wkv_kernel", "wkv_chunk_kernel")),
           # csrc/selective_scan.cu's chunked and decode forms
           ("selective scan kernel", ("scan_chunked_kernel", "scan_decode_kernel")),

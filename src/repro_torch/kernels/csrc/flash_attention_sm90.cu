@@ -78,11 +78,13 @@
 //     168, spilled and serialised their wgmmas.  8 warps get up to 255.
 //   * The CTAs with the most kv tiles (the last query blocks, causal) start
 //     first.
-// That is flash_sm90_kernel, for hd 129 .. 256.  hd <= 128 takes
+// That is flash_sm90_kernel, for hd 129 .. 256.  hd 65 .. 128 takes
 // flash_sm90_narrow_kernel (below), the same layout of rows and the same
 // arithmetic with 128-key tiles, each warpgroup's softmax overlapped with
 // its own products instead of the ping-pong, and the scale folded into the
-// exponent's FFMA.
+// exponent's FFMA; hd <= 64 takes flash_sm90_hd64_kernel (below), two CTAs
+// an SM.  The wrapper's plan names the kernel
+// (repro_torch.kernels.flash_attention.sm90_plan).
 // q, k and v are read through their strides (multiples of 16 bytes, as TMA
 // requires; the wrapper checks); out (B, Sq, Hq, hd) is contiguous.  Given
 // an `lse` buffer, the epilogue also writes each row's log-sum-exp L = m +
@@ -559,7 +561,9 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[32 * NCH], const uint32_t* p
   if constexpr (NCH == 2) wgmma_rs128(o, p, dv); else wgmma_rs(o, p, dv);
 }
 
-// The kernel for hd <= 128 (NCH = 1 or 2).  At these widths the tensor
+// The kernel for hd 65 .. 128 (NCH = 2; at NCH = 1 it was hd <= 64's until
+// flash_sm90_hd64_kernel, and kernel_ablation.py still builds it so).  At
+// these widths the tensor
 // cores do half the work a (q, k) pair that they do at hd 256, while the
 // softmax's work a pair stays, so it no longer hides behind the other
 // warpgroup's products alone.  What changes from flash_sm90_kernel:
@@ -591,25 +595,42 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[32 * NCH], const uint32_t* p
 //     -1e30 log2(e).
 //   * The first product of S_j starts from zero (scale-d 0): S needs no
 //     clearing.
-// S = Q K^T of a 128-key tile, issued (the caller commits): the first
-// product starts from zero
-template <int NCH>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows, uint32_t k_tile) {
+// d (+)= A B, m64n64k16, A and B K-major in shared memory; scale_d 0 ignores d
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S = Q K^T of a K-key tile (K = 128: one m64n128k16 per 16 head dims; 64:
+// m64n64k16), issued (the caller commits): the first product starts from
+// zero
+template <int NCH, int K = kNarrowKeys>
+__device__ __forceinline__ void issue_qk(float (&s)[K / 2], uint32_t q_rows, uint32_t k_tile) {
 #pragma unroll
   for (int c = 0; c < NCH; ++c)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss128(s, desc_sw128(q_rows + c * kQBox + kk * 32, 16),
-                  desc_sw128(k_tile + c * kKvBoxN + kk * 32, 16), c | kk);
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dq = desc_sw128(q_rows + c * kQBox + kk * 32, 16),
+                     dk = desc_sw128(k_tile + c * K * kRowBytes + kk * 32, 16);
+      if constexpr (K == 128)
+        wgmma_ss128(s, dq, dk, c | kk);
+      else
+        wgmma_ss64(s, dq, dk, c | kk);
+    }
 }
 
-// O += P V of a 128-key tile, P in two bf16 terms, issued (the caller commits)
-template <int NCH>
-__device__ __forceinline__ void issue_pv(float (&o)[32 * NCH], const uint32_t (&p_hi)[32],
-                                         const uint32_t (&p_lo)[32], uint32_t v_tile) {
+// O += P V of a K-key tile, P in two bf16 terms, issued (the caller commits)
+template <int NCH, int K = kNarrowKeys>
+__device__ __forceinline__ void issue_pv(float (&o)[32 * NCH], const uint32_t (&p_hi)[K / 4],
+                                         const uint32_t (&p_lo)[K / 4], uint32_t v_tile) {
 #pragma unroll
-  for (int kk = 0; kk < kNarrowKeys / 16; ++kk) {
-    const uint64_t dv = desc_sw128(v_tile + kk * 16 * kRowBytes, kKvBoxN);
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t dv = desc_sw128(v_tile + kk * 16 * kRowBytes, K * kRowBytes);
     wgmma_pv<NCH>(o, p_hi + 4 * kk, dv);
     wgmma_pv<NCH>(o, p_lo + 4 * kk, dv);
   }
@@ -665,10 +686,11 @@ __device__ __forceinline__ float2 online_softmax(float (&s)[64], Rows& r, const 
 }
 
 // P as bf16 A fragments, high and low terms (see flash_sm90_kernel)
-__device__ __forceinline__ void make_p(const float (&s)[64], uint32_t (&p_hi)[32],
-                                       uint32_t (&p_lo)[32]) {
+template <int N>
+__device__ __forceinline__ void make_p(const float (&s)[N], uint32_t (&p_hi)[N / 2],
+                                       uint32_t (&p_lo)[N / 2]) {
 #pragma unroll
-  for (int q = 0; q < 32; ++q) {
+  for (int q = 0; q < N / 2; ++q) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(s[2 * q], s[2 * q + 1]);
     const float2 hf = __bfloat1622float2(h);
     p_hi[q] = bf16x2_bits(h);
@@ -836,6 +858,278 @@ flash_sm90_narrow_kernel(const __grid_constant__ CUtensorMap tq,
       dead_row(a, pos1) ? kMasked : rw.m1, rw.l0, rw.l1, r0, pos0, pos1, kc, b, hk, nrows);
 }
 
+// -- head_dim <= 64 ------------------------------------------------------- //
+// At hd 64 a (q, k) pair costs the tensor cores 4 hd = 256 flops (384 with
+// P in two terms) beside one exponential and about ten other instructions
+// of softmax.  flash_sm90_narrow_kernel at NCH = 1 (hd 64's earlier path,
+// 192 registers, one CTA and two warps a scheduler) overlapped each
+// warpgroup's softmax with its own products, and still ran at 25% of the
+// bound: its softmax cost 29% of its time unhidden, the second P term 21%,
+// the exponentials alone 6% (kernel_ablation.py at whisper's shapes).  Its
+// overlap holds S_j, P_{j-1} in two terms and O together, which leaves one
+// CTA an SM.  This kernel keeps fewer registers live and puts more warps
+// on each scheduler instead:
+//   * 64-key tiles (S one m64n64k16 a k-step, O += P V eight a tile), so a
+//     thread holds 32 scores, P in 32 registers and O in 32, within 128
+//     registers: two CTAs (four warpgroups) an SM, whose products and
+//     softmaxes interleave.  (128-key tiles need more than 128 registers:
+//     ptxas spills and serialises the wgmmas.)
+//   * Each warpgroup walks its tiles in order (softmax of S_t, O += P_t
+//     V_t), and issues S_{t+1} right behind P_t V_t, so that it is queued
+//     on the tensor cores while the warpgroup waits for its product.
+//   * A row's exponent reference m moves only where the row max passes it
+//     by more than kHd64Slack = 8 (log2 units): p stays below 2^8, and O and
+//     l are rescaled about once a row instead of at every new maximum.
+//     The output O / l and L = m + log2(l) do not depend on m.
+//   * The row max and the row sum in two partial chains a row.
+//   * A warpgroup whose 64 rows all lie past Sq (the last block of Sq = 448
+//     rows, 3.5 blocks of 128) returns at once; the stages' refills count
+//     only the warps that remain.
+//   * A CTA's start and epilogue overlap the other CTA's work, which short
+//     CTAs (the causal 448-row decoder: two to seven kv tiles) need.
+// Otherwise the narrow kernel's layout and arithmetic: 128 rows a CTA, a
+// ring of two stages (48 KB of shared memory), the scale in the exponent's
+// FFMA, P in two bf16 terms, K and V released apart.
+constexpr int kHd64CtasPerSm = 2;
+constexpr int kHd64Keys = 64;        // keys a kv tile
+constexpr int kHd64Chains = 2;       // partial chains a row for the max and the sum
+constexpr float kHd64Slack = 8.f;     // log2 units the row max may pass its reference by
+
+// x, opaque to the compiler: what is computed from it is computed where it
+// is used (a descriptor a k-step), not hoisted into registers for the loop
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// the online softmax of the hd-64 kernel on a K-key tile: online_softmax's
+// function with the row max and the row sum in kHd64Chains partial chains a
+// row.  Element i of s is row (i & 2) / 2's column 8 (i / 4) + kc + (i & 1);
+// chain c of a row takes the elements with (i / 4) % kHd64Chains == c
+template <int K>
+__device__ __forceinline__ float2 online_softmax64(float (&s)[K / 2], Rows& r, const Params& a,
+                                                   int k0, int q_lo, int q_hi) {
+  constexpr int N = K / 2, C = kHd64Chains;
+  const bool edge = k0 + K > a.Sk || (a.causal && k0 + K - 1 > q_lo) ||
+                    (a.window > 0 && q_hi - k0 >= a.window);
+  const float ninf = __int_as_float(0xff800000);   // -inf
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int kp = k0 + 8 * (i / 4) + r.kc + (i & 1);
+      const int pos = (i & 2) ? r.pos1 : r.pos0;
+      bool ok = kp < a.Sk;
+      if (a.causal) ok = ok && kp <= pos;
+      if (a.window > 0) ok = ok && pos - kp < a.window;
+      s[i] = ok ? s[i] : kp < a.Sk && dead_row(a, pos) ? 0.f : ninf;
+    }
+  }
+  float mx[2][C];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int row = 0; row < 2; ++row)
+      mx[row][c] = fmaxf(s[4 * c + 2 * row], s[4 * c + 2 * row + 1]);
+#pragma unroll
+  for (int i = 4 * C; i < N; ++i) {
+    float& m = mx[(i & 2) / 2][(i / 4) % C];
+    m = fmaxf(m, s[i]);
+  }
+  float mx0 = mx[0][0], mx1 = mx[1][0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) {
+    mx0 = fmaxf(mx0, mx[0][c]);
+    mx1 = fmaxf(mx1, mx[1][c]);
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // the exponents' reference moves only where the row max passes it by more
+  // than kHd64Slack: p then stays below 2^kHd64Slack, and O and l are rarely
+  // rescaled (every output is O / l, L = m + log2(l), whatever m is)
+  mx0 *= a.scale_log2;
+  mx1 *= a.scale_log2;
+  const float n0 = mx0 > r.m0 + kHd64Slack ? mx0 : r.m0;
+  const float n1 = mx1 > r.m1 + kHd64Slack ? mx1 : r.m1;
+  const float2 corr = make_float2(ex2(r.m0 - n0), ex2(r.m1 - n1));
+  r.m0 = n0;
+  r.m1 = n1;
+  float sum[2][C] = {};
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int row = (i & 2) / 2, c = (i / 4) % C;
+    const float p = ex2(fmaf(s[i], a.scale_log2, row ? -n1 : -n0));
+    s[i] = p;
+    sum[row][c] += p;
+  }
+  float sum0 = sum[0][0], sum1 = sum[1][0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) {
+    sum0 += sum[0][c];
+    sum1 += sum[1][c];
+  }
+  r.l0 = r.l0 * corr.x + sum0;
+  r.l1 = r.l1 * corr.y + sum1;
+  return corr;
+}
+
+// atomicAdd on a shared-memory word by its 32-bit address
+__device__ __forceinline__ unsigned atom_add_shared(uint32_t addr, unsigned v) {
+  unsigned old;
+  asm volatile("atom.shared::cta.add.u32 %0, [%1], %2;\n" : "=r"(old) : "r"(addr), "r"(v)
+               : "memory");
+  return old;
+}
+
+template <int K>
+struct Hd64Smem {
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t k = kQBox;
+  static constexpr uint32_t v = k + kNarrowStages * K * kRowBytes;
+  static constexpr uint32_t bars = v + kNarrowStages * K * kRowBytes;
+  static constexpr uint32_t done = bars + 8 * (1 + 2 * kNarrowStages);   // K, V counters
+  static constexpr uint32_t bytes = done + 8 * kNarrowStages + 1024;
+};
+
+__global__ void __launch_bounds__(kThreads, kHd64CtasPerSm)
+flash_sm90_hd64_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const Params a) {
+  constexpr int kStg = kNarrowStages, kK = kHd64Keys;
+  constexpr uint32_t kTile = kK * kRowBytes;
+  using L = Hd64Smem<kK>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sm0 = base + ((1024 - (base & 1023)) & 1023);
+  const uint32_t sq = sm0 + L::q, sk = sm0 + L::k, sv = sm0 + L::v, sbar = sm0 + L::bars;
+  auto k_full = [&](int st) { return sbar + 8 * (1 + st); };
+  auto v_full = [&](int st) { return sbar + 8 * (1 + kStg + st); };
+  // warps done with each K and each V stage, counted across its uses
+  auto k_done = [&](int st) { return sm0 + L::done + 4 * st; };
+  auto v_done = [&](int st) { return sm0 + L::done + 4 * (kStg + st); };
+
+  const int G = a.G, nrows = a.G * a.P;
+  const int qb = a.nq - 1 - (int)blockIdx.x;      // most kv tiles first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int q_lo = qb * a.P;
+  const int q_hi = min(q_lo + a.P, a.Sq) - 1;
+  const int2 tiles = kv_tiles(a, q_lo, q_hi, kK);
+  const int t_lo = tiles.x, t_hi = tiles.y;
+  const int tid = threadIdx.x;
+  // the warpgroups with a row below Sq (the second's first row is 64), and
+  // the warps that release each stage
+  const int busy = q_lo + 64 / G <= q_hi ? 2 : 1;
+  const unsigned last_warp = 4u * busy - 1u;
+
+  auto load_k = [&](int t, int st) {
+    mbar_expect_tx(k_full(st), kTile);
+    tma_load_4d(sk + st * kTile, &tk, k_full(st), 0, hk, t * kK, b);
+  };
+  auto load_v = [&](int t, int st) {
+    mbar_expect_tx(v_full(st), kTile);
+    tma_load_4d(sv + st * kTile, &tv, v_full(st), 0, hk, t * kK, b);
+  };
+
+  zero_padded_rows<1>(smem_raw + (sm0 - base) + L::q, nrows, tid);
+  if (tid == 0) {
+    mbar_init(sbar, 1);
+    for (int st = 0; st < kStg; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(k_done(st)), "r"(0u) : "memory");
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(v_done(st)), "r"(0u) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(sbar, nrows * kRowBytes);
+    tma_load_4d(sq, &tq, sbar, 0, hk * G, q_lo, b);
+    for (int t = t_lo; t <= min(t_hi, t_lo + kStg - 1); ++t) {
+      load_k(t, t - t_lo);
+      load_v(t, t - t_lo);
+    }
+  }
+
+  const int cw = tid / 128;
+  if (cw >= busy) return;                          // every row past Sq
+  const int lane = tid % 32;
+  const int r0 = tid / 32 * 16 + lane / 4;         // cw * 64 + warp * 16 + lane / 4
+  const uint32_t q_rows = sq + cw * 64 * kRowBytes;
+  Rows rw{kMasked, kMasked, 0.f, 0.f, q_lo + r0 / G, q_lo + (r0 + 8) / G, 2 * (lane % 4)};
+
+  // this warp is done with K (or V) of tile t in stage st: the last of the
+  // busy warps refills the stage with tile t + kStg
+  auto release_k = [&](int t, int st) {
+    if (lane == 0 && (atom_add_shared(k_done(st), 1u) & last_warp) == last_warp &&
+        t + kStg <= t_hi)
+      load_k(t + kStg, st);
+  };
+  auto release_v = [&](int t, int st) {
+    if (lane == 0 && (atom_add_shared(v_done(st), 1u) & last_warp) == last_warp &&
+        t + kStg <= t_hi)
+      load_v(t + kStg, st);
+  };
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float s[kK / 2];
+  uint32_t p_hi[kK / 4], p_lo[kK / 4];
+
+  mbar_wait(sbar, 0);
+  // tile t's softmax, then P_t V_t issued (S_t issued before)
+  auto tile = [&](int t) {
+    const int it = t - t_lo, st = it % kStg;
+    wgmma_wait_all();                              // S_t
+    fence_regs(s);
+    release_k(t, st);
+    const float2 corr = online_softmax64<kK>(s, rw, a, t * kK, q_lo, q_hi);
+    if (__any_sync(0xffffffffu, corr.x != 1.f || corr.y != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? corr.y : corr.x;
+    }
+    make_p(s, p_hi, p_lo);
+    mbar_wait(v_full(st), (it / kStg) & 1);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    fence_regs(o);
+    wgmma_fence();
+    issue_pv<1, kK>(o, p_hi, p_lo, sv + st * kTile);
+    wgmma_commit();
+  };
+  // S_t = Q K_t^T issued (the descriptors of Q computed where they are used)
+  auto issue_s = [&](int t) {
+    const int it = t - t_lo, st = it % kStg;
+    mbar_wait(k_full(st), (it / kStg) & 1);
+    fence_regs(s);
+    wgmma_fence();
+    issue_qk<1, kK>(s, opaque(q_rows), sk + st * kTile);
+    wgmma_commit();
+  };
+  issue_s(t_lo);
+  for (int t = t_lo; t < t_hi; ++t) {
+    tile(t);
+    issue_s(t + 1);                                // behind P_t V_t
+    wgmma_wait_all_but_last();                     // P_t V_t
+    fence_regs(o);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    release_v(t, (t - t_lo) % kStg);
+  }
+  tile(t_hi);
+  wgmma_wait_all();
+  fence_regs(o);
+
+  // a row with no live key scored 0 on its keys: its L is the masked value's
+  write_rows<1, true>(
+      a, [&](int j, int e) { return o[4 * j + e]; }, dead_row(a, rw.pos0) ? kMasked : rw.m0,
+      dead_row(a, rw.pos1) ? kMasked : rw.m1, rw.l0, rw.l1, r0, rw.pos0, rw.pos1, rw.kc, b,
+      hk, nrows);
+}
+
 // cuTensorMapEncodeTiled of libcuda, found through the runtime (no -lcuda)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -874,25 +1168,23 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* base, int hd, int H, 
          CUDA_SUCCESS;
 }
 
-template <int NCH>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           const Params& a, int B, cudaStream_t stream) {
-  const dim3 grid(a.nq, a.Hkv, B);
-  cudaError_t err;
-  if constexpr (NCH <= 2) {      // hd <= 128: the narrow kernel
-    const int bytes = (int)NarrowSmem<NCH>::bytes;
-    err = cudaFuncSetAttribute(flash_sm90_narrow_kernel<NCH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_sm90_narrow_kernel<NCH><<<grid, kThreads, bytes, stream>>>(tq, tk, tv, a);
-  } else {
-    const int bytes = (int)Smem<NCH>::bytes;
-    err = cudaFuncSetAttribute(flash_sm90_kernel<NCH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_sm90_kernel<NCH><<<grid, kThreads, bytes, stream>>>(tq, tk, tv, a);
-  }
-  return (int)cudaGetLastError();
+// the kernel of the wrapper's plan (repro_torch.kernels.flash_attention.
+// sm90_plan: 0 flash_sm90_hd64_kernel for hd <= 64, 1 the narrow kernel for
+// hd 65 .. 128, 2 flash_sm90_kernel for hd 129 .. 256) at head_dim hd, with
+// its dynamic shared memory; null where that kernel does not take hd
+struct Chosen {
+  const void* fn;
+  int bytes;
+};
+Chosen choose(int kernel, int hd) {
+  const int nch = (hd + kChunk - 1) / kChunk;
+  if (kernel == 0 && nch == 1)
+    return {(const void*)flash_sm90_hd64_kernel, (int)Hd64Smem<kHd64Keys>::bytes};
+  if (kernel == 1 && nch == 2)
+    return {(const void*)flash_sm90_narrow_kernel<2>, (int)NarrowSmem<2>::bytes};
+  if (kernel == 2 && nch == 3) return {(const void*)flash_sm90_kernel<3>, (int)Smem<3>::bytes};
+  if (kernel == 2 && nch == 4) return {(const void*)flash_sm90_kernel<4>, (int)Smem<4>::bytes};
+  return {nullptr, 0};
 }
 
 }  // namespace
@@ -901,19 +1193,22 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 // stride over hd and the given element strides over (b, s, h), every stride
 // times 2 and every pointer a multiple of 16 bytes; hd a multiple of 8 up to
 // 256, Hq / Hkv <= 16; out (B, Sq, Hq, hd) contiguous bfloat16; lse null or
-// (B, Hq, Sq) float32, written with each row's L.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success), cudaErrorInvalidValue
-// for a shape it does not take, or cudaErrorNotSupported if libcuda's
+// (B, Hq, Sq) float32, written with each row's L; `kernel` the wrapper's
+// plan (choose).  Launches on `stream` and returns cudaGetLastError() (0 on
+// success), cudaErrorInvalidValue for a shape or a kernel it does not take
+// (hd past the planned kernel's), or cudaErrorNotSupported if libcuda's
 // tensor-map encoder is missing or refuses a map.
 extern "C" int flash_attention_sm90_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int Hq,
     int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal,
-    int window, float scale, void* lse, void* stream) {
+    int window, float scale, int kernel, void* lse, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup ||
       hd <= 0 ||
       hd % 8 != 0 || hd > 4 * kChunk || B > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
+  const Chosen chosen = choose(kernel, hd);
+  if (chosen.fn == nullptr) return (int)cudaErrorInvalidValue;
   // the tensor maps are encoded by libcuda's cuTensorMapEncodeTiled, which
   // needs a current context; a thread that made no runtime call yet (the
   // autograd engine's device thread) may have none, and the encoder then
@@ -940,18 +1235,36 @@ extern "C" int flash_attention_sm90_launch(
   a.window = window;
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
-  const int keys = hd <= 2 * kChunk ? kNarrowKeys : kKeys;   // a kv tile's keys
+  // a kv tile's keys
+  const int keys = kernel == 0 ? kHd64Keys : kernel == 1 ? kNarrowKeys : kKeys;
   alignas(64) CUtensorMap tq, tk, tv;
   if (!encode(enc, &tq, q, hd, Hq, Sq, B, q_sh, q_ss, q_sb, a.G, a.P) ||
       !encode(enc, &tk, k, hd, Hkv, Sk, B, k_sh, k_ss, k_sb, 1, keys) ||
       !encode(enc, &tv, v, hd, Hkv, Sk, B, v_sh, v_ss, v_sb, 1, keys))
     return (int)cudaErrorNotSupported;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((hd + kChunk - 1) / kChunk) {
-    case 1: return launch<1>(tq, tk, tv, a, B, s);
-    case 2: return launch<2>(tq, tk, tv, a, B, s);
-    case 3: return launch<3>(tq, tk, tv, a, B, s);
-    case 4: return launch<4>(tq, tk, tv, a, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      chosen.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, chosen.bytes);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&tq, &tk, &tv, &a};
+  cudaLaunchKernel(chosen.fn, dim3(a.nq, a.Hkv, B), dim3(kThreads), args, chosen.bytes,
+                   static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// The registers a thread and the CTAs an SM of the kernel that
+// flash_attention_sm90_launch runs for `kernel` at head_dim hd: 0 on
+// success, cudaErrorInvalidValue where that kernel does not take hd.
+extern "C" int flash_attention_sm90_occupancy(int kernel, int hd, int* registers,
+                                              int* ctas_per_sm) {
+  const Chosen chosen = choose(kernel, hd);
+  if (chosen.fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err =
+      cudaFuncSetAttribute(chosen.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, chosen.bytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, chosen.fn);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, chosen.fn, kThreads,
+                                                        chosen.bytes);
+  if (err == cudaSuccess) *registers = attr.numRegs;
+  return (int)err;
 }

@@ -41,6 +41,7 @@ is no fallback.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -55,9 +56,11 @@ MAX_GROUP = 16            # query heads per kv head: the kernels' rows a block
 # scale; the lse buffer or null; stream)
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
          + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 2)
+# the bf16 kernel also takes the plan's kernel (sm90_plan) before the lse buffer
+_ARGS_SM90 = _ARGS[:-2] + [ctypes.c_int] + _ARGS[-2:]
 _KERNELS = {torch.float32: ("flash_attention.cu", "flash_attention_launch", _ARGS),
             torch.bfloat16: ("flash_attention_sm90.cu", "flash_attention_sm90_launch",
-                             _ARGS)}
+                             _ARGS_SM90)}
 # the backward kernels, float32 csrc/flash_attention_bwd.cu and bf16
 # csrc/flash_attention_bwd_sm90.cu: q, k, v, out, dout, the forward's lse,
 # dq, dk, dv, delta scratch; B, S, Hq, Hkv, hd; q, k, v's nine strides;
@@ -79,6 +82,51 @@ launches = 0
 launches_bf16 = 0
 launches_bwd = 0
 launches_bwd_bf16 = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Sm90Plan:
+    """Which kernel of ``csrc/flash_attention_sm90.cu`` takes a bf16 call:
+    ``kernel`` is the launcher's number for it, ``ctas_per_sm`` the CTAs an
+    SM its registers and shared memory are laid out for."""
+    name: str
+    kernel: int
+    ctas_per_sm: int
+
+
+def sm90_plan(hd: int) -> Sm90Plan:
+    """The bf16 kernel for head_dim ``hd``: up to 64 the hd-64 kernel (64-key
+    tiles, two CTAs an SM: at hd 64 the softmax costs about what the
+    products cost, and four warpgroups an SM hide more of it than one
+    warpgroup's own products do); up to 128 the narrow kernel (128-key
+    tiles, one CTA, each warpgroup's softmax under its own products); up
+    to 256 the wide kernel (64-key tiles, the warpgroups taking turns)."""
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"the bf16 flash kernels take head_dim 1..{MAX_HEAD_DIM}, got {hd}")
+    if hd <= 64:
+        return Sm90Plan("flash_sm90_hd64_kernel", 0, 2)
+    if hd <= 128:
+        return Sm90Plan("flash_sm90_narrow_kernel<2>", 1, 1)
+    return Sm90Plan(f"flash_sm90_kernel<{(hd + 63) // 64}>", 2, 1)
+
+
+def sm90_occupancy(hd: int) -> dict:
+    """The registers a thread and the CTAs an SM of the built bf16 kernel
+    that runs at head_dim ``hd`` (the runtime's occupancy with its shared
+    memory); raises if they are not the CTAs an SM its plan is laid out
+    for.  Needs the card."""
+    plan = sm90_plan(hd)
+    fn = _build.load(_KERNELS[torch.bfloat16][0]).flash_attention_sm90_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    err = fn(plan.kernel, hd, ctypes.byref(regs), ctypes.byref(ctas))
+    if err:
+        raise RuntimeError(f"flash_attention_sm90_occupancy failed: CUDA error {err}")
+    if ctas.value != plan.ctas_per_sm:
+        raise RuntimeError(f"{plan.name} fits {ctas.value} CTAs an SM at {regs.value} "
+                           f"registers a thread, not the {plan.ctas_per_sm} it is laid out for")
+    return {"kernel": plan.name, "registers": regs.value, "ctas_per_sm": ctas.value}
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -237,8 +285,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch = _launcher(_KERNELS, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        kernel = (sm90_plan(hd).kernel,) if bf16 else ()
         err = launch(*pointers, B, Sq, Sk, Hq, Hkv, hd, *strides, int(causal), int(window),
-                     1.0 / (hd ** 0.5), None if lse is None else lse.data_ptr(), stream)
+                     1.0 / (hd ** 0.5), *kernel, None if lse is None else lse.data_ptr(),
+                     stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     if bf16:

@@ -13,11 +13,15 @@ wkv at T = 1, chunked composition (two halves == the whole), w = 0; and
 queries and keys of two lengths (Sk > Sq, Sk < Sq, causal or not, a window
 that leaves rows with no live key, G = 1 and 4) against the reference's
 `attend_full`, through `attention_plain` and `FlashAttentionFn`.  The
-arithmetic of three Hopper designs is checked here too, in PyTorch: the
+arithmetic of four Hopper designs is checked here too, in PyTorch: the
 float32 flash kernel's 3xTF32 products hold 2e-5 where one TF32 product
 does not; the bf16 kernel's hd <= 128 form (128-key tiles, the scale in
 the exponent's FMA, P in two bf16 terms) holds the card's per-element
-limit at G = 5, 6 and 8, causal and windowed; and the wkv kernel's
+limit at G = 5, 6 and 8, causal and windowed; its hd <= 64 form (64-key
+tiles, the row sums in two chains a lane, the exponent reference moved
+only past a slack of 8) holds it at whisper-large-v3's three attention
+shapes, and with P's low term dropped does not; the host's choice of
+bf16 kernel by head_dim (`sm90_plan`) is checked; and the wkv kernel's
 chunked form (chunks and sub-chunks, decays only multiplied) matches the
 plain version and the Pallas kernel at ragged T, w = 0 (exactly the last
 k v^T), strong decays and a split off every chunk boundary.
@@ -32,7 +36,10 @@ and 5, head_dim 32, 120 and 128, windows; the hd <= 128 kernel at G = 5,
 6 and 8, causal and windowed, S = 1000 off its tiles; both kernels at Sk !=
 Sq: whisper's cross-attention (2, 448 x 1500, 20, 64), Sq = 1, ragged
 lengths causal, non-causal and windowed, hd 128 and 256, G = 4, their L
-against the plain log-sum-exp); the wkv kernels (chunked for
+against the plain log-sum-exp; the hd <= 64 kernel at whisper's encoder,
+decoder and cross shapes, S and Sq on both sides of its 128-row block and
+of a warpgroup's 64 rows, G = 1 and 4, hd 32 and 48, a window that leaves
+rows with no live key); the wkv kernels (chunked for
 T >= 64, recurrent below) at the LM shape, ragged T, strong decays, a
 split off the chunk boundaries and w = 0, the recurrent kernel at T = 1,
 16 and 63 for every head dim (rows on and off the 16-byte grid), four
@@ -308,16 +315,40 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _flash_narrow_emulation(q, k, v, *, causal, window, keys=128, rows=128):
-    """csrc/flash_attention_sm90.cu's kernel for hd <= 128 on bf16 values
+def _chain_sums(p, keys, chains=2):
+    """Each quad lane's sum of a tile's p (..., keys) as the hd-64 kernel
+    takes it: lane t holds columns 8 j + 2 t + e (j < keys / 8, e < 2) of
+    a row, in `chains` chains c = j % chains, each summed from 0 in order
+    of j and e, then added in order of c; returns (..., 4), the lanes'
+    sums (the epilogue joins them)."""
+    n = p.shape[-1]
+    p = torch.nn.functional.pad(p, (0, keys - n)).reshape(
+        *p.shape[:-1], keys // (8 * chains), chains, 4, 2)
+    part = torch.zeros(p.shape[:-4] + (4, chains), dtype=p.dtype)     # (..., t, c)
+    for jj in range(keys // (8 * chains)):
+        for e in range(2):
+            part = part + p[..., jj, :, :, e].transpose(-1, -2)
+    lanes = part[..., 0]
+    for c in range(1, chains):
+        lanes = lanes + part[..., c]
+    return lanes
+
+
+def _flash_narrow_emulation(q, k, v, *, causal, window, keys=128, rows=128, terms=2,
+                            sum_chains=False, slack=0.0):
+    """csrc/flash_attention_sm90.cu's kernels for hd <= 128 on bf16 values
     held in float32: a CTA per `rows` packed (position, head) rows (rows / G
-    positions), its live kv range in tiles of `keys` keys; S = q.k in
-    float32; masked scores -inf; the running max m in log2 units, moved to
-    max(m, max(S) scale log2 e) each tile and O, l rescaled by
-    exp2(m_old - m); p = exp2(S scale log2 e - m) with the exponent one
-    fused rounding; O += P_hi V + P_lo V (P in two bf16 terms); out =
-    bf16(O / max(l, 1e-30))."""
+    positions), its live kv range in tiles of `keys` keys over Sk =
+    k.shape[1] keys; S = q.k in float32; masked scores -inf; the running
+    max m in log2 units, moved to max(m, max(S) scale log2 e) each tile and
+    O, l rescaled by exp2(m_old - m); p = exp2(S scale log2 e - m) with the
+    exponent one fused rounding; O += P_hi V + P_lo V (P in two bf16 terms,
+    or P_hi alone with `terms` 1); out = bf16(O / max(l, 1e-30)).  With
+    `sum_chains` l takes each tile's p as the hd-64 kernel sums it
+    (_chain_sums: per lane, then the four lanes at the end); with `slack`
+    m moves only where the tile's max passes it by more than `slack`."""
     B, S, Hq, hd = q.shape
+    Sk = k.shape[1]
     G = Hq // k.shape[2]
     c = torch.tensor(tfa.LOG2E / hd ** 0.5, dtype=torch.float32)
     qh = q.permute(0, 2, 1, 3)                                   # (B, Hq, S, hd)
@@ -327,14 +358,14 @@ def _flash_narrow_emulation(q, k, v, *, causal, window, keys=128, rows=128):
     for q_lo in range(0, S, P):
         q_hi = min(q_lo + P, S) - 1
         kv_lo = max(0, q_lo - window + 1) if window > 0 else 0
-        kv_hi = q_hi if causal else S - 1
+        kv_hi = min(q_hi, Sk - 1) if causal else Sk - 1
         pos = torch.arange(q_lo, q_hi + 1)[:, None]
         qb = qh[:, :, q_lo:q_hi + 1]
         m = torch.full(qb.shape[:3] + (1,), tfa.NEG_INF * tfa.LOG2E)
-        l = torch.zeros_like(m)
+        l = torch.zeros(qb.shape[:3] + ((4,) if sum_chains else (1,)))
         o = torch.zeros_like(qb)
         for t in range(kv_lo // keys, kv_hi // keys + 1):
-            kp = torch.arange(t * keys, min(S, (t + 1) * keys))[None, :]
+            kp = torch.arange(t * keys, min(Sk, (t + 1) * keys))[None, :]
             s = qb @ kh[:, :, kp[0]].transpose(-1, -2)
             ok = torch.ones(pos.shape[0], kp.shape[1], dtype=torch.bool)
             if causal:
@@ -342,15 +373,19 @@ def _flash_narrow_emulation(q, k, v, *, causal, window, keys=128, rows=128):
             if window > 0:
                 ok &= pos - kp < window
             s = s.masked_fill(~ok, float("-inf"))
-            n = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+            mx = s.amax(-1, keepdim=True) * c
+            n = torch.where(mx > m + slack, mx, m)
             corr = torch.exp2(m - n)
             p = torch.exp2((s.double() * c.double() - n.double()).float())
             hi = _bf16(p)
             lo = _bf16(p - hi)
             vt = vh[:, :, kp[0]]
-            o = o * corr + hi @ vt + lo @ vt
-            l = l * corr + p.sum(-1, keepdim=True)
+            o = o * corr + hi @ vt + (lo @ vt if terms == 2 else 0.0)
+            l = l * corr + (_chain_sums(p, keys) if sum_chains else p.sum(-1, keepdim=True))
             m = n
+        if sum_chains:                       # the epilogue's shuffles: xor 1, then 2
+            l = l + l[..., [1, 0, 3, 2]]
+            l = (l + l[..., [2, 3, 0, 1]])[..., :1]
         out[:, :, q_lo:q_hi + 1] = o / torch.clamp(l, min=1e-30)
     return _bf16(out.permute(0, 2, 1, 3))
 
@@ -369,6 +404,41 @@ def test_flash_hd128_tile_order_holds_the_card_limit(Hq, Hkv, window):
     want = tfa.attention_plain(q, k, v, causal=True, window=window)
     share = float(((got - want).abs() / (RTOL_BF16_ROUNDING * want.abs() + ATOL_F32)).max())
     assert share <= 1.0, share
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", [(448, 1500, False), (1500, 1500, False),
+                                           (448, 448, True)])
+def test_flash_hd64_arithmetic_holds_the_card_limit_at_whisper_shapes(Sq, Sk, causal):
+    """The hd-64 kernel's arithmetic (flash_sm90_hd64_kernel: 128 rows a
+    CTA and 64-key tiles, P in two bf16 terms, each tile's row sums in two
+    chains a lane, a row's exponent reference moved only where its max
+    passes it by more than 8) at whisper-large-v3's three attention shapes
+    (4 heads of its 20, standard normal inputs as chip_smoke.py's check
+    takes them): every element within one bf16 rounding plus 2e-5 of the
+    float32 plain version; with P's low term dropped an element is not."""
+    q, k, v = (_bf16(t) for t in _torch(*_qkv(1, Sq, 4, 4, 64, seed=Sq + Sk, Sk=Sk)))
+    want = tfa.attention_plain(q, k, v, causal=causal)
+    limit = RTOL_BF16_ROUNDING * want.abs() + ATOL_F32
+    share = {terms: float(((_flash_narrow_emulation(
+        q, k, v, causal=causal, window=0, keys=64, terms=terms, sum_chains=True,
+        slack=8.0) - want).abs() / limit).max()) for terms in (1, 2)}
+    assert share[2] <= 1.0 < share[1], share
+
+
+def test_sm90_plan_picks_the_kernel_by_head_dim():
+    """The bf16 kernel of each head_dim the wrappers take (multiples of 8
+    up to 256): the hd-64 kernel (two CTAs an SM) up to 64, the narrow
+    kernel up to 128, the wide one beyond; refused past 256."""
+    for hd in range(8, tfa.MAX_HEAD_DIM + 1, 8):
+        plan = tfa.sm90_plan(hd)
+        want = (0, 2) if hd <= 64 else (1, 1) if hd <= 128 else (2, 1)
+        assert (plan.kernel, plan.ctas_per_sm) == want, (hd, plan)
+    assert tfa.sm90_plan(64).name == "flash_sm90_hd64_kernel"
+    assert tfa.sm90_plan(120).name == "flash_sm90_narrow_kernel<2>"
+    assert tfa.sm90_plan(256).name == "flash_sm90_kernel<4>"
+    for hd in (0, tfa.MAX_HEAD_DIM + 8):
+        with pytest.raises(ValueError, match="head_dim"):
+            tfa.sm90_plan(hd)
 
 
 def _wkv_chunked(r, k, v, w, u, s0, L, sub):
@@ -582,6 +652,20 @@ CUDA_ATTN = {
     "hd128-gqa8-S1000-window300-bf16": (1, 1000, 8, 1, 128, True, 300, torch.bfloat16),
     "hd64-gqa6-S1000-window300-bf16": (1, 1000, 12, 2, 64, True, 300, torch.bfloat16),
     "hd120-gqa8-S1000-bf16": (1, 1000, 8, 1, 120, True, 0, torch.bfloat16),
+    # the hd-64 kernel (two CTAs an SM, 64-key tiles, 128 rows a CTA):
+    # whisper's encoder (non-causal, 1500) and decoder (causal, 448: the last
+    # block's second warpgroup has no row), G = 4, S on both sides of the
+    # 128-row block and of a warpgroup's 64 rows, hd 32 and 48
+    "hd64-encoder-1500-noncausal-bf16": (2, 1500, 20, 20, 64, False, 0, torch.bfloat16),
+    "hd64-decoder-448-causal-bf16": (2, 448, 20, 20, 64, True, 0, torch.bfloat16),
+    "hd64-gqa4-S333-bf16": (1, 333, 16, 4, 64, True, 0, torch.bfloat16),
+    "hd64-gqa4-S333-window50-bf16": (1, 333, 16, 4, 64, True, 50, torch.bfloat16),
+    "hd64-S127-bf16": (2, 127, 4, 4, 64, True, 0, torch.bfloat16),
+    "hd64-S129-bf16": (2, 129, 4, 4, 64, True, 0, torch.bfloat16),
+    "hd64-S192-noncausal-bf16": (1, 192, 4, 4, 64, False, 0, torch.bfloat16),
+    "hd64-S193-noncausal-bf16": (1, 193, 4, 4, 64, False, 0, torch.bfloat16),
+    "hd32-S448-causal-bf16": (1, 448, 8, 8, 32, True, 0, torch.bfloat16),
+    "hd48-S500-window64-bf16": (1, 500, 8, 2, 48, True, 64, torch.bfloat16),
 }
 
 
@@ -635,6 +719,17 @@ CUDA_CROSS = {
     "hd128-g4-bf16": (1, 200, 700, 8, 2, 128, False, 0, torch.bfloat16),
     "hd256-g4-causal-bf16": (1, 200, 700, 8, 2, 256, True, 0, torch.bfloat16),
     "hd256-window100-bf16": (1, 500, 130, 4, 1, 256, True, 100, torch.bfloat16),
+    # the hd-64 kernel at Sq != Sk: whisper's 448 x 1500, Sq off the 128-row
+    # block by one either way, G = 4, hd 32 and 48, and a window that
+    # leaves rows with no live key at G = 4
+    "hd64-cross-448x1500-g1-bf16": (1, 448, 1500, 20, 20, 64, False, 0, torch.bfloat16),
+    "hd64-cross-127x1500-bf16": (1, 127, 1500, 4, 4, 64, False, 0, torch.bfloat16),
+    "hd64-cross-129x1500-bf16": (1, 129, 1500, 4, 4, 64, False, 0, torch.bfloat16),
+    "hd64-cross-65x1500-bf16": (1, 65, 1500, 4, 4, 64, False, 0, torch.bfloat16),
+    "hd64-cross-448x1500-g4-bf16": (1, 448, 1500, 16, 4, 64, False, 0, torch.bfloat16),
+    "hd64-300x37-g4-window100-bf16": (1, 300, 37, 8, 2, 64, True, 100, torch.bfloat16),
+    "hd32-cross-448x1500-bf16": (1, 448, 1500, 8, 8, 32, False, 0, torch.bfloat16),
+    "hd48-cross-200x700-g4-causal-bf16": (1, 200, 700, 8, 2, 48, True, 0, torch.bfloat16),
 }
 
 
