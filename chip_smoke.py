@@ -7,7 +7,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. kernels — builds every CUDA source of the port (`nvcc`, sm_90a, one
    process per source, all at once; both flash kernels and the selective
-   scan must compile without register spills; the backward kernels' spill
+   scan must compile without register spills, and so must the bf16 flash
+   backward's hd-64 kernels; the other backward kernels' spill
    counts are printed and reported) and holds each kernel against its
    plain PyTorch version on the card:
    * the launch floors: an empty kernel, and one that moves 16 bytes
@@ -92,9 +93,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      log-sum-exp; timed beside its bound, the plain backward and SDPA's
      backward (band mask and, causal, `is_causal`), and both forwards
      timed with and without writing L; the bf16 kernel also at
-     whisper-large-v3's two attention shapes with Sq == Sk at hd 64 (the
-     encoder (16, 1500, 20 / 20) and the causal decoder (16, 448)), from
-     the L the hd-64 forward writes, checked and timed the same way;
+     whisper-large-v3's three attention shapes at hd 64 (the encoder
+     (16, 1500, 20 / 20), the cross-attention 448 x 1500 and the causal
+     decoder (16, 448)), from the L the hd-64 forward writes, through the
+     hd-64 kernels (`bwd_sm90_plan`), checked and timed the same way, each
+     row with their registers and CTAs an SM; both kernels at
+     FLASH_CROSS_CASES' Sq != Sk in both dtypes (rows with no live key
+     take P = 1 / Sk on every key); every check also holds two calls bit
+     for bit;
    * the wkv backward (`csrc/rwkv6_scan_bwd.cu`, chunk-parallel in time
      from the states the forward stores) at (2, 40, 4096, 64) with the
      model's decays and a non-zero s0 and dS_T, at T = 1000, 1, 63, 64,
@@ -262,7 +268,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and float32 flash backwards; jamba's period: 7 scan backwards, 4-expert
    MoE, one flash backward) — the loss within TRAIN_LOSS_RTOL, every
    gradient leaf within TRAIN_GRAD_RTOL max(1, max |g_cpu|), the launches
-   asserted.
+   asserted.  Then whisper-large-v3 at full width and WHISPER_TRAIN_LAYERS
+   encoder and decoder layers (`whisper_train`): LM_TRAIN_STEPS AdamW
+   steps on the eval cell's (16, 448) batch with (16, 1500, 1280) bf16
+   frames (a step: bf16 flash 2 x (32 self + 32 cross) + 32 encoder
+   forwards, 96 backwards, the cross-attention's at Sq != Sk), losses
+   falling, peak memory, tokens/s, and its `reduced()` float32 step card
+   vs CPU with frames.
 
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
 `{"kernels": [...]}` with each kernel's launches on its main path (and per
@@ -274,7 +286,8 @@ error, times, bound and the two launch floors (the fingerprint and
 cluster_agg entries with their `async_shape` row, rwkv6 and
 selective_scan with their `decode_shape` row, bf16 flash with its
 `lm_hd128_shapes` and `whisper_shapes`, both flash entries with their Sq
-!= Sk checks, the bf16 flash backward with its `whisper_shapes`), one JSON
+!= Sk checks, the bf16 flash backward with its `whisper_shapes` and the
+hd-64 kernels' ptxas registers), one JSON
 line each
 `{"train": {...}}`, `{"strategies": {...}}`, `{"async": {...}}`,
 `{"faults": {...}}`, `{"resume": {...}}`, `{"obs": {...}}`, `{"paper": {...}}`,
@@ -462,8 +475,9 @@ FLASH_WHISPER_SHAPES = {
     "whisper cross (16, 448 x 1500, 20 / 20, 64)": ((16, 448, 1500, 20, 20, 64), False),
     "whisper decoder self (16, 448, 20 / 20, 64) causal": ((16, 448, 448, 20, 20, 64),
                                                            True)}
-# both kernels at Sq != Sk off whisper's shapes: (B, Sq, Sk, Hq, Hkv, hd),
-# causal, window, the dtypes checked.  Sk = 1500 = 11 x 128 + 92 and 37 / 300
+# both forward kernels at Sq != Sk off whisper's shapes (the backward
+# kernels at each in both dtypes): (B, Sq, Sk, Hq, Hkv, hd), causal, window,
+# the forward's dtypes checked.  Sk = 1500 = 11 x 128 + 92 and 37 / 300
 # leave kv tiles part-empty; at 300 x 37 with window 100 the rows from 136
 # on have no live key (the plain version's mean of v); hd 128 and 256 are
 # the narrow kernel at two 64-wide chunks and the wide template
@@ -487,6 +501,14 @@ FLASH_CROSS_CASES = {
 # in batches of 16, the decoder at its 448 positions
 WHISPER = "whisper-large-v3"
 WHISPER_BATCH, WHISPER_TOKENS = 16, 448
+# whisper-large-v3 trained in the lm_train phase at its full depth, 32 encoder
+# and 32 decoder layers, on the eval cell's batch, at Whisper large's
+# published peak learning rate (arXiv:2212.04356, Table 17): at
+# LM_TRAIN_LR = 1e-3 the 64 layers' loss falls for seven steps and jumps at
+# the eighth (11.11 -> 8.79 -> 14.47), while at 4 + 4 layers the hd-64
+# kernels, the template and the plain backward give the same curve
+# (PERF.md)
+WHISPER_TRAIN_LAYERS, WHISPER_TRAIN_LR = 32, 1.75e-4
 # the flash kernels keep O, S and P in registers: a spill serialises them;
 # the selective scan keeps its states in registers at 64 a thread (four
 # blocks an SM), its backward a span's 8 states and exponentials at up to
@@ -496,6 +518,9 @@ NO_SPILL_SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu", "selective_
 # the other backward kernels' sources: their spills are printed and reported, not gated
 BACKWARD_SOURCES = ("flash_attention_bwd_sm90.cu", "flash_attention_bwd.cu",
                     "rwkv6_scan_bwd.cu")
+# ... but for the bf16 backward's hd-64 kernels, which keep S^T, dP^T, P^T and
+# dS^T in two terms, and dV and dK (dQ) in registers: gated like the forwards
+NO_SPILL_KERNELS = {"flash_attention_bwd_sm90.cu": ("dkdv_hd64_kernel", "dq_hd64_kernel")}
 # the flash backward against its plain version: float32 inputs within
 # FLASH_BWD_RTOL_F32 max |want| per gradient; bf16 inputs per element against
 # the float32 plain backward of the same inputs (the same bf16 output O),
@@ -617,6 +642,21 @@ def check_no_spills() -> dict:
         if not out[source] or any(out[source]):
             raise AssertionError(f"{source}: ptxas spill stores {out[source]}")
         print(f"{source}: {len(out[source])} instances, no spills", flush=True)
+    return out
+
+
+def check_no_spill_kernels() -> dict:
+    """The kernels of NO_SPILL_KERNELS: ptxas must compile each without a
+    spill store.  Returns each one's registers and spill stores."""
+    out = {}
+    for source, names in NO_SPILL_KERNELS.items():
+        entries = ptxas_entries(_build.library_path(source).with_suffix(".log").read_text())
+        for name in names:
+            if name not in entries or entries[name]["spill_stores"] != 0:
+                raise AssertionError(f"{source}: {name} ptxas {entries.get(name)}")
+            out[name] = entries[name]
+            print(f"{source}: {name} {entries[name]['registers']} registers, no spills",
+                  flush=True)
     return out
 
 
@@ -2598,17 +2638,25 @@ def check_flash_bwd(q, k, v, dout, causal: bool, window: int, what: str) -> dict
     """The backward kernel against the plain backward on the same inputs
     (the forward kernel's output O for both, and the kernel takes the L
     its forward wrote, held first against the plain log-sum-exp in log2
-    units within FLASH_TOL_F32 max(1, max |L|)): float32 within
+    units within FLASH_TOL_F32 max(1, max |L|) over the rows with a live
+    key and within FLASH_TOL_F32 |L| over those without): float32 within
     FLASH_BWD_RTOL_F32 max |want|; bf16 per element against the float32
-    plain backward, FLASH_RTOL_BF16 |want| + FLASH_BWD_ATOL_BF16 max |want|."""
+    plain backward, FLASH_RTOL_BF16 |want| + FLASH_BWD_ATOL_BF16 max |want|;
+    a second call gives the same bits (no atomics).  Sq and Sk may
+    differ."""
     bf16 = q.dtype == torch.bfloat16
     out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                        return_lse=True)
     want_lse = fa.attention_lse_plain(q, k, causal=causal, window=window)
-    lse_err = float((lse - want_lse).abs().max())
-    if not lse_err <= FLASH_TOL_F32 * max(1.0, float(want_lse.abs().max())):
-        raise AssertionError(f"flash forward L on {what}: max abs error {lse_err}")
-    del want_lse
+    live = want_lse > 0.5 * fa.NEG_INF * fa.LOG2E
+    lse_err = float((lse - want_lse)[live].abs().max())
+    dead_err = float(((lse - want_lse)[~live] / want_lse[~live]).abs().max()) \
+        if not bool(live.all()) else 0.0
+    if not (lse_err <= FLASH_TOL_F32 * max(1.0, float(want_lse[live].abs().max()))
+            and dead_err <= FLASH_TOL_F32):
+        raise AssertionError(f"flash forward L on {what}: max abs error {lse_err} over "
+                             f"the rows with a live key, rel err {dead_err} without")
+    del want_lse, live
     got = fa.flash_attention_backward_cuda(q, k, v, out, dout, causal=causal, window=window,
                                            lse=lse)
     want = fa.attention_backward_plain(q.float(), k.float(), v.float(), out.float(),
@@ -2627,8 +2675,14 @@ def check_flash_bwd(q, k, v, dout, causal: bool, window: int, what: str) -> dict
             raise AssertionError(f"flash backward kernel vs plain on {what}: {name} is "
                                  f"{shares[name]} of its limit (max abs error "
                                  f"{errs[name]}, max |want| {top})")
+    again = fa.flash_attention_backward_cuda(q, k, v, out, dout, causal=causal,
+                                             window=window, lse=lse)
+    if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+        raise AssertionError(f"flash backward on {what}: two calls differ")
     return {"max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
             "max_share_of_limit": max(shares.values()), "lse_max_abs_err": lse_err,
+            "rows_without_live_key": int((lse < 0.5 * fa.NEG_INF * fa.LOG2E).sum()),
+            "bit_identical_twice": True,
             "tolerance": ({"rtol": FLASH_RTOL_BF16, "atol_of_max": FLASH_BWD_ATOL_BF16}
                           if bf16 else {"atol_of_max": FLASH_BWD_RTOL_F32})}
 
@@ -2665,9 +2719,14 @@ def flash_bwd_phase(dev) -> tuple[dict, dict]:
     (2, 4096, 8 / 4, 256), window 1024 and causal global, in bf16 and
     float32, and at the edge cases; times at the main shape, per dtype and
     window, beside the bound, the plain backward and SDPA's backward.  The
-    bf16 kernel also at whisper-large-v3's two shapes with Sq == Sk at hd
-    64 (FLASH_WHISPER_SHAPES: the encoder, the causal decoder), checked and
-    timed the same way (`bf16_whisper`)."""
+    bf16 kernel also at whisper-large-v3's three shapes at hd 64
+    (FLASH_WHISPER_SHAPES: the encoder, the cross-attention at Sq != Sk,
+    the causal decoder), checked and timed the same way, each row with the
+    plan's kernels, their registers and CTAs an SM (`bf16_whisper`), and
+    the float32 kernel at the cross-attention shape (`fp32_whisper_cross`);
+    both
+    kernels at FLASH_CROSS_CASES' Sq != Sk (rows with no live key
+    included), each in float32 and bf16."""
     rng = np.random.default_rng(SEED + 8)
     B, S, Hq, Hkv, hd = LM_BATCH, LM_SEQ, 8, 4, 256
     q, k, v = qkv(rng, B, S, Hq, Hkv, hd, torch.bfloat16, dev)
@@ -2735,23 +2794,23 @@ def flash_bwd_phase(dev) -> tuple[dict, dict]:
             rows[dt].append(row)
             del out, lse
             torch.cuda.empty_cache()
-    # whisper-large-v3's attention with Sq == Sk at hd 64 (the encoder; the
-    # decoder's causal self-attention), from the L the hd-64 forward writes
+    # whisper-large-v3's three attention shapes at hd 64 (the encoder, the
+    # cross-attention at Sq != Sk, the decoder's causal self-attention),
+    # from the L the hd-64 forward writes: the hd-64 backward kernels
     rows["bf16_whisper"] = {}
     for what, ((B, Sq, Sk, Hq, Hkv, hd), causal) in FLASH_WHISPER_SHAPES.items():
-        if Sq != Sk:
-            continue
-        qd, kd, vd = qkv(rng, B, Sq, Hq, Hkv, hd, torch.bfloat16, dev)
+        qd, kd, vd = qkv(rng, B, Sq, Hq, Hkv, hd, torch.bfloat16, dev, Sk=Sk)
         dd = torch.from_numpy(rng.standard_normal((B, Sq, Hq, hd)).astype(np.float32)
                               ).to(dev, torch.bfloat16)
         check = checks[f"{what} bf16"] = check_flash_bwd(qd, kd, vd, dd, causal, 0, what)
         out, lse = fa.flash_attention_cuda(qd, kd, vd, causal=causal, return_lse=True)
         n_bytes = (4 * qd.numel() + 4 * kd.numel()) * qd.element_size()
-        n_ops = FLASH_BWD_FLOPS_PER_PAIR_HD * hd * B * Hq * live_pairs(Sq, causal, 0)
+        n_ops = FLASH_BWD_FLOPS_PER_PAIR_HD * hd * B * Hq * live_pairs(Sq, causal, 0, Sk)
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / BF16_OPS_PER_S * 1e6
         library = sdpa_backward(qd, kd, vd, dd, is_causal=causal)
         rows["bf16_whisper"][what] = dict(
-            check, shape=[B, Sq, Hq, Hkv, hd], dtype="bfloat16", causal=causal,
+            check, **fa.bwd_sm90_occupancy(hd), shape=[B, Sq, Sk, Hq, Hkv, hd],
+            dtype="bfloat16", causal=causal,
             kernel_us=median_us(lambda _: fa.flash_attention_backward_cuda(
                 qd, kd, vd, out, dd, causal=causal, lse=lse), None, 10, flush),
             plain_us=median_us(lambda _: fa.attention_backward_plain(
@@ -2765,6 +2824,41 @@ def flash_bwd_phase(dev) -> tuple[dict, dict]:
             bytes=n_bytes)
         del qd, kd, vd, dd, out, lse, library
         torch.cuda.empty_cache()
+    # the float32 kernel at whisper's cross-attention shape (the float32
+    # step's cross-attention runs it at Sq != Sk)
+    what, ((B, Sq, Sk, Hq, Hkv, hd), causal) = next(
+        (w, c) for w, c in FLASH_WHISPER_SHAPES.items() if c[0][1] != c[0][2])
+    qd, kd, vd = qkv(rng, B, Sq, Hq, Hkv, hd, torch.float32, dev, Sk=Sk)
+    dd = torch.from_numpy(rng.standard_normal((B, Sq, Hq, hd)).astype(np.float32)).to(dev)
+    check = checks[f"{what} fp32"] = check_flash_bwd(qd, kd, vd, dd, causal, 0, what)
+    out, lse = fa.flash_attention_cuda(qd, kd, vd, causal=causal, return_lse=True)
+    n_bytes = (4 * qd.numel() + 4 * kd.numel()) * qd.element_size()
+    n_ops = FLASH_BWD_FLOPS_PER_PAIR_HD * hd * B * Hq * live_pairs(Sq, causal, 0, Sk)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e6
+    t_ops = n_ops / (TF32_OPS_PER_S / TF32_PRODUCTS_PER_FP32) * 1e6
+    library = sdpa_backward(qd, kd, vd, dd, is_causal=causal)
+    rows["fp32_whisper_cross"] = dict(
+        check, shape=[B, Sq, Sk, Hq, Hkv, hd], dtype="float32", causal=causal,
+        kernel_us=median_us(lambda _: fa.flash_attention_backward_cuda(
+            qd, kd, vd, out, dd, causal=causal, lse=lse), None, 5, flush),
+        plain_us=median_us(lambda _: fa.attention_backward_plain(
+            qd, kd, vd, out, dd, causal=causal), None, 2, flush),
+        library_us=median_us(library, None, 5, flush),
+        library_call="torch.autograd.grad of F.scaled_dot_product_attention(is_causal=False)",
+        library_backend=sdpa_backend(library, marker=False),
+        bound_us=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_cuda_cores_us=max(t_bytes, n_ops / ALU32_OPS_PER_S * 1e6), flop=n_ops,
+        bytes=n_bytes)
+    del qd, kd, vd, dd, out, lse, library
+    torch.cuda.empty_cache()
+    # both backward kernels at Sq != Sk off whisper's shapes, in both dtypes
+    for what, (shape, causal, window, _) in FLASH_CROSS_CASES.items():
+        B, Sq, Sk, Hq, Hkv, hd = shape
+        q3, k3, v3 = qkv(rng, B, Sq, Hq, Hkv, hd, torch.float32, dev, Sk=Sk)
+        d3 = torch.from_numpy(rng.standard_normal((B, Sq, Hq, hd)).astype(np.float32)).to(dev)
+        checks[f"{what} fp32"] = check_flash_bwd(q3, k3, v3, d3, causal, window, what)
+        checks[f"{what} bf16"] = check_flash_bwd(
+            *(t.to(torch.bfloat16) for t in (q3, k3, v3, d3)), causal, window, what)
     return rows, checks
 
 
@@ -2959,9 +3053,12 @@ def scan_bwd_phase(dev, floors: dict) -> tuple[dict, dict]:
 
 
 def train_launches(cfg, steps: int, dtype: str) -> dict[str, int]:
-    """Each kernel's launches in ``steps`` train steps of ``cfg``: a
-    mixer's forward kernel once a layer (twice for a period's layers under
-    remat: the backward runs the period again), its backward kernel once."""
+    """Each kernel's launches in ``steps`` train steps of ``cfg`` (with
+    frames where it has an encoder): a mixer's forward kernel once a layer
+    (twice for a period's layers under remat: the backward runs the period
+    again), its backward kernel once; flash also once a cross-attention
+    block (twice under remat, with its decoder layer) and once an encoder
+    layer (the encoder runs outside remat), its backward once each."""
     periods = list(cfg.pattern) * cfg.n_periods
     again = 2 if cfg.remat else 1
 
@@ -2969,9 +3066,12 @@ def train_launches(cfg, steps: int, dtype: str) -> dict[str, int]:
         return steps * (again * sum(s.mixer == mixer for s in periods)
                         + sum(s.mixer == mixer for s in cfg.remainder))
     n = mixer_counts(cfg)
+    cross = steps * (again * sum(s.cross_attn for s in periods)
+                     + sum(s.cross_attn for s in cfg.remainder))
     return dict({k: 0 for k in KERNELS},
-                **{f"flash_attention_{dtype}": fwd("attn"),
-                   f"flash_attention_bwd_{dtype}": steps * n["attn"],
+                **{f"flash_attention_{dtype}": fwd("attn") + cross + steps * n["encoder"],
+                   f"flash_attention_bwd_{dtype}": steps * (n["attn"] + n["cross"]
+                                                            + n["encoder"]),
                    "rwkv6": fwd("rwkv"), "rwkv6_bwd": steps * n["rwkv"],
                    "selective_scan": fwd("mamba"),
                    "selective_scan_bwd": steps * n["mamba"]})
@@ -3025,9 +3125,10 @@ def grad_recorder():
 
 def train_card_vs_cpu(cfg, dev) -> dict:
     """The configuration in float32 (fp32_config: one period at full width,
-    or ``reduced()`` for the Mamba and MoE ones), B = 1, S = 128: one train
-    step's loss and gradients on the card (kernels) against the host CPU
-    (plain versions), same weights; the card's step is the path
+    or ``reduced()`` for the Mamba and MoE ones and whisper), B = 1, S =
+    128 (whisper with its frames from frames_for): one train step's loss
+    and gradients on the card (kernels) against the host CPU (plain
+    versions), same weights; the card's step is the path
     ``lm_train_fp32``, its launch counts read around it."""
     cfg32 = fp32_config(cfg)
     p_dev = lmt.init_params(cfg32, seed=SEED + 1, device=dev)
@@ -3035,6 +3136,9 @@ def train_card_vs_cpu(cfg, dev) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     toks = torch.randint(0, cfg32.vocab_size, (1, 129), generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    frames = frames_for(cfg32, 1, gen)
+    if frames is not None:
+        batch["enc_embeds"] = frames
     step = lmsteps.make_train_step(cfg32, grad_recorder())
     t0 = time.perf_counter()
     reset_launches()
@@ -3065,12 +3169,72 @@ def train_card_vs_cpu(cfg, dev) -> dict:
             "launches": launches, "wall_s": time.perf_counter() - t0}
 
 
+def whisper_train(dev) -> dict:
+    """whisper-large-v3 trained at full width, WHISPER_TRAIN_LAYERS encoder
+    and as many decoder layers, bf16 weights from `init_params(seed)`:
+    LM_TRAIN_STEPS AdamW steps at a constant WHISPER_TRAIN_LR through
+    `make_train_step` on one (WHISPER_BATCH, WHISPER_TOKENS) batch with
+    (WHISPER_BATCH, 1500, 1280) bf16 frames from a seed (the eval cell's
+    batch); every kernel's launch count reset just before and read just
+    after (train_launches: bf16 flash 2 x (self + cross) a decoder layer
+    and 1 an encoder layer forward, 3 a layer pair backward, a step); the
+    losses finite and the last below the first; peak memory and tokens/s."""
+    cfg = dataclasses.replace(ARCHS[WHISPER], n_layers=WHISPER_TRAIN_LAYERS,
+                              encoder=dataclasses.replace(ARCHS[WHISPER].encoder,
+                                                          n_layers=WHISPER_TRAIN_LAYERS))
+    params = lmt.init_params(cfg, seed=SEED, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    stream = make_token_stream(cfg.vocab_size, 4 * WHISPER_BATCH * (WHISPER_TOKENS + 1),
+                               seed=SEED)
+    x, y = next(batch_stream(stream, WHISPER_BATCH, WHISPER_TOKENS, 1, seed=SEED))
+    batch = {"tokens": torch.from_numpy(x).long().to(dev),
+             "labels": torch.from_numpy(y).long().to(dev),
+             "enc_embeds": frames_for(cfg, WHISPER_BATCH,
+                                      torch.Generator(device=dev).manual_seed(SEED))}
+    opt = topt.adamw(WHISPER_TRAIN_LR)
+    step = lmsteps.make_train_step(cfg, opt)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls = [], []
+    reset_launches()
+    for _ in range(LM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, params, state = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: train losses {losses}")
+    want = train_launches(cfg, LM_TRAIN_STEPS, "bf16")
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: train launches {launches}, expected {want}")
+    p50 = float(np.median(walls))
+    del params, state, step, batch
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "encoder_layers": cfg.encoder.n_layers,
+            "full_depth": cfg.n_layers == ARCHS[WHISPER].n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size, "param_dtype": cfg.param_dtype,
+            "n_params": n_params, "remat": cfg.remat, "layers": mixer_counts(cfg),
+            "frames": cfg.encoder.n_frames, "frame_dtype": "bfloat16",
+            "batch": WHISPER_BATCH, "seq": WHISPER_TOKENS, "steps": LM_TRAIN_STEPS,
+            "lr": WHISPER_TRAIN_LR,
+            "optimizer": "adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)",
+            "losses": losses, "step_wall_s": walls, "step_wall_s_p50": p50,
+            "tokens_per_s": WHISPER_BATCH * WHISPER_TOKENS / p50, "peak_gb": peak_gb,
+            "launches": launches}
+
+
 def lm_train_phase(dev) -> dict:
     out = {}
     for name, n in LM_TRAIN_CONFIGS:
         cfg = dataclasses.replace(ARCHS[name], n_layers=n)
         out[name] = lm_train_config(cfg, dev)
         out[name]["card_vs_cpu"] = train_card_vs_cpu(cfg, dev)
+    out[WHISPER] = whisper_train(dev)
+    out[WHISPER]["card_vs_cpu"] = train_card_vs_cpu(ARCHS[WHISPER], dev)
     for name in LM_TRAIN_FP32_ONLY:
         out[name] = {"card_vs_cpu": train_card_vs_cpu(ARCHS[name], dev)}
     return out
@@ -3371,7 +3535,8 @@ def main() -> int:
         print(log.read_text().strip(), flush=True)
     gated = check_no_spills()
 
-    res: dict = {"backward_spills": dict(report_spills(), **gated)}
+    res: dict = {"backward_spills": dict(report_spills(), **gated,
+                                         kernels=check_no_spill_kernels())}
     t0 = time.perf_counter()
     res["floors"] = launch_floors_us(torch.empty(128 << 20, dtype=torch.uint8,
                                                  device=dev))
@@ -3480,7 +3645,7 @@ def kernel_entries(res: dict) -> list[dict]:
     wkv_bwd_row, wkv_bwd_checks = res["wkv_bwd"]
     spills = res["backward_spills"]
 
-    def flash_bwd(dt, main_path, tolerance):
+    def flash_bwd(dt, main_path, tolerance, **extra):
         checks = {w: c for w, c in flash_bwd_checks.items() if w.endswith(dt)}
         main = max(c["max_abs_err"] for w, c in checks.items() if w.startswith("main"))
         row, causal = flash_bwd_rows[dt]
@@ -3497,8 +3662,7 @@ def kernel_entries(res: dict) -> list[dict]:
                      library_causal_backend=causal.get("library_causal_backend"),
                      bound_cuda_cores_ms=us_to_ms(row, "bound_cuda_cores_us"),
                      ptxas_spill_stores=spills[source],
-                     shapes=flash_bwd_rows[dt], checks=checks,
-                     whisper_shapes=flash_bwd_rows.get(f"{dt}_whisper"))
+                     shapes=flash_bwd_rows[dt], checks=checks, **extra)
 
     # the shapes only the baselines' and the paper's paths give the kernels
     new = res["table2_shapes"]
@@ -3563,9 +3727,25 @@ def kernel_entries(res: dict) -> list[dict]:
                             "t16": wkv_row["t16"]}),
         flash_bwd("bf16", "lm_train",
                   {"rtol": FLASH_RTOL_BF16, "atol_of_max": FLASH_BWD_ATOL_BF16,
-                   "against": "float32 plain backward, per element"}),
+                   "against": "float32 plain backward, per element"},
+                  # whisper-large-v3's three attention shapes at hd 64 (the
+                  # hd-64 kernels, bwd_sm90_plan), 32 launches each a train
+                  # step at full depth
+                  whisper_shapes={what: dict(row, ms=row["kernel_us"] / 1e3,
+                                             plain_ms=row["plain_us"] / 1e3,
+                                             bound_ms=row["bound_us"] / 1e3,
+                                             library_ms=row["library_us"] / 1e3)
+                                  for what, row in flash_bwd_rows["bf16_whisper"].items()},
+                  hd64_kernels_ptxas=spills["kernels"],
+                  whisper_train_launches=res["lm_train"][WHISPER]["launches"]),
         flash_bwd("fp32", "lm_train_fp32",
-                  {"atol_of_max": FLASH_BWD_RTOL_F32, "against": "plain backward"}),
+                  {"atol_of_max": FLASH_BWD_RTOL_F32, "against": "plain backward"},
+                  whisper_cross_shape=dict(
+                      flash_bwd_rows["fp32_whisper_cross"],
+                      ms=flash_bwd_rows["fp32_whisper_cross"]["kernel_us"] / 1e3,
+                      plain_ms=flash_bwd_rows["fp32_whisper_cross"]["plain_us"] / 1e3,
+                      bound_ms=flash_bwd_rows["fp32_whisper_cross"]["bound_us"] / 1e3,
+                      library_ms=flash_bwd_rows["fp32_whisper_cross"]["library_us"] / 1e3)),
         entry("rwkv6_bwd", "rwkv6_scan_bwd.cu", "src/repro/kernels/rwkv6_scan.py:45",
               "lm_train", wkv_bwd_row,
               wkv_bwd_checks["main (2, 40, 4096, 64), strong decays, s0 and dS_T"][

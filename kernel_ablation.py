@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Time three of the port's kernels against variants of their own sources
+"""Time four of the port's kernels against variants of their own sources
 on one NVIDIA GPU, each variant undoing one design step or trying one
 alternative, and read jamba's decode-vs-forward error with each kernel
 swapped in turn.
 
-    python3 kernel_ablation.py [flash] [scan] [scan_bwd] [parity]
+    python3 kernel_ablation.py [flash] [flash_bwd] [scan] [scan_bwd] [parity]
 
 The kernels are the bf16 flash forward at head_dim <= 128
 (`csrc/flash_attention_sm90.cu`: `flash_sm90_hd64_kernel` for hd <= 64,
-`flash_sm90_narrow_kernel` for hd 65 .. 128), Mamba's selective scan
-(`csrc/selective_scan.cu`) and its backward (`csrc/selective_scan_bwd.cu`).
+`flash_sm90_narrow_kernel` for hd 65 .. 128), the bf16 flash backward at
+head_dim <= 64 (`csrc/flash_attention_bwd_sm90.cu`: `dkdv_hd64_kernel` and
+`dq_hd64_kernel`), Mamba's selective scan (`csrc/selective_scan.cu`) and
+its backward (`csrc/selective_scan_bwd.cu`).
 Each variant is the committed source with one text substitution
 (ABLATIONS) that undoes one design step or tries one alternative, built
 with `nvcc` like the source itself into `build/ablation/` (each compiler
@@ -18,7 +20,9 @@ longer matches.  Variants marked `diagnostic` compute a wrong result on
 purpose (they show where the time goes) and are not checked; every other
 variant is held to the check its kernel is held to in `chip_smoke.py`,
 with its tolerances (flash per element within FLASH_RTOL_BF16 |want| +
-FLASH_TOL_F32 of the float32 plain version; the scan within SCAN_RTOL
+FLASH_TOL_F32 of the float32 plain version; its backward per element
+within FLASH_RTOL_BF16 |want| + FLASH_BWD_ATOL_BF16 max |want| of the
+float32 plain backward; the scan within SCAN_RTOL
 max(1, max |want|) of the plain version; its backward by
 `chip_smoke.scan_bwd_shares` against the plain backward).  Times are
 `chip_smoke.median_us` medians (CUDA events, each call after a 128 MiB
@@ -36,7 +40,15 @@ columns).  The flash variants of the hd-64 kernel: its earlier path (the
 narrow kernel at hd 64), one CTA an SM, each tile's S issued in turn,
 the idle warpgroup kept, one or four partial chains, 128-key tiles, no
 slack before the exponent reference moves; the diagnostic ones drop P's
-low term, the softmax or the exponentials.
+low term, the softmax or the exponentials.  The flash backward's, at
+whisper's three shapes from the forward kernel's L: the hd-64 pair's dK /
+dV, dQ and delta launches timed apart (diagnostic: the others removed);
+the template at hd 64 (dkdv_kernel<1> / dq_kernel<1>, the earlier path)
+and, on it, (a) its dV / dK wgmmas without their runtime condition, (b)
+without the barrier after each tile, (c) at two CTAs an SM, and its dK /
+dV and dQ launches apart; on the pair, one dQ CTA an SM, K and V read
+from shared memory by every tile's products, three stages; the diagnostic
+ones drop the low terms of P and dS or the exponentials.
 
 The parity witness runs `chip_smoke.py`'s decode-vs-forward check of
 jamba (4 layers at full width, its 32 tokens) on PARITY_SEEDS weight seeds
@@ -72,6 +84,7 @@ from repro_torch.models import transformer as lmt
 OUT = Path(__file__).resolve().parent / "build" / "ablation"
 FLASH, SCAN, SCAN_BWD = ("flash_attention_sm90.cu", "selective_scan.cu",
                          "selective_scan_bwd.cu")
+FLASH_BWD = "flash_attention_bwd_sm90.cu"
 # the warpgroups taking turns to start their products (FA3's ping-pong, as
 # in flash_sm90_kernel), put back into the narrow kernel
 _TURNS = ('  auto my_turn = [&]() { asm volatile("bar.sync %0, 256;\\n" ::"r"(3 + cw) '
@@ -322,6 +335,68 @@ ABLATIONS[SCAN_BWD] = {
                            "    cp_async_wait_all();                    // chunk c - 1's copies "
                            "are in\n")]),
 }
+# the bf16 flash backward at hd <= 64: the hd-64 pair, and the template
+# (dkdv_kernel<1> / dq_kernel<1>, the earlier path) at hd 64 with each of
+# its costs removed in turn; each pair's dK / dV and dQ kernels timed apart
+_TEMPLATE_AT_HD64 = [
+    ("    c = {(const void*)dkdv_hd64_kernel, (int)Kv64Smem::bytes, (const void*)dq_hd64_kernel,\n"
+     "         (int)Q64Smem::bytes, kKeys64};\n"
+     "    if (m) c.kk = &m->k128, c.kv = &m->v128, c.qk = &m->k64, c.qv = &m->v64;\n",
+     "    c = {(const void*)dkdv_kernel<1>, (int)KvSmem<1>::bytes, (const void*)dq_kernel<1>,\n"
+     "         (int)QSmem<1>::bytes, kKeys};\n"
+     "    if (m) c.kk = &m->k64, c.kv = &m->v64, c.qk = &m->k32, c.qv = &m->v32;\n")]
+_NO_DQ = [("    cudaLaunchKernel(c.dq, dim3(a.nt, a.Hkv, B), dim3(kThreads), args, c.q_bytes, "
+           "stream);\n", "")]
+_NO_DKDV = [("    cudaLaunchKernel(c.dkdv, dim3((a.Sk + c.keys - 1) / c.keys, a.Hkv, B), "
+             "dim3(kThreads),\n                     args, c.kv_bytes, stream);\n", "")]
+ABLATIONS[FLASH_BWD] = {
+    "dkdv_only": ("the dQ launch: delta and dK / dV alone", True, _NO_DQ),
+    "dq_only": ("the dK / dV launch: delta and dQ alone", True, _NO_DKDV),
+    "delta_only": ("the dK / dV and dQ launches: delta (and the L / Delta tiles) alone",
+                   True, _NO_DQ + _NO_DKDV),
+    "template_at_hd64": (
+        "the hd-64 pair: the template at NCH = 1 (64 keys a dK / dV CTA shared by both "
+        "warpgroups through shared memory, 32-key dQ tiles) runs hd <= 64", False,
+        _TEMPLATE_AT_HD64),
+    "template_dkdv_only": ("the template at hd 64, its dQ launch removed", True,
+                           _TEMPLATE_AT_HD64 + _NO_DQ),
+    "template_dq_only": ("the template at hd 64, its dK / dV launch removed", True,
+                         _TEMPLATE_AT_HD64 + _NO_DKDV),
+    "template_both_warpgroups": (
+        "(a) the template at hd 64 with no runtime condition around its dV / dK wgmmas: "
+        "the second warpgroup runs them on a box past hd", True,
+        _TEMPLATE_AT_HD64 + [("        if (NCH % 2 == 0 || c < NCH) {",
+                              "        if (true) {")]),
+    "template_no_tile_barrier": (
+        "(b) the template at hd 64 without the barrier after each tile's dV / dK (the "
+        "ring refilled while the other warpgroup reads it)", True,
+        _TEMPLATE_AT_HD64 + [("    // both warpgroups are done with stage st and with P^T, "
+                              "dS^T\n    asm volatile(\"bar.sync 1, 256;\\n\" ::: "
+                              "\"memory\");\n", "")]),
+    "template_two_ctas": (
+        "(c) the template at hd 64 at two CTAs an SM (its dK / dV CTA's 80 KB and dQ "
+        "CTA's 48 KB fit twice)", False,
+        _TEMPLATE_AT_HD64 + [
+            ("__global__ void __launch_bounds__(kThreads, 1)\ndkdv_kernel(",
+             "__global__ void __launch_bounds__(kThreads, NCH == 1 ? 2 : 1)\ndkdv_kernel("),
+            ("__global__ void __launch_bounds__(kThreads, 1)\ndq_kernel(",
+             "__global__ void __launch_bounds__(kThreads, NCH == 1 ? 2 : 1)\ndq_kernel(")]),
+    "dq_one_cta": ("two dQ CTAs an SM (at most 128 registers): one", False,
+                   [("constexpr int kDq64CtasPerSm = 2;", "constexpr int kDq64CtasPerSm = 1;")]),
+    "kv_from_shared": ("K and V as S^T's and dP^T's A operand from registers: read from "
+                       "shared memory by every tile's wgmmas", False,
+                       [("    issue_frags64(s, kf, q_st);\n"
+                         "    issue_frags64(dp, vf, g_st);\n",
+                         "    issue_rows64(s, k_rows, q_st);\n"
+                         "    issue_rows64(dp, v_rows, g_st);\n")]),
+    "stages_3": ("two stages of the hd-64 rings: three", False,
+                 [("constexpr int kStages64 = 2;", "constexpr int kStages64 = 3;")]),
+    "one_term": ("the low bf16 terms of P and dS (fails the per-element check)", True,
+                 [("    wgmma_rs_tb(d, lo + 4 * kk, db);\n", "")]),
+    "no_exponentials": ("the exponentials, each replaced by an FMA: the SFUs' share", True,
+                        [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+                          "y = fmaf(x, 0.999f, 1.0f);")]),
+}
 # jamba's attention layer and whisper-large-v3's three: (B, Sq, Sk, Hq, Hkv,
 # hd), causal
 FLASH_SHAPES = {"jamba (2, 4096, 64 / 8, 128) causal": ((2, 4096, 4096, 64, 8, 128), True),
@@ -428,6 +503,49 @@ def flash_rows(libs: dict, flush) -> dict:
     return rows
 
 
+def flash_bwd_rows(libs: dict, flush) -> dict:
+    """Each variant of the bf16 flash backward at whisper's three shapes
+    (chip_smoke.FLASH_WHISPER_SHAPES), from the forward kernel's output and
+    L: checked per element against the float32 plain backward at
+    chip_smoke.py's limits unless diagnostic, timed in turns, with the
+    registers a thread and the spill stores ptxas reports for each kernel
+    instance of its library."""
+    rng = np.random.default_rng(1)
+    rows = {name: {"ptxas": cs.ptxas_entries(_log(lib))} for name, lib in libs.items()}
+    for what, ((B, Sq, Sk, Hq, Hkv, hd), causal) in cs.FLASH_WHISPER_SHAPES.items():
+        q, k, v = cs.qkv(rng, B, Sq, Hq, Hkv, hd, torch.bfloat16, "cuda", Sk=Sk)
+        dout = torch.from_numpy(rng.standard_normal((B, Sq, Hq, hd)).astype(np.float32)
+                                ).to("cuda", torch.bfloat16)
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        want = fa.attention_backward_plain(q.float(), k.float(), v.float(), out.float(),
+                                           dout.float(), causal=causal)
+        limits = [cs.FLASH_RTOL_BF16 * w.abs() + cs.FLASH_BWD_ATOL_BF16 * float(w.abs().max())
+                  for w in want]
+
+        def call():
+            return fa.flash_attention_backward_cuda(q, k, v, out, dout, causal=causal,
+                                                    lse=lse)
+        for name, lib in libs.items():
+            _build._libs[FLASH_BWD] = lib
+            print(f"flash_bwd {name} at {what}", file=sys.stderr, flush=True)
+            got = call()
+            torch.cuda.synchronize()
+            share = max(float(((g.float() - w).abs() / lim).max())
+                        for g, w, lim in zip(got, want, limits))
+            diagnostic = name != "source" and ABLATIONS[FLASH_BWD][name][1]
+            if not diagnostic and not share <= 1.0:
+                raise AssertionError(f"flash backward variant {name} at {what}: an element "
+                                     f"is {share} of its limit")
+            rows[name].setdefault("share_of_limit", {})[what] = share
+        del want, limits, got
+        times = in_turns(libs, FLASH_BWD, call, 10, flush)
+        for name, t in times.items():
+            rows[name].setdefault("us", {})[what] = t
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _log(lib: ctypes.CDLL) -> str:
     """The compiler log (``-Xptxas -v``) written beside a built library."""
     return Path(lib._name).with_suffix(".log").read_text()
@@ -528,8 +646,8 @@ def main() -> int:
     libs = build({src for p in parts for src in PARTS[p]})
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     out = {"device": torch.cuda.get_device_name(0)}
-    for kernel, rows in (("flash", flash_rows), ("scan", scan_rows),
-                         ("scan_bwd", scan_bwd_rows)):
+    for kernel, rows in (("flash", flash_rows), ("flash_bwd", flash_bwd_rows),
+                         ("scan", scan_rows), ("scan_bwd", scan_bwd_rows)):
         if kernel not in parts:
             continue
         src = PARTS[kernel][0]
@@ -550,8 +668,8 @@ def main() -> int:
 
 
 # what each part of the run builds (its variants too)
-PARTS = {"flash": (FLASH,), "scan": (SCAN,), "scan_bwd": (SCAN_BWD,),
-         "parity": (SCAN, FLASH)}
+PARTS = {"flash": (FLASH,), "flash_bwd": (FLASH_BWD,), "scan": (SCAN,),
+         "scan_bwd": (SCAN_BWD,), "parity": (SCAN, FLASH)}
 
 
 if __name__ == "__main__":

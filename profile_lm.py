@@ -21,12 +21,13 @@ activities:
 * ``decode``: DECODE_STEPS `decode_step` calls at B = 2 (whisper: 16)
   against a cache already holding PROMPT tokens (one token each, as
   `greedy_generate` runs them; whisper's cache warmed first);
-* ``train`` (gemma3-4b, rwkv6-3b and jamba at one layer: the MoE models'
-  weights and AdamW state do not fit one card): one `make_train_step` call
-  at B = 2, S = 4096 (AdamW at a constant TRAIN_LR; the forward, its
-  recompute under remat, the backward through the flash / wkv /
-  selective-scan backward kernels, the update), after one unprofiled
-  step.
+* ``train`` (gemma3-4b, rwkv6-3b, jamba at one layer and whisper at 32 +
+  32: the MoE models' weights and AdamW state do not fit one card): one
+  `make_train_step` call at B = 2, S = 4096 (whisper: its eval batch with
+  the frames; AdamW at a constant TRAIN_LR, whisper at chip_smoke's
+  WHISPER_TRAIN_LR; the forward, its recompute
+  under remat, the backward through the flash / wkv / selective-scan
+  backward kernels, the update), after one unprofiled step.
 
 Prints the card's name and power limit, per configuration and path the top
 device activities by device time, and one JSON line ``{"profile_lm":
@@ -75,15 +76,17 @@ CONFIGS = (("gemma3-4b", 6, ALL_PATHS), ("rwkv6-3b", 4, ALL_PATHS),
            ("jamba-1.5-large-398b", 4, INFER_PATHS), ("grok-1-314b", 2, INFER_PATHS),
            ("llama4-maverick-400b-a17b", 2, INFER_PATHS),
            ("jamba-1.5-large-398b", 1, ("train",)),
-           (cs.WHISPER, 32, ("eval", "warm_cache", "decode")))
+           (cs.WHISPER, 32, ("eval", "warm_cache", "decode", "train")))
 BATCH, SEQ = 2, 4096
 PROMPT, DECODE_STEPS = 16, 8
 TRAIN_LR = 1e-3
 # the backward kernels: flash (delta, dK / dV, dQ of
-# csrc/flash_attention_bwd_sm90.cu for bf16 and csrc/flash_attention_bwd.cu
-# for float32), and the wkv's one chunk-parallel kernel
+# csrc/flash_attention_bwd_sm90.cu for bf16, the hd-64 pair among them, and
+# csrc/flash_attention_bwd.cu for float32), and the wkv's one chunk-parallel
+# kernel
 GROUPS = (("flash_attention backward kernels", ("delta_kernel", "dkdv_kernel<",
-                                                "dq_kernel<")),
+                                                "dq_kernel<", "dkdv_hd64_kernel",
+                                                "dq_hd64_kernel")),
           ("rwkv6 wkv backward kernels", ("bwd_chunk_kernel<",)),
           # csrc/selective_scan_bwd.cu's walk and its fixed-order sum
           ("selective scan backward kernels", ("scan_bwd_kernel<",
@@ -227,7 +230,7 @@ def profile_config(name: str, n_layers: int, paths: tuple, dev) -> dict:
         torch.cuda.empty_cache()
         return out
 
-    opt = optim.adamw(TRAIN_LR)
+    opt = optim.adamw(cs.WHISPER_TRAIN_LR if cfg.encoder else TRAIN_LR)
     train = {"step": lmsteps.make_train_step(cfg, opt), "params": params,
              "opt_state": opt.init(params)}
     del params

@@ -5,9 +5,9 @@
 // The gradient of the function that the Pallas TPU kernel `flash_attention`
 // (src/repro/kernels/flash_attention.py) computes forward; the reference has
 // no Pallas backward (JAX differentiates its jnp attention).  For q
-// (B, S, Hq, hd), k and v (B, S, Hkv, hd), query head h reading kv head h / G
-// (G = Hq / Hkv), the forward's output O, its per-row log-sum-exp L and an
-// upstream dO:
+// (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd), query head h reading kv head
+// h / G (G = Hq / Hkv), positions 0 .. Sq - 1 against 0 .. Sk - 1, the
+// forward's output O, its per-row log-sum-exp L and an upstream dO:
 //
 //     s_ij = q_i . k_j / sqrt(hd)       masked unless j <= i (causal) and
 //                                       i - j < window (window > 0)
@@ -18,7 +18,10 @@
 // with dk and dv of a kv head summed over the G query heads that read it.
 // L comes from the forward kernel (csrc/flash_attention.cu writes it when
 // given an `lse` buffer), in log2 units of the scaled scores, so P is one
-// ex2 and no launch here recomputes it.
+// ex2 and no launch here recomputes it.  Sq != Sk is the decoder's
+// cross-attention.  A row whose window closes before the keys reach it
+// (only where Sq > Sk) was the mean of v forward: its P is 1 / Sk on every
+// key, as the plain backward's (the softmax of Sk equal masked scores).
 //
 // Precision: 3xTF32, the forward's scheme.  Every operand x of the five
 // products (S = Q K^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K)
@@ -30,7 +33,7 @@
 //
 // Design: three launches on one stream, no atomics (each output element is
 // written once, by one block, so the result does not depend on scheduling):
-//   1. delta_kernel: Delta = rowsum(dO * O), a warp a row, float32 (B, Hq, S)
+//   1. delta_kernel: Delta = rowsum(dO * O), a warp a row, float32 (B, Hq, Sq)
 //      scratch.  Bytes-bound: it reads dO and O once.
 //   2. dkdv_kernel: one block of 8 warps per (b, kv head, KT keys): KG
 //      groups of 16 keys x DS slices of the head dims (KT = 32, DS = 4 at
@@ -65,8 +68,8 @@
 // Tiles that the causal or window mask empties are never loaded: each block
 // walks its live range only, and the blocks with the most tiles start first
 // (the first key tiles, the last query tiles; the tile index is the slowest
-// of the block index).  Copies zero-fill positions past S, head dims past hd
-// and rows past the group's heads, which the mask drops.
+// of the block index).  Copies zero-fill positions past Sq or Sk, head dims
+// past hd and rows past the group's heads, which the mask drops.
 //
 // Accumulation.  The tensor cores' float32 accumulation truncates: summed
 // straight in the mma accumulator over the 8192 rows that see the first key
@@ -91,8 +94,8 @@
 // TF32 below the rate wgmma reaches, and the splits, loads and barriers
 // between the mmas hold the kernel further below the bound.
 // q, k and v are read through their strides (unit stride over hd, rows on 16
-// bytes: the wrapper checks); O, dO and dq are (B, S, Hq, hd) contiguous, dk
-// and dv (B, S, Hkv, hd) contiguous; L and Delta (B, Hq, S) float32.
+// bytes: the wrapper checks); O, dO and dq are (B, Sq, Hq, hd) contiguous,
+// dk and dv (B, Sk, Hkv, hd) contiguous; L and Delta (B, Hq, Sq) float32.
 // hd is padded to the instance D in {32, 64, 128, 256}.
 //
 // Bound on the H100: operations.  The gradient needs five products of 2 hd
@@ -118,14 +121,15 @@ struct Args {
   const float* v;
   const float* o;
   const float* dout;
-  const float* lse;                         // (B, Hq, S): L in log2 units
+  const float* lse;                         // (B, Hq, Sq): L in log2 units
   float* dq;
   float* dk;
   float* dv;
-  float* delta;                             // (B, Hq, S)
-  int B, S, Hq, Hkv, hd, G, causal, window;
+  float* delta;                             // (B, Hq, Sq)
+  int B, Sq, Sk, Hq, Hkv, hd, G, causal, window;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float scale;                              // 1 / sqrt(hd)
+  float inv_sk;                             // 1 / Sk: P of a row with no live key
 };
 
 // The tiles of the instance for head dimension D, and its shared memory
@@ -318,10 +322,22 @@ __device__ __forceinline__ void mma_rows(float (&acc)[M][N][4], const float* con
 }
 
 __device__ __forceinline__ bool live_pair(const Args& a, int qp, int kp) {
-  bool ok = kp < a.S;
+  bool ok = kp < a.Sk;
   if (a.causal) ok = ok && kp <= qp;
   if (a.window > 0) ok = ok && qp - kp < a.window;
   return ok;
+}
+
+// whether the row at position qp (< Sq) has no live key: its window closes
+// before the keys reach it (only where Sq > Sk)
+__device__ __forceinline__ bool dead_row(const Args& a, int qp) {
+  return a.window > 0 && qp - a.window + 1 > a.Sk - 1;
+}
+
+// P of a pair the mask drops: 1 / Sk on the keys of a row with no live key
+// (the forward's mean of v), else 0
+__device__ __forceinline__ float dropped_p(const Args& a, int qp, int kp) {
+  return kp < a.Sk && dead_row(a, qp) ? a.inv_sk : 0.f;
 }
 
 // ------------------------------------------------------------------------
@@ -341,16 +357,16 @@ __global__ void __launch_bounds__(256) delta_kernel(const Args a, long long rows
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
-    const long long bs = row / a.Hq;              // b * S + position
+    const long long bs = row / a.Hq;              // b * Sq + position
     const int h = (int)(row - bs * a.Hq);
-    const long long b = bs / a.S;
-    a.delta[(b * a.Hq + h) * a.S + (bs - b * a.S)] = acc;
+    const long long b = bs / a.Sq;
+    a.delta[(b * a.Hq + h) * a.Sq + (bs - b * a.Sq)] = acc;
   }
 }
 
 // Rows [0, n) of a query-side tile into shared memory (row stride ST): row
 // r is position p0 + r / G, head hk G + r % G; q through its strides (dout
-// false) or dO, contiguous (dout true); zero past the group's rows, S and hd.
+// false) or dO, contiguous (dout true); zero past the group's rows, Sq and hd.
 template <int D>
 __device__ __forceinline__ void copy_rows(const Args& a, bool dout, int b, int hk, int p0,
                                           int nrows, int n, float* dst) {
@@ -358,16 +374,16 @@ __device__ __forceinline__ void copy_rows(const Args& a, bool dout, int b, int h
   for (int e = threadIdx.x; e < n * C::DC; e += kThreads) {
     const int r = e / C::DC, d = (e - r * C::DC) * 4;
     const int pos = p0 + r / a.G, head = hk * a.G + r % a.G;
-    const bool live = r < nrows && pos < a.S && d < a.hd;
+    const bool live = r < nrows && pos < a.Sq && d < a.hd;
     const float* src = !live ? a.q
-                       : dout ? a.dout + (((long long)b * a.S + pos) * a.Hq + head) * a.hd + d
+                       : dout ? a.dout + (((long long)b * a.Sq + pos) * a.Hq + head) * a.hd + d
                               : a.q + b * a.q_sb + (long long)pos * a.q_ss +
                                     (long long)head * a.q_sh + d;
     cp_async16(dst + r * C::ST + d, src, live ? 16 : 0);
   }
 }
 
-// Keys [j0, j0 + n) of k or v into shared memory, zero past S and hd, by
+// Keys [j0, j0 + n) of k or v into shared memory, zero past Sk and hd, by
 // `count` threads of which this is number `t`
 template <int D>
 __device__ __forceinline__ void copy_keys(const Args& a, const float* x, long long sb,
@@ -377,7 +393,7 @@ __device__ __forceinline__ void copy_keys(const Args& a, const float* x, long lo
   for (int e = t; e < n * C::DC; e += count) {
     const int j = e / C::DC, d = (e - j * C::DC) * 4;
     const int kp = j0 + j;
-    const bool live = kp < a.S && d < a.hd;
+    const bool live = kp < a.Sk && d < a.hd;
     const float* src = live ? x + b * sb + (long long)kp * ss + hk * sh + d : x;
     cp_async16(dst + j * C::ST + d, src, live ? 16 : 0);
   }
@@ -413,9 +429,13 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args a) {
   const int col3 = (warp / C::MG) * C::N3 * 8;        // ... and head dims
   const int qt = C::R / a.G;                // positions a query tile
   const int nrows = qt * a.G;
-  const int j_hi = min(j0 + C::KT, a.S) - 1;
+  // the query rows that see these keys: from the diagonal (causal) to the
+  // window's end, or to Sq - 1 where the last rows have no live key (they
+  // see every key)
+  const int j_hi = min(j0 + C::KT, a.Sk) - 1;
   const int q_lo = a.causal ? j0 : 0;
-  const int q_hi = a.window > 0 ? min(a.S - 1, j_hi + a.window - 1) : a.S - 1;
+  const int q_hi = a.window > 0 && !dead_row(a, a.Sq - 1)
+                       ? min(a.Sq - 1, j_hi + a.window - 1) : a.Sq - 1;
   const int tq_lo = q_lo / qt, tq_hi = q_hi / qt;
 
   // dO, L and Delta of query tile tq: one commit group; its Q: the next
@@ -424,8 +444,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args a) {
     copy_rows<D>(a, true, b, hk, p0, nrows, C::R, Gs);
     if (tid < C::R) {
       const int pos = p0 + tid / a.G, head = hk * a.G + tid % a.G;
-      const bool live = tid < nrows && pos < a.S;
-      const long long at = live ? ((long long)b * a.Hq + head) * a.S + pos : 0;
+      const bool live = tid < nrows && pos < a.Sq;
+      const long long at = live ? ((long long)b * a.Hq + head) * a.Sq + pos : 0;
       cp_async4(Ls + tid, a.lse + at, live ? 4 : 0);
       cp_async4(Dt + tid, a.delta + at, live ? 4 : 0);
     }
@@ -514,8 +534,9 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args a) {
         const int kp = j0 + key0 + g + 8 * (x >> 1);
         const int r = n * 8 + 2 * tg + (x & 1);
         const int pos = p0 + r / a.G;
-        const bool ok = r < nrows && pos < a.S && live_pair(a, pos, kp);
-        p[x] = ok ? exp2f(s * scale2 - Ls[r]) : 0.f;
+        const bool row = r < nrows && pos < a.Sq;
+        p[x] = row && live_pair(a, pos, kp) ? exp2f(s * scale2 - Ls[r])
+               : row ? dropped_p(a, pos, kp) : 0.f;
         ds[x] = p[x] * (dp - Dt[r]);
       }
       const int i = (key0 + g) * C::XS + n * 8 + 2 * tg;
@@ -559,14 +580,15 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args a) {
       }
     }
   }
+  cp_async_wait<0>();                       // no tile (causal keys past Sq): the first copies
 
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int kp = j0 + key3 + mt * 16 + g + 8 * x;
-      if (kp >= a.S) continue;
-      const long long row = (((long long)b * a.S + kp) * a.Hkv + hk) * a.hd;
+      if (kp >= a.Sk) continue;
+      const long long row = (((long long)b * a.Sk + kp) * a.Hkv + hk) * a.hd;
 #pragma unroll
       for (int n = 0; n < C::N3; ++n) {
         const int d = col3 + n * 8 + 2 * tg;
@@ -597,9 +619,9 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const Args a) {
   const int tile = blockIdx.x / heads, hb = blockIdx.x - tile * heads;
   const int b = hb / a.Hkv, hk = hb - b * a.Hkv;
   const int qt = C::RQ / a.G;
-  const int nq = (a.S + qt - 1) / qt;
+  const int nq = (a.Sq + qt - 1) / qt;
   const int p0 = (nq - 1 - tile) * qt;
-  const int p_hi = min(p0 + qt, a.S) - 1;
+  const int p_hi = min(p0 + qt, a.Sq) - 1;
   const int nrows = qt * a.G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tg = lane & 3;
@@ -611,8 +633,10 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const Args a) {
   const int key1 = (warp & 1) * (C::KQ / 2);
   const int row3 = (warp % C::MQ) * C::M3 * 16;   // dQ: the warp's rows
   const int col3 = (warp / C::MQ) * C::NO * 8;    // ... and head dims
-  const int kv_lo = a.window > 0 ? max(0, p0 - a.window + 1) : 0;
-  const int kv_hi = a.causal ? p_hi : a.S - 1;
+  // the live kv range, or every key where the last row has none live
+  const bool dead = dead_row(a, p_hi);
+  const int kv_lo = a.window > 0 && !dead ? max(0, p0 - a.window + 1) : 0;
+  const int kv_hi = a.causal && !dead ? min(p_hi, a.Sk - 1) : a.Sk - 1;
   const int t_lo = kv_lo / C::KQ, t_hi = kv_hi / C::KQ;
   const float* As = is_dp ? Gs : Qs;
   float* Bs = is_dp ? Vs : Ks;
@@ -638,8 +662,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const Args a) {
     for (int y = 0; y < 2; ++y) {
       const int r = row1 + 16 * m + g + 8 * y;
       pos[m][y] = p0 + r / a.G;
-      live[m][y] = r < nrows && pos[m][y] < a.S;
-      const long long at = ((long long)b * a.Hq + hk * a.G + r % a.G) * a.S + pos[m][y];
+      live[m][y] = r < nrows && pos[m][y] < a.Sq;
+      const long long at = ((long long)b * a.Hq + hk * a.G + r % a.G) * a.Sq + pos[m][y];
       lse[m][y] = live[m][y] && !is_dp ? a.lse[at] : 0.f;
       dlt[m][y] = live[m][y] && !is_dp ? a.delta[at] : 0.f;
     }
@@ -720,9 +744,10 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const Args a) {
           for (int x = 0; x < 4; ++x) {
             const int y = x >> 1;
             const int kp = t * C::KQ + key1 + n * 8 + 2 * tg + (x & 1);
-            const bool ok = live[m][y] && live_pair(a, pos[m][y], kp);
             const float s = part[0][m][n][x] + part[1][m][n][x];
-            const float p = ok ? exp2f(s * scale2 - lse[m][y]) : 0.f;
+            const float p = !live[m][y] ? 0.f
+                            : live_pair(a, pos[m][y], kp) ? exp2f(s * scale2 - lse[m][y])
+                                                          : dropped_p(a, pos[m][y], kp);
             ds[x] = p * (Xs[i + 8 * C::QX * y + (x & 1)] - dlt[m][y]);
           }
           *reinterpret_cast<float2*>(Xs + i) = make_float2(ds[0], ds[1]);
@@ -747,8 +772,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const Args a) {
     for (int x = 0; x < 2; ++x) {
       const int r = row3 + m * 16 + g + 8 * x;
       const int p = p0 + r / a.G;
-      if (r >= nrows || p >= a.S) continue;
-      float* dst = a.dq + (((long long)b * a.S + p) * a.Hq + hk * a.G + r % a.G) * a.hd;
+      if (r >= nrows || p >= a.Sq) continue;
+      float* dst = a.dq + (((long long)b * a.Sq + p) * a.Hq + hk * a.G + r % a.G) * a.hd;
 #pragma unroll
       for (int n = 0; n < C::NO; ++n) {
         const int d = col3 + n * 8 + 2 * tg;
@@ -769,36 +794,37 @@ int launch(const Args& a, int B, cudaStream_t stream) {
     err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::q_bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)B * a.S * a.Hq;
+  const long long rows = (long long)B * a.Sq * a.Hq;
   delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(a, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // one-dimensional grids, the tile index the slowest (see the kernels)
-  const int nk = (a.S + C::KT - 1) / C::KT;
+  const int nk = (a.Sk + C::KT - 1) / C::KT;
   dkdv_kernel<D><<<(unsigned)((long long)nk * a.Hkv * B), kThreads, C::kv_bytes, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int qt = C::RQ / a.G, nq = (a.S + qt - 1) / qt;
+  const int qt = C::RQ / a.G, nq = (a.Sq + qt - 1) / qt;
   dq_kernel<D><<<(unsigned)((long long)nq * a.Hkv * B), kThreads, C::q_bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, S, Hq, hd), k and v (B, S, Hkv, hd), float32, each with unit stride
-// over hd, the given element strides over (b, s, h), and every row on 16
-// bytes; out, dout and dq (B, S, Hq, hd) and dk, dv (B, S, Hkv, hd)
-// contiguous float32; lse (B, Hq, S) float32 from the forward kernel; delta
-// (B, Hq, S) float32 scratch.  Three launches on `stream`; returns the first
-// cudaGetLastError() that is not 0 (0 on success).
+// q (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd), float32, each with unit
+// stride over hd, the given element strides over (b, s, h), and every row on
+// 16 bytes; out, dout and dq (B, Sq, Hq, hd) and dk, dv (B, Sk, Hkv, hd)
+// contiguous float32; lse (B, Hq, Sq) float32 from the forward kernel;
+// delta (B, Hq, Sq) float32 scratch.  Three launches on `stream`; returns
+// the first cudaGetLastError() that is not 0 (0 on success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out, const void* dout,
-    const void* lse, void* dq, void* dk, void* dv, void* delta, int B, int S, int Hq,
-    int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    const void* lse, void* dq, void* dk, void* dv, void* delta, int B, int Sq, int Sk,
+    int Hq, int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     int causal, int window, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 16 || hd <= 0 ||
-      hd % 4 != 0 || hd > 256 || lse == nullptr ||
-      // the dQ grid, the larger: B Hkv ceil(S / qt) blocks, qt >= 4
-      (long long)B * Hkv * ((S + 3) / 4) > 2147483647LL)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 16 ||
+      hd <= 0 || hd % 4 != 0 || hd > 256 || lse == nullptr ||
+      // the grids: B Hkv ceil(Sq / qt) dQ blocks, qt >= 4; B Hkv ceil(Sk / 32)
+      (long long)B * Hkv * ((Sq + 3) / 4) > 2147483647LL ||
+      (long long)B * Hkv * ((Sk + 31) / 32) > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = static_cast<const float*>(q);
@@ -812,7 +838,8 @@ extern "C" int flash_attention_bwd_launch(
   a.dv = static_cast<float*>(dv);
   a.delta = static_cast<float*>(delta);
   a.B = B;
-  a.S = S;
+  a.Sq = Sq;
+  a.Sk = Sk;
   a.Hq = Hq;
   a.Hkv = Hkv;
   a.hd = hd;
@@ -829,6 +856,7 @@ extern "C" int flash_attention_bwd_launch(
   a.v_ss = v_ss;
   a.v_sh = v_sh;
   a.scale = scale;
+  a.inv_sk = 1.f / (float)Sk;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd <= 32) return launch<32>(a, B, s);
   if (hd <= 64) return launch<64>(a, B, s);

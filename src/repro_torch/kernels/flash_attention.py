@@ -27,16 +27,17 @@ the output (and, for CUDA tensors, each row's log-sum-exp L, which the
 forward kernel writes), and its backward gives dq, dk, dv from them and dO
 — :func:`attention_backward_plain` for CPU tensors (scores materialised in
 float32), :func:`flash_attention_backward_cuda` for CUDA tensors, both
-dtypes in three launches (dO . O, then dK / dV per kv tile summed over the
-query heads of its group inside the block, then dQ per query tile) with the
-forward's L: bf16 goes to ``csrc/flash_attention_bwd_sm90.cu`` (every
-product on wgmma, P and dS in two bf16 terms), float32 to
-``csrc/flash_attention_bwd.cu`` (every product on mma.sync in 3xTF32, P
-and dS split like the inputs); neither uses atomics.
-``repro_torch.kernels.ops.attention`` goes through the Function
-on both devices: plain forward and plain backward for CPU tensors, kernel
-forward and kernel backward for CUDA tensors, which launch or raise; there
-is no fallback.
+dtypes at any Sq and Sk in three launches (dO . O, then dK / dV per kv tile
+summed over the query heads of its group inside the block, then dQ per
+query tile) with the forward's L: bf16 goes to
+``csrc/flash_attention_bwd_sm90.cu`` (every product on wgmma, P and dS in
+two bf16 terms; at head_dim <= 64 a pair of kernels of its own,
+:func:`bwd_sm90_plan`), float32 to ``csrc/flash_attention_bwd.cu`` (every
+product on mma.sync in 3xTF32, P and dS split like the inputs); neither
+uses atomics.  ``repro_torch.kernels.ops.attention`` goes through the
+Function on both devices: plain forward and plain backward for CPU
+tensors, kernel forward and kernel backward for CUDA tensors, which launch
+or raise; there is no fallback.
 """
 from __future__ import annotations
 
@@ -63,14 +64,15 @@ _KERNELS = {torch.float32: ("flash_attention.cu", "flash_attention_launch", _ARG
                              _ARGS_SM90)}
 # the backward kernels, float32 csrc/flash_attention_bwd.cu and bf16
 # csrc/flash_attention_bwd_sm90.cu: q, k, v, out, dout, the forward's lse,
-# dq, dk, dv, delta scratch; B, S, Hq, Hkv, hd; q, k, v's nine strides;
-# causal, window, scale, stream
-_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+# dq, dk, dv, delta scratch; B, Sq, Sk, Hq, Hkv, hd; q, k, v's nine strides;
+# causal, window, scale, (bf16: the plan's kernel, bwd_sm90_plan,) stream
+_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGS_SM90 = _BWD_ARGS[:-1] + [ctypes.c_int] + _BWD_ARGS[-1:]
 _BWD_KERNELS = {
     torch.float32: ("flash_attention_bwd.cu", "flash_attention_bwd_launch", _BWD_ARGS),
     torch.bfloat16: ("flash_attention_bwd_sm90.cu", "flash_attention_bwd_sm90_launch",
-                     _BWD_ARGS)}
+                     _BWD_ARGS_SM90)}
 
 # Launches since the last reset (set them to 0): of the float32 kernel
 # (csrc/flash_attention.cu), of the bf16 tensor-core kernel
@@ -127,6 +129,59 @@ def sm90_occupancy(hd: int) -> dict:
         raise RuntimeError(f"{plan.name} fits {ctas.value} CTAs an SM at {regs.value} "
                            f"registers a thread, not the {plan.ctas_per_sm} it is laid out for")
     return {"kernel": plan.name, "registers": regs.value, "ctas_per_sm": ctas.value}
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdSm90Plan:
+    """Which kernels of ``csrc/flash_attention_bwd_sm90.cu`` take a bf16
+    backward: ``kernel`` is the launcher's number for them, ``dkdv`` and
+    ``dq`` the dK / dV and dQ kernels' names, ``ctas_per_sm`` the CTAs an SM
+    each is laid out for (dK / dV, dQ)."""
+    name: str
+    kernel: int
+    dkdv: str
+    dq: str
+    ctas_per_sm: tuple[int, int]
+
+
+def bwd_sm90_plan(hd: int) -> BwdSm90Plan:
+    """The bf16 backward kernels for head_dim ``hd``: up to 64 the hd-64
+    pair (each warpgroup owns 64 keys of a 128-key dK / dV CTA and feeds P^T
+    and dS^T to its products from registers; dQ over 64-key tiles); above,
+    the template at ceil(hd / 64) head-dim boxes (64 keys a dK / dV CTA
+    shared by both warpgroups through shared memory; dQ over 32-key
+    tiles)."""
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"the bf16 flash backward takes head_dim 1..{MAX_HEAD_DIM}, got {hd}")
+    if hd <= 64:
+        return BwdSm90Plan("flash_bwd_hd64", 0, "dkdv_hd64_kernel", "dq_hd64_kernel", (1, 2))
+    nch = (hd + 63) // 64
+    return BwdSm90Plan(f"flash_bwd<{nch}>", 1, f"dkdv_kernel<{nch}>", f"dq_kernel<{nch}>",
+                       (1, 1))
+
+
+def bwd_sm90_occupancy(hd: int) -> dict:
+    """The registers a thread and the CTAs an SM of the built dK / dV and dQ
+    kernels that run a bf16 backward at head_dim ``hd`` (the runtime's
+    occupancy with their shared memory); raises if either's CTAs an SM are
+    not its plan's.  Needs the card."""
+    plan = bwd_sm90_plan(hd)
+    fn = _build.load(_BWD_KERNELS[torch.bfloat16][0]).flash_attention_bwd_sm90_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {"kernel": plan.name}
+    for which, (name, want) in enumerate(zip((plan.dkdv, plan.dq), plan.ctas_per_sm)):
+        regs, ctas = ctypes.c_int(), ctypes.c_int()
+        err = fn(plan.kernel, hd, which, ctypes.byref(regs), ctypes.byref(ctas))
+        if err:
+            raise RuntimeError(f"flash_attention_bwd_sm90_occupancy failed: CUDA error {err}")
+        if ctas.value != want:
+            raise RuntimeError(f"{name} fits {ctas.value} CTAs an SM at {regs.value} "
+                               f"registers a thread, not the {want} it is laid out for")
+        out[("dkdv", "dq")[which]] = {"name": name, "registers": regs.value,
+                                      "ctas_per_sm": ctas.value}
+    return out
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -228,6 +283,18 @@ def _launcher(kernels: dict, dtype: torch.dtype):
     return fn
 
 
+def _bwd_sm90_scratch(B: int, Sq: int, Hq: int, Hkv: int, kernel: int) -> int:
+    """The floats of the delta scratch the bf16 backward launcher takes."""
+    fn = _build.load(_BWD_KERNELS[torch.bfloat16][0]).flash_attention_bwd_sm90_scratch
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    n = fn(B, Sq, Hq, Hkv, kernel)
+    if n <= 0:
+        raise ValueError(f"flash_attention_backward_cuda: no scratch for B={B}, Sq={Sq}, "
+                         f"Hq={Hq}, Hkv={Hkv}")
+    return n
+
+
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> None:
     """What the kernels (forward and backward) take, at any Sq and Sk;
     raises on anything else, whatever the device, and then on tensors not
@@ -264,7 +331,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Sq, Hq, hd) contiguous in q's dtype.  With ``return_lse`` it
     returns (out, lse): each row's log-sum-exp of the scaled scores in log2
     units, float32 (B, Hq, Sq), which the backward kernel of the same dtype
-    takes (at Sq == Sk); without, the kernel writes no L.
+    takes; without, the kernel writes no L.
     q, k and v are read through their strides (unit stride over hd and rows
     on 16 bytes required: the kernels copy 16 bytes or TMA boxes).  Raises
     on anything the kernels do not take (whatever the device), on tensors
@@ -303,60 +370,63 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                                   causal: bool = True, window: int = 0,
                                   lse: torch.Tensor | None = None
                                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """dq, dk, dv of the attention on a CUDA device by the hand-written
-    backward kernel of the inputs' dtype, on the current stream: three
-    launches, counted as one, with the forward's per-row L (``lse``,
-    float32 (B, Hq, S), from ``flash_attention_cuda(..., return_lse=True)``),
-    which both dtypes require: no launch recomputes it.  bf16:
-    ``csrc/flash_attention_bwd_sm90.cu`` (wgmma, float32 sums); float32:
-    ``csrc/flash_attention_bwd.cu`` (mma.sync in 3xTF32, float32 sums).
-    q, k, v are read through their strides under the forward's checks;
-    ``out`` (the forward's output) and ``dout`` are made contiguous here
-    when they are not (a copy; the kernel reads them as (B, S, Hq, hd)
-    rows).  dq comes back (B, S, Hq, hd), dk and dv (B, S, Hkv, hd),
-    contiguous, in the inputs' dtype.  Raises where the forward raises, at
-    Sk != Sq (``NotImplementedError``: ROADMAP queue 1 item 7f), and if a
-    launch is refused."""
+    """dq, dk, dv of the attention of q (B, Sq, Hq, hd) over k, v (B, Sk,
+    Hkv, hd) on a CUDA device by the hand-written backward kernel of the
+    inputs' dtype, on the current stream: three launches, counted as one,
+    with the forward's per-row L (``lse``, float32 (B, Hq, Sq), from
+    ``flash_attention_cuda(..., return_lse=True)``), which both dtypes
+    require: no launch recomputes it.  bf16:
+    ``csrc/flash_attention_bwd_sm90.cu`` (wgmma, float32 sums; the kernels
+    of ``bwd_sm90_plan(hd)``); float32: ``csrc/flash_attention_bwd.cu``
+    (mma.sync in 3xTF32, float32 sums).  Sq and Sk may differ (the
+    decoder's cross-attention); a row the mask empties (a window that
+    closes before the keys reach it, only where Sq > Sk) took the mean of v
+    forward, and its gradient spreads over every key with P = 1 / Sk, as
+    the plain backward's.  q, k, v are read through their strides under
+    the forward's checks; ``out`` (the forward's output) and ``dout`` are
+    made contiguous here when they are not (a copy; the kernels read them
+    as (B, Sq, Hq, hd) rows).  dq comes back (B, Sq, Hq, hd), dk and dv
+    (B, Sk, Hkv, hd), contiguous, in the inputs' dtype.  Raises where the
+    forward raises (before it looks at the device) and if a launch is
+    refused."""
     global launches_bwd, launches_bwd_bf16
     _check(q, k, v)
-    if k.shape[1] != q.shape[1]:
-        raise NotImplementedError(
-            f"flash_attention_backward_cuda needs Sq == Sk, got {q.shape[1]} and "
-            f"{k.shape[1]}: the backward kernels at Sk != Sq (cross-attention, "
-            "whisper training on the card) are ROADMAP queue 1 item 7f")
     if out.shape != q.shape or dout.shape != q.shape \
             or any(t.dtype != q.dtype for t in (out, dout)):
         raise ValueError(f"flash_attention_backward_cuda: out {tuple(out.shape)} "
                          f"{out.dtype} and dout {tuple(dout.shape)} {dout.dtype} must "
                          f"match q {tuple(q.shape)} {q.dtype}")
     bf16 = q.dtype == torch.bfloat16
-    B, S, Hq, hd = q.shape
-    if lse is None or lse.shape != (B, Hq, S) or lse.dtype != torch.float32 \
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1:3]
+    if lse is None or lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         got = None if lse is None else f"{tuple(lse.shape)} {lse.dtype}"
         raise ValueError("flash_attention_backward_cuda takes the forward's lse: "
-                         f"float32 contiguous ({B}, {Hq}, {S}); got {got}")
+                         f"float32 contiguous ({B}, {Hq}, {Sq}); got {got}")
     _check_cuda(q, k, v, "flash_attention_backward_cuda")
     if any(t.device != q.device for t in (out, dout, lse)):
         raise ValueError("flash_attention_backward_cuda needs CUDA tensors on one "
                          f"device, got q on {q.device}, out on {out.device}, dout on "
                          f"{dout.device}, lse on {lse.device}")
     out, dout = out.contiguous(), dout.contiguous()
-    Hkv = k.shape[2]
     dq = torch.empty_like(out)
-    dk = torch.empty((B, S, Hkv, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, Hkv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dq.numel() == 0:
-        return dq, dk, dv
-    # per (b, query head, row): Delta = dO . O
-    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+        return dq, dk.zero_(), dv.zero_()
+    launch = _launcher(_BWD_KERNELS, q.dtype)
+    kernel = (bwd_sm90_plan(hd).kernel,) if bf16 else ()
+    # per (b, query head, row): Delta = dO . O; the bf16 hd-64 kernels also
+    # take each row's L and Delta in their tile order, past it
+    n = _bwd_sm90_scratch(B, Sq, Hq, Hkv, *kernel) if bf16 else B * Hq * Sq
+    delta = torch.empty((n,), dtype=torch.float32, device=q.device)
     pointers = (q, k, v, out, dout, lse, dq, dk, dv, delta)
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    launch = _launcher(_BWD_KERNELS, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(*(t.data_ptr() for t in pointers), B, S, Hq, Hkv, hd, *strides,
-                     int(causal), int(window), 1.0 / (hd ** 0.5), stream)
+        err = launch(*(t.data_ptr() for t in pointers), B, Sq, Sk, Hq, Hkv, hd, *strides,
+                     int(causal), int(window), 1.0 / (hd ** 0.5), *kernel, stream)
     if err:
         raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
     if bf16:
@@ -367,7 +437,8 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Differentiable attention: forward and backward on the tensors'
+    """Differentiable attention of q (B, Sq, Hq, hd) over k, v (B, Sk, Hkv,
+    hd), Sq and Sk equal or not: forward and backward on the tensors'
     device — plain versions for CPU tensors, the kernels for CUDA tensors
     (never one for the other).  The forward saves q, k, v and its output,
     and hands the same output to whichever backward runs; on CUDA tensors

@@ -46,8 +46,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0) -> torch.Tensor:
     """Flash attention (causal / sliding-window / full, GQA): q (B, Sq, Hq,
     hd), k and v (B, Sk, Hkv, hd) -> (B, Sq, Hq, hd), positions 0..Sq-1
-    against 0..Sk-1; differentiable (on the card at Sq == Sk only: the
-    backward kernels at Sk != Sq are ROADMAP queue 1 item 7f)."""
+    against 0..Sk-1; differentiable on both devices, Sq and Sk equal or
+    not."""
     return FlashAttentionFn.apply(q, k, v, causal, window)
 
 

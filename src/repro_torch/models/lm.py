@@ -12,8 +12,8 @@ three run under ``torch.inference_mode()``.  Every configuration of
 batch's ``enc_embeds`` (B, n_frames, d_model), and its serving loop is
 ``decode.init_cache`` -> ``decode.warm_cache(..., enc_embeds=...)`` ->
 ``decode_step`` (``greedy_generate`` keeps the reference's signature, which
-takes no frames).  On the card whisper trains only once the flash backward
-kernels take Sk != Sq (ROADMAP queue 1 item 7f).
+takes no frames).  whisper trains on the card as on the CPU: the flash
+backward kernels take the cross-attention's Sq != Sk.
 """
 from __future__ import annotations
 

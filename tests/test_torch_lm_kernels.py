@@ -592,15 +592,17 @@ def test_wkv_wrapper_refuses_rows_off_16_bytes_in_the_chunked_form():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Sq,Sk", [(448, 1500), (1, 1500), (300, 37)])
 def test_flash_wrapper_takes_two_lengths_and_refuses_only_for_the_device(Sq, Sk, dtype):
-    """Sq != Sk passes every check of the forward's wrapper; on CPU tensors
-    only the device is refused.  The backward refuses Sq != Sk before it
-    looks at the device, naming ROADMAP item 7f."""
+    """Sq != Sk passes every check of the forward's and the backward's
+    wrappers (the backward takes L as (B, Hq, Sq)); on CPU tensors only the
+    device is refused, and no kernel is counted."""
     q, k, v = _torch(*_qkv(1, Sq, 4, 4, 64, Sk=Sk), dtype=dtype)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.flash_attention_cuda(q, k, v, causal=False)
     lse = torch.zeros((1, 4, Sq))
-    with pytest.raises(NotImplementedError, match="item 7f"):
+    before = (tfa.launches_bwd, tfa.launches_bwd_bf16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.flash_attention_backward_cuda(q, k, v, q, q, causal=False, lse=lse)
+    assert (tfa.launches_bwd, tfa.launches_bwd_bf16) == before
     with pytest.raises(ValueError, match="at least one key"):
         tfa.flash_attention_cuda(q, k[:, :0], v[:, :0])
 
