@@ -131,6 +131,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      7, all bit for bit; the fingerprint of those (20, N) rows at every
      forced cluster size, on and off the 16-byte grid, bit for bit; the
      Pearson matrix of (20, 64) prototypes within 1e-5, exactly symmetric;
+   * the mesh path's shapes: the fingerprint of one shard's rows, (25,
+     6570) at S = 4, (34, 6570) at S = 3 and (4, 6570) a flush at S = 4,
+     at every forced cluster size, and cluster_agg at the padded cohort's
+     (102, 6570) with two zero-weight rows holding NaN, bit for bit against
+     the plain version and, sliced to 100, against the (100, 6570) call on
+     the real rows; timed beside the bound (cluster_agg beside
+     `torch.matmul` too);
    * the async path's shapes (ASYNC_SHAPE, a flush's (16, 6570) rows): the
      fingerprint at every forced cluster size, on and off the 16-byte grid,
      and the merge — cluster_agg at C = 1 over staleness weights gated by
@@ -276,21 +283,43 @@ Phases, each of which raises on failure (the script then exits non-zero):
    falling, peak memory, tokens/s, and its `reduced()` float32 step card
    vs CPU with frames.
 
+12. mesh (run between resume and obs) — the client-sharded mesh at
+   ExperimentSpec()'s defaults, over `cuda:0..S-1` when the machine has S
+   cards, else S shards on cuda:0 (printed).  First `mesh_invariance`:
+   does local training give each client the same bits in one call of 100
+   clients as in calls of 25 or 34 (each product and reduction of a step,
+   each leaf's gradient, each strategy's `local_train`, the eval forward)?
+   That picks the gate: bit identity to the train / async phases' shards=1
+   card runs, or (on the H100 it is not invariant, ROADMAP.md section 3)
+   the card-vs-CPU gates, with bit identity reported and the first round
+   whose block differs.  Then, each on the card and the CPU
+   (`card_and_cpu`) and each arena checked shard by shard (n_padded / S
+   rows, on its device): BFLN sync at S = 4 sharded (launches: 4
+   fingerprint, 1 Pearson, 1 cluster_agg a round), at S = 3 (1000 rows
+   pad to 1002, the cohort to 102), at S = 4 replicated (bit-identical to
+   shards=1 by construction, gated so), FedBuff at S = 4; a crash at
+   RESUME_CRASH resumed to the S = 4 run's digests and arena bytes; and
+   `serve()` from the S = 4 run (verified, 12 requests).  Round / flush
+   p50 and p99 beside shards=1's (information: S shards on one card
+   serialise their launches).
+
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
 `{"kernels": [...]}` with each kernel's launches on its main path (and per
 path: train, train_fedavg, train_fedprox, train_fedproto, train_fedhkd,
-async, faults, resume, obs, paper, serve, lm_forward, lm_decode,
+async, faults, resume, mesh, mesh_sharded_padded, mesh_replicated,
+mesh_async, mesh_resume, mesh_serve, obs, paper, serve, lm_forward, lm_decode,
 lm_warm_cache, lm_fp32, lm_train, lm_train_fp32; the four backward
 kernels' main paths are lm_train and lm_train_fp32),
 error, times, bound and the two launch floors (the fingerprint and
-cluster_agg entries with their `async_shape` row, rwkv6 and
+cluster_agg entries with their `async_shape` and mesh rows, rwkv6 and
 selective_scan with their `decode_shape` row, bf16 flash with its
 `lm_hd128_shapes` and `whisper_shapes`, both flash entries with their Sq
 != Sk checks, the bf16 flash backward with its `whisper_shapes` and the
 hd-64 kernels' ptxas registers), one JSON
 line each
 `{"train": {...}}`, `{"strategies": {...}}`, `{"async": {...}}`,
-`{"faults": {...}}`, `{"resume": {...}}`, `{"obs": {...}}`, `{"paper": {...}}`,
+`{"faults": {...}}`, `{"resume": {...}}`, `{"mesh": {...}}`, `{"obs": {...}}`,
+`{"paper": {...}}`,
 `{"serve": {...}}`, `{"lm": {...}}`, `{"lm_train": {...}}`, and last
 `{"ok": true, "device":
 {...}}`.  Without CUDA
@@ -301,6 +330,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import hashlib
 import json
 import os
 import re
@@ -329,9 +359,11 @@ from repro_torch.blockchain import (  # noqa: E402
 )
 from repro_torch.api import (  # noqa: E402
     CheckpointSpec,
+    DataSpec,
     ExperimentSpec,
     FaultSpec,
     InjectedCrash,
+    MeshSpec,
     ObsSpec,
     TrainSpec,
     run,
@@ -339,7 +371,9 @@ from repro_torch.api import (  # noqa: E402
 from repro_torch.api.registry import build_strategy  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import aggregation as core_agg  # noqa: E402
+from repro_torch.core.baselines import ModelBundle  # noqa: E402
 from repro_torch.core.engine import RoundEngine  # noqa: E402
+from repro_torch.core.fl import local_train  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.data.lm import batch_stream, make_token_stream  # noqa: E402
 from repro_torch.kernels import cluster_agg as ca  # noqa: E402
@@ -363,6 +397,7 @@ from repro_torch import optim as topt  # noqa: E402
 from repro_torch.paper import common as paper_common  # noqa: E402
 from repro_torch.paper import fig2_rewards, table2_accuracy  # noqa: E402
 from repro_torch.runtime.arena import ArenaLayout, ParamArena  # noqa: E402
+from repro_torch.sim.population import ClientPopulation  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ProvenanceError,
     ServeConfig,
@@ -601,6 +636,12 @@ TRAIN_SOURCES = {"cluster_agg.cu": "cluster_agg_kernel",
 # paa_round on the card vs the CPU: the Pearson matrix at the reference's
 # tolerance, the prototypes and the new params at the float32 sums' 1e-6
 PAA_ATOL = 1e-6
+# the mesh phase: ExperimentSpec() over MESH_SHARDS shards, and over
+# MESH_PAD_SHARDS, where 1000 rows pad to 1002 and a cohort of 100 to 102
+MESH_SHARDS, MESH_PAD_SHARDS = 4, 3
+# the shards=1 card runs of the train and async phases, which the mesh phase
+# holds its runs against: digests, block hashes, arena bytes, bank, walls
+ONE_SHARD: dict = {}
 # each kernel: its module and the module's launch counter
 KERNELS = {"fingerprint": (fp, "launches"), "cluster_agg": (ca, "launches"),
            "pearson": (pe, "launches"), "flash_attention_bf16": (fa, "launches_bf16"),
@@ -1343,6 +1384,7 @@ def train_phase(dev) -> dict:
     acc = m["final_accuracy"]
     if not 0.0 < acc <= 1.0:
         raise AssertionError(f"final accuracy {acc}")
+    ONE_SHARD["sync"] = one_shard_record(result, timer.spans["round.total"])
     # the tight check of training on the card: one step against the CPU's
     parity = step_parity(sim, dev)
 
@@ -1360,6 +1402,7 @@ def train_phase(dev) -> dict:
     # the trained run plugs into the serving tier unchanged
     fe = serve(result)
     verify_bank(fe.engine.bank, sim.trainer.chain)
+    ONE_SHARD["sync"]["bank"] = bank_record(fe.engine.bank)
     rng = np.random.default_rng(SEED + 4)
     for i in range(12):
         fe.submit(i % spec.train.n_clusters,
@@ -1466,8 +1509,9 @@ def digests(manifest: dict) -> dict:
 
 def card_and_cpu(spec: ExperimentSpec, dev, what: str,
                  gate_balances: bool = True) -> dict:
-    """``spec`` through ``run`` on the card, its launches counted and its
-    spans timed, then on the host CPU: equal event logs, the chain valid
+    """``spec`` through ``run`` on the card (``dev``: one device, or the
+    mesh's device list), its launches counted and its spans timed, then on
+    the host CPU (a mesh's shards all on the host): equal event logs, the chain valid
     and the ledger conserved on both, final accuracy within ACC_TOL, and
     (``gate_balances``) balances within BALANCE_TOL.  Returns both results,
     the launches and the timer."""
@@ -1482,7 +1526,7 @@ def card_and_cpu(spec: ExperimentSpec, dev, what: str,
     cpu = run(spec, device="cpu")
     cpu_wall_s = time.perf_counter() - t1
     m, c = card.manifest, cpu.manifest
-    if card.sim.arena.data.device.type != "cuda":
+    if any(d.type != "cuda" for d in card.sim.arena.devices):
         raise AssertionError(f"{what}: the run's arena is not on the card")
     for name, man in (("card", m), ("CPU", c)):
         if not (man["chain_valid"] and man["ledger_conserved"]):
@@ -1529,6 +1573,7 @@ def async_phase(dev) -> dict:
     if launches != want:
         raise AssertionError(f"async-path launches {launches}, expected {want}")
     flush_ms = timer.spans["flush.total"]
+    ONE_SHARD["async"] = one_shard_record(card, flush_ms)
     hist = card.report.history
     return {"launches": launches, "launches_expected": want, "flushes": flushes,
             "n_clients": card.manifest["n_clients"],
@@ -1684,6 +1729,373 @@ def resume_phase(dev) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": read_launches(), "interval": RESUME_INTERVAL,
             "crash_at": RESUME_CRASH, "cases": cases}
+
+
+def one_shard_record(result, walls_ms) -> dict:
+    """What the mesh phase holds a run at S shards against: the manifest's
+    digests, every block's (round, hash) in order, the real arena rows'
+    sha256, the balances and the round (flush) walls of a shards=1 run."""
+    return {"digests": digests(result.manifest),
+            "blocks": [(b.round_idx, b.block_hash())
+                       for b in result.sim.trainer.chain.blocks],
+            "arena_sha256": hashlib.sha256(
+                result.sim.arena.host_rows().tobytes()).hexdigest(),
+            "balances": result.report.balances.copy(),
+            "final_accuracy": result.manifest["final_accuracy"],
+            "walls_ms": list(walls_ms)}
+
+
+def bank_record(bank) -> dict:
+    return {"sha256": hashlib.sha256(bank.data.cpu().numpy().tobytes()).hexdigest(),
+            "digests": [r.digest for r in bank.releases], "root": bank.root}
+
+
+def mesh_devices(shards: int) -> tuple[list[str], str]:
+    """``cuda:0..S-1`` when the machine has S cards, else S shards on cuda:0."""
+    if torch.cuda.device_count() >= shards:
+        return [f"cuda:{j}" for j in range(shards)], f"cuda:0..{shards - 1}"
+    return ["cuda:0"] * shards, f"{shards} shards on cuda:0"
+
+
+def check_mesh_arena(arena, shards: int, what: str) -> None:
+    """No shard tensor holds more than n_padded / S rows; shard j lies on
+    the mesh's device j.  Read off the shard tensors themselves."""
+    rows = -(-arena.n_clients // shards)
+    if len(arena.shards) != shards or any(
+            t.shape != (rows, arena.n_params) or t.device != torch.device(d)
+            for t, d in zip(arena.shards, arena.devices, strict=True)):
+        raise AssertionError(f"{what}: shards {[tuple(t.shape) for t in arena.shards]} "
+                             f"on {[str(t.device) for t in arena.shards]}, expected "
+                             f"{shards} x ({rows}, {arena.n_params})")
+
+
+def differing(fn, n: int, m: int = 100) -> int:
+    """Elements where ``fn`` over m clients in one call and in calls of n differ."""
+    whole = fn(slice(0, m))
+    parts = torch.cat([fn(slice(a, min(a + n, m))) for a in range(0, m, n)])
+    return int((whole != parts).sum())
+
+
+def mesh_invariance(dev) -> dict:
+    """Does the card give each client the same bits however many clients
+    one call trains?  At ExperimentSpec()'s widths (64 -> 64 -> 32 -> 10,
+    batch 16) for 100 clients: the products and the bias-gradient sum of
+    one step in one call against 4 calls of 25 (differing elements), each
+    leaf's gradient of one step, each strategy's `local_train` against 4
+    calls of 25 and 3 calls of 34 (the last padded with 2 zero-data slots
+    on row 0, as the engine pads), and the eval forward.  ``invariant`` is
+    the gate of the mesh phase: bit identity to shards=1 if every count is
+    0, else the card-vs-CPU gates."""
+    pop = ClientPopulation.from_spec(
+        ExperimentSpec(data=DataSpec(n_clients=200)).population_spec(), dev)
+    t = TrainSpec()
+    mcfg = clf.MLPConfig(in_dim=pop.in_dim, hidden=t.hidden, rep_dim=t.rep_dim,
+                         num_classes=pop.num_classes)
+    bundle = ModelBundle(functools.partial(clf.apply_batched, mcfg),
+                         functools.partial(clf.embed_batched, mcfg), pop.num_classes)
+    opt = topt.adam(t.lr)
+    params = clf.init_stacked(mcfg, torch.Generator().manual_seed(SEED), 100,
+                              same_init=False, device=dev)
+    cx, cy = pop.cohort_data(np.arange(100) * 2)
+    x, y = cx[:, 0], cy[:, 0]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.randn((100, x.shape[1], t.hidden[0]), generator=gen, device=dev)
+    g2 = torch.randn((100, x.shape[1], t.rep_dim), generator=gen, device=dev)
+    gl = torch.randn((100, x.shape[1], pop.num_classes), generator=gen, device=dev)
+    reps = clf.embed_batched(mcfg, params, x)
+    h1 = torch.relu(torch.matmul(x, params["w0"]) + params["b0"][:, None, :])
+    ops = {"forward x @ w0": lambda s: torch.matmul(x[s], params["w0"][s]),
+           "weight gradient x^T @ g": lambda s: torch.matmul(x[s].transpose(1, 2), g[s]),
+           "forward h1 @ w1": lambda s: torch.matmul(h1[s], params["w1"][s]),
+           "weight gradient h1^T @ g": lambda s: torch.matmul(h1[s].transpose(1, 2), g2[s]),
+           "input gradient g @ w1^T": lambda s: torch.matmul(
+               g2[s], params["w1"][s].transpose(1, 2)),
+           "bias gradient (sum over the batch)": lambda s: g[s].sum(dim=1),
+           "head forward reps @ w_head": lambda s: torch.matmul(
+               reps[s], params["w_head"][s]),
+           "head weight gradient reps^T @ g": lambda s: torch.matmul(
+               reps[s].transpose(1, 2), gl[s]),
+           "head input gradient g @ w_head^T": lambda s: torch.matmul(
+               gl[s], params["w_head"][s].transpose(1, 2)),
+           "log-softmax backward": lambda s: log_softmax_backward(gl[s], gl[s])}
+    ops = {name: differing(fn, 25) for name, fn in ops.items()}
+
+    def grads(s):
+        p = {k: v[s].detach().requires_grad_(True) for k, v in params.items()}
+        logp = F.log_softmax(clf.apply_batched(mcfg, p, x[s]), dim=-1)
+        loss = -torch.take_along_dim(logp, y[s][..., None].long(), dim=-1)[..., 0]
+        loss.mean(dim=-1).sum().backward()
+        return {k: v.grad for k, v in p.items()}
+    whole = grads(slice(0, 100))
+    parts = [grads(slice(a, a + 25)) for a in range(0, 100, 25)]
+    step = {k: int((torch.cat([q[k] for q in parts]) != whole[k]).sum()) for k in whole}
+
+    def pad0(v, pad):
+        return torch.cat([v, v.new_zeros((pad,) + v.shape[1:])]) if pad else v
+    train = {}
+    for name in ("bfln",) + BASELINES:
+        strat = build_strategy(name, bundle, probe=pop.probe, n_clusters=t.n_clusters)
+        extras = strat.round_extras(params, cx, cy)
+
+        def trained(a, m, pad=0):
+            sl = slice(a, a + m)
+            p = {k: torch.cat([v[sl], v[:1].expand(pad, *v.shape[1:])])
+                 for k, v in params.items()}
+            e = extras if strat.shared_extras else tree_map(
+                lambda q: pad0(q[sl], pad), extras)
+            r = local_train(strat.local_loss, opt, p, opt.init(p), pad0(cx[sl], pad),
+                            pad0(cy[sl], pad), e, t.local_epochs,
+                            shared_extras=strat.shared_extras)
+            return torch.cat([layout_rows(r.params)[:m], r.mean_loss[:m, None]], dim=1)
+        for split in ((25,) * 4, (34, 34, 32)):
+            starts = np.cumsum((0,) + split[:-1])
+            got = torch.cat([trained(a, m, max(split) - m) for a, m in zip(starts, split)])
+            train[f"{name} {split}"] = int((got != trained(0, 100)).sum())
+    ex = pop.test_x[:1024]
+    evals = differing(lambda s: bundle.apply_fn({k: v[s] for k, v in params.items()}, ex), 25)
+    invariant = not any(ops.values()) and not any(step.values()) \
+        and not any(train.values()) and evals == 0
+    return {"widths": [pop.in_dim, *t.hidden, t.rep_dim, pop.num_classes],
+            "batch": int(x.shape[1]), "clients": 100,
+            "differing_elements": {"ops, 4 calls of 25": ops,
+                                   "one step's gradients, 4 calls of 25": step,
+                                   "local_train (params and loss)": train,
+                                   "eval forward, 4 calls of 25": evals},
+            "invariant": invariant}
+
+
+def log_softmax_backward(z: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    z = z.detach().requires_grad_(True)
+    return torch.autograd.grad(F.log_softmax(z, dim=-1), z, grad_outputs=grad)[0]
+
+
+def layout_rows(params) -> torch.Tensor:
+    return ArenaLayout.from_stacked(params).flatten(params)
+
+
+def mesh_run(spec: ExperimentSpec, what: str, one: dict, want: dict,
+             gate_bits: bool, gate_balances: bool):
+    """``spec`` (a mesh) on the card over ``mesh_devices`` and on the host
+    CPU (``card_and_cpu``), each arena checked shard by shard, its launches
+    against ``want``; the card run against the shards=1 card run ``one``:
+    the same event log and a final accuracy within ACC_TOL always, the
+    digests, every block hash and the arena's bytes bit for bit if
+    ``gate_bits`` (else reported, with the first round whose block
+    differs).  Returns the card result and the row."""
+    shards = spec.mesh.shards
+    devices, placed = mesh_devices(shards)
+    out = card_and_cpu(spec, devices, what, gate_balances=gate_balances)
+    card, cpu, timer = out["card"], out["cpu"], out["timer"]
+    for res, where in ((card, "card"), (cpu, "CPU")):
+        check_mesh_arena(res.sim.arena, shards, f"{what} ({where})")
+    if out["launches"] != want:
+        raise AssertionError(f"{what}: launches {out['launches']}, expected {want}")
+    m = card.manifest
+    if m["event_log_digest"] != one["digests"]["event_log_digest"]:
+        raise AssertionError(f"{what}: the event log differs from the shards=1 run's")
+    acc_diff = abs(m["final_accuracy"] - one["final_accuracy"])
+    if acc_diff > ACC_TOL:
+        raise AssertionError(f"{what}: final accuracy {m['final_accuracy']} vs "
+                             f"shards=1 {one['final_accuracy']}")
+    blocks = [(b.round_idx, b.block_hash()) for b in card.sim.trainer.chain.blocks]
+    first = next((ra for (ra, ha), (_, hb) in zip(blocks, one["blocks"]) if ha != hb),
+                 None)
+    hashes_equal = first is None and len(blocks) == len(one["blocks"])
+    arena_equal = hashlib.sha256(card.sim.arena.host_rows().tobytes()).hexdigest() \
+        == one["arena_sha256"]
+    same = hashes_equal and arena_equal and digests(m) == one["digests"]
+    if gate_bits and not same:
+        raise AssertionError(f"{what}: not bit-identical to shards=1 (block hashes "
+                             f"equal {hashes_equal}, first differing round {first}, "
+                             f"arena equal {arena_equal})")
+    unit = "flush" if spec.train.mode == "async" else "round"
+    walls = timer.spans[f"{unit}.total"]
+    eng = card.sim.engine
+    return card, {
+        "devices": devices, "placement": placed, "shards": shards,
+        "cohort_mode": eng.cohort_mode, "cohort_shards": eng.cohort_shards,
+        "n_padded": card.sim.arena.n_padded,
+        "rows_per_shard": card.sim.arena.rows_per_shard,
+        "per_device_bytes": card.sim.arena.per_device_bytes(),
+        "launches": out["launches"], "launches_expected": want,
+        "gated_bit_identical": gate_bits,
+        "bit_identical_to_one_shard": same, "block_hashes_equal": hashes_equal,
+        "first_round_differs": first, "arena_equal_one_shard": arena_equal,
+        "balances_max_abs_diff_one_shard": float(np.abs(
+            card.report.balances - one["balances"]).max()),
+        "final_accuracy_one_shard": one["final_accuracy"],
+        "final_accuracy_diff_one_shard": acc_diff,
+        f"{unit}_ms_p50": float(np.median(walls)),
+        f"{unit}_ms_p99": float(np.percentile(walls, 99)),
+        f"{unit}_ms_p50_one_shard": float(np.median(one["walls_ms"])),
+        f"{unit}_ms_p99_one_shard": float(np.percentile(one["walls_ms"], 99)),
+        "phase_ms_p50": {k: float(np.median(v)) for k, v in timer.spans.items()},
+        **out["summary"]}
+
+
+def mesh_phase(dev, res: dict) -> dict:
+    """The client-sharded mesh at ExperimentSpec()'s defaults.  First the
+    card's batch invariance (`mesh_invariance`), which picks the gate; then
+    on the card over `mesh_devices`, each also on the host CPU: BFLN sync
+    at MESH_SHARDS sharded (4 fingerprint, 1 Pearson and 1 cluster-agg
+    launches a round), at MESH_PAD_SHARDS (1000 rows pad to 1002, the
+    cohort to 102: two zero-weight slots) and at MESH_SHARDS replicated
+    (the one-device step on the lead: bit-identical to shards=1 by
+    construction, gated so); FedBuff at MESH_SHARDS (each flush's 16 rows 4
+    a shard); a crash by exception at RESUME_CRASH resumed to the
+    uninterrupted MESH_SHARDS run's digests and arena bytes; and
+    `serve()` from that run (verified, 12 requests answered, its bank
+    against the train phase's).  Round and flush p50 / p99 beside shards=1's
+    are information: S shards on one card serialise their launches."""
+    inv = mesh_invariance(dev)
+    gate = inv["invariant"]
+    sync, asyn = ONE_SHARD["sync"], ONE_SHARD["async"]
+    rounds = len(sync["blocks"]) - 1              # the non-empty rounds
+    flushes = len(asyn["blocks"]) - 1
+
+    def want(fingerprint, cluster_agg, pearson):
+        return dict({k: 0 for k in KERNELS}, fingerprint=fingerprint,
+                    cluster_agg=cluster_agg, pearson=pearson)
+    out: dict = {"invariance": inv,
+                 "gate": "bit identity to shards=1" if gate else
+                         "card vs CPU (event log, chain, ledger, ACC_TOL; balances "
+                         "at BALANCE_TOL where they do not follow the trained bits)"}
+    s, p = MESH_SHARDS, MESH_PAD_SHARDS
+    card4, out["sharded"] = mesh_run(
+        ExperimentSpec(mesh=MeshSpec(shards=s)), f"mesh/sharded{s}", sync,
+        want(rounds * s + 1, rounds, rounds), gate_bits=gate, gate_balances=False)
+    _, out["sharded_padded"] = mesh_run(
+        ExperimentSpec(mesh=MeshSpec(shards=p)), f"mesh/sharded{p}", sync,
+        want(rounds * p + 1, rounds, rounds), gate_bits=gate, gate_balances=False)
+    _, out["replicated"] = mesh_run(
+        ExperimentSpec(mesh=MeshSpec(shards=s, cohort="replicated")),
+        f"mesh/replicated{s}", sync, want(rounds + 1, rounds, rounds),
+        gate_bits=True, gate_balances=False)
+    _, out["async"] = mesh_run(
+        ExperimentSpec(train=TrainSpec(mode="async"), mesh=MeshSpec(shards=s)),
+        f"mesh/async{s}", asyn, want(flushes * s + 1, flushes, 0),
+        gate_bits=gate, gate_balances=True)
+
+    # crash and resume on the mesh: the uninterrupted run's digests and bytes
+    base = ExperimentSpec(mesh=MeshSpec(shards=s))
+    devices, _ = mesh_devices(s)
+    root = tempfile.mkdtemp(prefix="bfln-mesh-resume-")
+    try:
+        ck = CheckpointSpec(interval=RESUME_INTERVAL, dir=root)
+        reset_launches()
+        try:
+            run(dataclasses.replace(base, checkpoint=ck, faults=FaultSpec(
+                crash_round=RESUME_CRASH, crash_phase="post_checkpoint",
+                crash_mode="exception")), device=devices)
+        except InjectedCrash:
+            pass
+        else:
+            raise AssertionError("mesh/resume: no crash")
+        resumed = run(dataclasses.replace(base, checkpoint=ck), device=devices,
+                      resume_from=root)
+        torch.cuda.synchronize()
+        resume_launches = read_launches()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check_mesh_arena(resumed.sim.arena, s, "mesh/resume")
+    rm = resumed.manifest
+    arena_equal = resumed.sim.arena.host_rows().tobytes() == card4.sim.arena.host_rows().tobytes()
+    if rm["resume_step"] != RESUME_CRASH or digests(rm) != digests(card4.manifest) \
+            or not arena_equal:
+        raise AssertionError(f"mesh/resume: step {rm['resume_step']}, digests "
+                             f"{digests(rm)} vs {digests(card4.manifest)}, arena "
+                             f"equal {arena_equal}")
+    out["resume"] = {"shards": s, "resume_step": rm["resume_step"],
+                     "digests_equal_uninterrupted": True,
+                     "arena_equal_uninterrupted": True,
+                     "snapshot_bytes": rm["checkpoint_bytes"],
+                     "launches": resume_launches}
+
+    # serve from the S-shard run: the bank from the real rows read to the host
+    reset_launches()
+    fe = serve(card4)
+    verify_bank(fe.engine.bank, card4.sim.trainer.chain)
+    rng = np.random.default_rng(SEED + 4)
+    for i in range(12):
+        fe.submit(i % card4.spec.train.n_clusters,
+                  rng.standard_normal(card4.sim.mcfg.in_dim).astype(np.float32))
+    fe.drain()
+    done = fe.take_completed()
+    if len(done) != 12 or any(d.status != "ok" or not np.isfinite(d.logits).all()
+                              for d in done):
+        raise AssertionError("mesh/serve: serve(result) did not answer every request")
+    bank = bank_record(fe.engine.bank)
+    bank_equal = bank["sha256"] == sync["bank"]["sha256"] \
+        and bank["digests"] == sync["bank"]["digests"]
+    if gate and not bank_equal:
+        raise AssertionError("mesh/serve: the bank differs from the shards=1 run's")
+    out["serve"] = {"shards": s, "bank_device": str(fe.engine.bank.data.device),
+                    "bank_bytes_equal_one_shard": bank_equal,
+                    "served_requests": len(done), "launches": read_launches()}
+    print(f"mesh: {out['sharded']['placement']}, invariant {gate}, round p50 "
+          f"{out['sharded']['round_ms_p50']:.3f} ms at S = {s} vs "
+          f"{out['sharded']['round_ms_p50_one_shard']:.3f} ms at S = 1", flush=True)
+    return out
+
+
+def mesh_kernel_phase(dev) -> dict:
+    """The kernels at the shapes only the mesh path gives them: the
+    fingerprint of one shard's trained rows, (25, 6570) at S = 4, (34,
+    6570) at S = 3 and (4, 6570) in a flush at S = 4, bit for bit at every
+    forced cluster size on and off the 16-byte grid; the cluster means of
+    the padded cohort, (102, 6570) at C = 5 with two zero-weight padding
+    rows (label 0, holding NaN), bit for bit against the plain version and,
+    sliced to 100, against the (100, 6570) call on the real rows; each
+    timed beside its bound, cluster_agg beside torch.matmul too."""
+    rng = np.random.default_rng(SEED + 11)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    fp_rows = []
+    for m, n in ((25, 6570), (34, 6570), (4, 6570)):
+        buf = random_bits(rng, 1, m * n + 1, dev)[0]
+        for c in fp.CLUSTER_SIZES:
+            for off in (0, 1):
+                bits = buf[off:off + m * n].view(m, n)
+                if not torch.equal(fp.fingerprint_cuda(bits, cluster=c),
+                                   fp.fingerprint_plain(bits)):
+                    raise AssertionError(f"fingerprint kernel at ({m}, {n}), cluster "
+                                         f"size {c}, offset {off} != plain version")
+        bits = random_bits(rng, m, n, dev)
+        err = check_exact(bits, f"({m}, {n})")
+        bound, bound_by = fingerprint_bound_us(m, n)
+        fp_rows.append({"m": m, "n": n, "bit_exact": True, "max_abs_err": err,
+                        "cluster": fp.cluster_size(m, n),
+                        "kernel_us": median_us(fp.fingerprint_cuda, bits, 200, flush),
+                        "plain_us": median_us(fp.fingerprint_plain, bits, 30, flush),
+                        "library_us": None, "bound_us": bound, "bound_by": bound_by})
+
+    m, k, n, c = 102, 100, 6570, 5
+    rows = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, c, size=m)).to(dev)
+    w = torch.from_numpy((rng.random(m) < 0.8).astype(np.float32)).to(dev)
+    labels[k:], w[k:], rows[k:] = 0, 0.0, float("nan")
+    err = check_agg(rows, labels, w, c, f"({m}, {n}) C={c}, two zero-weight padding rows")
+    padded = ca.cluster_mean_rows(rows, labels, c, w)[:k]
+    real = ca.cluster_mean_rows(rows[:k].contiguous(), labels[:k], c, w[:k])
+    if not torch.equal(padded.view(torch.int32), real.view(torch.int32)):
+        raise AssertionError("cluster_agg at (102, 6570) with two zero-weight rows "
+                             "!= the (100, 6570) call on the real rows")
+    wo, denom = ca.cluster_weights(labels, c, w)
+    onehot = (labels[:, None] == torch.arange(c, device=dev)[None, :]).float()
+    mix = (onehot / denom[None, :]) @ wo.T
+    finite = rows.nan_to_num()          # the library call times the same product
+    n_live = int(w.gt(0).sum())
+    bound, bound_by = bound_us((n_live * n + m * n + m * c + c) * 4 + m * 8,
+                               2 * n_live * n + c * n)
+    agg_row = {"m": m, "real_rows": k, "n": n, "clusters": c, "live_rows": n_live,
+               "bit_exact": True, "max_abs_err": err, "equals_real_rows_call": True,
+               "kernel_us": median_us(lambda _: ca.cluster_agg_cuda(rows, labels, wo, denom),
+                                      None, 200, flush),
+               "plain_us": median_us(lambda _: ca.cluster_agg_plain(rows, labels, wo, denom),
+                                     None, 30, flush),
+               "library_us": median_us(lambda _: torch.matmul(mix, finite),
+                                       None, 200, flush),
+               "bound_us": bound, "bound_by": bound_by}
+    return {"fingerprint": fp_rows, "cluster_agg": agg_row}
 
 
 def trace_records(manifest: dict) -> list[dict]:
@@ -3554,11 +3966,12 @@ def main() -> int:
     res["scan_bwd"] = scan_bwd_phase(dev, res["floors"])
     res["table2_shapes"] = table2_kernel_phase(dev)
     res["async_shapes"] = async_kernel_phase(dev)
+    res["mesh_shapes"] = mesh_kernel_phase(dev)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
     for phase, run_phase in PHASES:
         t0 = time.perf_counter()
         # the obs phase reads the train and async phases' drained span times
-        res[phase] = run_phase(dev, res) if phase == "obs" else run_phase(dev)
+        res[phase] = run_phase(dev, res) if phase in ("obs", "mesh") else run_phase(dev)
         print(f"{phase} phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernel_entries(res)}), flush=True)
@@ -3580,6 +3993,12 @@ def kernel_entries(res: dict) -> list[dict]:
     by_path["paper"] = res["paper"]["launches"]
     for path in ("async", "faults", "resume", "obs"):
         by_path[path] = res[path]["launches"]
+    # the client-sharded mesh: BFLN sync at MESH_SHARDS (its main path), at
+    # MESH_PAD_SHARDS, replicated, FedBuff, a crash resumed, serve
+    mesh = res["mesh"]
+    by_path["mesh"] = mesh["sharded"]["launches"]
+    for path in ("sharded_padded", "replicated", "async", "resume", "serve"):
+        by_path[f"mesh_{path}"] = mesh[path]["launches"]
     for path in ("lm_forward", "lm_decode", "lm_warm_cache"):
         by_path[path] = {name: sum(run["launches"].get(path, {}).get(name, 0)
                                    for run in res["lm"].values())
@@ -3672,13 +4091,26 @@ def kernel_entries(res: dict) -> list[dict]:
               cluster=cohort["cluster"], shapes=shapes,
               paper_shapes=new["fingerprint"],
               async_shape=dict(res["async_shapes"]["fingerprint"],
-                               launches_async=by_path["async"]["fingerprint"])),
+                               launches_async=by_path["async"]["fingerprint"]),
+              # one shard's rows: (25, .) at S = 4, (34, .) at S = 3, (4, .) a flush
+              mesh_shapes=[dict(row, ms=row["kernel_us"] / 1e3,
+                                plain_ms=row["plain_us"] / 1e3,
+                                bound_ms=row["bound_us"] / 1e3, library_ms=None)
+                           for row in res["mesh_shapes"]["fingerprint"]]),
         entry("cluster_agg", "cluster_agg.cu", "src/repro/kernels/cluster_agg.py:43",
               "train", agg_row, agg_row["max_abs_err"], 0, bit_exact=True,
               shape=[100, 6570], dtype="float32", library_call="torch.matmul(mix, rows)",
               masked_mean_shapes=new["cluster_agg"],
               async_shape=dict(res["async_shapes"]["cluster_agg"],
                                launches_async=by_path["async"]["cluster_agg"]),
+              # the padded cohort at S = 3: two zero-weight rows
+              mesh_shape=dict(res["mesh_shapes"]["cluster_agg"],
+                              ms=res["mesh_shapes"]["cluster_agg"]["kernel_us"] / 1e3,
+                              plain_ms=res["mesh_shapes"]["cluster_agg"]["plain_us"] / 1e3,
+                              bound_ms=res["mesh_shapes"]["cluster_agg"]["bound_us"] / 1e3,
+                              library_ms=res["mesh_shapes"]["cluster_agg"]["library_us"]
+                              / 1e3, launches_mesh_sharded_padded=by_path[
+                                  "mesh_sharded_padded"]["cluster_agg"]),
               # the same kernel on bf16 rows, which no path gives it yet (the
               # launch counter counts both dtypes; every path's rows are fp32)
               bf16={"launches": "none on a path", "max_abs_err": agg_row16["max_abs_err"],
@@ -3795,7 +4227,8 @@ def kernel_entries(res: dict) -> list[dict]:
 
 PHASES = (("train", train_phase), ("strategies", strategies_phase),
           ("async", async_phase), ("faults", faults_phase),
-          ("resume", resume_phase), ("obs", obs_phase), ("paper", paper_phase),
+          ("resume", resume_phase), ("mesh", mesh_phase), ("obs", obs_phase),
+          ("paper", paper_phase),
           ("serve", serve_phase), ("lm", lm_phase), ("lm_train", lm_train_phase))
 
 

@@ -6,13 +6,18 @@ returns the report with a *manifest*: a flat, JSON-able record stamped with
 the spec's ``config_digest`` (the reference's manifest, without its
 ``engine_compile_counts``: nothing compiles here).
 
-It runs every registered strategy through the engine on one device, in
-sync rounds or async FedBuff flushes, with any fault schedule, with
-checkpoints and ``resume_from``, and with the flight recorder
-(``spec.obs``: the trace file, its digest and the timing readout in the
-manifest, as the reference's).  ``run`` refuses the legacy driver
-(``engine=False``, deliberately not ported) and the mesh with
-``NotImplementedError``.
+It runs every registered strategy through the engine, on one device or
+over a client mesh (``spec.mesh.shards`` S > 1, cohort ``"sharded"`` or
+``"replicated"``: S shards on the host with ``device="cpu"``, on
+``cuda:0..S-1``, or on a sequence of S devices), in sync rounds or async
+FedBuff flushes, with any fault schedule, with checkpoints and
+``resume_from``, and with the flight recorder (``spec.obs``: the trace
+file, its digest and the timing readout in the manifest, as the
+reference's).  On the CPU a run at S shards ends with the one-shard
+run's digests (on the H100 only its event log: ``repro_torch.core.engine``).
+``run`` refuses the legacy driver (``engine=False``) and the XLA-only mesh
+settings (``platform``, ``x64``, ``xla_flags``) with
+``NotImplementedError``: both are deliberately not ported.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from typing import Any
 from repro_torch.api.spec import ExperimentSpec, MeshSpec
 from repro_torch.device import resolve_device
 from repro_torch.obs import console_summary, write_chrome_trace, write_jsonl
-from repro_torch.sim.driver import SimReport, SimulatedFederation
+from repro_torch.launch.mesh import make_client_mesh
+from repro_torch.sim.driver import SimReport, SimulatedFederation, one_device
 from repro_torch.sim.population import ClientPopulation
 
 
@@ -101,32 +107,35 @@ def format_manifest(manifest: dict[str, Any]) -> str:
 
 
 def check_supported(spec: ExperimentSpec) -> None:
-    """Refuse what the port does not run: ``engine=False`` (deliberately
-    not ported, ROADMAP §1) and anything but the defaults in ``mesh``
-    (ROADMAP queue 1 item 6; ``shards`` has its own message)."""
+    """Refuse what the port does not run: ``engine=False`` and the mesh's
+    XLA-only settings (``platform``, ``x64``, ``xla_flags``), all
+    deliberately not ported (ROADMAP §1).  ``mesh.shards`` and
+    ``mesh.cohort`` run."""
     if not spec.engine:
         raise NotImplementedError(
             "engine=False (the reference's legacy oracle driver) is "
             "deliberately not ported (ROADMAP §1 \"Deliberately not "
             "ported\"): the port's engine is held against the reference's "
             "engine instead")
-    if spec.mesh.shards > 1:
-        raise NotImplementedError(
-            f"mesh shards={spec.mesh.shards} is not ported yet (ROADMAP "
-            "queue 1 item 6: multi-GPU)")
-    mesh = dataclasses.replace(spec.mesh, shards=MeshSpec().shards)
+    mesh = dataclasses.replace(spec.mesh, shards=MeshSpec().shards,
+                               cohort=MeshSpec().cohort)
     if mesh != MeshSpec():
         raise NotImplementedError(
-            f"mesh cohort/platform/x64/xla_flags {mesh} are not ported yet "
-            "(ROADMAP queue 1 item 6: multi-GPU; the port runs one card in "
-            "float32)")
+            f"mesh platform/x64/xla_flags {mesh} are XLA runtime settings, "
+            "deliberately not ported (ROADMAP §1 \"Deliberately not "
+            "ported\"): the port picks its devices through run(device=...) "
+            "and runs in float32")
 
 
 def run(spec: ExperimentSpec, population: ClientPopulation | None = None, *,
         device=None, obs=None, resume_from: str | None = None
         ) -> ExperimentResult:
     """Run one experiment end to end on ``device`` (``None`` means the
-    card; without CUDA that raises).  ``population`` may be passed to reuse
+    card; without CUDA that raises).  With ``spec.mesh.shards`` S > 1,
+    ``device`` is ``"cpu"`` (S shards on the host), ``None`` / ``"cuda"``
+    (``cuda:0..S-1``) or a sequence of S devices
+    (``repro_torch.launch.mesh.make_client_mesh``); the population lives
+    on the first.  ``population`` may be passed to reuse
     one already built from this spec on this device.  ``obs`` is an
     optional recorder for the round's phase spans (``SimulatedFederation``)
     when ``spec.obs`` is off; with it on, the run's own ``FlightRecorder``
@@ -142,16 +151,19 @@ def run(spec: ExperimentSpec, population: ClientPopulation | None = None, *,
     manifest digests.
     """
     check_supported(spec)
-    device = resolve_device(device)
+    if spec.mesh.shards > 1:
+        lead = make_client_mesh(spec.mesh.shards, device).lead
+    else:
+        device = lead = resolve_device(one_device(device))
     if population is None:
-        population = ClientPopulation.from_spec(spec.population_spec(), device)
+        population = ClientPopulation.from_spec(spec.population_spec(), lead)
     elif population.spec != spec.population_spec():
         raise ValueError(
             "supplied population was built from a different PopulationSpec "
             "than spec.data/spec.seed would rebuild")
     sim = SimulatedFederation(population, spec, device=device, obs=obs)
     profile_dir = spec.obs.profile_dir if spec.obs.enabled else None
-    with _profiled(profile_dir, device):
+    with _profiled(profile_dir, lead):
         report = sim.run(resume_from=resume_from)
     manifest = build_manifest(spec, sim, report)
     if spec.obs.enabled:

@@ -161,11 +161,11 @@ class MeshSpec:
     """Client-axis device mesh for the row-sharded parameter arena.
 
     ``cohort`` picks how the per-round cohort runs on that mesh
-    (``"sharded"``: each device trains its slice; ``"replicated"``: every
-    device gathers the whole cohort).  ``platform`` / ``x64`` /
+    (``"sharded"``: each device trains its slice; ``"replicated"``: the
+    lead device trains the whole cohort).  ``platform`` / ``x64`` /
     ``xla_flags`` are the reference's process-level JAX runtime knobs
-    (``""`` lets JAX pick the platform).  This slice runs one device:
-    ``run`` refuses anything but the defaults.
+    (``""`` lets JAX pick the platform); ``run`` refuses anything but
+    their defaults, and takes the mesh's devices from its ``device``.
     """
     shards: int = 1
     cohort: str = "sharded"           # "sharded" | "replicated"

@@ -5,7 +5,9 @@ process needs to continue a run such that the final manifest digests
 (event-log sha256, block hashes, balances, final accuracy) equal the
 uninterrupted run's:
 
-* the parameter state — the arena copied to the host,
+* the parameter state — the arena's ``n_clients`` real rows copied to the
+  host (shard by shard on a mesh, so the bytes are the same at every
+  mesh width),
 * the blockchain (blocks + quarantined), the tx pool, the token ledger and
   the CACC packing queue,
 * the discrete-event machinery — virtual clock, the event queue's heap
@@ -107,7 +109,7 @@ def capture_experiment_state(sim, next_round: int,
             "buffer": [(int(u.client), int(u.version))
                        for u in async_view["agg"].buffer],
         }
-    return {"arrays": {"arena": _host(sim.arena.data)}, "host": host}
+    return {"arrays": {"arena": sim.arena.host_rows()}, "host": host}
 
 
 def restore_experiment_state(sim, tree: dict) -> tuple[int, dict | None]:
@@ -132,7 +134,7 @@ def restore_experiment_state(sim, tree: dict) -> tuple[int, dict | None]:
             "must match)")
 
     dev = sim.device
-    sim.arena.rebind(torch.from_numpy(tree["arrays"]["arena"]).to(dev))
+    sim.arena.rebind(torch.from_numpy(tree["arrays"]["arena"]))
     sim.clock._now = float(host["clock"])
     sim.queue._heap = [Event(*e) for e in host["queue_heap"]]
     sim.queue._seq = int(host["queue_seq"])

@@ -7,13 +7,19 @@ functions over client-stacked dicts of tensors:
     local_loss(stacked_params, x, y, extras) -> (m,)   # each client's loss
     aggregate(stacked_params, cx, cy, obs) -> AggOut   # full participation
     aggregate_cohort(stacked_params, rows, cx, cy, arrived_w, obs) -> CohortAggOut
+    cohort_partial(stacked_params, cx, cy, arrived_w, obs) -> partial
+    cohort_combine(rows, partial, arrived_w, k, obs) -> CohortAggOut
 
 ``extras`` carries the client axis unless ``shared_extras`` (FedProx's
 anchor, one payload for every client; ``repro_torch.core.fl``).
 
 ``aggregate_cohort`` is the round engine's stage, composed as in the
 reference from a per-slot partial stage (BFLN: prototypes) and a combine
-stage by :func:`compose_cohort`.  It gets the trained models twice: as the
+stage by :func:`compose_cohort`.  The combine takes the count ``k`` of
+real slots among its ``m >= k`` rows: the sharded engine pads the cohort
+to a multiple of its shards, and the padding slots (zero arrival weight)
+must reach neither Pearson nor k-means, nor the outputs, which are sliced
+to ``k``.  It gets the trained models twice: as the
 stacked dict (for the forward passes) and as the engine's flat (k, N) arena
 rows, which the means run on directly and return.  ``arrived_w`` is the
 (k,) 0/1 float arrival mask: slots that missed the round keep their slot
@@ -116,7 +122,7 @@ def compose_cohort(partial_fn: Callable, combine_fn: Callable) -> Callable:
     def aggregate_cohort(stacked_params, rows, cx, cy, arrived_w,
                          obs=NULL_RECORDER):
         part = partial_fn(stacked_params, cx, cy, arrived_w, obs)
-        return combine_fn(rows, part, arrived_w, obs)
+        return combine_fn(rows, part, arrived_w, rows.shape[0], obs)
 
     return aggregate_cohort
 
@@ -151,12 +157,17 @@ def _no_partial(stacked_params, cx, cy, arrived_w, obs):
     return None
 
 
-def _single_cluster_view(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """CACC inputs for unclustered strategies: one cluster, identity
-    affinity."""
-    k = rows.shape[0]
-    return (torch.zeros(k, dtype=torch.long, device=rows.device),
-            torch.eye(k, dtype=torch.float32, device=rows.device))
+def _single_cluster_view(k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """CACC inputs for unclustered strategies over ``k`` slots: one
+    cluster, identity affinity."""
+    return (torch.zeros(k, dtype=torch.long, device=device),
+            torch.eye(k, dtype=torch.float32, device=device))
+
+
+def _real(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The first ``k`` (real) slots of ``x``; ``x`` itself when it has no
+    padding slots."""
+    return x if x.shape[0] == k else x[:k]
 
 
 def masked_mean_rows(rows: torch.Tensor, arrived_w: torch.Tensor) -> torch.Tensor:
@@ -177,12 +188,14 @@ def masked_mean_rows(rows: torch.Tensor, arrived_w: torch.Tensor) -> torch.Tenso
     return cluster_mean_rows(rows, labels, 1, arrived_w)
 
 
-def _mean_combine(rows, partial, arrived_w, obs):
+def _mean_combine(rows, partial, arrived_w, k, obs=NULL_RECORDER):
+    # the masked mean over all m slots (padding slots weigh 0 and add
+    # exactly +0.0), given to the k real ones
     with obs.span("step.cluster_mean"):
-        new_rows = masked_mean_rows(rows, arrived_w)
+        new_rows = _real(masked_mean_rows(rows, arrived_w), k)
         if obs.enabled:
             obs.ready(new_rows)
-    return CohortAggOut(new_rows, *_single_cluster_view(rows))
+    return CohortAggOut(new_rows, *_single_cluster_view(k, rows.device))
 
 
 def _flat_strategy(name: str, round_extras: Callable, local_loss: Callable,
@@ -248,10 +261,10 @@ def make_fedproto(model: ModelBundle, lam: float = 1.0) -> Strategy:
         align = (d * mask).sum(dim=-1) / torch.clamp(mask.sum(dim=-1), min=1.0)
         return ce + lam * align
 
-    def combine(rows, partial, arrived_w, obs):
+    def combine(rows, partial, arrived_w, k, obs=NULL_RECORDER):
         # personal models: every slot keeps its freshly trained row (the
         # engine's scatter mask drops the rows that did not arrive)
-        return CohortAggOut(rows, *_single_cluster_view(rows))
+        return CohortAggOut(_real(rows, k), *_single_cluster_view(k, rows.device))
 
     return _flat_strategy("fedproto", round_extras, local_loss, combine)
 
@@ -313,16 +326,21 @@ def make_bfln(model: ModelBundle, probe_x: torch.Tensor, n_clusters: int,
     def cohort_partial(stacked_params, cx, cy, arrived_w, obs):
         # per-slot prototypes (k, D): the only cross-slot input of the combine
         with obs.span("step.prototypes"):
-            protos = client_prototypes(model.embed_fn, stacked_params, probe_x)
+            # on a mesh each shard's params lie on their own device
+            probe = probe_x.to(cx.device)
+            protos = client_prototypes(model.embed_fn, stacked_params, probe)
             if obs.enabled:
                 obs.ready(protos)
             return protos
 
-    def cohort_combine(rows, protos, arrived_w, obs):
+    def cohort_combine(rows, protos, arrived_w, k, obs=NULL_RECORDER):
         # PAA with the arrival mask as aggregation weights: Pearson kernel ->
-        # spectral clustering -> cluster-aggregation kernel on the flat rows
+        # spectral clustering on the k REAL slots -> cluster-aggregation
+        # kernel over all m >= k rows, whose padding slots carry weight 0
+        # (and label 0) and so add exactly +0.0; the output sliced to k
+        m = rows.shape[0]
         with obs.span("step.pearson"):
-            corr = pearson_matrix(protos)
+            corr = pearson_matrix(_real(protos, k))
             if obs.enabled:
                 obs.ready(corr)
         with obs.span("step.embedding"):
@@ -334,7 +352,10 @@ def make_bfln(model: ModelBundle, probe_x: torch.Tensor, n_clusters: int,
             if obs.enabled:
                 obs.ready(labels)
         with obs.span("step.cluster_mean"):
-            new_rows = cluster_mean_rows(rows, labels, n_clusters, arrived_w)
+            labels_m = labels if m == k else torch.cat(
+                [labels, labels.new_zeros(m - k)])
+            new_rows = _real(cluster_mean_rows(rows, labels_m, n_clusters,
+                                               arrived_w), k)
             if obs.enabled:
                 obs.ready(new_rows)
         return CohortAggOut(new_rows, labels, corr)

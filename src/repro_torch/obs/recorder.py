@@ -37,19 +37,19 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.spec import ObsSpec
 
 
-def _cuda_device(x: Any) -> torch.device | None:
-    """The device of the first CUDA tensor among ``x``'s leaves, or None."""
+def _cuda_devices(x: Any) -> list[torch.device]:
+    """The distinct devices of the CUDA tensors among ``x``'s leaves, in
+    the order first met (a mesh's outputs lie on several cards)."""
     if isinstance(x, torch.Tensor):
-        return x.device if x.is_cuda else None
+        return [x.device] if x.is_cuda else []
     if isinstance(x, dict):
         x = x.values()
     elif not isinstance(x, (tuple, list)):
-        return None
+        return []
+    out: list[torch.device] = []
     for leaf in x:
-        device = _cuda_device(leaf)
-        if device is not None:
-            return device
-    return None
+        out.extend(d for d in _cuda_devices(leaf) if d not in out)
+    return out
 
 
 class _Span:
@@ -233,12 +233,11 @@ class FlightRecorder:
         """Wait for the card (when configured) if ``x`` — a tensor, or a
         tuple / NamedTuple / list / dict of them — holds a CUDA tensor, so
         the enclosing span measures compute, not dispatch.  One
-        ``torch.cuda.synchronize`` of that tensor's device, however many
-        leaves; CPU tensors and other values need none.  Reads no value:
-        ``x`` is returned as the same object."""
+        ``torch.cuda.synchronize`` of each device that holds a leaf,
+        however many leaves; CPU tensors and other values need none.  Reads
+        no value: ``x`` is returned as the same object."""
         if self.spec.block_until_ready:
-            device = _cuda_device(x)
-            if device is not None:
+            for device in _cuda_devices(x):
                 torch.cuda.synchronize(device)
         return x
 

@@ -9,7 +9,7 @@ release on the run's own blockchain:
   * :func:`snapshot` — the masked per-cluster mean over client rows
     (cluster-c model = FedAvg of every client whose latest chain-recorded
     assignment is c) and the bank's fingerprint residues, on the device the
-    arena lives on;
+    arena lives on (a mesh's lead device);
   * :func:`publish_release` — mints a **release block**: one
     ``model_release`` tx per cluster plus the producer's sender-bound
     ``release_commit``, so each served model carries an O(log K) Merkle
@@ -305,9 +305,10 @@ def snapshot(source, *, publish: bool = True, verify: bool = True,
     itself: it reads ``sim.pop.n_clients``, ``sim.cfg.n_clusters``,
     ``sim.arena`` (or ``sim.params``), ``sim.last_labels``,
     ``sim.trainer.chain`` / ``.pool`` and ``sim.mcfg``.  The bank is built
-    on the device the arena lives on.  With ``publish`` the bank's digests
-    are minted into a release block on the run's own chain; with ``verify``
-    the fresh bank must pass :func:`verify_bank` before it is returned.
+    on the arena's (lead) device from its real rows read to the host.  With
+    ``publish`` the bank's digests are minted into a release block on the
+    run's own chain; with ``verify`` the fresh bank must pass
+    :func:`verify_bank` before it is returned.
     """
     sim = getattr(source, "sim", source)
     if sim is None or not hasattr(sim, "trainer"):
@@ -318,8 +319,12 @@ def snapshot(source, *, publish: bool = True, verify: bool = True,
         n = sim.pop.n_clients
         n_clusters = sim.cfg.n_clusters
         if sim.arena is not None:
+            # the real rows read to the host (shard by shard on a mesh) and
+            # moved to the run's device once, after the run: the same bytes
+            # at every mesh width
             layout = sim.arena.layout
-            rows = sim.arena.data[:n]
+            rows = torch.from_numpy(sim.arena.host_rows()[:n]).to(
+                sim.arena.devices[0])
         else:
             layout = ArenaLayout.from_stacked(sim.params)
             rows = layout.flatten(sim.params)

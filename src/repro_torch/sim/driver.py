@@ -42,7 +42,15 @@ first loads a kernel library.
 
 Byzantine clients train honestly but commit a digest of params they did not
 train (the paper's freeriding attack); CACC verification refuses them.
-The legacy ``engine=False`` driver and the mesh are not ported.
+With ``spec.mesh.shards`` S > 1 the arena is a ``ShardedParamArena`` over
+a client mesh of S devices (``repro_torch.launch.mesh``) and the engine
+shards each cohort over the same mesh (``spec.mesh.cohort``); the
+population data, the chain and the combine live on the mesh's lead device.
+A seeded run logs the same events at every S, and on the CPU also mints the
+same blocks and ends with the same balances, accuracy and arena bytes; on
+the H100 local training is not batch-invariant, so those follow the
+trained bits there (ROADMAP.md section 3).  The legacy ``engine=False``
+driver is not ported.
 """
 from __future__ import annotations
 
@@ -64,10 +72,11 @@ from repro_torch.core.round import FederatedTrainer, digest_of
 from repro_torch.device import resolve_device
 from repro_torch.faults import NULL_INJECTOR, FaultInjector
 from repro_torch.kernels._build import load_counts
+from repro_torch.launch.mesh import make_client_mesh
 from repro_torch.models import classifier as clf
 from repro_torch.obs import NULL_RECORDER, FlightRecorder
 from repro_torch.optim import adam
-from repro_torch.runtime.arena import ParamArena
+from repro_torch.runtime.arena import ParamArena, ShardedParamArena
 from repro_torch.sim import events as ev
 from repro_torch.sim.async_agg import (
     BufferedAggregator,
@@ -82,6 +91,28 @@ from repro_torch.sim.sampler import SamplerState, get_sampler
 from repro_torch.utils.tree import tree_index, tree_map
 
 Pytree = Any
+
+
+def one_device(device):
+    """The device of a one-shard run: a sequence must name exactly one."""
+    if isinstance(device, (list, tuple)):
+        if len(device) != 1:
+            raise ValueError(f"{len(device)} devices for a one-shard run; set "
+                             "spec.mesh.shards to their number")
+        return device[0]
+    return device
+
+
+def cohort_bytes(engine: RoundEngine, k: int, n_params: int) -> int:
+    """Per-round cohort traffic between devices (the reference's
+    ``engine.cohort_bytes``): sharded, each device's slice in and out plus
+    the padded trained block on the lead; otherwise the (k, N) block
+    gathered in and the row updates scattered out."""
+    if engine.cohort_mode == "sharded":
+        s = engine.cohort_shards
+        k_pad = -(-k // s) * s
+        return 2 * (k_pad // s) * n_params * 4 + k_pad * n_params * 4
+    return 2 * k * n_params * 4
 
 
 @dataclass
@@ -132,7 +163,10 @@ class SimulatedFederation:
     """Sync rounds or async flushes of the spec's strategy over sampled
     cohorts of a virtual population, on a deterministic virtual clock, with
     the population's parameters in one arena on ``device`` (``None`` means
-    the card).
+    the card).  With ``spec.mesh.shards`` S > 1 the arena spreads over the
+    client mesh ``make_client_mesh(S, device)`` (``device``: ``"cpu"``,
+    ``None`` / ``"cuda"``, or a sequence of S devices), and the population
+    lives on the mesh's lead device.
 
     With ``spec.obs.enabled`` the run binds its own ``FlightRecorder``
     on the virtual clock.  Otherwise ``obs`` may be any recorder with the
@@ -142,7 +176,12 @@ class SimulatedFederation:
 
     def __init__(self, population: ClientPopulation, spec: ExperimentSpec,
                  device=None, obs=None):
-        device = resolve_device(device)
+        self.mesh = None
+        if spec.mesh.shards > 1:
+            self.mesh = make_client_mesh(spec.mesh.shards, device)
+            device = self.mesh.lead
+        else:
+            device = resolve_device(one_device(device))
         if population.device != device:
             raise ValueError(f"population lives on {population.device}, the "
                              f"run on {device}")
@@ -183,17 +222,24 @@ class SimulatedFederation:
         # population-wide ledger (the trainer's chain_round settles against it)
         self.trainer.ledger = TokenLedger(n, c.initial_stake)
 
+        # on a mesh the population's parameters start on the host and each
+        # shard is copied to its owner: no device holds another's rows (the
+        # values come from a CPU generator, the same on every device)
         params = clf.init_stacked(mcfg, torch.Generator().manual_seed(spec.seed),
-                                  n, device=device)
+                                  n, device="cpu" if self.mesh else device)
         # shared tamper digest for Byzantine commits (the digest a freerider
         # claims never varies)
-        self._fake_digest = digest_of(tree_map(torch.zeros_like,
-                                               tree_index(params, 0)))
-        self.arena = ParamArena.from_stacked(params)
+        self._fake_digest = digest_of(tree_map(
+            lambda x: torch.zeros_like(x, device=device), tree_index(params, 0)))
+        if self.mesh is None:
+            self.arena = ParamArena.from_stacked(params)
+        else:
+            self.arena = ShardedParamArena.from_stacked(params, self.mesh)
         self.engine = RoundEngine(
             self.arena.layout, strategy=strategy, opt=self.opt,
             n_clusters=t.n_clusters, local_epochs=t.local_epochs,
-            stacked_apply_fn=self.bundle.apply_fn, obs=self.obs)
+            stacked_apply_fn=self.bundle.apply_fn, mesh=self.mesh,
+            cohort_mode=spec.mesh.cohort, obs=self.obs)
         self.last_labels = np.full(n, -1, dtype=np.int64)
         self.sampler = get_sampler(t.sampler)
 
@@ -214,14 +260,12 @@ class SimulatedFederation:
         self._ckpt_executor: ThreadPoolExecutor | None = None
         self._ckpt_future = None       # at most one write in flight
         if self.obs.enabled:
-            arena_bytes = self.arena.data.numel() * self.arena.data.element_size()
-            self.obs.set_gauge("arena.bytes", arena_bytes)
-            self.obs.set_gauge("arena.per_device_bytes", arena_bytes)  # one card
-            # per-round cohort traffic, the reference's replicated form: the
-            # (k, N) block gathered in and the row updates scattered out
-            k = max(1, int(round(t.sample_frac * n)))
-            self.obs.set_gauge("engine.cohort_bytes",
-                               2 * k * self.arena.layout.n_params * 4)
+            self.obs.set_gauge("arena.bytes", self.arena.nbytes)
+            self.obs.set_gauge("arena.per_device_bytes",
+                               self.arena.per_device_bytes())
+            self.obs.set_gauge("engine.cohort_bytes", cohort_bytes(
+                self.engine, max(1, int(round(t.sample_frac * n))),
+                self.arena.layout.n_params))
         self.trainer.attach_obs(self.obs)
         self.trainer.attach_faults(self.faults)
 
@@ -235,7 +279,7 @@ class SimulatedFederation:
 
     @params.setter
     def params(self, value: Pytree) -> None:
-        self.arena.rebind(self.arena.layout.flatten(value).to(self.device))
+        self.arena.rebind(self.arena.layout.flatten(value))
 
     # ------------------------------------------------------------------ #
 
@@ -290,7 +334,7 @@ class SimulatedFederation:
     def _evaluate_clients(self, ids: np.ndarray) -> float:
         ex, ey = self._eval_slices()
         idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-        return float(self.engine.eval_population(self.arena.data, idx, ex, ey))
+        return float(self.engine.eval_population(self.arena, idx, ex, ey))
 
     # ------------------------------------------------------------------ #
     # synchronous mode
@@ -364,9 +408,11 @@ class SimulatedFederation:
             cx, cy = pop.cohort_data(cohort)
         arrived_w = torch.as_tensor(arrived, dtype=torch.float32,
                                     device=self.device)
-        cohort_idx = torch.as_tensor(cohort, dtype=torch.long,
-                                     device=self.device)
-        with obs.span("round.step", round=r):
+        # the sharded arena splits the ids by owner on the host
+        cohort_idx = cohort if self.mesh else torch.as_tensor(
+            cohort, dtype=torch.long, device=self.device)
+        with obs.span("round.step", round=r, shards=self.engine.cohort_shards,
+                      cohort_mode=self.engine.cohort_mode):
             out = self.engine.sync_step(self.arena, cohort_idx, cx, cy,
                                         arrived_w)
             if obs.enabled:
@@ -428,7 +474,7 @@ class SimulatedFederation:
             agg = resume["agg"]
         else:
             version = 0
-            global_state = self.arena.data[0].clone()       # (N,) flat row
+            global_state = self.arena.gather([0], self.device)[0]   # (N,)
             snapshots = {0: global_state}
             inflight = {}                  # client -> dispatch version
             agg = BufferedAggregator(acfg.buffer_size, acfg.staleness_alpha)
@@ -501,7 +547,9 @@ class SimulatedFederation:
             # report simply carries fewer flushes than requested
             self.event_log.append((self.clock.now, "queue_drained", -1,
                                    version, 0))
-        self.arena.rebind(global_state[None].repeat(self.arena.n_clients, 1))
+        # every row the global model: a broadcast view, each shard (or the
+        # one arena) materialised from it on its own device
+        self.arena.rebind(global_state[None].expand(self.arena.n_clients, -1))
 
     def _async_flush(self, agg: BufferedAggregator, version: int,
                      global_state: torch.Tensor, snapshots: dict) -> tuple:
@@ -527,7 +575,9 @@ class SimulatedFederation:
         arrived = np.ones(k, dtype=bool)
         tamper = self._tampers(clients, arrived)
 
-        with obs.span("flush.step", cat="flush", round=version):
+        with obs.span("flush.step", cat="flush", round=version,
+                      shards=self.engine.cohort_shards,
+                      cohort_mode=self.engine.cohort_mode):
             base_rows = torch.stack([snapshots[v] for v in versions])  # (k, N)
             local_rows, residues, mean_loss = self.engine.async_step(
                 base_rows, cx, cy)

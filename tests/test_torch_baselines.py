@@ -215,7 +215,7 @@ def _rows_and_mask(m, n, seed):
 def test_flat_combine_bit_exact_to_numpy_oracle(name, m, n):
     _, ts = _strategies(name)
     rows, w = _rows_and_mask(m, n, seed=m * n)
-    out = ts.cohort_combine(torch.from_numpy(rows), None, torch.from_numpy(w),
+    out = ts.cohort_combine(torch.from_numpy(rows), None, torch.from_numpy(w), m,
                             NULL_RECORDER)
     want = masked_tree_sum_ref(rows, w) / np.maximum(tree_sum_ref(w), 1.0)
     assert out.rows.shape == (m, n) and np.isfinite(out.rows.numpy()).all()
@@ -234,7 +234,7 @@ def test_fedproto_combine_keeps_the_trained_rows():
     _, ts = _strategies("fedproto")
     rows, w = _rows_and_mask(6, 33, seed=1)
     t = torch.from_numpy(rows)
-    out = ts.cohort_combine(t, None, torch.from_numpy(w), NULL_RECORDER)
+    out = ts.cohort_combine(t, None, torch.from_numpy(w), 6, NULL_RECORDER)
     assert out.rows is t
     assert torch.equal(out.labels, torch.zeros(6, dtype=torch.long))
     assert torch.equal(out.corr, torch.eye(6))

@@ -130,7 +130,7 @@ def test_the_engine_and_fedbuff_keep_the_kernel_path():
     protos = _t(rng.standard_normal((m, 8)), np.float32)
     arrived = _t(rng.random(m) < 0.8, np.float32)
     bfln = tbase.make_bfln(None, None, n_clusters=c)
-    out = bfln.cohort_combine(rows, protos, arrived, NULL_RECORDER)
+    out = bfln.cohort_combine(rows, protos, arrived, m, NULL_RECORDER)
     assert torch.equal(out.rows, kca.cluster_mean_rows(rows, out.labels, c, arrived))
     w = _t(rng.random(m), np.float32)
     assert torch.equal(tasync.weighted_delta_mean(rows, w),

@@ -156,7 +156,9 @@ def test_run_returns_a_result_on_the_cpu():
     # async runs now, for BFLN and the baselines alike: accepted (match None)
     (dict(train=TrainSpec(mode="async")), None),
     (dict(engine=False), "Deliberately not ported"),
-    (dict(mesh=MeshSpec(shards=2)), "item 6"),
+    # the client-sharded mesh runs now: accepted (match None), under the
+    # case id it had while refused
+    pytest.param(dict(mesh=MeshSpec(shards=2)), None, id="change2-item 6"),
     (dict(train=TrainSpec(strategy="fedavg", mode="async")), None),
 ])
 def test_run_refuses_what_the_slice_does_not_do(change, match):
