@@ -138,6 +138,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the plain version and, sliced to 100, against the (100, 6570) call on
      the real rows; timed beside the bound (cluster_agg beside
      `torch.matmul` too);
+   * the fixed-order batched product (`csrc/batched_matmul.cu`, no Pallas
+     counterpart: the client-stacked products the reference leaves to
+     XLA) bit for bit against its plain version at ExperimentSpec()'s
+     forward (100 x (16 x 64) @ (64 x 64), (64 x 32), (32 x 10)) and the
+     shared eval batch ((1024 x 64) @ 100 x (64 x 64)), each product's
+     backward forms through transposed views (and an expanded gradient),
+     25 and 34 of the 100 clients equal to their rows of the whole call,
+     FedProto's class sums, ragged tiles, K = 1, signed zeros and
+     `BatchedMatmulFn`'s gradients; timed at those four shapes beside the
+     bound, the plain version and `torch.bmm` / `torch.matmul` (cuBLAS);
    * the async path's shapes (ASYNC_SHAPE, a flush's (16, 6570) rows): the
      fingerprint at every forced cluster size, on and off the 16-byte grid,
      and the merge — cluster_agg at C = 1 over staleness weights gated by
@@ -160,7 +170,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    weights, one `sync_step` then runs on the card and on the CPU from
    identical rows and cohort data: equal labels, the Pearson matrix within
    1e-5, the new rows within STEP_ROWS_TOL.  `serve(result.sim)` must then
-   pass `verify_bank` and answer mixed-cluster requests.
+   pass `verify_bank` and answer mixed-cluster requests.  The batched
+   product's launches a round are reported, and the same spec runs four
+   more times in turns with the client-stacked products through cuBLAS
+   and through the kernel (`bmm_route_compare`: round and local-training
+   p50 of each route, information).
 3. strategies — each of the four Table II baselines (fedavg, fedprox,
    fedproto, fedhkd) through `run(ExperimentSpec(train=TrainSpec(
    strategy=s)))` at the defaults on the card, its launches counted
@@ -255,7 +269,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    forward: 32 encoder, 32 decoder and 32 cross; 32 in `warm_cache`; 0 a
    decode step), decode vs forward within DECODE_RTOL, and `reduced()` in
    float32 card vs CPU (4 float32 flash launches: 2 encoder, 1 self, 1
-   cross).
+   cross).  For llama4 (2 layers) and jamba (4 layers), from the same
+   weights, the expert-parallel MoE (`lm_ep_run`: `sharding_mode="ep_tp"`
+   under a (4, 1) and a (2, 2) mesh of `mesh_devices`, the expert tables
+   placed as views): both paths' dropped choices at the configuration's
+   capacity factor (reported), the eval's wall, tokens/s and peak memory,
+   and at a capacity factor where neither path drops (found from the
+   routers' loads) the cross-entropy against the dense eval within
+   CARD_CPU_RTOL and the logits within it at model = 1 (within
+   DECODE_RTOL at model > 1, where the bf16 F-partials are rounded before
+   the psum, as in the reference); the `reduced()` float32 forward
+   expert-parallel vs dense on the card within CARD_CPU_RTOL; each
+   member's expert bytes; the `reduced()` float32 train step through ep_tp
+   card vs CPU.
 11. lm_train — the LM zoo's training path for gemma3-4b and rwkv6-3b
    at the same widths and depths and jamba-1.5-large-398b at one layer
    (mamba + dense SwiGLU FFN at d_model 8192, d_inner 16384;
@@ -285,21 +311,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 12. mesh (run between resume and obs) — the client-sharded mesh at
    ExperimentSpec()'s defaults, over `cuda:0..S-1` when the machine has S
-   cards, else S shards on cuda:0 (printed).  First `mesh_invariance`:
-   does local training give each client the same bits in one call of 100
-   clients as in calls of 25 or 34 (each product and reduction of a step,
-   each leaf's gradient, each strategy's `local_train`, the eval forward)?
-   That picks the gate: bit identity to the train / async phases' shards=1
-   card runs, or (on the H100 it is not invariant, ROADMAP.md section 3)
-   the card-vs-CPU gates, with bit identity reported and the first round
-   whose block differs.  Then, each on the card and the CPU
-   (`card_and_cpu`) and each arena checked shard by shard (n_padded / S
-   rows, on its device): BFLN sync at S = 4 sharded (launches: 4
-   fingerprint, 1 Pearson, 1 cluster_agg a round), at S = 3 (1000 rows
-   pad to 1002, the cohort to 102), at S = 4 replicated (bit-identical to
-   shards=1 by construction, gated so), FedBuff at S = 4; a crash at
-   RESUME_CRASH resumed to the S = 4 run's digests and arena bytes; and
-   `serve()` from the S = 4 run (verified, 12 requests).  Round / flush
+   cards, else S shards on cuda:0 (printed).  First `mesh_invariance`, a
+   gate: local training must give each client the same bits in one call
+   of 100 clients as in calls of 25 or 34 (each product of a step through
+   the fixed-order batched-product kernel, each reduction the strategies
+   add, BFLN's prototype mean, each leaf's gradient, each strategy's
+   `local_train`, the eval forward): every count 0 (cuBLAS's layer-2
+   forward, which the path no longer launches, is counted beside it as
+   information).  Then, each on the card and the CPU (`card_and_cpu`),
+   each arena checked shard by shard (n_padded / S rows, on its device)
+   and each bit-identical to the train / async phases' shards=1 card run
+   (digests, every block hash, the arena's bytes): BFLN sync at S = 4
+   sharded (launches: 4 fingerprint, 1 Pearson, 1 cluster_agg a round),
+   at S = 3 (1000 rows pad to 1002, the cohort to 102), at S = 4
+   replicated, FedBuff at S = 4; a crash at RESUME_CRASH resumed to the
+   S = 4 run's digests and arena bytes; and `serve()` from the S = 4 run
+   (verified, 12 requests, its bank equal to shards=1's).  Round / flush
    p50 and p99 beside shards=1's (information: S shards on one card
    serialise their launches).
 
@@ -309,7 +336,8 @@ path: train, train_fedavg, train_fedprox, train_fedproto, train_fedhkd,
 async, faults, resume, mesh, mesh_sharded_padded, mesh_replicated,
 mesh_async, mesh_resume, mesh_serve, obs, paper, serve, lm_forward, lm_decode,
 lm_warm_cache, lm_fp32, lm_train, lm_train_fp32; the four backward
-kernels' main paths are lm_train and lm_train_fp32),
+kernels' main paths are lm_train and lm_train_fp32, the batched
+product's train, with its launches a round and the route comparison),
 error, times, bound and the two launch floors (the fingerprint and
 cluster_agg entries with their `async_shape` and mesh rows, rwkv6 and
 selective_scan with their `decode_shape` row, bf16 flash with its
@@ -327,6 +355,7 @@ it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -373,9 +402,14 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import aggregation as core_agg  # noqa: E402
 from repro_torch.core.baselines import ModelBundle  # noqa: E402
 from repro_torch.core.engine import RoundEngine  # noqa: E402
+from repro_torch.core import prototypes as prototypes_mod  # noqa: E402
+from repro_torch.core.prototypes import classwise_prototypes, client_prototypes  # noqa: E402
 from repro_torch.core.fl import local_train  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import batched_matmul as bm  # noqa: E402
 from repro_torch.data.lm import batch_stream, make_token_stream  # noqa: E402
+from repro_torch.interop import place_expert_tables  # noqa: E402
+from repro_torch.launch.mesh import make_model_mesh, use_mesh  # noqa: E402
 from repro_torch.kernels import cluster_agg as ca  # noqa: E402
 from repro_torch.kernels import fingerprint as fp  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -386,6 +420,7 @@ from repro_torch.models import classifier as clf  # noqa: E402
 from repro_torch.models import decode as lmdec  # noqa: E402
 from repro_torch.models import lm as lmsteps  # noqa: E402
 from repro_torch.models import transformer as lmt  # noqa: E402
+from repro_torch.models.moe import moe_capacity, router_topk  # noqa: E402
 from repro_torch.obs import (  # noqa: E402
     ALL_NAMES,
     PORT_SPAN_NAMES,
@@ -409,7 +444,7 @@ from repro_torch.serve import (  # noqa: E402
 from repro_torch.serve.snapshot import mlp_layout  # noqa: E402
 from repro_torch.sim import VirtualClock  # noqa: E402
 from repro_torch.sim.async_agg import staleness_weight, weighted_delta_mean  # noqa: E402
-from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_sq_norm  # noqa: E402
 
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and 32-bit arithmetic
@@ -576,6 +611,11 @@ LM_TRAIN_STEPS, LM_TRAIN_LR = 8, 1e-3
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
 LM_BATCH, LM_SEQ = 2, 4096              # train_4k's sequence length
 PROMPT, NEW_TOKENS, PARITY_TOKENS = 16, 16, 32
+# the expert-parallel MoE at full width (lm_ep): each configuration's
+# (data, model) mesh, its members on mesh_devices; the capacity factor that
+# lets neither path drop is searched in at most EP_CF_ROUNDS runs
+EP_MESHES = {"llama4-maverick-400b-a17b": (4, 1), "jamba-1.5-large-398b": (2, 2)}
+EP_CF_ROUNDS = 4
 # the four Table II baselines, each run through run(spec) at the defaults
 BASELINES = ("fedavg", "fedprox", "fedproto", "fedhkd")
 # with one cluster and the identity affinity the producers and rewards do
@@ -631,7 +671,8 @@ run(ExperimentSpec(train=TrainSpec(rounds=2),
                    obs=ObsSpec(enabled=True, trace_path=sys.argv[2])))
 """
 # the kernel libraries a sync BFLN run loads, and their kernels' names
-TRAIN_SOURCES = {"cluster_agg.cu": "cluster_agg_kernel",
+TRAIN_SOURCES = {"batched_matmul.cu": "batched_matmul_kernel",
+                 "cluster_agg.cu": "cluster_agg_kernel",
                  "fingerprint.cu": "fingerprint_kernel", "pearson.cu": "pearson_kernel"}
 # paa_round on the card vs the CPU: the Pearson matrix at the reference's
 # tolerance, the prototypes and the new params at the float32 sums' 1e-6
@@ -649,7 +690,19 @@ KERNELS = {"fingerprint": (fp, "launches"), "cluster_agg": (ca, "launches"),
            "flash_attention_bwd_bf16": (fa, "launches_bwd_bf16"),
            "flash_attention_bwd_fp32": (fa, "launches_bwd"),
            "rwkv6_bwd": (wk, "launches_bwd"), "selective_scan": (sc, "launches"),
-           "selective_scan_bwd": (sc, "launches_bwd")}
+           "selective_scan_bwd": (sc, "launches_bwd"), "batched_matmul": (bm, "launches")}
+
+
+# the batched product launches with every training step, prototype and eval
+# forward a run takes; an expected count of SOME asks for at least one
+# launch, and the count is reported
+SOME = None
+
+
+def launches_match(launches: dict[str, int], want: dict) -> bool:
+    """Every kernel's count as ``want`` says: exactly, or > 0 for SOME."""
+    return all(launches[k] > 0 if want[k] is SOME else launches[k] == want[k]
+               for k in KERNELS)
 
 
 def reset_launches() -> None:
@@ -1378,8 +1431,8 @@ def train_phase(dev) -> dict:
     # one launch per non-empty round each; the fingerprint also digests the
     # freeriders' all-zero claim once at start-up
     want = dict({k: 0 for k in KERNELS}, fingerprint=nonempty + 1,
-                cluster_agg=nonempty, pearson=nonempty)
-    if launches != want:
+                cluster_agg=nonempty, pearson=nonempty, batched_matmul=SOME)
+    if not launches_match(launches, want):
         raise AssertionError(f"train-path launches {launches}, expected {want}")
     acc = m["final_accuracy"]
     if not 0.0 < acc <= 1.0:
@@ -1430,7 +1483,39 @@ def train_phase(dev) -> dict:
             "event_log_digest": m["event_log_digest"],
             "block_hashes_equal_cpu": cpu["block_hashes_digest"] == m["block_hashes_digest"],
             "run_wall_s": wall_s, "cpu_run_wall_s": cpu_wall_s,
-            "step_parity": parity, "served_requests": len(done)}
+            "step_parity": parity, "served_requests": len(done),
+            "batched_matmul_launches_a_round": launches["batched_matmul"] / m["rounds_run"],
+            "bmm_route": bmm_route_compare(dev)}
+
+
+def bmm_route_compare(dev) -> dict:
+    """ExperimentSpec() on the card with the client-stacked products through
+    the fixed-order kernel (the path) and through cuBLAS (`torch.matmul`,
+    the route before the kernel), in turns cuBLAS, kernel, kernel, cuBLAS:
+    each run's round p50 and `step.local_train` p50 (drained spans), and
+    whether the two routes' event logs agree.  Information: the kernel is
+    there for bit identity, not for speed."""
+    out: dict = {"order": [], "round_ms_p50": [], "local_train_ms_p50": []}
+    logs = set()
+    for route in ("cublas", "kernel", "kernel", "cublas"):
+        timer = RoundTimer()
+        with contextlib.ExitStack() as stack:
+            if route == "cublas":
+                for mod in (clf, prototypes_mod):
+                    stack.enter_context(mock.patch.object(mod, "batched_matmul",
+                                                          torch.matmul))
+            res = run(ExperimentSpec(), device=dev, obs=timer)
+            torch.cuda.synchronize()
+        logs.add(res.manifest["event_log_digest"])
+        out["order"].append(route)
+        out["round_ms_p50"].append(float(np.median(timer.spans["round.total"])))
+        out["local_train_ms_p50"].append(float(np.median(timer.spans["step.local_train"])))
+    for key in ("round_ms_p50", "local_train_ms_p50"):
+        for route in ("cublas", "kernel"):
+            out[f"{key}_{route}"] = float(np.mean(
+                [v for r, v in zip(out["order"], out[key]) if r == route]))
+    out["event_logs_equal"] = len(logs) == 1
+    return out
 
 
 def strategy_run(name: str, dev) -> dict:
@@ -1460,8 +1545,8 @@ def strategy_run(name: str, dev) -> dict:
     # masked mean once a round, except FedProto's models, never averaged
     want = {k: 0 for k in KERNELS}
     want.update(fingerprint=nonempty + 1,
-                cluster_agg=0 if name == "fedproto" else nonempty)
-    if launches != want:
+                cluster_agg=0 if name == "fedproto" else nonempty, batched_matmul=SOME)
+    if not launches_match(launches, want):
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     acc = m["final_accuracy"]
     if not 0.0 < acc <= 1.0:
@@ -1569,8 +1654,8 @@ def async_phase(dev) -> dict:
         raise AssertionError(f"async: {flushes} flushes, "
                              f"{card.manifest['n_blocks']} blocks")
     want = {k: 0 for k in KERNELS}
-    want.update(fingerprint=flushes + 1, cluster_agg=flushes)
-    if launches != want:
+    want.update(fingerprint=flushes + 1, cluster_agg=flushes, batched_matmul=SOME)
+    if not launches_match(launches, want):
         raise AssertionError(f"async-path launches {launches}, expected {want}")
     flush_ms = timer.spans["flush.total"]
     ONE_SHARD["async"] = one_shard_record(card, flush_ms)
@@ -1779,13 +1864,20 @@ def differing(fn, n: int, m: int = 100) -> int:
 def mesh_invariance(dev) -> dict:
     """Does the card give each client the same bits however many clients
     one call trains?  At ExperimentSpec()'s widths (64 -> 64 -> 32 -> 10,
-    batch 16) for 100 clients: the products and the bias-gradient sum of
-    one step in one call against 4 calls of 25 (differing elements), each
-    leaf's gradient of one step, each strategy's `local_train` against 4
-    calls of 25 and 3 calls of 34 (the last padded with 2 zero-data slots
-    on row 0, as the engine pads), and the eval forward.  ``invariant`` is
-    the gate of the mesh phase: bit identity to shards=1 if every count is
-    0, else the card-vs-CPU gates."""
+    batch 16) for 100 clients: each product a step launches (forward, the
+    weight gradient A^T dY and the input gradient dY B^T, each through the
+    fixed-order batched-product kernel as autograd calls it), the bias
+    gradient's sum, the log-softmax backward, the per-client reductions the
+    strategies add (cross-entropy's mean over the batch, FedProx's squared
+    norm, FedProto's class prototypes) and BFLN's partial (the prototype
+    mean over the probe batch), each in one call against 4 calls of 25
+    (differing elements); each leaf's gradient of one step; each strategy's
+    `local_train` against 4 calls of 25 and 3 calls of 34 (the last padded
+    with 2 zero-data slots on row 0, as the engine pads); and the eval
+    forward.  Every count must be 0: it is the mesh phase's gate.  cuBLAS's
+    layer-2 forward (`torch.matmul`, which the path no longer launches) is
+    counted beside it as information: it is what made the port's sharded
+    runs differ before (ROADMAP.md section 3)."""
     pop = ClientPopulation.from_spec(
         ExperimentSpec(data=DataSpec(n_clients=200)).population_spec(), dev)
     t = TrainSpec()
@@ -1803,22 +1895,33 @@ def mesh_invariance(dev) -> dict:
     g2 = torch.randn((100, x.shape[1], t.rep_dim), generator=gen, device=dev)
     gl = torch.randn((100, x.shape[1], pop.num_classes), generator=gen, device=dev)
     reps = clf.embed_batched(mcfg, params, x)
-    h1 = torch.relu(torch.matmul(x, params["w0"]) + params["b0"][:, None, :])
-    ops = {"forward x @ w0": lambda s: torch.matmul(x[s], params["w0"][s]),
-           "weight gradient x^T @ g": lambda s: torch.matmul(x[s].transpose(1, 2), g[s]),
-           "forward h1 @ w1": lambda s: torch.matmul(h1[s], params["w1"][s]),
-           "weight gradient h1^T @ g": lambda s: torch.matmul(h1[s].transpose(1, 2), g2[s]),
-           "input gradient g @ w1^T": lambda s: torch.matmul(
-               g2[s], params["w1"][s].transpose(1, 2)),
+    prod = bm.batched_matmul_cuda
+    h1 = torch.relu(prod(x, params["w0"]) + params["b0"][:, None, :])
+    logits = clf.apply_batched(mcfg, params, x)
+
+    def sub(s):
+        return {k: v[s] for k, v in params.items()}
+    ops = {"forward x @ w0": lambda s: prod(x[s], params["w0"][s]),
+           "weight gradient x^T @ g": lambda s: prod(x[s].transpose(1, 2), g[s]),
+           "forward h1 @ w1": lambda s: prod(h1[s], params["w1"][s]),
+           "weight gradient h1^T @ g": lambda s: prod(h1[s].transpose(1, 2), g2[s]),
+           "input gradient g @ w1^T": lambda s: prod(g2[s], params["w1"][s].transpose(1, 2)),
            "bias gradient (sum over the batch)": lambda s: g[s].sum(dim=1),
-           "head forward reps @ w_head": lambda s: torch.matmul(
-               reps[s], params["w_head"][s]),
-           "head weight gradient reps^T @ g": lambda s: torch.matmul(
-               reps[s].transpose(1, 2), gl[s]),
-           "head input gradient g @ w_head^T": lambda s: torch.matmul(
+           "head forward reps @ w_head": lambda s: prod(reps[s], params["w_head"][s]),
+           "head weight gradient reps^T @ g": lambda s: prod(reps[s].transpose(1, 2), gl[s]),
+           "head input gradient g @ w_head^T": lambda s: prod(
                gl[s], params["w_head"][s].transpose(1, 2)),
-           "log-softmax backward": lambda s: log_softmax_backward(gl[s], gl[s])}
+           "log-softmax backward": lambda s: log_softmax_backward(gl[s], gl[s]),
+           "cross-entropy mean over the batch": lambda s: -torch.take_along_dim(
+               F.log_softmax(logits[s], dim=-1), y[s][..., None].long(), dim=-1)[..., 0]
+           .mean(dim=-1),
+           "squared norm of each client's params (FedProx)": lambda s: tree_sq_norm(sub(s)),
+           "class prototypes (FedProto, FedHKD)": lambda s: classwise_prototypes(
+               bundle.embed_fn, sub(s), x[s], y[s], pop.num_classes)[0],
+           "prototype mean over the probe batch (BFLN's partial)": lambda s:
+               client_prototypes(bundle.embed_fn, sub(s), pop.probe)}
     ops = {name: differing(fn, 25) for name, fn in ops.items()}
+    cublas = differing(lambda s: torch.matmul(h1[s], params["w1"][s]), 25)
 
     def grads(s):
         p = {k: v[s].detach().requires_grad_(True) for k, v in params.items()}
@@ -1861,6 +1964,7 @@ def mesh_invariance(dev) -> dict:
                                    "one step's gradients, 4 calls of 25": step,
                                    "local_train (params and loss)": train,
                                    "eval forward, 4 calls of 25": evals},
+            "cublas_forward_h1_w1_differing_elements": cublas,
             "invariant": invariant}
 
 
@@ -1888,7 +1992,7 @@ def mesh_run(spec: ExperimentSpec, what: str, one: dict, want: dict,
     card, cpu, timer = out["card"], out["cpu"], out["timer"]
     for res, where in ((card, "card"), (cpu, "CPU")):
         check_mesh_arena(res.sim.arena, shards, f"{what} ({where})")
-    if out["launches"] != want:
+    if not launches_match(out["launches"], want):
         raise AssertionError(f"{what}: launches {out['launches']}, expected {want}")
     m = card.manifest
     if m["event_log_digest"] != one["digests"]["event_log_digest"]:
@@ -1935,38 +2039,39 @@ def mesh_run(spec: ExperimentSpec, what: str, one: dict, want: dict,
 
 def mesh_phase(dev, res: dict) -> dict:
     """The client-sharded mesh at ExperimentSpec()'s defaults.  First the
-    card's batch invariance (`mesh_invariance`), which picks the gate; then
-    on the card over `mesh_devices`, each also on the host CPU: BFLN sync
-    at MESH_SHARDS sharded (4 fingerprint, 1 Pearson and 1 cluster-agg
-    launches a round), at MESH_PAD_SHARDS (1000 rows pad to 1002, the
-    cohort to 102: two zero-weight slots) and at MESH_SHARDS replicated
-    (the one-device step on the lead: bit-identical to shards=1 by
-    construction, gated so); FedBuff at MESH_SHARDS (each flush's 16 rows 4
-    a shard); a crash by exception at RESUME_CRASH resumed to the
-    uninterrupted MESH_SHARDS run's digests and arena bytes; and
-    `serve()` from that run (verified, 12 requests answered, its bank
-    against the train phase's).  Round and flush p50 / p99 beside shards=1's
-    are information: S shards on one card serialise their launches."""
+    card's batch invariance (`mesh_invariance`): every count must be 0.
+    Then on the card over `mesh_devices`, each also on the host CPU and
+    each bit-identical to the train / async phases' shards=1 card run
+    (digests, every block hash, the arena's bytes, balances and final
+    accuracy with them): BFLN sync at MESH_SHARDS sharded (4 fingerprint, 1
+    Pearson and 1 cluster-agg launches a round), at MESH_PAD_SHARDS (1000
+    rows pad to 1002, the cohort to 102: two zero-weight slots) and at
+    MESH_SHARDS replicated (the one-device step on the lead); FedBuff at
+    MESH_SHARDS (each flush's 16 rows 4 a shard); a crash by exception at
+    RESUME_CRASH resumed to the uninterrupted MESH_SHARDS run's digests and
+    arena bytes; and `serve()` from that run (verified, 12 requests
+    answered, its bank equal to the train phase's).  Round and flush p50 /
+    p99 beside shards=1's are information: S shards on one card serialise
+    their launches."""
     inv = mesh_invariance(dev)
-    gate = inv["invariant"]
+    if not inv["invariant"]:
+        raise AssertionError(f"mesh: local training on the card is not batch-invariant: "
+                             f"{inv['differing_elements']}")
     sync, asyn = ONE_SHARD["sync"], ONE_SHARD["async"]
     rounds = len(sync["blocks"]) - 1              # the non-empty rounds
     flushes = len(asyn["blocks"]) - 1
 
     def want(fingerprint, cluster_agg, pearson):
         return dict({k: 0 for k in KERNELS}, fingerprint=fingerprint,
-                    cluster_agg=cluster_agg, pearson=pearson)
-    out: dict = {"invariance": inv,
-                 "gate": "bit identity to shards=1" if gate else
-                         "card vs CPU (event log, chain, ledger, ACC_TOL; balances "
-                         "at BALANCE_TOL where they do not follow the trained bits)"}
+                    cluster_agg=cluster_agg, pearson=pearson, batched_matmul=SOME)
+    out: dict = {"invariance": inv, "gate": "bit identity to shards=1"}
     s, p = MESH_SHARDS, MESH_PAD_SHARDS
     card4, out["sharded"] = mesh_run(
         ExperimentSpec(mesh=MeshSpec(shards=s)), f"mesh/sharded{s}", sync,
-        want(rounds * s + 1, rounds, rounds), gate_bits=gate, gate_balances=False)
+        want(rounds * s + 1, rounds, rounds), gate_bits=True, gate_balances=False)
     _, out["sharded_padded"] = mesh_run(
         ExperimentSpec(mesh=MeshSpec(shards=p)), f"mesh/sharded{p}", sync,
-        want(rounds * p + 1, rounds, rounds), gate_bits=gate, gate_balances=False)
+        want(rounds * p + 1, rounds, rounds), gate_bits=True, gate_balances=False)
     _, out["replicated"] = mesh_run(
         ExperimentSpec(mesh=MeshSpec(shards=s, cohort="replicated")),
         f"mesh/replicated{s}", sync, want(rounds + 1, rounds, rounds),
@@ -1974,7 +2079,7 @@ def mesh_phase(dev, res: dict) -> dict:
     _, out["async"] = mesh_run(
         ExperimentSpec(train=TrainSpec(mode="async"), mesh=MeshSpec(shards=s)),
         f"mesh/async{s}", asyn, want(flushes * s + 1, flushes, 0),
-        gate_bits=gate, gate_balances=True)
+        gate_bits=True, gate_balances=True)
 
     # crash and resume on the mesh: the uninterrupted run's digests and bytes
     base = ExperimentSpec(mesh=MeshSpec(shards=s))
@@ -2027,15 +2132,112 @@ def mesh_phase(dev, res: dict) -> dict:
     bank = bank_record(fe.engine.bank)
     bank_equal = bank["sha256"] == sync["bank"]["sha256"] \
         and bank["digests"] == sync["bank"]["digests"]
-    if gate and not bank_equal:
+    if not bank_equal:
         raise AssertionError("mesh/serve: the bank differs from the shards=1 run's")
     out["serve"] = {"shards": s, "bank_device": str(fe.engine.bank.data.device),
                     "bank_bytes_equal_one_shard": bank_equal,
                     "served_requests": len(done), "launches": read_launches()}
-    print(f"mesh: {out['sharded']['placement']}, invariant {gate}, round p50 "
+    print(f"mesh: {out['sharded']['placement']}, bit-identical to one shard, round p50 "
           f"{out['sharded']['round_ms_p50']:.3f} ms at S = {s} vs "
           f"{out['sharded']['round_ms_p50_one_shard']:.3f} ms at S = 1", flush=True)
     return out
+
+
+# the fixed-order batched product at ExperimentSpec()'s widths: the forward's
+# three products a client (16-row batch) over the 100-client cohort, and the
+# eval forward's first product over the shared 1024-example batch
+BMM_SHAPES = {"layer 0 (100, 16, 64) @ (100, 64, 64)": ((100, 16, 64), (100, 64, 64)),
+              "layer 1 (100, 16, 64) @ (100, 64, 32)": ((100, 16, 64), (100, 64, 32)),
+              "head (100, 16, 32) @ (100, 32, 10)": ((100, 16, 32), (100, 32, 10)),
+              "eval (1024, 64) shared @ (100, 64, 64)": ((1024, 64), (100, 64, 64))}
+
+
+def check_bmm(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
+    """The kernel against its plain version on the same operands, bit for
+    bit (NaN-free inputs); returns the differing elements, which must be 0."""
+    got, want = bm.batched_matmul_cuda(a, b), bm.batched_matmul_plain(a, b)
+    if got.shape != want.shape or not torch.equal(got.view(torch.int32),
+                                                  want.view(torch.int32)):
+        n = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"batched_matmul kernel {what}: {n} elements differ "
+                             "from the plain version")
+    return 0
+
+
+def batched_matmul_phase(dev) -> dict:
+    """The fixed-order batched product (`csrc/batched_matmul.cu`, no Pallas
+    counterpart) bit for bit against its plain version: at BMM_SHAPES, each
+    product's backward forms as autograd gives them (dY @ B^T and A^T @ dY
+    through transposed views, dY an expanded zero-stride gradient too), at
+    25 and 34 of the 100 clients (each client's rows equal to the whole
+    call's), FedProto's class sums (one-hot^T (m, 10, 16) @ reps), ragged
+    shapes off every tile (M 17, K 33, N 70), K = 1, and signed zeros;
+    `BatchedMatmulFn`'s gradients against the plain backward.  Timed at
+    BMM_SHAPES beside the bound, the plain version and `torch.bmm` /
+    `torch.matmul` (cuBLAS, what the path launched before)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    checks = {}
+    for what, (sa, sb) in BMM_SHAPES.items():
+        a, b = rnd(*sa), rnd(*sb)
+        checks[what] = check_bmm(a, b, what)
+        if a.dim() == 3:
+            dy = rnd(sb[0], sa[1], sb[2])
+            checks[f"{what}: dY @ B^T"] = check_bmm(dy, b.transpose(1, 2), what)
+            checks[f"{what}: A^T @ dY"] = check_bmm(a.transpose(1, 2), dy, what)
+            checks[f"{what}: A^T @ dY, dY expanded"] = check_bmm(
+                a.transpose(1, 2), dy[:1, :1].expand_as(dy), what)
+            whole = bm.batched_matmul_cuda(a, b)
+            for m in (25, 34):
+                part = bm.batched_matmul_cuda(a[:m], b[:m])
+                if not torch.equal(part.view(torch.int32), whole[:m].view(torch.int32)):
+                    raise AssertionError(f"batched_matmul {what}: {m} clients in one "
+                                         "call differ from the same clients in 100")
+                checks[f"{what}: {m} clients equal their rows of 100"] = 0
+    onehot = F.one_hot(torch.randint(0, 10, (100, 16), generator=gen, device=dev),
+                       10).float()
+    checks["class sums one-hot^T (100, 10, 16) @ (100, 16, 32)"] = check_bmm(
+        onehot.transpose(1, 2), rnd(100, 16, 32), "class sums")
+    checks["ragged (3, 17, 33) @ (3, 33, 70)"] = check_bmm(rnd(3, 17, 33), rnd(3, 33, 70),
+                                                           "ragged")
+    checks["K = 1 (5, 16, 1) @ (5, 1, 10)"] = check_bmm(rnd(5, 16, 1), rnd(5, 1, 10), "K = 1")
+    zeros = torch.zeros((2, 16, 8), device=dev)
+    zeros[0] = -0.0
+    checks["signed zeros"] = check_bmm(zeros, -rnd(2, 8, 16).abs(), "signed zeros")
+    a = rnd(20, 16, 64).requires_grad_(True)
+    b = rnd(20, 64, 32).requires_grad_(True)
+    dy = rnd(20, 16, 32)
+    got = torch.autograd.grad(bm.BatchedMatmulFn.apply(a, b), (a, b), dy)
+    want = (bm.batched_matmul_plain(dy, b.detach().transpose(1, 2)),
+            bm.batched_matmul_plain(a.detach().transpose(1, 2), dy))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("BatchedMatmulFn's gradients != the plain backward")
+    checks["BatchedMatmulFn gradients (20, 16, 64) @ (20, 64, 32)"] = 0
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for what, (sa, sb) in BMM_SHAPES.items():
+        a, b = rnd(*sa), rnd(*sb)
+        m, K, N = sb
+        M = sa[-2]
+        bound, bound_by = bound_us(4 * (a.numel() + b.numel() + m * M * N),
+                                   2 * m * M * K * N)
+        library = (lambda _: torch.bmm(a, b)) if a.dim() == 3 else \
+            (lambda _: torch.matmul(a, b))
+        rows[what] = {"a": list(sa), "b": list(sb), "bit_exact": True,
+                      "kernel_us": median_us(lambda _: bm.batched_matmul_cuda(a, b),
+                                             None, 200, flush),
+                      "plain_us": median_us(lambda _: bm.batched_matmul_plain(a, b),
+                                            None, 20, flush),
+                      "library_us": median_us(library, None, 200, flush),
+                      "library_call": "torch.bmm(a, b)" if a.dim() == 3
+                                      else "torch.matmul(a, b) (a broadcast)",
+                      "bound_us": bound, "bound_by": bound_by}
+    print(f"batched_matmul: {len(checks)} checks bit for bit; layer 0 "
+          f"{rows[next(iter(rows))]['kernel_us']:.3f} us", flush=True)
+    return {"checks": checks, "rows": rows}
 
 
 def mesh_kernel_phase(dev) -> dict:
@@ -2136,7 +2338,8 @@ def traced_mode(mode: str, drained: dict, dev, root: str) -> dict:
     base = ExperimentSpec(train=TrainSpec(mode=mode))
     total = "round.total" if mode == "sync" else "flush.total"
     step = "round.step" if mode == "sync" else "flush.step"
-    used = ("fingerprint", "cluster_agg") + (("pearson",) if mode == "sync" else ())
+    used = ("fingerprint", "cluster_agg", "batched_matmul") + (
+        ("pearson",) if mode == "sync" else ())
     want = None
     ways: dict[str, dict] = {}
     for i, name in enumerate(OBS_ORDER):
@@ -2355,14 +2558,14 @@ def paper_phase(dev) -> dict:
         raise AssertionError(f"Table II gave {len(table2)} cells")
     # a BFLN round: one Pearson matrix, one cluster mean, one fingerprint of
     # the trained rows; a flat round one masked mean (none for FedProto)
-    want = {k: 0 for k in KERNELS}
+    want = dict({k: 0 for k in KERNELS}, batched_matmul=SOME)
     for rec in runs:
         if rec["strategy"] == "bfln":
             for k in ("cluster_agg", "pearson", "fingerprint"):
                 want[k] += rec["rounds"]
         elif rec["strategy"] != "fedproto":
             want["cluster_agg"] += rec["rounds"]
-    if launches != want:
+    if not launches_match(launches, want):
         raise AssertionError(f"paper-path launches {launches}, expected {want}")
 
     dataset, bias, strategy, n_clusters = PAPER_CPU_CELL
@@ -3535,16 +3738,35 @@ def grad_recorder():
     return topt.Optimizer(init=lambda p: None, update=lambda p, g, s: (p, g))
 
 
-def train_card_vs_cpu(cfg, dev) -> dict:
+def train_card_vs_cpu(cfg, dev, ep_mesh: tuple[int, int] | None = None) -> dict:
     """The configuration in float32 (fp32_config: one period at full width,
     or ``reduced()`` for the Mamba and MoE ones and whisper), B = 1, S =
     128 (whisper with its frames from frames_for): one train step's loss
     and gradients on the card (kernels) against the host CPU (plain
     versions), same weights; the card's step is the path
-    ``lm_train_fp32``, its launch counts read around it."""
+    ``lm_train_fp32``, its launch counts read around it.  With ``ep_mesh``
+    (data, model): through ``sharding_mode="ep_tp"`` under a mesh of that
+    shape (``mesh_devices`` on the card, the host on the CPU), the expert
+    tables placed over it (``place_expert_tables``); every MoE layer must
+    take the expert-parallel path, and the gradients of the placed blocks
+    are compared block by block."""
     cfg32 = fp32_config(cfg)
     p_dev = lmt.init_params(cfg32, seed=SEED + 1, device=dev)
     p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+    meshes = (contextlib.nullcontext(), contextlib.nullcontext())
+    ep_calls = []
+    if ep_mesh is not None:
+        cfg32 = dataclasses.replace(cfg32, sharding_mode="ep_tp")
+        meshes = (make_model_mesh(*ep_mesh, mesh_devices(ep_mesh[0] * ep_mesh[1])[0]),
+                  make_model_mesh(*ep_mesh, "cpu"))
+        p_dev = place_expert_tables(p_dev, meshes[0])
+        p_cpu = place_expert_tables(p_cpu, meshes[1])
+        meshes = tuple(use_mesh(m) for m in meshes)
+        real = lmt.moe_apply_shard_map
+
+        def counted(*args, **kwargs):
+            ep_calls.append(1)
+            return real(*args, **kwargs)
     gen = torch.Generator().manual_seed(SEED)
     toks = torch.randint(0, cfg32.vocab_size, (1, 129), generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -3553,11 +3775,21 @@ def train_card_vs_cpu(cfg, dev) -> dict:
         batch["enc_embeds"] = frames
     step = lmsteps.make_train_step(cfg32, grad_recorder())
     t0 = time.perf_counter()
-    reset_launches()
-    loss_card, _, g_card = step(p_dev, None, {k: t.to(dev) for k, t in batch.items()})
-    torch.cuda.synchronize()
-    launches = read_launches()
-    loss_cpu, _, g_cpu = step(p_cpu, None, batch)
+    with contextlib.ExitStack() as stack:
+        if ep_mesh is not None:
+            stack.enter_context(mock.patch.object(lmt, "moe_apply_shard_map", counted))
+        with meshes[0]:
+            reset_launches()
+            loss_card, _, g_card = step(p_dev, None,
+                                        {k: t.to(dev) for k, t in batch.items()})
+            torch.cuda.synchronize()
+            launches = read_launches()
+        with meshes[1]:
+            loss_cpu, _, g_cpu = step(p_cpu, None, batch)
+    n_moe = sum(s.moe for s in list(cfg32.pattern) * cfg32.n_periods + list(cfg32.remainder))
+    if ep_mesh is not None and len(ep_calls) != 2 * n_moe:
+        raise AssertionError(f"{cfg.name}: {len(ep_calls)} expert-parallel MoE calls in "
+                             f"the two steps, expected {2 * n_moe}")
     loss_err = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
     if not loss_err <= TRAIN_LOSS_RTOL:
         raise AssertionError(f"{cfg.name}: card vs CPU train loss rel err {loss_err}")
@@ -3573,8 +3805,10 @@ def train_card_vs_cpu(cfg, dev) -> dict:
         raise AssertionError(f"{cfg.name}: float32 train step launches {launches}, "
                              f"expected {want}")
     return {"n_layers": cfg32.n_layers, "d_model": cfg32.d_model,
-            "reduced": cfg32 == ARCHS[cfg.name].reduced(), "layers": mixer_counts(cfg32),
-            "shape": [1, 128], "remat": cfg32.remat,
+            "reduced": dataclasses.replace(cfg32, sharding_mode=ARCHS[cfg.name].sharding_mode)
+            == ARCHS[cfg.name].reduced(), "layers": mixer_counts(cfg32),
+            "sharding_mode": cfg32.sharding_mode, "ep_mesh": ep_mesh,
+            "ep_moe_calls": len(ep_calls), "shape": [1, 128], "remat": cfg32.remat,
             "loss_card": float(loss_card), "loss_cpu": float(loss_cpu),
             "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
             "grad_err_of_max": worst, "grad_rtol": TRAIN_GRAD_RTOL,
@@ -3762,6 +3996,220 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+class MoeLoads:
+    """Wraps the transformer's two MoE entries (`moe_apply`, dense, and
+    `moe_apply_shard_map`, expert-parallel) and records for each call what
+    its router sends each expert (recomputed from the call's own input and
+    router, the same products): the most choices an expert takes over all
+    tokens and over one of the ``ep`` token shards, and the choices each
+    path drops (the dense path past C = capacity, the expert-parallel one
+    past C_loc = max(8, capacity // ep) in a shard)."""
+
+    def __init__(self, ep: int):
+        self.ep, self.calls = ep, []
+        self.real = {"dense": lmt.moe_apply, "ep": lmt.moe_apply_shard_map}
+
+    def record(self, path: str, p: dict, x: torch.Tensor, top_k: int, capacity: int):
+        xt = x.reshape(-1, x.shape[-1])
+        _, idx = router_topk(xt.float() @ p["router"], top_k)
+        E = p["router"].shape[1]
+        shard = F.one_hot(idx.reshape(self.ep, -1), E).sum(dim=1)        # (ep, E)
+        total = shard.sum(dim=0)
+        cap = capacity if path == "dense" else max(8, capacity // self.ep)
+        over = (total if path == "dense" else shard) - cap
+        self.calls.append({"path": path, "capacity": capacity, "slots": cap,
+                           "choices": int(total.sum()), "max_load": int(total.max()),
+                           "max_shard_load": int(shard.max()),
+                           "dropped": int(over.clamp(min=0).sum())})
+
+    def dense(self, act, p, x, *, top_k, capacity):
+        self.record("dense", p, x, top_k, capacity)
+        return self.real["dense"](act, p, x, top_k=top_k, capacity=capacity)
+
+    def sharded(self, act, p, x, *, top_k, capacity, **kwargs):
+        self.record("ep", p, x, top_k, capacity)
+        return self.real["ep"](act, p, x, top_k=top_k, capacity=capacity, **kwargs)
+
+    def patched(self):
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(lmt, "moe_apply", self.dense))
+        stack.enter_context(mock.patch.object(lmt, "moe_apply_shard_map", self.sharded))
+        return stack
+
+
+def logits_rel_err(got: torch.Tensor, want: torch.Tensor, vocab: int) -> float:
+    """max |got - want| / max |want| over the real vocabulary, a batch row
+    at a time on the card."""
+    num = den = 0.0
+    for g, w in zip(got, want):
+        g, w = g[..., :vocab].float(), w[..., :vocab].float()
+        num, den = max(num, float((g - w).abs().max())), max(den, float(w.abs().max()))
+    return num / den
+
+
+def lm_ep_run(cfg, params, batch, dev) -> dict:
+    """The expert-parallel MoE at full width (`sharding_mode="ep_tp"`),
+    from the lm phase's own bf16 weights: the expert tables placed over an
+    EP_MESHES mesh on `mesh_devices` (views on one card: no copy), the eval
+    step at (LM_BATCH, LM_SEQ).  At the configuration's own capacity
+    factor: both paths' dropped choices (reported, not gated), the
+    expert-parallel eval's warm wall, tokens/s and peak memory.  Then the
+    capacity factor at which neither path drops (from the routers' loads,
+    raised until a run drops nothing): the expert-parallel eval's
+    cross-entropy (the loss less its aux term: the expert-parallel aux is
+    the mean of the shards' losses, not the global one) against the dense
+    one within CARD_CPU_RTOL, its logits within CARD_CPU_RTOL at model = 1
+    and DECODE_RTOL at model > 1 (the bf16 F-partials rounded before the
+    psum, as in the reference), and the `reduced()` float32 forward
+    expert-parallel vs dense within CARD_CPU_RTOL.  Every member's
+    expert bytes read off the placed blocks; the `reduced()` float32 train
+    step through ep_tp card vs CPU (`train_card_vs_cpu`)."""
+    data, model = EP_MESHES[cfg.name]
+    devices, placement = mesh_devices(data * model)
+    mesh = make_model_mesh(data, model, devices)
+    placed = place_expert_tables(params, mesh)
+    cfg_ep = dataclasses.replace(cfg, sharding_mode="ep_tp")
+    T = LM_BATCH * LM_SEQ
+    members = [0] * len(mesh.devices)
+    table_bytes = 0
+    for moe in moe_layers(placed):
+        for name in ("w_gate", "w_up", "w_down"):
+            for i, blk in enumerate(moe[name]):
+                members[i] += blk.numel() * blk.element_size()
+                table_bytes += blk.numel() * blk.element_size()
+
+    def both(cf: float) -> dict:
+        """Loss, logits and loads of the dense and the expert-parallel eval
+        at capacity factor ``cf``."""
+        out = {}
+        for path, c, p in (("dense", dataclasses.replace(cfg, capacity_factor=cf), params),
+                           ("ep", dataclasses.replace(cfg_ep, capacity_factor=cf), placed)):
+            loads = MoeLoads(data)
+            with loads.patched(), use_mesh(mesh), torch.inference_mode():
+                logits, _, aux = lmt.forward(c, p, tokens=batch["tokens"])
+            with use_mesh(mesh):
+                loss = float(lmsteps.make_eval_step(c)(p, batch))
+            if {call["path"] for call in loads.calls} != {path}:
+                raise AssertionError(f"{cfg.name}/{path}: MoE calls {loads.calls}")
+            out[path] = {"loss": loss, "aux": float(aux), "logits": logits,
+                         "loads": loads.calls}
+        return out
+
+    own = both(cfg.capacity_factor)
+    dropped = {path: sum(c["dropped"] for c in own[path]["loads"]) for path in own}
+    del own["dense"]["logits"], own["ep"]["logits"]
+
+    # the expert-parallel eval at the configuration's own capacity factor
+    eval_step = lmsteps.make_eval_step(cfg_ep)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with use_mesh(mesh):
+        reset_launches()
+        loss, cold_s = timed(lambda: eval_step(placed, batch))
+        launches = read_launches()
+        loss2, warm_s = timed(lambda: eval_step(placed, batch))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n = mixer_counts(cfg)
+    want = dict({k: 0 for k in KERNELS}, flash_attention_bf16=n["attn"],
+                selective_scan=n["mamba"])
+    if launches != want or not np.isfinite(float(loss)):
+        raise AssertionError(f"{cfg.name}/ep: loss {float(loss)}, launches {launches} "
+                             f"(want {want})")
+
+    # the capacity factor at which neither path drops
+    E, k = cfg.n_experts, cfg.moe_top_k
+    loads = own["dense"]["loads"] + own["ep"]["loads"]
+    for _ in range(EP_CF_ROUNDS):
+        need = max(max(c["max_load"], data * c["max_shard_load"]) for c in loads)
+        cf = need * E / (T * k)
+        run_cf = both(cf)
+        loads = run_cf["dense"]["loads"] + run_cf["ep"]["loads"]
+        if not any(c["dropped"] for c in loads):
+            break
+        del run_cf
+    else:
+        raise AssertionError(f"{cfg.name}: choices still drop after {EP_CF_ROUNDS} "
+                             f"capacity factors: {loads}")
+    dense, ep = run_cf["dense"], run_cf["ep"]
+    logit_err = logits_rel_err(ep["logits"], dense["logits"], cfg.vocab_size)
+    # the cross-entropy: the loss less its aux term, which differs by design
+    # (the expert-parallel aux is the mean of the token shards' losses)
+    nll = {path: r["loss"] - lmsteps.AUX_WEIGHT * r["aux"] for path, r in run_cf.items()}
+    loss_err = abs(nll["ep"] - nll["dense"]) / abs(nll["dense"])
+    del run_cf, dense["logits"], ep["logits"]
+    # at model = 1 the schedule rounds as the dense path does; at model > 1
+    # each member's F-partial of the down projection is rounded to bf16
+    # before the psum (the reference's einsum and psum in bf16), another
+    # order of the bf16 computation: DECODE_RTOL, the reference's contract
+    # for that, holds the logits, and ep_vs_dense_fp32 the schedule
+    logit_tol = CARD_CPU_RTOL if model == 1 else DECODE_RTOL
+    if not (logit_err <= logit_tol and loss_err <= CARD_CPU_RTOL):
+        raise AssertionError(f"{cfg.name}: expert-parallel vs dense eval at capacity "
+                             f"factor {cf}: logits {logit_err}, cross-entropy {loss_err}")
+    del placed
+    torch.cuda.empty_cache()
+    return {"mesh": {"data": data, "model": model}, "devices": devices,
+            "placement": placement, "batch": LM_BATCH, "seq": LM_SEQ,
+            "n_experts": E, "top_k": k,
+            "capacity_factor": cfg.capacity_factor,
+            "capacity": moe_capacity(T, k, E, cfg.capacity_factor),
+            "dropped_choices": dropped, "loads": own["dense"]["loads"] + own["ep"]["loads"],
+            "loss_dense": own["dense"]["loss"], "loss_ep": own["ep"]["loss"],
+            "aux_dense": own["dense"]["aux"], "aux_ep": own["ep"]["aux"],
+            "eval": {"loss": float(loss), "loss_second_call": float(loss2),
+                     "wall_s_first": cold_s, "wall_s": warm_s,
+                     "tokens_per_s": T / warm_s, "peak_gb": peak_gb,
+                     "launches": launches},
+            "no_drop": {"capacity_factor": cf, "capacity": moe_capacity(T, k, E, cf),
+                        "loads": loads, "loss_dense": dense["loss"], "loss_ep": ep["loss"],
+                        "aux_dense": dense["aux"], "aux_ep": ep["aux"],
+                        "aux_weight": lmsteps.AUX_WEIGHT, "cross_entropy_dense": nll["dense"],
+                        "cross_entropy_ep": nll["ep"], "logits_rel_err": logit_err,
+                        "logits_tolerance": logit_tol, "cross_entropy_rel_err": loss_err,
+                        "cross_entropy_tolerance": CARD_CPU_RTOL},
+            "fp32_ep_vs_dense": ep_vs_dense_fp32(cfg, dev, mesh),
+            "expert_bytes": {"tables": table_bytes, "per_member": members,
+                             "per_member_share": [b / table_bytes for b in members],
+                             "members_on": [str(d) for d in mesh.devices]},
+            "train_fp32_card_vs_cpu": train_card_vs_cpu(cfg, dev, ep_mesh=(data, model))}
+
+
+def ep_vs_dense_fp32(cfg, dev, mesh) -> dict:
+    """``reduced()`` in float32 at B = 1, S = 128 on the card: the
+    expert-parallel forward over ``mesh``'s shape (tables placed) against
+    the dense one, at capacity factor n_experts (room for every choice in
+    both), logits within CARD_CPU_RTOL."""
+    red = ARCHS[cfg.name].reduced()
+    cfg32 = dataclasses.replace(red, capacity_factor=float(red.n_experts))
+    params = lmt.init_params(cfg32, seed=SEED + 2, device=dev)
+    toks = torch.randint(0, cfg32.vocab_size, (1, 128),
+                         generator=torch.Generator().manual_seed(SEED)).to(dev)
+    with torch.inference_mode(), use_mesh(mesh):
+        dense = lmt.forward(cfg32, params, tokens=toks)[0]
+        ep = lmt.forward(dataclasses.replace(cfg32, sharding_mode="ep_tp"),
+                         place_expert_tables(params, mesh), tokens=toks)[0]
+    err = rel_err(ep, dense)
+    if not err <= CARD_CPU_RTOL:
+        raise AssertionError(f"{cfg.name}: float32 expert-parallel vs dense forward "
+                             f"rel err {err}")
+    return {"n_layers": cfg32.n_layers, "d_model": cfg32.d_model, "shape": [1, 128],
+            "capacity_factor": cfg32.capacity_factor, "logits_rel_err": err,
+            "tolerance": CARD_CPU_RTOL}
+
+
+def moe_layers(tree):
+    """Every MoE layer's parameter dict of an LM parameter tree."""
+    if isinstance(tree, dict):
+        if "router" in tree:
+            yield tree
+        else:
+            for v in tree.values():
+                yield from moe_layers(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from moe_layers(v)
+
+
 def lm_config_run(cfg, dev) -> dict:
     params = lmt.init_params(cfg, seed=SEED, device=dev)
     n_params = sum(t.numel() for t in tree_leaves(params))
@@ -3806,9 +4254,10 @@ def lm_config_run(cfg, dev) -> dict:
     parity = decode_vs_forward(cfg, params, batch["tokens"][:, :PARITY_TOKENS])
     if not parity <= DECODE_RTOL:
         raise AssertionError(f"{cfg.name}: decode vs forward rel err {parity} > {DECODE_RTOL}")
+    ep = lm_ep_run(cfg, params, batch, dev) if cfg.name in EP_MESHES else None
     del params
     torch.cuda.empty_cache()
-    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+    return {"lm_ep": ep,"n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
             "param_dtype": cfg.param_dtype, "n_params": n_params, "layers": n,
             "eval": {"batch": LM_BATCH, "seq": LM_SEQ, "loss": loss,
                      "loss_second_call": loss2, "wall_s_first": eval_cold_s,
@@ -3967,6 +4416,7 @@ def main() -> int:
     res["table2_shapes"] = table2_kernel_phase(dev)
     res["async_shapes"] = async_kernel_phase(dev)
     res["mesh_shapes"] = mesh_kernel_phase(dev)
+    res["bmm"] = batched_matmul_phase(dev)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
     for phase, run_phase in PHASES:
         t0 = time.perf_counter()
@@ -4085,6 +4535,7 @@ def kernel_entries(res: dict) -> list[dict]:
 
     # the shapes only the baselines' and the paper's paths give the kernels
     new = res["table2_shapes"]
+    bmm_main = res["bmm"]["rows"][next(iter(BMM_SHAPES))]
     return [
         entry("fingerprint", "fingerprint.cu", "src/repro/kernels/fingerprint.py:102",
               "train", cohort, fp_err, 0, bit_exact=True, shape=[100, 6570],
@@ -4222,6 +4673,20 @@ def kernel_entries(res: dict) -> list[dict]:
               clocks_while_timed=scan_bwd_row["clocks_while_timed"],
               train_layout=scan_bwd_row["train_layout"],
               ptxas_spill_stores=spills["selective_scan_bwd.cu"]),
+        entry("batched_matmul", "batched_matmul.cu", "src/repro/models/classifier.py:44",
+              "train", bmm_main, 0, 0, bit_exact=True, shape=[[100, 16, 64], [100, 64, 64]],
+              dtype="float32", library_call=bmm_main["library_call"],
+              no_pallas_counterpart="the client-stacked products of local training, "
+                                    "prototypes and eval, which the reference leaves to "
+                                    "XLA (classifier.py:44 vmapped over the cohort); a "
+                                    "fixed summation order makes them batch-invariant",
+              launches_a_round_train=res["train"]["batched_matmul_launches_a_round"],
+              shapes={what: dict(row, ms=row["kernel_us"] / 1e3,
+                                 plain_ms=row["plain_us"] / 1e3,
+                                 bound_ms=row["bound_us"] / 1e3,
+                                 library_ms=row["library_us"] / 1e3)
+                      for what, row in res["bmm"]["rows"].items()},
+              checks=res["bmm"]["checks"], route_compare=res["train"]["bmm_route"]),
     ]
 
 

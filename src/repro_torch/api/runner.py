@@ -13,8 +13,8 @@ over a client mesh (``spec.mesh.shards`` S > 1, cohort ``"sharded"`` or
 FedBuff flushes, with any fault schedule, with checkpoints and
 ``resume_from``, and with the flight recorder (``spec.obs``: the trace
 file, its digest and the timing readout in the manifest, as the
-reference's).  On the CPU a run at S shards ends with the one-shard
-run's digests (on the H100 only its event log: ``repro_torch.core.engine``).
+reference's).  A run at S shards ends with the one-shard run's digests,
+on the CPU and on the card (``repro_torch.core.engine``).
 ``run`` refuses the legacy driver (``engine=False``) and the XLA-only mesh
 settings (``platform``, ``x64``, ``xla_flags``) with
 ``NotImplementedError``: both are deliberately not ported.

@@ -286,6 +286,8 @@ def make_fedhkd(model: ModelBundle, lam_rep: float = 0.05,
                                                   fx, fy, K)
             soft = F.softmax(model.apply_fn(stacked_params, fx) / temp, dim=-1)
             onehot = F.one_hot(fy.long(), K).to(soft.dtype)           # (m, B, K)
+            # once on the lead over the k real slots (round_extras is never
+            # sharded), so a batch-dependent cuBLAS kernel moves no replay
             soft_per_class = torch.matmul(onehot.transpose(1, 2), soft) \
                 / torch.clamp(counts, min=1.0)[..., None]             # (m, K, K)
             H = _count_weighted_sum(protos, counts)                   # (K, R)

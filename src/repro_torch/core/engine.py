@@ -46,12 +46,12 @@ scatter writes only the ``k`` real rows, each on its owner.  Every
 reduction across slots runs on ``lead`` in the order the one-device
 engine uses, and each client's training is its own (the client axis is
 never summed over), so a seeded run at S shards equals the run at one
-shard bit for bit wherever local training does not depend on how many
-clients one call trains.  On the CPU it does not (``tests/test_torch_mesh.py``
-measures it); on the H100 a step's gradients of 100 clients in one call
-and in calls of 25 differ in the low bits, so there a sharded run keeps
-the event log but not the trained bits (``chip_smoke.py::mesh_invariance``,
-ROADMAP.md section 3).
+shard bit for bit, since local training does not depend on how many
+clients one call trains: on the CPU ``torch.matmul`` is batch-invariant,
+and on the card every client-stacked product goes through the
+fixed-order batched-product kernel (``models/classifier.py``;
+``tests/test_torch_mesh.py`` and ``chip_smoke.py::mesh_invariance``
+measure it).
 ``cohort_mode="replicated"`` gathers the whole cohort to ``lead``, runs
 the one-device step there and scatters to the owners.
 """

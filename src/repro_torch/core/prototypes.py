@@ -14,6 +14,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ops import batched_matmul
+
 Pytree = Any
 
 
@@ -38,9 +40,11 @@ def classwise_prototypes(embed_fn: Callable, stacked_params: Pytree,
     ``embed_fn(stacked_params, x (m, B, ...)) -> (m, B, R)`` and labels
     ``y (m, B)`` give ``protos (m, K, R)`` and ``counts (m, K)``.  Classes
     absent from a client's batch get a zero prototype and a zero count
-    (callers mask on counts).  Differentiable through ``embed_fn``."""
+    (callers mask on counts).  Differentiable through ``embed_fn``; the sums
+    go through the fixed-order batched product, so a model's prototypes do
+    not depend on ``m`` (the engine runs this per shard)."""
     reps = embed_fn(stacked_params, x)                          # (m, B, R)
     onehot = F.one_hot(y.long(), num_classes).to(reps.dtype)    # (m, B, K)
-    sums = torch.matmul(onehot.transpose(1, 2), reps)           # (m, K, R)
+    sums = batched_matmul(onehot.transpose(1, 2), reps)         # (m, K, R)
     counts = onehot.sum(dim=1)                                  # (m, K)
     return sums / torch.clamp(counts, min=1.0)[..., None], counts

@@ -6,7 +6,9 @@ block).  An LM's parameters (lists of stacked layers, bfloat16 leaves) take
 :func:`lm_params_from_numpy`, its optimizer's state
 :func:`opt_state_from_numpy`.  A bank saved by the reference
 (``ModelBank.save``, one ``.npz``) needs nothing here: it loads through
-``repro_torch.serve.load_bank``.
+``repro_torch.serve.load_bank``.  An LM tree's expert tables are split
+over a device mesh for the expert-parallel MoE by
+:func:`place_expert_tables`.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from repro_torch.blockchain.chain import Block, Blockchain
 from repro_torch.blockchain.txpool import Transaction
 from repro_torch.device import resolve_device
+from repro_torch.models.moe_sharded import place_blocks
 from repro_torch.runtime.arena import ArenaLayout, ParamArena
 
 _KEY = re.compile(r"\['((?:[^'\\]|\\.)*)'\]")
@@ -58,6 +61,30 @@ def lm_params_from_numpy(tree: Any, device=None) -> Any:
             return [walk(v) for v in x]
         return _tensor_from_numpy(x, device)
     return walk(tree)
+
+
+def place_expert_tables(params: Any, mesh, ep_axis: str = "data",
+                        tp_axis: str = "model") -> Any:
+    """An LM parameter tree with every MoE layer's expert tables
+    (``w_gate`` / ``w_up`` (..., E, D, F), ``w_down`` (..., E, F, D), a
+    leading axis where the layout stacks periods) placed over ``mesh`` (a
+    ``launch.mesh.ModelMesh``): each table becomes a list of the members'
+    ``(..., E / ep, D, F / tp)`` blocks in the mesh's device order, each on
+    its member's device (the reference's ``P(ep, None, tp)`` / ``P(ep, tp,
+    None)``), for ``models/moe_sharded.moe_apply_shard_map``.  A block on
+    its table's own device is a view; on another it is a copy, and the
+    returned tree keeps no whole table.  Every other leaf is the same
+    tensor.  The result is a tree of tensors, so an optimizer trains it.
+    Raises for a non-gated MoE and where E does not split over ``ep``."""
+    def walk(x):
+        if isinstance(x, Mapping):
+            if "router" in x and "w_gate" in x:
+                return place_blocks(mesh, dict(x), ep_axis, tp_axis)
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [walk(v) for v in x]
+        return x
+    return walk(params)
 
 
 def opt_state_from_numpy(state: Mapping[str, Any], device=None) -> dict:

@@ -5,16 +5,21 @@ version for a CPU tensor and launches its Hopper kernel for a CUDA tensor;
 it never falls back from one to the other.  All five of the reference's
 kernels have a wrapper: ``fingerprint``, ``pearson``, ``cluster_aggregate``,
 ``attention``, ``rwkv6_wkv``; ``selective_scan`` (Mamba's recurrence, a
-``lax.scan`` in the reference) has one too.  The last three are
+``lax.scan`` in the reference) has one too.  Those last three are
 differentiable: they go through ``FlashAttentionFn`` / ``Rwkv6Fn`` /
 ``SelectiveScanFn`` on both devices, so a CPU tensor takes the plain
 forward and the plain backward, a CUDA tensor the forward kernel and the
-backward kernel.
+backward kernel.  ``batched_matmul`` (the client-stacked products in a
+fixed order, which the reference leaves to XLA) is differentiable too,
+through ``BatchedMatmulFn`` on a CUDA tensor; on a CPU tensor it is the one
+exception to the rule above and keeps ``torch.matmul`` (see
+``kernels/batched_matmul.py``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.batched_matmul import BatchedMatmulFn
 from repro_torch.kernels.cluster_agg import cluster_mean_rows
 from repro_torch.kernels.fingerprint import fingerprint_rows
 from repro_torch.kernels.flash_attention import FlashAttentionFn
@@ -67,3 +72,16 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
     (y (B, S, di) float32 with the skip term x D, final state),
     differentiable."""
     return SelectiveScanFn.apply(dt, x, Bm, Cm, A, D, h0)
+
+
+def batched_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a (m, M, K) | (M, K) @ b (m, K, N) -> (m, M, N)`` float32,
+    differentiable.  A CUDA tensor takes ``BatchedMatmulFn``: the kernel
+    forward and backward, each element summed in one fixed order whatever
+    ``m``.  A CPU tensor keeps ``torch.matmul``, whose products are
+    batch-invariant on the CPU already (``kernels/batched_matmul.py``)."""
+    if b.device.type == "cpu":
+        return torch.matmul(a, b)
+    if b.device.type == "cuda":
+        return BatchedMatmulFn.apply(a, b)
+    raise ValueError(f"batched_matmul: no path for device {b.device}")

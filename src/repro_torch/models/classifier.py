@@ -15,11 +15,17 @@ through :func:`apply`, bit for bit, on the CPU and on the card
 batch, and cuBLAS picks kernels by shape).  The reference leaves its
 products to XLA; both agree to float32 rounding.
 
-Training, prototypes and evaluation (``*_batched``) take batched
-``torch.matmul`` instead: they need no batch invariance, the reference
-leaves those products to XLA outside any Pallas kernel, and the fixed tree
-would materialise an (m, B, i, j) product — 1.6 GB for a 100-client
-cohort's eval batch.
+Training, prototypes and evaluation (``*_batched``) take the batched
+product ``kernels.ops.batched_matmul`` instead (the fixed tree would
+materialise an (m, B, i, j) product: 1.6 GB for a 100-client cohort's eval
+batch).  They need batch invariance too: a cohort sharded over S devices
+trains each client in a call of k / S clients and must replay the
+one-device run bit for bit.  On the card every product, forward and
+backward, goes through the hand-written kernel, which sums each element
+over the contraction axis in one fixed order whatever the batch count
+(cuBLAS picks its kernel by it); on the CPU ``torch.matmul`` is
+batch-invariant already and stays.  The reference leaves these products to
+XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import batched_matmul
 
 Pytree = Any
 
@@ -123,18 +130,20 @@ def apply_stacked(cfg: MLPConfig, stacked_params: Pytree, x: torch.Tensor
 
 def embed_batched(cfg: MLPConfig, stacked_params: Pytree, x: torch.Tensor
                   ) -> torch.Tensor:
-    """Training-side representations of m stacked models by batched
-    ``torch.matmul``: ``x`` is each model's own batch ``(m, B, in_dim)`` or
-    one batch shared by all ``(B, in_dim)``; returns ``(m, B, rep_dim)``.
+    """Training-side representations of m stacked models by
+    :func:`~repro_torch.kernels.ops.batched_matmul`: ``x`` is each model's
+    own batch ``(m, B, in_dim)`` or one batch shared by all ``(B, in_dim)``;
+    returns ``(m, B, rep_dim)``.
 
-    Not batch-invariant (cuBLAS and MKL pick kernels by shape), which
-    training does not need: the reference leaves the same products to XLA.
-    Differentiable, so autograd gives every stacked model its own gradient.
+    Batch-invariant on both devices: a model's rows have the same bits
+    whatever ``m`` (on the card through the fixed-order kernel, forward and
+    backward).  Differentiable, so autograd gives every stacked model its
+    own gradient.
     """
     h = x
     n_hidden = len(cfg.hidden) + 1
     for i in range(n_hidden):
-        h = torch.matmul(h, stacked_params[f"w{i}"])
+        h = batched_matmul(h, stacked_params[f"w{i}"])
         h = h + stacked_params[f"b{i}"][:, None, :]
         if i < n_hidden - 1:
             h = torch.relu(h)
@@ -146,7 +155,7 @@ def apply_batched(cfg: MLPConfig, stacked_params: Pytree, x: torch.Tensor
     """Training-side logits of m stacked models: ``(m, B, num_classes)``
     (``x`` as in :func:`embed_batched`)."""
     reps = embed_batched(cfg, stacked_params, x)
-    logits = torch.matmul(reps, stacked_params["w_head"])
+    logits = batched_matmul(reps, stacked_params["w_head"])
     return logits + stacked_params["b_head"][:, None, :]
 
 

@@ -165,6 +165,9 @@ def _attn_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, c: dict,
 def _ffn_decode(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor) -> torch.Tensor:
     x = norm(cfg.norm, h, p["norm2"])
     if spec.moe:
+        # dense whatever sharding_mode says, as the reference's decode is: its
+        # ep_axis hint changes no arithmetic, and a step's B tokens are too
+        # few to split over the expert axis.  The tables must be unplaced.
         cap = moe_capacity(x.shape[0] * x.shape[1], cfg.moe_top_k, cfg.n_experts,
                            cfg.capacity_factor)
         y, _ = moe_apply(cfg.activation, p["moe"], x, top_k=cfg.moe_top_k, capacity=cap)

@@ -18,8 +18,10 @@ The reference drops a choice by writing it to the out-of-range row E * C
 with ``mode="drop"``; here the buffer has E * C + 1 rows, the last one
 takes those colliding writes and is sliced off.  The expert products are
 plain ``torch.bmm`` calls, as the reference leaves its einsums to XLA: no
-Pallas kernel computes them.  The reference's expert-parallel variant
-(``ep_axis``, ``moe_sharded.py``) waits for the port's multi-GPU item.
+Pallas kernel computes them.  The expert-parallel variant (the
+reference's ``moe_sharded.py``) is ``repro_torch.models.moe_sharded``,
+which ``transformer.py`` takes under ``sharding_mode="ep_tp"`` inside a
+``launch.mesh.use_mesh`` block.
 """
 from __future__ import annotations
 

@@ -17,8 +17,11 @@ grok-1-314b — and whisper-large-v3's encoder-decoder: :func:`encode` over
 the stub frontend's frame embeddings (the caller passes ``enc_embeds``
 (B, n_frames, d_model); there is no mel or conv frontend, nor in the
 reference) and the decoder's cross-attention over its output.  MoE layers
-take the reference's plain ``moe_apply`` whatever ``sharding_mode`` says
-(its expert-parallel variant waits for multi-GPU, ROADMAP queue 1 item 6).
+take the reference's plain ``moe_apply``, except under
+``sharding_mode="ep_tp"`` with a gated activation inside
+``launch.mesh.use_mesh`` of a mesh whose ``data`` size divides
+``n_experts``: then, as in the reference, the expert-parallel
+``moe_sharded.moe_apply_shard_map`` over that mesh.
 
 Products follow jnp's type promotion (:func:`~repro_torch.models.layers.
 matmul`): float32 frames into a bf16 model run the encoder in float32, as
@@ -44,12 +47,14 @@ from repro_torch.models.layers import (
     ffn_apply,
     ffn_init,
     init_norm,
+    is_gated,
     matmul,
     norm,
     rms_norm,
     sinusoidal_positions,
 )
 from repro_torch.models.moe import moe_apply, moe_capacity, moe_init
+from repro_torch.models.moe_sharded import ambient_mesh_shape, moe_apply_shard_map
 from repro_torch.utils.tree import tree_index
 
 Pytree = Any
@@ -112,7 +117,10 @@ class ArchConfig:
     tie_embeddings: bool = True
     param_dtype: str = "bfloat16"
     remat: bool = True
-    sharding_mode: str = "tp"    # tp | fsdp_tp | ep_tp (expert-parallel MoE)
+    # tp | fsdp_tp | ep_tp.  The port runs tp and fsdp_tp as one process on
+    # one device (no GSPMD); ep_tp takes moe_sharded.moe_apply_shard_map
+    # for the MoE layers inside launch.mesh.use_mesh (see _ffn_sublayer)
+    sharding_mode: str = "tp"
     swa_skip: bool = False       # the reference's GSPMD chunk skipping; unused here
     attn_batch_axes: tuple | None = None   # a mesh hint of the reference; unused here
     vocab_pad_multiple: int = 2048  # Megatron-style padding so vocab shards evenly
@@ -347,8 +355,17 @@ def _ffn_sublayer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     x = norm(cfg.norm, h, p["norm2"])
     if spec.moe:
-        cap = moe_capacity(x.shape[0] * x.shape[1], cfg.moe_top_k, cfg.n_experts,
-                           cfg.capacity_factor)
+        T = x.shape[0] * x.shape[1]
+        cap = moe_capacity(T, cfg.moe_top_k, cfg.n_experts, cfg.capacity_factor)
+        if cfg.sharding_mode == "ep_tp":
+            ms = ambient_mesh_shape()
+            if (is_gated(cfg.activation) and ms.get("data")
+                    and cfg.n_experts % ms["data"] == 0):
+                baxes = ("pod", "data") if "pod" in ms else ("data",)
+                y, aux = moe_apply_shard_map(
+                    cfg.activation, p["moe"], x, top_k=cfg.moe_top_k,
+                    capacity=cap, batch_axes=baxes)
+                return h + y, aux
         y, aux = moe_apply(cfg.activation, p["moe"], x, top_k=cfg.moe_top_k, capacity=cap)
         return h + y, aux
     return (h + ffn_apply(cfg.activation, p["ffn"], x),

@@ -46,10 +46,10 @@ With ``spec.mesh.shards`` S > 1 the arena is a ``ShardedParamArena`` over
 a client mesh of S devices (``repro_torch.launch.mesh``) and the engine
 shards each cohort over the same mesh (``spec.mesh.cohort``); the
 population data, the chain and the combine live on the mesh's lead device.
-A seeded run logs the same events at every S, and on the CPU also mints the
-same blocks and ends with the same balances, accuracy and arena bytes; on
-the H100 local training is not batch-invariant, so those follow the
-trained bits there (ROADMAP.md section 3).  The legacy ``engine=False``
+A seeded run logs the same events at every S, mints the same blocks and
+ends with the same balances, accuracy and arena bytes, on the CPU and on
+the card (local training is batch-invariant on both:
+``repro_torch.core.engine``).  The legacy ``engine=False``
 driver is not ported.
 """
 from __future__ import annotations

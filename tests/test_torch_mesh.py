@@ -15,9 +15,11 @@ The port at S = 4 against the reference's engine is in
 Bit identity rests on local training giving each client the same bits
 however many clients one call trains; `test_local_train_is_batch_invariant`
 measures that at the default model's widths.  The `cuda`-marked tests run
-the same checks on the card (skipped here); there the default widths are
-not batch-invariant (an open fault, ROADMAP.md section 3), and the small
-spec's runs on two shards of one card must still equal one shard."""
+the same checks on the card (skipped here): there every client-stacked
+product goes through the fixed-order batched-product kernel
+(`kernels/batched_matmul.py`), which makes local training batch-invariant
+(cuBLAS picks its kernel by the batch count and did not), and the small
+spec's runs on two shards of one card must equal one shard."""
 import dataclasses
 import functools
 
@@ -419,11 +421,6 @@ def _cuda_outcome(device) -> dict:
 
 
 @pytest.mark.cuda
-@pytest.mark.xfail(strict=True, reason=(
-    "open fault (ROADMAP.md section 3): on the H100, local training of 100 "
-    "clients in one call and in calls of 25 or 34 differ in the low bits at "
-    "the default widths, so a sharded run on the card is held to the "
-    "card-vs-CPU gates, not to bit identity with one shard"))
 def test_cuda_local_train_is_batch_invariant():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
