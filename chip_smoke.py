@@ -142,12 +142,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      counterpart: the client-stacked products the reference leaves to
      XLA) bit for bit against its plain version at ExperimentSpec()'s
      forward (100 x (16 x 64) @ (64 x 64), (64 x 32), (32 x 10)) and the
-     shared eval batch ((1024 x 64) @ 100 x (64 x 64)), each product's
-     backward forms through transposed views (and an expanded gradient),
-     25 and 34 of the 100 clients equal to their rows of the whole call,
-     FedProto's class sums, ragged tiles, K = 1, signed zeros and
-     `BatchedMatmulFn`'s gradients; timed at those four shapes beside the
-     bound, the plain version and `torch.bmm` / `torch.matmul` (cuBLAS);
+     eval round's three products over the shared batch ((1024 x 64) @ 100
+     x (64 x 64), then 100 x (1024 x 64) @ (64 x 32) and (1024 x 32) @ (32
+     x 10)), each product's backward forms through transposed views (and
+     an expanded gradient), 25 and 34 of the 100 clients equal to their
+     rows of the whole call, FedProto's class sums, ragged tiles, K = 1,
+     signed zeros and `BatchedMatmulFn`'s gradients; timed at those six
+     shapes and the training shapes' backward forms beside both bounds
+     (the FMA rate and half of it, which this arithmetic can reach), the
+     plain version, `torch.bmm` / `torch.matmul` (cuBLAS) and the kernel's
+     first design (`csrc/batched_matmul_scalar.cu`) in turns;
    * the async path's shapes (ASYNC_SHAPE, a flush's (16, 6570) rows): the
      fingerprint at every forced cluster size, on and off the 16-byte grid,
      and the merge — cluster_agg at C = 1 over staleness weights gated by
@@ -281,7 +285,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the psum, as in the reference); the `reduced()` float32 forward
    expert-parallel vs dense on the card within CARD_CPU_RTOL; each
    member's expert bytes; the `reduced()` float32 train step through ep_tp
-   card vs CPU.
+   card vs CPU, then (`placed_tables_checks`) one AdamW step on the placed
+   tables and on the same tables whole, PLACED_DECODE_TOKENS tokens of
+   `greedy_generate` from each trained tree and a `save_trainer_state` /
+   `restore_trainer_state` round trip of the placed one, tokens and
+   restored trees (whole tables, parameters and moments) equal to the
+   whole tree's bit for bit.
 11. lm_train — the LM zoo's training path for gemma3-4b and rwkv6-3b
    at the same widths and depths and jamba-1.5-large-398b at one layer
    (mamba + dense SwiGLU FFN at d_model 8192, d_inner 16384;
@@ -408,6 +417,7 @@ from repro_torch.core.fl import local_train  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import batched_matmul as bm  # noqa: E402
 from repro_torch.data.lm import batch_stream, make_token_stream  # noqa: E402
+from repro_torch.checkpoint.io import restore_trainer_state, save_trainer_state  # noqa: E402
 from repro_torch.interop import place_expert_tables  # noqa: E402
 from repro_torch.launch.mesh import make_model_mesh, use_mesh  # noqa: E402
 from repro_torch.kernels import cluster_agg as ca  # noqa: E402
@@ -616,6 +626,9 @@ PROMPT, NEW_TOKENS, PARITY_TOKENS = 16, 16, 32
 # lets neither path drop is searched in at most EP_CF_ROUNDS runs
 EP_MESHES = {"llama4-maverick-400b-a17b": (4, 1), "jamba-1.5-large-398b": (2, 2)}
 EP_CF_ROUNDS = 4
+# tokens decoded from the `reduced()` float32 tables placed and trained one
+# AdamW step through ep_tp (`placed_tables_checks`)
+PLACED_DECODE_TOKENS = 4
 # the four Table II baselines, each run through run(spec) at the defaults
 BASELINES = ("fedavg", "fedprox", "fedproto", "fedhkd")
 # with one cluster and the identity affinity the producers and rewards do
@@ -2145,11 +2158,17 @@ def mesh_phase(dev, res: dict) -> dict:
 
 # the fixed-order batched product at ExperimentSpec()'s widths: the forward's
 # three products a client (16-row batch) over the 100-client cohort, and the
-# eval forward's first product over the shared 1024-example batch
+# eval forward's three over the shared 1024-example batch (the first with a
+# shared, batch stride 0)
 BMM_SHAPES = {"layer 0 (100, 16, 64) @ (100, 64, 64)": ((100, 16, 64), (100, 64, 64)),
               "layer 1 (100, 16, 64) @ (100, 64, 32)": ((100, 16, 64), (100, 64, 32)),
               "head (100, 16, 32) @ (100, 32, 10)": ((100, 16, 32), (100, 32, 10)),
-              "eval (1024, 64) shared @ (100, 64, 64)": ((1024, 64), (100, 64, 64))}
+              "eval (1024, 64) shared @ (100, 64, 64)": ((1024, 64), (100, 64, 64)),
+              "eval layer 1 (100, 1024, 64) @ (100, 64, 32)":
+                  ((100, 1024, 64), (100, 64, 32)),
+              "eval head (100, 1024, 32) @ (100, 32, 10)": ((100, 1024, 32), (100, 32, 10))}
+# the kernel's first design (one output column a thread), timed beside it
+BMM_PREVIOUS = "batched_matmul_scalar.cu"
 
 
 def check_bmm(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
@@ -2173,8 +2192,12 @@ def batched_matmul_phase(dev) -> dict:
     call's), FedProto's class sums (one-hot^T (m, 10, 16) @ reps), ragged
     shapes off every tile (M 17, K 33, N 70), K = 1, and signed zeros;
     `BatchedMatmulFn`'s gradients against the plain backward.  Timed at
-    BMM_SHAPES beside the bound, the plain version and `torch.bmm` /
-    `torch.matmul` (cuBLAS, what the path launched before)."""
+    BMM_SHAPES, and the training shapes' backward forms on their
+    transposed views, beside both bounds (operations at the FMA rate, and
+    at half of it: this arithmetic issues a multiply and an add), the
+    plain version, `torch.bmm` / `torch.matmul` (cuBLAS, what the path
+    launched before) on the same operands and the kernel's first design
+    (BMM_PREVIOUS, loaded in turns as the wrapper's library)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
 
     def rnd(*shape):
@@ -2217,26 +2240,53 @@ def batched_matmul_phase(dev) -> dict:
     checks["BatchedMatmulFn gradients (20, 16, 64) @ (20, 64, 32)"] = 0
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    previous = _build.load(BMM_PREVIOUS)
+    current = _build.load("batched_matmul.cu")
+
+    def row(x, y, form):
+        """Kernel (and the first design, in turns: K P P K), plain version
+        and library call on the same operands; both bounds."""
+        m, M, K, N = bm._check(x, y)
+        n_bytes = 4 * (x.numel() + y.numel() + m * M * N)
+        bound, bound_by = bound_us(n_bytes, 2 * m * M * K * N)
+        no_fma, no_fma_by = bound_us(n_bytes, 4 * m * M * K * N)
+        times = {"kernel": [], "previous": []}
+        check_bmm(x, y, form)
+        try:
+            for lib in (current, previous, previous, current):
+                _build._libs["batched_matmul.cu"] = lib
+                times["kernel" if lib is current else "previous"].append(median_us(
+                    lambda _: bm.batched_matmul_cuda(x, y), None, 200, flush))
+        finally:
+            _build._libs["batched_matmul.cu"] = current
+        library = (lambda _: torch.bmm(x, y)) if x.dim() == 3 else \
+            (lambda _: torch.matmul(x, y))
+        return {"a": list(x.shape), "b": list(y.shape), "a_strides": list(x.stride()),
+                "b_strides": list(y.stride()), "form": form, "bit_exact": True,
+                "kernel_us": float(np.mean(times["kernel"])),
+                "kernel_us_in_turns": times["kernel"],
+                "previous_kernel_us": float(np.mean(times["previous"])),
+                "previous_kernel_us_in_turns": times["previous"],
+                "previous_source": f"src/repro_torch/kernels/csrc/{BMM_PREVIOUS}",
+                "plain_us": median_us(lambda _: bm.batched_matmul_plain(x, y), None, 20,
+                                      flush),
+                "library_us": median_us(library, None, 200, flush),
+                "library_call": "torch.bmm(a, b)" if x.dim() == 3
+                                else "torch.matmul(a, b) (a broadcast)",
+                "bound_us": bound, "bound_by": bound_by,
+                "bound_no_fma_us": no_fma, "bound_no_fma_by": no_fma_by}
+
     rows = {}
     for what, (sa, sb) in BMM_SHAPES.items():
         a, b = rnd(*sa), rnd(*sb)
-        m, K, N = sb
-        M = sa[-2]
-        bound, bound_by = bound_us(4 * (a.numel() + b.numel() + m * M * N),
-                                   2 * m * M * K * N)
-        library = (lambda _: torch.bmm(a, b)) if a.dim() == 3 else \
-            (lambda _: torch.matmul(a, b))
-        rows[what] = {"a": list(sa), "b": list(sb), "bit_exact": True,
-                      "kernel_us": median_us(lambda _: bm.batched_matmul_cuda(a, b),
-                                             None, 200, flush),
-                      "plain_us": median_us(lambda _: bm.batched_matmul_plain(a, b),
-                                            None, 20, flush),
-                      "library_us": median_us(library, None, 200, flush),
-                      "library_call": "torch.bmm(a, b)" if a.dim() == 3
-                                      else "torch.matmul(a, b) (a broadcast)",
-                      "bound_us": bound, "bound_by": bound_by}
-    print(f"batched_matmul: {len(checks)} checks bit for bit; layer 0 "
-          f"{rows[next(iter(rows))]['kernel_us']:.3f} us", flush=True)
+        rows[what] = row(a, b, "a @ b")
+        if a.dim() == 3 and sa[1] == 16:    # the training shapes' backward forms
+            dy = rnd(sb[0], sa[1], sb[2])
+            rows[f"{what}: dY @ B^T"] = row(dy, b.transpose(1, 2), "dY @ B^T")
+            rows[f"{what}: A^T @ dY"] = row(a.transpose(1, 2), dy, "A^T @ dY")
+    print(f"batched_matmul: {len(checks)} checks bit for bit; " + "; ".join(
+        f"{what} {r['kernel_us']:.3f} us (first design {r['previous_kernel_us']:.3f}, "
+        f"library {r['library_us']:.3f})" for what, r in rows.items()), flush=True)
     return {"checks": checks, "rows": rows}
 
 
@@ -3753,12 +3803,13 @@ def train_card_vs_cpu(cfg, dev, ep_mesh: tuple[int, int] | None = None) -> dict:
     cfg32 = fp32_config(cfg)
     p_dev = lmt.init_params(cfg32, seed=SEED + 1, device=dev)
     p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+    p_whole = p_dev
     meshes = (contextlib.nullcontext(), contextlib.nullcontext())
     ep_calls = []
     if ep_mesh is not None:
         cfg32 = dataclasses.replace(cfg32, sharding_mode="ep_tp")
-        meshes = (make_model_mesh(*ep_mesh, mesh_devices(ep_mesh[0] * ep_mesh[1])[0]),
-                  make_model_mesh(*ep_mesh, "cpu"))
+        card_mesh = make_model_mesh(*ep_mesh, mesh_devices(ep_mesh[0] * ep_mesh[1])[0])
+        meshes = (card_mesh, make_model_mesh(*ep_mesh, "cpu"))
         p_dev = place_expert_tables(p_dev, meshes[0])
         p_cpu = place_expert_tables(p_cpu, meshes[1])
         meshes = tuple(use_mesh(m) for m in meshes)
@@ -3804,7 +3855,12 @@ def train_card_vs_cpu(cfg, dev, ep_mesh: tuple[int, int] | None = None) -> dict:
     if launches != want:
         raise AssertionError(f"{cfg.name}: float32 train step launches {launches}, "
                              f"expected {want}")
+    placed_checks = None
+    if ep_mesh is not None:
+        placed_checks = placed_tables_checks(cfg32, card_mesh, p_dev, p_whole,
+                                             {k: t.to(dev) for k, t in batch.items()})
     return {"n_layers": cfg32.n_layers, "d_model": cfg32.d_model,
+            "placed_tables_after_adamw": placed_checks,
             "reduced": dataclasses.replace(cfg32, sharding_mode=ARCHS[cfg.name].sharding_mode)
             == ARCHS[cfg.name].reduced(), "layers": mixer_counts(cfg32),
             "sharding_mode": cfg32.sharding_mode, "ep_mesh": ep_mesh,
@@ -3813,6 +3869,54 @@ def train_card_vs_cpu(cfg, dev, ep_mesh: tuple[int, int] | None = None) -> dict:
             "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
             "grad_err_of_max": worst, "grad_rtol": TRAIN_GRAD_RTOL,
             "launches": launches, "wall_s": time.perf_counter() - t0}
+
+
+def bits_equal(got, want) -> bool:
+    """Two trees of the same structure, leaf by leaf: same shape, dtype and
+    bits (plain values equal)."""
+    g, w = tree_leaves(got), tree_leaves(want)
+    return len(g) == len(w) and all(
+        (a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b))
+        if isinstance(b, torch.Tensor) else a == b for a, b in zip(g, w))
+
+
+def placed_tables_checks(cfg, mesh, placed, whole, batch) -> dict:
+    """One AdamW step on the placed expert tables and on the same tables
+    whole, under ``mesh``; then PLACED_DECODE_TOKENS tokens of
+    `greedy_generate` from each trained tree (the placed one unplaced once
+    under the mesh), and a `save_trainer_state` / `restore_trainer_state`
+    round trip of the placed, trained tree (parameters and moments written
+    whole): tokens and the restored trees equal the whole tree's bit for
+    bit, every table in its whole shape."""
+    opt = topt.adamw(1e-3)
+    step = lmsteps.make_train_step(cfg, opt)
+    with use_mesh(mesh):
+        _, p_placed, s_placed = step(placed, opt.init(placed), batch)
+        _, p_whole, s_whole = step(whole, opt.init(whole), batch)
+        prompt = batch["tokens"][:, :4]
+        seq = prompt.shape[1] + PLACED_DECODE_TOKENS
+        got = lmsteps.greedy_generate(cfg, p_placed, prompt, PLACED_DECODE_TOKENS, seq)
+        want = lmsteps.greedy_generate(cfg, p_whole, prompt, PLACED_DECODE_TOKENS, seq)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{cfg.name}: tokens decoded from the placed, trained "
+                                 f"tables {got.tolist()} != the whole tables' "
+                                 f"{want.tolist()}")
+        root = tempfile.mkdtemp()
+        try:
+            path = os.path.join(root, "trainer.ckpt")
+            save_trainer_state(path, p_placed, s_placed, 1)
+            n_bytes = os.path.getsize(path)
+            params, state, _, _ = restore_trainer_state(path, batch["tokens"].device)
+        finally:
+            shutil.rmtree(root)
+    if not (bits_equal(params, p_whole) and bits_equal(state, s_whole)):
+        raise AssertionError(f"{cfg.name}: the checkpoint of the placed, trained tables "
+                             "does not restore the whole tables' bits")
+    tables = [tuple(moe[name].shape) for moe in moe_layers(params)
+              for name in ("w_gate", "w_up", "w_down")]
+    return {"decoded_tokens": PLACED_DECODE_TOKENS, "tokens_equal": True,
+            "checkpoint_bits_equal": True, "checkpoint_bytes": n_bytes,
+            "whole_table_shapes": tables}
 
 
 def whisper_train(dev) -> dict:
@@ -4681,9 +4785,14 @@ def kernel_entries(res: dict) -> list[dict]:
                                     "XLA (classifier.py:44 vmapped over the cohort); a "
                                     "fixed summation order makes them batch-invariant",
               launches_a_round_train=res["train"]["batched_matmul_launches_a_round"],
+              bound_no_fma_ms=bmm_main["bound_no_fma_us"] / 1e3,
+              previous_ms=bmm_main["previous_kernel_us"] / 1e3,
+              previous_source=bmm_main["previous_source"],
               shapes={what: dict(row, ms=row["kernel_us"] / 1e3,
                                  plain_ms=row["plain_us"] / 1e3,
                                  bound_ms=row["bound_us"] / 1e3,
+                                 bound_no_fma_ms=row["bound_no_fma_us"] / 1e3,
+                                 previous_ms=row["previous_kernel_us"] / 1e3,
                                  library_ms=row["library_us"] / 1e3)
                       for what, row in res["bmm"]["rows"].items()},
               checks=res["bmm"]["checks"], route_compare=res["train"]["bmm_route"]),

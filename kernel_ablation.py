@@ -1,17 +1,30 @@
 #!/usr/bin/env python3
-"""Time four of the port's kernels against variants of their own sources
+"""Time five of the port's kernels against variants of their own sources
 on one NVIDIA GPU, each variant undoing one design step or trying one
 alternative, and read jamba's decode-vs-forward error with each kernel
 swapped in turn.
 
-    python3 kernel_ablation.py [flash] [flash_bwd] [scan] [scan_bwd] [parity]
+    python3 kernel_ablation.py [flash] [flash_bwd] [scan] [scan_bwd] [bmm] [bmm_scalar]
+                               [parity]
 
 The kernels are the bf16 flash forward at head_dim <= 128
 (`csrc/flash_attention_sm90.cu`: `flash_sm90_hd64_kernel` for hd <= 64,
 `flash_sm90_narrow_kernel` for hd 65 .. 128), the bf16 flash backward at
 head_dim <= 64 (`csrc/flash_attention_bwd_sm90.cu`: `dkdv_hd64_kernel` and
 `dq_hd64_kernel`), Mamba's selective scan (`csrc/selective_scan.cu`) and
-its backward (`csrc/selective_scan_bwd.cu`).
+its backward (`csrc/selective_scan_bwd.cu`), and the fixed-order batched
+product: `bmm` times `csrc/batched_matmul.cu` with one FMA in place of its
+multiply and add, its k loop run twice or not at all, its staging's global
+reads or its store removed (diagnostic), at one block a unit, with each
+thread's columns contiguous and with the rows class's earlier 128 x 64
+tile at TM = 8; `bmm_scalar` times its first
+design (`csrc/batched_matmul_scalar.cu`) with its staging's global loads,
+its k loop or its store removed (all diagnostic).  Both load each library
+in turn as the wrapper's, at layer 0 of local training, (100, 16, 64) @
+(100, 64, 64), and its dY @ B^T (b a transposed view), at the shared eval
+batch, (1024, 64) @ (100, 64, 64), and at the eval's layer 1, (100, 1024,
+64) @ (100, 64, 32); every library that is not diagnostic is held bit for
+bit to the plain version.
 Each variant is the committed source with one text substitution
 (ABLATIONS) that undoes one design step or tries one alternative, built
 with `nvcc` like the source itself into `build/ablation/` (each compiler
@@ -77,6 +90,7 @@ import torch
 import chip_smoke as cs
 from repro_torch.configs import ARCHS
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import batched_matmul as bm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import selective_scan as sc
 from repro_torch.models import transformer as lmt
@@ -85,6 +99,8 @@ OUT = Path(__file__).resolve().parent / "build" / "ablation"
 FLASH, SCAN, SCAN_BWD = ("flash_attention_sm90.cu", "selective_scan.cu",
                          "selective_scan_bwd.cu")
 FLASH_BWD = "flash_attention_bwd_sm90.cu"
+# the batched product: the library the wrapper loads, and the first design
+BMM, BMM_SCALAR = "batched_matmul.cu", "batched_matmul_scalar.cu"
 # the warpgroups taking turns to start their products (FA3's ping-pong, as
 # in flash_sm90_kernel), put back into the narrow kernel
 _TURNS = ('  auto my_turn = [&]() { asm volatile("bar.sync %0, 256;\\n" ::"r"(3 + cw) '
@@ -397,11 +413,90 @@ ABLATIONS[FLASH_BWD] = {
                         [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                           "y = fmaf(x, 0.999f, 1.0f);")]),
 }
+# the batched product's first design (csrc/batched_matmul_scalar.cu) with its
+# staging's global loads, its k loop or its store removed; every variant is a
+# diagnostic (it computes a wrong result on purpose)
+ABLATIONS[BMM_SCALAR] = {
+    "no_staging_loads": (
+        "the staging's global loads: the shared tiles filled with a constant", True,
+        [("                     ? ab[(long long)(row0 + i) * sam + (long long)(k0 + k) * sak]\n",
+          "                     ? 1.0f\n"),
+         ("                     ? bb[(long long)(k0 + k) * sbk + (long long)(col0 + j) * sbn]\n",
+          "                     ? 1.0f\n")]),
+    "no_k_loop": (
+        "the k loop: the sums stay zero (staging and store kept)", True,
+        [("    for (int k = 0; k < kc; ++k) {      // only the chunk's real terms, in order\n"
+          "      const float bv = b_s[k][tx];\n"
+          "#pragma unroll\n"
+          "      for (int r = 0; r < RPT; ++r)\n"
+          "        acc[r] = __fadd_rn(acc[r], __fmul_rn(a_s[ty + r * RT][k], bv));\n"
+          "    }\n", "")]),
+    "no_store": (
+        "the store: computed, never written (a condition that never holds)", True,
+        [("    if (row < M) cb[(long long)row * N + col] = acc[r];\n",
+          "    if (M < 0) cb[(long long)row * N + col] = acc[r];\n")]),
+}
+# the batched product's current design: its FP32 issue (one FMA in place of
+# the multiply and the add: other bits), its k loop run twice or not at all,
+# its staging's global reads or its store removed (diagnostic), and two
+# design choices undone (not diagnostic: the same bits)
+_BMM_TERMS = (("4 * j", "x"), ("4 * j + 1", "y"), ("4 * j + 2", "z"), ("4 * j + 3", "w"))
+_BMM_SRC = (Path(__file__).resolve().parent / "src/repro_torch/kernels/csrc" / BMM).read_text()
+_BMM_LOOP = _BMM_SRC[_BMM_SRC.index("    for (int k = 0; k < kc4; k += 4) {\n"):
+                     _BMM_SRC.index("    if (cur.ch == nch - 1) {")]
+ABLATIONS[BMM] = {
+    "fma": ("the separate multiply and add: one FMA a multiply-add (other bits), the "
+            "FP32 issue halved", True,
+            [(f"            acc[r][{i}] = __fadd_rn(acc[r][{i}], __fmul_rn(x, bv[j].{c}));\n",
+              f"            acc[r][{i}] = fmaf(x, bv[j].{c}, acc[r][{i}]);\n")
+             for i, c in _BMM_TERMS]),
+    "k_loop_twice": ("the k loop run twice over the same shared tiles: the second run is "
+                     "the loop's own cost (other bits)", True, [(_BMM_LOOP, _BMM_LOOP * 2)]),
+    "no_k_loop": ("the k loop: staging, barriers and the store of zeros alone", True,
+                  [(_BMM_LOOP, "")]),
+    "no_staging_reads": (
+        "the staging's global reads: every piece zero-filled, every register load a "
+        "constant", True,
+        [("      cp_async16(dst + r * ld + c, n ? src + gr * sr + gc : src, 4 * n);\n",
+          "      cp_async16(dst + r * ld + c, src, 0 * n);\n"),
+         ("            v[u] = *reinterpret_cast<const float4*>(g);\n",
+          "            v[u] = make_float4(1.f, 1.f, 1.f, 1.f);\n"),
+         ("      cp_async4(dst + r * ld + c, in ? src + gr * sr + gc * sc : src, in ? 4 : 0);\n",
+          "      cp_async4(dst + r * ld + c, src, 0);\n")]),
+    "no_store": ("the store: computed, never written (a condition that always holds "
+                 "skips it)", True,
+                 [("          if (row >= M || col >= N) continue;\n",
+                   "          if (M >= 0) continue;\n")]),
+    "one_unit_a_block": (
+        "the walk over several units a block: one block a unit (every shared a "
+        "restaged)", False,
+        [("  const unsigned grid = static_cast<unsigned>(units < resident[dev] ? units : "
+          "resident[dev]);\n", "  const unsigned grid = static_cast<unsigned>(units);\n")]),
+    "contiguous_columns": (
+        "a thread's TN / 4 column groups 4 * TX apart: its TN columns contiguous (two "
+        "shared-memory wavefronts a 16-byte load of b at TN = 8)", False,
+        [("    const float* bs = b_s + (s & 1) * kChunkK * kLdB + tx * 4;\n",
+          "    const float* bs = b_s + (s & 1) * kChunkK * kLdB + tx * TN;\n"),
+         ("(bs + (k + q) * kLdB + j * 4 * TX);\n", "(bs + (k + q) * kLdB + 4 * j);\n"),
+         ("          const int col = cur.ct * BN + j * 4 * TX + tx * 4;\n",
+          "          const int col = cur.ct * BN + tx * TN + 4 * j;\n")]),
+    "tile_128x64_tm8": ("the 64 x 64 tile at TM = 4, TN = 8 in the rows class: 128 x 64 "
+                        "at TM = 8, TN = 4 (256 threads, 128-row units)", False,
+                        [("      err = launch<64, 64, 4, 8>(",
+                          "      err = launch<128, 64, 8, 4>(")]),
+}
 # jamba's attention layer and whisper-large-v3's three: (B, Sq, Sk, Hq, Hkv,
 # hd), causal
 FLASH_SHAPES = {"jamba (2, 4096, 64 / 8, 128) causal": ((2, 4096, 4096, 64, 8, 128), True),
                 **cs.FLASH_WHISPER_SHAPES}
 SCAN_SHAPES = {"prefill": (2, 4096, 16384), "decode": (2, 1, 16384)}
+# the batched product at layer 0 of local training (and its dY @ B^T, b a
+# transposed view), at the shared eval batch and at the eval's layer 1
+BMM_SHAPES = {what: cs.BMM_SHAPES[what] for what in
+              ("layer 0 (100, 16, 64) @ (100, 64, 64)",
+               "eval (1024, 64) shared @ (100, 64, 64)",
+               "eval layer 1 (100, 1024, 64) @ (100, 64, 32)")}
+BMM_SHAPES["layer 0: dY @ B^T"] = BMM_SHAPES["layer 0 (100, 16, 64) @ (100, 64, 64)"]
 # the parity witness: chip_smoke.py's jamba entry, weight seeds, and the
 # swaps (scan library, flash library, function in place of ops.selective_scan)
 PARITY_CONFIG = ("jamba-1.5-large-398b", 4)
@@ -607,6 +702,32 @@ def scan_bwd_rows(libs: dict, flush) -> dict:
     return rows
 
 
+def bmm_rows(libs: dict, flush, src: str) -> dict:
+    """Each batched-product library of ``libs`` (``src`` and its variants),
+    loaded in turn as the wrapper's, at BMM_SHAPES: the source held bit for
+    bit to the plain version, and every variant that is not diagnostic;
+    all timed in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = {name: {} for name in libs}
+    try:
+        for what, (sa, sb) in BMM_SHAPES.items():
+            a = torch.randn(sa, generator=gen, device="cuda")
+            b = torch.randn(sb, generator=gen, device="cuda")
+            if what.endswith("dY @ B^T"):
+                a, b = torch.randn((sb[0], sa[1], sb[2]), generator=gen,
+                                   device="cuda"), b.transpose(1, 2)
+            for name, lib in libs.items():
+                if name == "source" or not ABLATIONS[src][name][1]:
+                    _build._libs[BMM] = lib
+                    cs.check_bmm(a, b, f"{src} / {name} at {what}")
+            times = in_turns(libs, BMM, lambda: bm.batched_matmul_cuda(a, b), 200, flush)
+            for name, t in times.items():
+                rows[name][f"{what} us"] = t
+    finally:
+        _build._libs.pop(BMM, None)       # the wrapper's own library again
+    return rows
+
+
 def parity_rows(libs: dict) -> dict:
     """jamba's decode-vs-forward error (chip_smoke.decode_vs_forward) per
     weight seed, with the committed kernels and with each swap."""
@@ -647,7 +768,9 @@ def main() -> int:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     out = {"device": torch.cuda.get_device_name(0)}
     for kernel, rows in (("flash", flash_rows), ("flash_bwd", flash_bwd_rows),
-                         ("scan", scan_rows), ("scan_bwd", scan_bwd_rows)):
+                         ("scan", scan_rows), ("scan_bwd", scan_bwd_rows),
+                         ("bmm", lambda libs, flush: bmm_rows(libs, flush, BMM)),
+                         ("bmm_scalar", lambda libs, flush: bmm_rows(libs, flush, BMM_SCALAR))):
         if kernel not in parts:
             continue
         src = PARTS[kernel][0]
@@ -669,7 +792,8 @@ def main() -> int:
 
 # what each part of the run builds (its variants too)
 PARTS = {"flash": (FLASH,), "flash_bwd": (FLASH_BWD,), "scan": (SCAN,),
-         "scan_bwd": (SCAN_BWD,), "parity": (SCAN, FLASH)}
+         "scan_bwd": (SCAN_BWD,), "bmm": (BMM,), "bmm_scalar": (BMM_SCALAR,),
+         "parity": (SCAN, FLASH)}
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.moe_sharded import whole_expert_tables
 
 Tree = Any
 
@@ -305,7 +306,14 @@ def save_trainer_state(path: str, params: Tree, opt_state: Tree,
                        round_idx: int, extra: dict | None = None) -> None:
     """``{"params", "opt_state", "round_idx", "extra_json"}`` into one
     checkpoint file, as the reference writes it (tensors brought to the
-    host first)."""
+    host first).  Expert tables placed over a mesh
+    (``interop.place_expert_tables``), in the parameters and in the
+    optimizer's moment trees alike, are written whole, in the reference's
+    layout: unplaced under the ambient mesh
+    (``models/moe_sharded.whole_expert_tables``; a ValueError without
+    one).  A restore gives whole tables; the caller places them again."""
+    params = whole_expert_tables(params, "save_trainer_state")
+    opt_state = whole_expert_tables(opt_state, "save_trainer_state")
     save_pytree(path, {"params": _host_tree(params),
                        "opt_state": _host_tree(opt_state),
                        "round_idx": np.asarray(round_idx),
@@ -316,7 +324,8 @@ def save_trainer_state(path: str, params: Tree, opt_state: Tree,
 def restore_trainer_state(path: str, device=None):
     """``(params, opt_state, round_idx, extra)`` from
     :func:`save_trainer_state`, every tensor on ``device`` (the card
-    unless the caller names another)."""
+    unless the caller names another); expert tables whole
+    (``interop.place_expert_tables`` places them again)."""
     device = resolve_device(device)
     state = load_pytree(path)
     extra = json.loads(bytes(state["extra_json"]).decode())

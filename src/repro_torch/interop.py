@@ -8,7 +8,8 @@ block).  An LM's parameters (lists of stacked layers, bfloat16 leaves) take
 (``ModelBank.save``, one ``.npz``) needs nothing here: it loads through
 ``repro_torch.serve.load_bank``.  An LM tree's expert tables are split
 over a device mesh for the expert-parallel MoE by
-:func:`place_expert_tables`.
+:func:`place_expert_tables`, and made whole again by
+:func:`unplace_expert_tables`.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 from repro_torch.blockchain.chain import Block, Blockchain
 from repro_torch.blockchain.txpool import Transaction
 from repro_torch.device import resolve_device
-from repro_torch.models.moe_sharded import place_blocks
+from repro_torch.models.moe_sharded import map_moe_layers, place_blocks, unplace_blocks
 from repro_torch.runtime.arena import ArenaLayout, ParamArena
 
 _KEY = re.compile(r"\['((?:[^'\\]|\\.)*)'\]")
@@ -76,15 +77,20 @@ def place_expert_tables(params: Any, mesh, ep_axis: str = "data",
     returned tree keeps no whole table.  Every other leaf is the same
     tensor.  The result is a tree of tensors, so an optimizer trains it.
     Raises for a non-gated MoE and where E does not split over ``ep``."""
-    def walk(x):
-        if isinstance(x, Mapping):
-            if "router" in x and "w_gate" in x:
-                return place_blocks(mesh, dict(x), ep_axis, tp_axis)
-            return {k: walk(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return [walk(v) for v in x]
-        return x
-    return walk(params)
+    return map_moe_layers(params, lambda moe: place_blocks(mesh, moe, ep_axis, tp_axis))
+
+
+def unplace_expert_tables(params: Any, mesh, ep_axis: str = "data",
+                          tp_axis: str = "model") -> Any:
+    """The exact inverse of :func:`place_expert_tables` over the same
+    ``mesh``: every placed expert table rebuilt whole from its members'
+    blocks (``models/moe_sharded.unplace_blocks``: joined along F, then E,
+    in the member order of ``moe_sharded._member`` / ``expert_block``) on
+    the router's device, bit for bit; each table is copied once.  Dense
+    tables and every other leaf pass through as they are; an optimizer's
+    moment trees (which mirror the parameters) unplace the same way.
+    Raises where the number of blocks does not fit the mesh."""
+    return map_moe_layers(params, lambda moe: unplace_blocks(mesh, moe, ep_axis, tp_axis))
 
 
 def opt_state_from_numpy(state: Mapping[str, Any], device=None) -> dict:

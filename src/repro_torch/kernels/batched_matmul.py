@@ -39,7 +39,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-# the kernel's grid: a batch entry and 16 output rows a block along y
+# the sizes the wrapper takes (the first design's grid limits: a batch entry
+# and 16 output rows a block along y), kept as the wrapper's contract
 MAX_BATCH = 65535
 MAX_ROWS = 65535 * 16
 

@@ -13,7 +13,11 @@ batch's ``enc_embeds`` (B, n_frames, d_model), and its serving loop is
 ``decode.init_cache`` -> ``decode.warm_cache(..., enc_embeds=...)`` ->
 ``decode_step`` (``greedy_generate`` keeps the reference's signature, which
 takes no frames).  whisper trains on the card as on the CPU: the flash
-backward kernels take the cross-attention's Sq != Sk.
+backward kernels take the cross-attention's Sq != Sk.  Decoding takes
+whole expert tables: ``greedy_generate`` and ``make_serve_step``'s step
+unplace tables placed over a mesh (``interop.place_expert_tables``) once,
+under the ambient mesh (``models/moe_sharded.whole_expert_tables``), and
+never per token.
 """
 from __future__ import annotations
 
@@ -22,6 +26,12 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models.decode import decode_step, init_cache  # noqa: F401 (re-export)
+from repro_torch.models.moe_sharded import (
+    EXPERT_TABLES,
+    holds_placed_tables,
+    map_moe_layers,
+    whole_expert_tables,
+)
 from repro_torch.models.transformer import ArchConfig, forward
 from repro_torch.optim import Optimizer
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -80,11 +90,42 @@ def make_eval_step(cfg: ArchConfig) -> Callable[[Pytree, dict], torch.Tensor]:
     return eval_step
 
 
+def _placed_blocks(params: Pytree) -> list:
+    """Each placed expert block of ``params`` with its version counter
+    (None for an inference tensor, which keeps none)."""
+    out: list = []
+
+    def note(moe):
+        for name in EXPERT_TABLES:
+            if isinstance(moe.get(name), (list, tuple)):
+                for b in moe[name]:
+                    try:
+                        out.append((b, b._version))
+                    except RuntimeError:
+                        out.append((b, None))
+        return moe
+    map_moe_layers(params, note)
+    return out
+
+
+def _same_blocks(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(x is y and u == v for (x, u), (y, v) in zip(a, b))
+
+
 def make_serve_step(cfg: ArchConfig):
-    """serve_step(params, cache, token (B,1)) -> (logits (B,1,V), cache')."""
+    """serve_step(params, cache, token (B,1)) -> (logits (B,1,V), cache').
+    Placed expert tables are unplaced under the ambient mesh the first time
+    they are handed in, and the whole tables reused while the same blocks,
+    unwritten, come back."""
+    last: list = []          # [the placed blocks and versions, the whole tree]
 
     def serve_step(params, cache, token):
         with torch.inference_mode():
+            if holds_placed_tables(params):
+                blocks = _placed_blocks(params)
+                if not last or not _same_blocks(last[0], blocks):
+                    last[:] = [blocks, whole_expert_tables(params, "decoding")]
+                params = last[1]
             return decode_step(cfg, params, cache, token)
 
     return serve_step
@@ -92,10 +133,13 @@ def make_serve_step(cfg: ArchConfig):
 
 def greedy_generate(cfg: ArchConfig, params: Pytree, prompt: torch.Tensor,
                     max_new: int, seq_len: int) -> torch.Tensor:
-    """Host-loop greedy decoding (prompt (B, P) on the params' device)."""
+    """Host-loop greedy decoding (prompt (B, P) on the params' device).
+    Placed expert tables are unplaced once, under the ambient mesh, before
+    the loop."""
     B, P = prompt.shape
     step = make_serve_step(cfg)
     with torch.inference_mode():
+        params = whole_expert_tables(params, "decoding")
         cache = init_cache(cfg, B, seq_len, device=prompt.device)
         tok = prompt[:, :1]
         out = [tok]

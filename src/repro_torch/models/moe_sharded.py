@@ -24,12 +24,18 @@ each member's block as a view (copied to the member's device where that
 is another), as the reference's test calls its counterpart.  The router
 (replicated in the reference) stays on the lead and each token shard
 reads it on its own device; the shared expert runs where its weights lie.
+``interop.unplace_expert_tables`` (:func:`unplace_blocks`) rebuilds whole
+tables, bit for bit: decoding (``models/lm.py``) and trainer checkpoints
+(``checkpoint/io.py``) take whole tables, as the reference's ep-sharded
+arrays are whole arrays, and unplace through :func:`whole_expert_tables`.
 
 The expert products are ``torch.bmm``: the reference leaves its einsums
 to XLA, outside any Pallas kernel.  Requires a gated activation and
 ``n_experts % ep == 0``, as the reference asserts.
 """
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import torch
 import torch.nn.functional as F
@@ -137,6 +143,72 @@ def _blocks(w, name: str, mesh: ModelMesh, ep_axis: str, ep: int, tp: int,
             i = _member(mesh, ep_axis, e, t)
             blocks[i] = expert_block(w, name, e, t, ep, tp).to(mesh.devices[i], copy=copy)
     return blocks
+
+
+def unplace_blocks(mesh: ModelMesh, moe: dict, ep_axis: str = "data",
+                   tp_axis: str = "model") -> dict:
+    """The inverse of :func:`place_blocks`: one MoE layer's parameters with
+    every placed expert table (a list of member blocks) rebuilt whole on the
+    router's device, the members' blocks joined in :func:`_member` /
+    :func:`expert_block` order (F first, then E).  A table that is a tensor
+    already passes through as it is.  Raises where the number of blocks
+    does not fit the mesh."""
+    if not any(isinstance(moe.get(name), (list, tuple)) for name in EXPERT_TABLES):
+        return moe
+    ep, tp = _mesh_sizes(mesh, moe["router"].shape[1], ep_axis, tp_axis)
+    dev = moe["router"].device
+    out = dict(moe)
+    for name in EXPERT_TABLES:
+        blocks = moe.get(name)
+        if not isinstance(blocks, (list, tuple)):
+            continue
+        if len(blocks) != ep * tp:
+            raise ValueError(f"{name}: {len(blocks)} placed blocks for a mesh of "
+                             f"{ep * tp} members")
+        f_axis = -2 if name == "w_down" else -1
+        out[name] = torch.cat(
+            [torch.cat([blocks[_member(mesh, ep_axis, e, t)].to(dev) for t in range(tp)],
+                       dim=f_axis) for e in range(ep)], dim=-3)
+    return out
+
+
+def map_moe_layers(tree, fn):
+    """``tree`` (nested dicts and lists) with every MoE layer's dict (one
+    holding ``router`` and ``w_gate``: parameters, or an optimizer's moment
+    tree, which mirrors them) replaced by ``fn(layer)``; every other node
+    and leaf as it is."""
+    if isinstance(tree, Mapping):
+        if "router" in tree and "w_gate" in tree:
+            return fn(dict(tree))
+        return {k: map_moe_layers(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_moe_layers(v, fn) for v in tree]
+    return tree
+
+
+def holds_placed_tables(tree) -> bool:
+    """Whether any MoE layer of ``tree`` holds a placed expert table."""
+    found = []
+    map_moe_layers(tree, lambda moe: found.append(
+        any(isinstance(moe.get(name), (list, tuple)) for name in EXPERT_TABLES)))
+    return any(found)
+
+
+def whole_expert_tables(tree, what: str):
+    """``tree`` with its placed expert tables unplaced over the ambient mesh
+    (:func:`unplace_blocks`), or ``tree`` itself where it holds none.
+    ``what`` names the caller in the error raised where placed tables
+    meet no ambient mesh: only the mesh they were placed over says which
+    block is which."""
+    if not holds_placed_tables(tree):
+        return tree
+    mesh = ambient_mesh()
+    if mesh is None:
+        raise ValueError(f"{what} takes whole expert tables: these are placed "
+                         "(interop.place_expert_tables), and unplacing them needs the "
+                         "mesh they were placed over as the ambient mesh "
+                         "(repro_torch.launch.mesh.use_mesh)")
+    return map_moe_layers(tree, lambda moe: unplace_blocks(mesh, moe))
 
 
 def moe_apply_shard_map(act: str, p: dict, x: torch.Tensor, *, top_k: int,

@@ -11,9 +11,11 @@ pads); `BatchedMatmulFn`'s gradients (the plain backward on CPU tensors)
 against `torch.matmul`'s autograd; `ops.batched_matmul` keeping
 `torch.matmul` on the CPU bit for bit; the CUDA wrapper's refusals, which
 come before it looks at the device.  The `cuda`-marked tests hold the
-kernel to the plain version bit for bit at the same shapes, transposed
-operands, expanded gradients and ragged tiles, and each client's rows
-equal in calls of 25, 34 and 100.  No JAX here: the reference leaves these
+kernel to the plain version bit for bit at the same shapes (the eval
+round's three products, the kernel's class and tile edges), transposed
+operands, expanded gradients as either operand, ragged tiles and operands
+off the 16-byte path, and each client's rows equal in calls of 25, 34 and
+100.  No JAX here: the reference leaves these
 products to XLA and has no kernel to compare with."""
 import numpy as np
 import pytest
@@ -25,13 +27,38 @@ from repro_torch.kernels import ops  # noqa: E402
 
 RTOL = 1e-5     # of max(1, max |want|): two float32 orders of a 64-term sum
 # ExperimentSpec()'s MLP 64 -> 64 -> 32 -> 10, a client's batch of 16 rows,
-# 100 clients; the eval forward over the shared 1024-example batch
+# 100 clients; the eval forward's three products over the shared
+# 1024-example batch
 SHAPES = {"layer 0": ((100, 16, 64), (100, 64, 64)),
           "layer 1": ((100, 16, 64), (100, 64, 32)),
           "head": ((100, 16, 32), (100, 32, 10)),
           "eval, a shared": ((1024, 64), (100, 64, 64)),
+          "eval layer 1": ((100, 1024, 64), (100, 64, 32)),
+          "eval head": ((100, 1024, 32), (100, 32, 10)),
           "ragged tiles": ((3, 17, 33), (3, 33, 70)),
           "K = 1": ((5, 16, 1), (5, 1, 10))}
+# the kernel's class and tile edges (csrc/batched_matmul.cu): M one below, at
+# and one above the row tiles 16 / 64 / 128 (128 also the edge of the rows
+# class), N about the column tiles 16 / 32 / 64, K about the 4-wide loads and
+# the 64-deep stages (two and three stages); a shared a whose clients do not
+# split evenly over the blocks, and one staged in chunks (K > 64)
+EDGES = {"M 15, N 15, K 3": ((3, 15, 3), (3, 3, 15)),
+         "M 16, N 16, K 4": ((3, 16, 4), (3, 4, 16)),
+         "M 17, N 17, K 5": ((3, 17, 5), (3, 5, 17)),
+         "M 63, N 31, K 63": ((3, 63, 63), (3, 63, 31)),
+         "M 64, N 32, K 64": ((3, 64, 64), (3, 64, 32)),
+         "M 65, N 33, K 65": ((3, 65, 65), (3, 65, 33)),
+         "M 127, N 63, K 127": ((3, 127, 127), (3, 127, 63)),
+         "M 128, N 64, K 128": ((3, 128, 128), (3, 128, 64)),
+         "M 129, N 65, K 129": ((3, 129, 129), (3, 129, 65)),
+         "rows class, N 15": ((3, 129, 33), (3, 33, 15)),
+         "rows class, N 16": ((3, 128, 16), (3, 16, 16)),
+         "rows class, N 17": ((3, 200, 20), (3, 20, 17)),
+         "rows class, N 33": ((3, 200, 20), (3, 20, 33)),
+         "a shared, 101 clients": ((1024, 64), (101, 64, 64)),
+         "a shared, K 65": ((200, 65), (9, 65, 40))}
+SHAPES.update(EDGES)
+EVAL_FORWARD = ("eval layer 1", "eval head")
 
 
 def _rand(shape, seed):
@@ -44,11 +71,11 @@ def _operands(name, seed=0):
     return _rand(sa, seed), _rand(sb, seed + 1)
 
 
-def _forms(a, b, seed=2):
+def _forms(a, b, seed=2, backward=True):
     """The product and, for per-model a, its two backward forms through
     transposed views: dY @ B^T and A^T @ dY."""
     yield "a @ b", a, b
-    if a.dim() == 3:
+    if a.dim() == 3 and backward:
         dy = _rand((b.shape[0], a.shape[1], b.shape[2]), seed).to(a.device)
         yield "dY @ B^T", dy, b.transpose(1, 2)
         yield "A^T @ dY", a.transpose(1, 2), dy
@@ -65,7 +92,9 @@ def _bits(t):
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_plain_matches_torch_matmul(name):
     a, b = _operands(name)
-    for form, x, y in _forms(a, b):
+    # the eval forward has no backward; its A^T @ dY would sum over 1024
+    # rows in the plain version's K-step loop (the card checks those forms)
+    for form, x, y in _forms(a, b, backward=name not in EVAL_FORWARD):
         got = bm.batched_matmul_plain(x, y)
         assert got.shape == torch.matmul(x, y).shape, form
         assert _close(got, torch.matmul(x, y)), form
@@ -182,10 +211,33 @@ def test_cuda_kernel_equals_plain(name):
     at = a.transpose(-1, -2)
     assert torch.equal(_bits(bm.batched_matmul_cuda(at, expanded)),
                        _bits(bm.batched_matmul_plain(at, expanded)))
+    bt = b.transpose(1, 2)
+    assert torch.equal(_bits(bm.batched_matmul_cuda(expanded, bt)),
+                       _bits(bm.batched_matmul_plain(expanded, bt)))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["layer 0", "layer 1", "head", "eval, a shared"])
+def test_cuda_kernel_equals_plain_on_strided_views():
+    """Operands off the 16-byte path: an unaligned base, a row pitch off 4
+    floats, a non-unit inner stride, in both classes and both operands."""
+    dev = _cuda()
+    a_big = _rand((3, 300, 67), 8).to(dev)
+    b_big = _rand((3, 66, 130), 9).to(dev)
+    cases = {"a off 16 bytes": (a_big[:, :17, 1:65], b_big[:, :64, :64]),
+             "a row pitch 67": (a_big[:, :200, :64], b_big[:, :64, :32]),
+             "a inner stride 2": (a_big[:, :17, ::2], b_big[:, :34, :40]),
+             "b off 16 bytes": (a_big[:, :200, :64], b_big[:, 1:65, 1:65]),
+             "b inner stride 2": (a_big[:, :17, :64], b_big[:, :64, ::2]),
+             "b row pitch 130, N 10": (a_big[:, :150, :66], b_big[:, :, :10]),
+             "shared a off 16 bytes": (a_big[0, :300, 1:65], b_big[:, :64, :64])}
+    for what, (x, y) in cases.items():
+        got = bm.batched_matmul_cuda(x, y)
+        assert torch.equal(_bits(got), _bits(bm.batched_matmul_plain(x, y))), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["layer 0", "layer 1", "head", "eval, a shared",
+                                  "eval layer 1", "eval head"])
 def test_cuda_kernel_is_batch_invariant(name):
     dev = _cuda()
     a, b = (t.to(dev) for t in _operands(name))
