@@ -338,12 +338,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (verified, 12 requests, its bank equal to shards=1's).  Round / flush
    p50 and p99 beside shards=1's (information: S shards on one card
    serialise their launches).
+13. fl_target (run between serve and lm) — the paper's aggregation at the
+   reference's pod-scale defaults, uncut (`launch/fl_target.py`: 64
+   clients x an 83,886,080-parameter MLP tower 1024 -> 8192 -> 8192 ->
+   1024, psi = 64, 8 clusters, float32: 21.47 GB stacked), the clients in
+   FL_GROUPS planted groups of 8 (a base tower each from
+   `init_client_params`, every client its base plus noise at FL_NOISE of
+   each leaf's standard deviation).  First `fl_round_step` on the card
+   against the CPU at FL_CUT (64 clients, 256 / 1024 / 256, both methods):
+   labels equal, the Pearson matrix within PEARSON_TOL, prototypes and new
+   params within PAA_ATOL.  Then at full size, "mix" and "two_step", each
+   result freed before the next round: a warm-up round, a staged round
+   (embed, Pearson, spectral, mean, each drained and timed) and FL_ROUNDS
+   timed rounds, every kernel's launch count reset just before and read just
+   after (the Pearson kernel once a round, no other kernel); the labels the
+   planted groups in every round, cluster sizes summing to 64, every new
+   value finite, peak memory; the Pearson kernel on the round's (64, 1024)
+   prototypes against its plain version, timed beside `torch.corrcoef`.
+   Then the cluster-aggregation kernel over each stacked leaf as (64, a b)
+   rows with the round's labels: bit for bit against its plain version on
+   column slices at the start, middle and end (the large leaf's rows 32-63
+   lie past element 2^31), within PAA_ATOL of the "mix" mean, which the
+   "two_step" round's new params must meet too; timed at (64, 67,108,864)
+   and (64, 8,388,608) in turns with `torch.matmul(mix, rows)`, beside the
+   plain version and the byte bound.  Prints each method's round p50, the
+   staged split, peak memory and `round_cost`'s least time (the prototype
+   forward at 67 TFLOP/s fp32, the mean's bytes at 3.35 TB/s) with the
+   share reached.
 
 Prints the card's name and power limit (`nvidia-smi`), one JSON line
 `{"kernels": [...]}` with each kernel's launches on its main path (and per
 path: train, train_fedavg, train_fedprox, train_fedproto, train_fedhkd,
 async, faults, resume, mesh, mesh_sharded_padded, mesh_replicated,
-mesh_async, mesh_resume, mesh_serve, obs, paper, serve, lm_forward, lm_decode,
+mesh_async, mesh_resume, mesh_serve, obs, paper, serve, fl_target, lm_forward, lm_decode,
 lm_warm_cache, lm_fp32, lm_train, lm_train_fp32; the four backward
 kernels' main paths are lm_train and lm_train_fp32, the batched
 product's train, with its launches a round and the route comparison),
@@ -352,14 +379,19 @@ cluster_agg entries with their `async_shape` and mesh rows, rwkv6 and
 selective_scan with their `decode_shape` row, bf16 flash with its
 `lm_hd128_shapes` and `whisper_shapes`, both flash entries with their Sq
 != Sk checks, the bf16 flash backward with its `whisper_shapes` and the
-hd-64 kernels' ptxas registers), one JSON
+hd-64 kernels' ptxas registers, cluster_agg with its `fl_target_shapes`
+and Pearson with its `fl_target_shape`), one JSON
 line each
 `{"train": {...}}`, `{"strategies": {...}}`, `{"async": {...}}`,
 `{"faults": {...}}`, `{"resume": {...}}`, `{"mesh": {...}}`, `{"obs": {...}}`,
 `{"paper": {...}}`,
-`{"serve": {...}}`, `{"lm": {...}}`, `{"lm_train": {...}}`, and last
-`{"ok": true, "device":
-{...}}`.  Without CUDA
+`{"serve": {...}}`, `{"fl_target": {...}}`, `{"lm": {...}}`, `{"lm_train": {...}}`,
+and last
+`{"ok": true, "device": {...}}`.  Each eval and train step of the lm
+and lm_train phases also prints its model FLOPs
+(`launch.flops.step_cost(...).model_flops`) over its drained wall as a
+share of the bf16 peak, beside the card's power limit (`peak_share`,
+information).  Without CUDA
 it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -408,17 +440,21 @@ from repro_torch.api import (  # noqa: E402
 )
 from repro_torch.api.registry import build_strategy  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs.shapes import InputShape  # noqa: E402
 from repro_torch.core import aggregation as core_agg  # noqa: E402
 from repro_torch.core.baselines import ModelBundle  # noqa: E402
 from repro_torch.core.engine import RoundEngine  # noqa: E402
 from repro_torch.core import prototypes as prototypes_mod  # noqa: E402
 from repro_torch.core.prototypes import classwise_prototypes, client_prototypes  # noqa: E402
 from repro_torch.core.fl import local_train  # noqa: E402
+from repro_torch.core.pearson import pearson_affinity, pearson_matrix  # noqa: E402
+from repro_torch.core.spectral import spectral_cluster  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import batched_matmul as bm  # noqa: E402
 from repro_torch.data.lm import batch_stream, make_token_stream  # noqa: E402
 from repro_torch.checkpoint.io import restore_trainer_state, save_trainer_state  # noqa: E402
 from repro_torch.interop import place_expert_tables  # noqa: E402
+from repro_torch.launch import fl_target, flops  # noqa: E402
 from repro_torch.launch.mesh import make_model_mesh, use_mesh  # noqa: E402
 from repro_torch.kernels import cluster_agg as ca  # noqa: E402
 from repro_torch.kernels import fingerprint as fp  # noqa: E402
@@ -690,6 +726,22 @@ TRAIN_SOURCES = {"batched_matmul.cu": "batched_matmul_kernel",
 # paa_round on the card vs the CPU: the Pearson matrix at the reference's
 # tolerance, the prototypes and the new params at the float32 sums' 1e-6
 PAA_ATOL = 1e-6
+# the fl_target phase: the paper's aggregation at the reference's pod-scale
+# defaults (64 clients x 83,886,080 float32 params, 21.47 GB stacked), the
+# clients in FL_GROUPS planted groups (a base tower from init_client_params
+# each, every client its base plus noise at FL_NOISE of each leaf's
+# standard deviation); FL_ROUNDS timed rounds a method after a warm-up; the
+# two methods' new params, and the cluster-aggregation kernel against the
+# "mix" result, within PAA_ATOL (sums of 8 terms of 0.125 x in two orders:
+# a few float32 ulps of values below 0.2); each bit-for-bit slice FL_SLICE
+# columns over all 64 rows; the card-vs-CPU round at FL_CUT (0.4 GB)
+FL_GROUPS = 8
+FL_NOISE = 0.01
+FL_ROUNDS = 5
+FL_SLICE = 4096
+FL_CUT = fl_target.FLTargetConfig(in_dim=256, hidden=1024, rep_dim=256)
+# the card's `nvidia-smi` name and power limit, set by main()
+CARD: dict = {}
 # the mesh phase: ExperimentSpec() over MESH_SHARDS shards, and over
 # MESH_PAD_SHARDS, where 1000 rows pad to 1002 and a cohort of 100 to 102
 MESH_SHARDS, MESH_PAD_SHARDS = 4, 3
@@ -2568,6 +2620,279 @@ def obs_phase(dev, res: dict) -> dict:
     return out
 
 
+def planted_clients(cfg, gen: torch.Generator, dev):
+    """Stacked params of ``cfg.n_clients`` towers in FL_GROUPS planted
+    groups on ``dev`` (client i: group i % FL_GROUPS's base from
+    `init_client_params`, plus noise at FL_NOISE of each leaf's standard
+    deviation, drawn in place), and the (psi, in_dim) probe batch."""
+    bases = [fl_target.init_client_params(cfg, gen, dev) for _ in range(FL_GROUPS)]
+    stacked = {}
+    for k, shape in fl_target.stacked_param_shapes(cfg).items():
+        stacked[k] = torch.empty(shape, device=dev)
+        for i in range(cfg.n_clients):
+            stacked[k][i].normal_(generator=gen).mul_(FL_NOISE * (1 / shape[1]) ** 0.5)
+            stacked[k][i].add_(bases[i % FL_GROUPS][k])
+    return stacked, torch.randn((cfg.psi, cfg.in_dim), generator=gen, device=dev)
+
+
+def check_planted(labels: torch.Tensor, n_clients: int, what: str) -> None:
+    """Raises unless ``labels`` are the planted groups up to renaming."""
+    got = labels.cpu().tolist()
+    pairs = {(i % FL_GROUPS, lab) for i, lab in enumerate(got)}
+    if len(got) != n_clients or len(set(got)) != FL_GROUPS or len(pairs) != FL_GROUPS:
+        raise AssertionError(f"fl_target {what}: labels {got} are not the planted groups")
+
+
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor, chunk: int = 1 << 28) -> float:
+    """max |a - b| over two tensors of one shape, a flat chunk at a time
+    (no full-size temporary; NaN if either holds one)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    return max(float((a[i:i + chunk] - b[i:i + chunk]).abs().max())
+               for i in range(0, a.numel(), chunk))
+
+
+def fl_stages(cfg, stacked: dict, probe: torch.Tensor) -> tuple[dict, torch.Tensor]:
+    """One round in `paa_round`'s steps, each drained and timed (ms): the
+    prototype forward, the Pearson kernel, spectral clustering and the
+    cluster mean.  Returns the walls and the prototypes."""
+    walls = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        return out
+    protos = stage("embed", lambda: client_prototypes(fl_target.embed_fn, stacked, probe))
+    corr = stage("pearson", lambda: pearson_matrix(protos))
+    labels = stage("spectral", lambda: spectral_cluster(pearson_affinity(corr),
+                                                        cfg.n_clusters))
+    stage("mean", lambda: core_agg.cluster_mean_params(stacked, labels, cfg.n_clusters,
+                                                       method=cfg.agg_method))
+    check_planted(labels, cfg.n_clients, f"{cfg.agg_method} (staged)")
+    return walls, protos
+
+
+def fl_method_run(cfg, stacked: dict, probe: torch.Tensor, dev) -> tuple[dict, dict]:
+    """One method at full size: a warm-up round of `fl_round_step`, a
+    staged round (fl_stages), then FL_ROUNDS timed rounds, each result freed
+    before the next round; peak memory over all of them.  Gates: labels the
+    planted groups in every round, cluster sizes summing to the clients,
+    every new value finite.  Returns the record and the last
+    round's new params."""
+    def timed_round():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fl_target.fl_round_step(cfg, stacked, probe)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check_planted(out[1], cfg.n_clients, cfg.agg_method)
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    timed_round()                        # the warm-up; its result is freed at once
+    stages, protos = fl_stages(cfg, stacked, probe)
+    new = None
+    for _ in range(FL_ROUNDS):
+        new = None                       # the previous result, 21.47 GB
+        new, labels, sizes = timed_round()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if int(sizes.sum()) != cfg.n_clients or sizes.numel() != cfg.n_clusters:
+        raise AssertionError(f"fl_target {cfg.agg_method}: cluster sizes {sizes.tolist()}")
+    if not all(bool(x.isfinite().all()) for x in new.values()):
+        raise AssertionError(f"fl_target {cfg.agg_method}: a new value is not finite")
+    return {"round_ms_warmup": walls[0], "round_ms": walls[1:],
+            "round_ms_p50": float(np.median(walls[1:])), "stages_ms": stages,
+            "peak_gb": peak_gb, "labels": labels.cpu().tolist(),
+            "cluster_sizes": sizes.cpu().tolist(), "finite": True}, \
+        {"new": new, "labels": labels, "protos": protos}
+
+
+def fl_leaf_checks(cfg, stacked: dict, labels: torch.Tensor, two_step: dict,
+                   dev) -> dict:
+    """The cluster-aggregation kernel over each stacked leaf as (m, a b)
+    rows (a view) with the round's labels: bit for bit against
+    `cluster_agg_plain` on column slices at the start, middle and end of the
+    leaf (every slice all 64 rows, so the large leaf's rows 32-63 lie past
+    element 2^31), and within PAA_ATOL of the "mix" mean of the leaf; the
+    "two_step" round's leaf (popped from ``two_step`` as it is checked)
+    within PAA_ATOL of the same "mix" mean.  At the two widths, the kernel
+    timed in turns with `torch.matmul(mix, rows)` (CUDA events, K L L K),
+    and the plain version, beside the byte bound."""
+    m, c = cfg.n_clients, cfg.n_clusters
+    wo, denom = ca.cluster_weights(labels, c)
+    onehot = (labels[:, None] == torch.arange(c, device=dev)[None, :]).float()
+    mix = (onehot / denom[None, :]) @ wo.T
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    out, methods_err = {}, {}
+    for k in fl_target.LEAVES:
+        rows = stacked[k].reshape(m, -1)
+        n = rows.shape[1]
+        mean = core_agg.cluster_mean_params({k: stacked[k]}, labels, c, method="mix")[k]
+        methods_err[k] = max_abs_diff(two_step.pop(k), mean)
+        got = ca.cluster_agg_cuda(rows, labels, wo, denom)
+        kernel_err = max_abs_diff(got, mean)
+        del mean
+        starts = (0, n // 2 - FL_SLICE // 2, n - FL_SLICE)
+        for a in starts:
+            want = ca.cluster_agg_plain(rows[:, a:a + FL_SLICE], labels, wo, denom)
+            if not torch.equal(got[:, a:a + FL_SLICE].view(torch.int32),
+                               want.view(torch.int32)):
+                raise AssertionError(f"fl_target: cluster_agg kernel != plain version on "
+                                     f"{k} columns {a}..{a + FL_SLICE}")
+        del got
+        if not (methods_err[k] <= PAA_ATOL and kernel_err <= PAA_ATOL):
+            raise AssertionError(f"fl_target {k}: two_step vs mix {methods_err[k]}, "
+                                 f"kernel vs mix {kernel_err} (tolerance {PAA_ATOL})")
+        row = {"m": m, "n": n, "clusters": c, "dtype": "float32", "bit_exact_slices":
+               [[a, a + FL_SLICE] for a in starts],
+               "last_element_checked": (m - 1) * n + n - 1,
+               "past_2_31": (m - 1) * n + n - 1 >= 2 ** 31,
+               "max_abs_err_vs_mix": kernel_err, "tolerance": PAA_ATOL}
+        if k in ("w0", "w1"):        # w2 has w0's width
+            bound, bound_by = bound_us((2 * m * n + m * c + c) * 4 + m * 8,
+                                       2 * m * n + c * n)
+            times = {"kernel": [], "library": []}
+            for which in ("kernel", "library", "library", "kernel"):
+                fn = ((lambda _: ca.cluster_agg_cuda(rows, labels, wo, denom))
+                      if which == "kernel" else (lambda _: torch.matmul(mix, rows)))
+                times[which].append(median_us(fn, None, 5, flush))
+            row.update(kernel_us=float(np.mean(times["kernel"])),
+                       kernel_us_in_turns=times["kernel"],
+                       library_us=float(np.mean(times["library"])),
+                       library_us_in_turns=times["library"],
+                       plain_us=median_us(lambda _: ca.cluster_agg_plain(
+                           rows, labels, wo, denom), None, 3, flush),
+                       bound_us=bound, bound_by=bound_by)
+        out[k] = row
+    return {"leaves": out, "two_step_vs_mix_max_abs": methods_err, "tolerance": PAA_ATOL}
+
+
+def fl_cut_check(dev) -> dict:
+    """`fl_round_step` on the card against the CPU at FL_CUT (64 clients,
+    256 / 1024 / 256, FL_GROUPS planted groups), both methods, as
+    `paa_round_check` does: labels equal (and the planted groups), the
+    Pearson matrix within PEARSON_TOL, prototypes and new params within
+    PAA_ATOL."""
+    stacked, probe = planted_clients(FL_CUT, torch.Generator().manual_seed(SEED + 24), "cpu")
+    card = tree_map(lambda x: x.to(dev), stacked)
+    out = {}
+    for method in ("mix", "two_step"):
+        cfg = dataclasses.replace(FL_CUT, agg_method=method)
+        new, labels, sizes = fl_target.fl_round_step(cfg, card, probe.to(dev))
+        want_new, want_labels, want_sizes = fl_target.fl_round_step(cfg, stacked, probe)
+        got = core_agg.paa_round(fl_target.embed_fn, card, probe.to(dev), cfg.n_clusters,
+                                 agg_method=method)
+        want = core_agg.paa_round(fl_target.embed_fn, stacked, probe, cfg.n_clusters,
+                                  agg_method=method)
+        check_planted(labels, cfg.n_clients, f"{method} at the cut width")
+        if not (torch.equal(labels.cpu(), want_labels)
+                and torch.equal(sizes.cpu(), want_sizes)
+                and torch.equal(got.labels.cpu(), want.labels)):
+            raise AssertionError(f"fl_target cut {method}: labels card {labels.tolist()} "
+                                 f"vs CPU {want_labels.tolist()}")
+        corr_err = float((got.corr.cpu() - want.corr).abs().max())
+        proto_err = float((got.prototypes.cpu() - want.prototypes).abs().max())
+        param_err = max(float((new[k].cpu() - want_new[k]).abs().max())
+                        for k in fl_target.LEAVES)
+        if not (corr_err <= PEARSON_TOL and proto_err <= PAA_ATOL and param_err <= PAA_ATOL):
+            raise AssertionError(f"fl_target cut {method} card vs CPU: corr {corr_err}, "
+                                 f"prototypes {proto_err}, new params {param_err}")
+        out[method] = {"labels_equal": True, "corr_max_abs": corr_err,
+                       "prototypes_max_abs": proto_err, "new_params_max_abs": param_err}
+    return dict(out, config=dataclasses.asdict(FL_CUT), corr_tol=PEARSON_TOL, tol=PAA_ATOL,
+                params_gb=sum(x.numel() for x in stacked.values()) * 4 / 1e9)
+
+
+def fl_target_phase(dev) -> dict:
+    """The paper's aggregation at the reference's pod-scale defaults
+    (`launch/fl_target.py`, uncut: 64 clients x 83,886,080 float32 params,
+    21.47 GB stacked): (c) the card against the CPU at FL_CUT first, then
+    (a) "mix" and "two_step" rounds at full size (fl_method_run, the
+    "mix" result freed before "two_step" runs) with every kernel's launch
+    count reset just before and read just after (the Pearson kernel once a
+    round, no other kernel), the Pearson kernel timed on the round's (64,
+    1024) prototypes, and (b) the cluster-aggregation kernel over the same
+    stacked leaves (fl_leaf_checks).  `round_cost`'s least time: the
+    prototype forward at ALU32_OPS_PER_S (TF32 off) plus the mean's larger
+    of its products at that rate and its bytes at HBM_BYTES_PER_S."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the round must run in fp32")
+    cut = fl_cut_check(dev)
+    torch.cuda.empty_cache()
+    cfg = fl_target.FLTargetConfig()
+    t0 = time.perf_counter()
+    stacked, probe = planted_clients(cfg, torch.Generator(device=dev).manual_seed(SEED + 23),
+                                     dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_gb = sum(x.numel() for x in stacked.values()) * 4 / 1e9
+    methods = {}
+    reset_launches()
+    for method in ("mix", "two_step"):
+        methods[method], kept = fl_method_run(dataclasses.replace(cfg, agg_method=method),
+                                              stacked, probe, dev)
+        if method == "mix":
+            mix_labels = kept["labels"]
+            kept.clear()                 # frees the "mix" result before "two_step"
+    launches = read_launches()
+    rounds = 2 * (2 + FL_ROUNDS)         # a warm-up, a staged and the timed rounds
+    if launches != dict({k: 0 for k in KERNELS}, pearson=rounds):
+        raise AssertionError(f"fl_target launches {launches}, expected {rounds} Pearson")
+    if not torch.equal(kept["labels"], mix_labels):
+        raise AssertionError("fl_target: mix and two_step labels differ")
+
+    protos = kept["protos"]
+    err = check_pearson(protos, "the fl_target prototypes (64, 1024)")
+    pm, pd = protos.shape
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    bound, bound_by = bound_us((pm * pd + pm * pm) * 4, 2 * pm * pm * pd + 3 * pm * pd)
+    pearson = {"m": pm, "d": pd, "max_abs_err": err, "tolerance": PEARSON_TOL,
+               "launches_fl_target": launches["pearson"],
+               "kernel_us": median_us(pe.pearson_cuda, protos, 200, flush),
+               "plain_us": median_us(pe.pearson_plain, protos, 100, flush),
+               "library_us": median_us(torch.corrcoef, protos, 200, flush),
+               "bound_us": bound, "bound_by": bound_by}
+    leaves = fl_leaf_checks(cfg, stacked, kept["labels"], kept.pop("new"), dev)
+    del stacked, kept, protos
+    torch.cuda.empty_cache()
+
+    cost = fl_target.round_cost(cfg)
+    least = {"embed_ms": cost["fwd"] / ALU32_OPS_PER_S * 1e3,
+             "mean_ms": max(cost["mixmm"] / ALU32_OPS_PER_S,
+                            cost["hbm_bytes"] / HBM_BYTES_PER_S) * 1e3}
+    least["round_ms"] = least["embed_ms"] + least["mean_ms"]
+    least["mean_bound_by"] = ("bytes" if cost["hbm_bytes"] / HBM_BYTES_PER_S
+                              >= cost["mixmm"] / ALU32_OPS_PER_S else "operations")
+    for method, rec in methods.items():
+        rec["share_of_least_time"] = least["round_ms"] / rec["round_ms_p50"]
+        st = rec["stages_ms"]
+        print(f"fl_target {method}: round p50 {rec['round_ms_p50']:.3f} ms (warm-up "
+              f"{rec['round_ms_warmup']:.3f}; staged: embed {st['embed']:.3f}, Pearson "
+              f"{st['pearson']:.3f}, spectral {st['spectral']:.3f}, mean {st['mean']:.3f}), "
+              f"peak {rec['peak_gb']:.3f} GB, least time {least['round_ms']:.3f} ms "
+              f"({rec['share_of_least_time']:.1%} of it reached)", flush=True)
+    print(f"fl_target round_cost {cost}; least time: embed {least['embed_ms']:.3f} ms at "
+          f"{ALU32_OPS_PER_S:.3g} FLOP/s fp32, mean {least['mean_ms']:.3f} ms "
+          f"({least['mean_bound_by']}, {HBM_BYTES_PER_S:.3g} B/s); {CARD.get('smi')}",
+          flush=True)
+    print("fl_target cluster_agg: " + "; ".join(
+        f"{k} (64, {r['n']}) {r['kernel_us'] / 1e3:.3f} ms, torch.matmul "
+        f"{r['library_us'] / 1e3:.3f} ms, plain {r['plain_us'] / 1e3:.3f} ms, bound "
+        f"{r['bound_us'] / 1e3:.3f} ms ({r['bound_by']})"
+        for k, r in leaves["leaves"].items() if "kernel_us" in r)
+        + f"; Pearson ({pm}, {pd}) {pearson['kernel_us']:.3f} us", flush=True)
+    return {"config": dataclasses.asdict(cfg), "groups": FL_GROUPS, "noise": FL_NOISE,
+            "params_gb": params_gb, "init_s": init_s, "methods": methods,
+            "methods_tolerance": PAA_ATOL, "round_cost": cost, "least_time": least,
+            "peak_rates": {"fp32_flop_per_s": ALU32_OPS_PER_S,
+                           "hbm_bytes_per_s": HBM_BYTES_PER_S},
+            "launches": launches, "pearson": pearson, "cluster_agg": leaves,
+            "card_vs_cpu": cut, "card": CARD.get("smi")}
+
+
 def paper_phase(dev) -> dict:
     """The port's Table II campaign at ``table2_accuracy.main()``'s
     defaults and ``fig2_rewards.main()``, on the card, each run observed
@@ -3780,6 +4105,7 @@ def lm_train_config(cfg, dev) -> dict:
             "optimizer": "adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)",
             "losses": losses, "step_wall_s": walls, "step_wall_s_p50": p50,
             "tokens_per_s": LM_BATCH * LM_SEQ / p50, "peak_gb": peak_gb,
+            "peak_share": peak_share(cfg, LM_BATCH, LM_SEQ, "train", p50),
             "launches": launches}
 
 
@@ -3974,6 +4300,7 @@ def whisper_train(dev) -> dict:
             "optimizer": "adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)",
             "losses": losses, "step_wall_s": walls, "step_wall_s_p50": p50,
             "tokens_per_s": WHISPER_BATCH * WHISPER_TOKENS / p50, "peak_gb": peak_gb,
+            "peak_share": peak_share(cfg, WHISPER_BATCH, WHISPER_TOKENS, "train", p50),
             "launches": launches}
 
 
@@ -4314,6 +4641,23 @@ def moe_layers(tree):
             yield from moe_layers(v)
 
 
+def peak_share(cfg, batch: int, seq: int, kind: str, wall_s: float) -> dict:
+    """Information, no gate: the model FLOPs of one step of ``cfg`` at
+    (batch, seq) (`launch.flops.step_cost(...).model_flops`: 6 N_active
+    tokens to train, 2 N_active tokens for an eval forward) over its
+    drained wall, as a share of the bf16 dense peak; printed with the
+    card's power limit."""
+    mf = flops.step_cost(cfg, InputShape(f"{kind} ({batch}, {seq})", seq, batch,
+                                         kind)).model_flops
+    rate = mf / wall_s
+    print(f"{cfg.name} ({cfg.n_layers} layers) {kind} ({batch}, {seq}): model FLOPs "
+          f"{mf:.6g} in {wall_s * 1e3:.3f} ms, {rate / 1e12:.3f} TFLOP/s, "
+          f"{rate / BF16_OPS_PER_S:.2%} of {BF16_OPS_PER_S:.3g} bf16 ({CARD.get('smi')})",
+          flush=True)
+    return {"kind": kind, "model_flops": mf, "wall_s": wall_s, "flop_per_s": rate,
+            "share_of_bf16_peak": rate / BF16_OPS_PER_S}
+
+
 def lm_config_run(cfg, dev) -> dict:
     params = lmt.init_params(cfg, seed=SEED, device=dev)
     n_params = sum(t.numel() for t in tree_leaves(params))
@@ -4366,7 +4710,9 @@ def lm_config_run(cfg, dev) -> dict:
             "eval": {"batch": LM_BATCH, "seq": LM_SEQ, "loss": loss,
                      "loss_second_call": loss2, "wall_s_first": eval_cold_s,
                      "wall_s": eval_warm_s, "peak_gb": peak_gb,
-                     "tokens_per_s": LM_BATCH * LM_SEQ / eval_warm_s},
+                     "tokens_per_s": LM_BATCH * LM_SEQ / eval_warm_s,
+                     "peak_share": peak_share(cfg, LM_BATCH, LM_SEQ, "prefill",
+                                              eval_warm_s)},
             "generate": {"batch": LM_BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
                          "decode_steps": steps, "tokens": toks.cpu().tolist(),
                          "same_tokens_second_call": bool(torch.equal(toks, toks2)),
@@ -4460,7 +4806,9 @@ def whisper_run(dev) -> dict:
             "eval": {"batch": WHISPER_BATCH, "seq": WHISPER_TOKENS, "loss": loss,
                      "loss_second_call": loss2, "wall_s_first": eval_cold_s,
                      "wall_s": eval_warm_s, "peak_gb": peak_gb,
-                     "tokens_per_s": WHISPER_BATCH * WHISPER_TOKENS / eval_warm_s},
+                     "tokens_per_s": WHISPER_BATCH * WHISPER_TOKENS / eval_warm_s,
+                     "peak_share": peak_share(cfg, WHISPER_BATCH, WHISPER_TOKENS,
+                                              "prefill", eval_warm_s)},
             "warm_cache": {"wall_s": warm_s, "cross_kv_gb": cache_gb},
             "generate": {"batch": WHISPER_BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
                          "decode_steps": steps, "tokens": toks[:2].cpu().tolist(),
@@ -4488,7 +4836,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    CARD["smi"] = smi.stdout.strip().splitlines()[0]
+    print(CARD["smi"], flush=True)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -4545,7 +4894,7 @@ def kernel_entries(res: dict) -> list[dict]:
     for name in BASELINES:
         by_path[f"train_{name}"] = res["strategies"][name]["launches"]
     by_path["paper"] = res["paper"]["launches"]
-    for path in ("async", "faults", "resume", "obs"):
+    for path in ("async", "faults", "resume", "obs", "fl_target"):
         by_path[path] = res[path]["launches"]
     # the client-sharded mesh: BFLN sync at MESH_SHARDS (its main path), at
     # MESH_PAD_SHARDS, replicated, FedBuff, a crash resumed, serve
@@ -4639,6 +4988,15 @@ def kernel_entries(res: dict) -> list[dict]:
 
     # the shapes only the baselines' and the paper's paths give the kernels
     new = res["table2_shapes"]
+    # the pod-scale round: Pearson on its prototypes; cluster_agg over its
+    # stacked leaves (checks only: the round's mean is the reference's
+    # contraction, cluster_mean_params)
+    fl = res["fl_target"]
+
+    def ms_row(row, **extra):
+        return dict(row, ms=us_to_ms(row, "kernel_us"), plain_ms=us_to_ms(row, "plain_us"),
+                    bound_ms=us_to_ms(row, "bound_us"), library_ms=us_to_ms(row, "library_us"),
+                    **extra)
     bmm_main = res["bmm"]["rows"][next(iter(BMM_SHAPES))]
     return [
         entry("fingerprint", "fingerprint.cu", "src/repro/kernels/fingerprint.py:102",
@@ -4666,6 +5024,10 @@ def kernel_entries(res: dict) -> list[dict]:
                               library_ms=res["mesh_shapes"]["cluster_agg"]["library_us"]
                               / 1e3, launches_mesh_sharded_padded=by_path[
                                   "mesh_sharded_padded"]["cluster_agg"]),
+              fl_target_shapes={k: ms_row(row, launches_fl_target=by_path["fl_target"][
+                                    "cluster_agg"], library_call="torch.matmul(mix, rows)")
+                                for k, row in fl["cluster_agg"]["leaves"].items()
+                                if "kernel_us" in row},
               # the same kernel on bf16 rows, which no path gives it yet (the
               # launch counter counts both dtypes; every path's rows are fp32)
               bf16={"launches": "none on a path", "max_abs_err": agg_row16["max_abs_err"],
@@ -4679,7 +5041,8 @@ def kernel_entries(res: dict) -> list[dict]:
         entry("pearson", "pearson.cu", "src/repro/kernels/pearson.py:59",
               "train", pe_row, pe_err, PEARSON_TOL, shape=[100, 32],
               tile=pe_row["tile"], wide=pe_row["wide"],
-              library_call="torch.corrcoef(protos)", paper_shapes=new["pearson"]),
+              library_call="torch.corrcoef(protos)", paper_shapes=new["pearson"],
+              fl_target_shape=ms_row(fl["pearson"])),
         flash("bf16", "flash_attention_sm90.cu", "lm_forward",
               {"rtol": FLASH_RTOL_BF16, "atol": FLASH_TOL_F32,
                "against": "float32 plain version, per element"},
@@ -4803,7 +5166,8 @@ PHASES = (("train", train_phase), ("strategies", strategies_phase),
           ("async", async_phase), ("faults", faults_phase),
           ("resume", resume_phase), ("mesh", mesh_phase), ("obs", obs_phase),
           ("paper", paper_phase),
-          ("serve", serve_phase), ("lm", lm_phase), ("lm_train", lm_train_phase))
+          ("serve", serve_phase), ("fl_target", fl_target_phase), ("lm", lm_phase),
+          ("lm_train", lm_train_phase))
 
 
 if __name__ == "__main__":
